@@ -1,0 +1,72 @@
+"""nn.Module shells over the port's ops, shared by the models.
+
+Each holds its parameters under PyTorch's usual names (``weight``,
+``bias``) so io/bridge.py can map the reference's parameter trees onto
+``state_dict`` keys, and its forward calls the plain op in ops/.
+``init_reference_`` redraws every parameter with the reference's random
+init (normal weights at a fixed scale, zero biases, unit norm gains).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.conv import conv2d
+from ..ops.norms import groupnorm, layernorm_affine
+
+
+class Conv2d(nn.Conv2d):
+    """Square-kernel conv with symmetric padding of (kernel - 1) // 2."""
+
+    def __init__(self, c_in: int, c_out: int, kernel: int = 3,
+                 stride: int = 1, **kw):
+        super().__init__(c_in, c_out, kernel, stride=stride,
+                         padding=(kernel - 1) // 2, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight, self.bias, self.stride[0],
+                      self.padding[0])
+
+
+class GroupNorm(nn.Module):
+    def __init__(self, c: int, n_group: int = 32, eps: float = 1e-5,
+                 device=None, dtype=None):
+        super().__init__()
+        self.n_group, self.eps = n_group, eps
+        self.weight = nn.Parameter(torch.ones(c, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(c, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return groupnorm(x, self.weight, self.bias, self.n_group, self.eps)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, c: int, eps: float = 1e-5, device=None, dtype=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(c, device=device, dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(c, device=device, dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layernorm_affine(x, self.weight, self.bias, self.eps)
+
+
+@torch.no_grad()
+def init_reference_(model: nn.Module, generator: torch.Generator,
+                    conv_scale: float = 0.02) -> nn.Module:
+    """The reference's init (models/{clip,unet,vae}.py init_*): conv
+    weights ~ N(0, conv_scale^2), every other weight (linears, embeddings,
+    projections) ~ N(0, 0.02^2), biases 0, norm gains 1 and shifts 0."""
+    for module in model.modules():
+        if isinstance(module, (GroupNorm, LayerNorm)):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+            continue
+        scale = conv_scale if isinstance(module, nn.Conv2d) else 0.02
+        for name, p in module.named_parameters(recurse=False):
+            if name == "bias":
+                p.zero_()
+            else:
+                p.normal_(0.0, scale, generator=generator)
+    return model

@@ -1,0 +1,317 @@
+"""SDXL diffusion UNet (counterpart of sdxl_tpu/models/unet.py).
+
+The same config-driven block plan as the reference (``unet_block_plan``):
+transformers at the configured levels, stride-2 conv downsample,
+nearest-2x + 3x3 conv upsample, skip-cat U topology. ResBlock: GN -> SiLU
+-> conv + time-embedding inject -> GN -> SiLU -> conv (+1x1 skip).
+SpatialTransformer: GN -> flatten HW -> proj_in -> pre-LN blocks
+(self-attention with a fused [3C, C] qkv projection, cross-attention
+against the text context, GEGLU MLP) -> proj_out + residual.
+
+Layout: ``unet_forward`` takes and returns NHWC latents [B, h, w, C] like
+the reference; inside, activations are contiguous NCHW (PyTorch's default
+conv layout) and transformer tokens are [B, HW, C]. Parameters and compute
+are bf16 in the pipeline; norm statistics and softmax run in f32.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..configs import UNetConfig
+from ..ops.attention import qkv_attention
+from ..ops.conv import upsample_nearest_2x
+from ..ops.embeddings import timestep_embedding
+from ..ops.linear import linear_nobias
+from .layers import Conv2d, GroupNorm, LayerNorm
+
+
+# ---------------------------------------------------------------------------
+# Block plan (the reference's, unchanged)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class BlockSpec:
+    kind: str  # conv | res | down | res_t | res_t_up | res_up | res_t_res
+    ch_in: int = 0
+    ch_out: int = 0
+    n_head: int = 0
+    depth: int = 0
+
+
+@functools.lru_cache(maxsize=None)
+def unet_block_plan(cfg: UNetConfig) -> Tuple[Tuple[BlockSpec, ...], BlockSpec,
+                                              Tuple[BlockSpec, ...]]:
+    mc = cfg.model_channels
+    mults = cfg.channel_mults
+    n_levels = len(mults)
+    t_levels = cfg.transformer_levels
+
+    def heads(ch):
+        return cfg.n_heads or ch // cfg.n_head_channels
+
+    inputs: List[BlockSpec] = [BlockSpec("conv", cfg.in_channels, mc)]
+    for level in range(n_levels):
+        ch_in = mults[max(level - 1, 0)] * mc
+        ch_out = mults[level] * mc
+        if level not in t_levels:
+            inputs.append(BlockSpec("res", ch_in, ch_out))
+            inputs.append(BlockSpec("res", ch_out, ch_out))
+        else:
+            d = cfg.transformer_depths[level]
+            inputs.append(BlockSpec("res_t", ch_in, ch_out, heads(ch_out), d))
+            inputs.append(BlockSpec("res_t", ch_out, ch_out, heads(ch_out), d))
+        if level != n_levels - 1:
+            inputs.append(BlockSpec("down", ch_out, ch_out))
+
+    ch_mid = mults[-1] * mc
+    middle = BlockSpec("res_t_res", ch_mid, ch_mid, heads(ch_mid),
+                       cfg.transformer_depths[-1])
+
+    outputs: List[BlockSpec] = []
+    for level in reversed(range(n_levels)):
+        next_level = level + 1 if level != n_levels - 1 else level
+        ch_out = mults[level] * mc
+        ch_in1 = mults[next_level] * mc + ch_out
+        ch_in2 = 2 * ch_out
+        ch_in3 = ch_out + mults[max(level - 1, 0)] * mc
+        if level not in t_levels:
+            outputs.append(BlockSpec("res", ch_in1, ch_out))
+            outputs.append(BlockSpec("res", ch_in2, ch_out))
+            outputs.append(BlockSpec("res_up" if level != 0 else "res",
+                                     ch_in3, ch_out))
+        else:
+            d = cfg.transformer_depths[level]
+            h = heads(ch_out)
+            outputs.append(BlockSpec("res_t", ch_in1, ch_out, h, d))
+            outputs.append(BlockSpec("res_t", ch_in2, ch_out, h, d))
+            outputs.append(BlockSpec("res_t_up" if level != 0 else "res_t",
+                                     ch_in3, ch_out, h, d))
+
+    return tuple(inputs), middle, tuple(outputs)
+
+
+# ---------------------------------------------------------------------------
+# Modules
+# ---------------------------------------------------------------------------
+
+class ResBlock(nn.Module):
+    def __init__(self, c_in: int, c_out: int, emb_dim: int, **kw):
+        super().__init__()
+        self.norm_in = GroupNorm(c_in, **kw)
+        self.conv_in = Conv2d(c_in, c_out, 3, **kw)
+        self.lin_embed = nn.Linear(emb_dim, c_out, **kw)
+        self.norm_out = GroupNorm(c_out, **kw)
+        self.conv_out = Conv2d(c_out, c_out, 3, **kw)
+        self.skip = Conv2d(c_in, c_out, 1, **kw) if c_in != c_out else None
+
+    def forward(self, x, emb):
+        h = self.conv_in(F.silu(self.norm_in(x)))
+        h = h + self.lin_embed(F.silu(emb)).to(h.dtype)[:, :, None, None]
+        h = self.conv_out(F.silu(self.norm_out(h)))
+        if self.skip is not None:
+            x = self.skip(x)
+        return x + h
+
+
+class SelfAttention(nn.Module):
+    """Self-attention with the reference's fused [3C, C] qkv projection."""
+
+    def __init__(self, c: int, **kw):
+        super().__init__()
+        self.qkv = nn.Linear(c, 3 * c, bias=False, **kw)
+        self.out = nn.Linear(c, c, **kw)
+
+    def forward(self, x, n_head):
+        q, k, v = linear_nobias(x, self.qkv.weight).chunk(3, dim=-1)
+        return self.out(qkv_attention(q, k, v, None, n_head))
+
+
+class CrossAttention(nn.Module):
+    def __init__(self, c: int, ctx_dim: int, **kw):
+        super().__init__()
+        self.q = nn.Linear(c, c, bias=False, **kw)
+        self.k = nn.Linear(ctx_dim, c, bias=False, **kw)
+        self.v = nn.Linear(ctx_dim, c, bias=False, **kw)
+        self.out = nn.Linear(c, c, **kw)
+
+    def forward(self, x, context, n_head, kv=None):
+        """kv: optional precomputed {"k", "v"} of a loop-invariant context
+        (precompute_cross_kv)."""
+        if kv is None:
+            kv = {"k": self.k(context), "v": self.v(context)}
+        return self.out(qkv_attention(self.q(x), kv["k"], kv["v"], None,
+                                      n_head))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, c: int, **kw):
+        super().__init__()
+        self.proj = nn.Linear(c, 8 * c, **kw)
+        self.lin = nn.Linear(4 * c, c, **kw)
+
+    def forward(self, x):
+        a, gate = self.proj(x).chunk(2, dim=-1)
+        return self.lin(a * F.gelu(gate))
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, c: int, ctx_dim: int, **kw):
+        super().__init__()
+        self.norm1 = LayerNorm(c, **kw)
+        self.attn1 = SelfAttention(c, **kw)
+        self.norm2 = LayerNorm(c, **kw)
+        self.attn2 = CrossAttention(c, ctx_dim, **kw)
+        self.norm3 = LayerNorm(c, **kw)
+        self.mlp = GEGLU(c, **kw)
+
+    def forward(self, x, context, n_head, kv=None):
+        x = x + self.attn1(self.norm1(x), n_head)
+        x = x + self.attn2(self.norm2(x), context, n_head, kv)
+        return x + self.mlp(self.norm3(x))
+
+
+class SpatialTransformer(nn.Module):
+    def __init__(self, c: int, ctx_dim: int, depth: int, n_head: int, **kw):
+        super().__init__()
+        self.n_head = n_head
+        self.norm = GroupNorm(c, **kw)
+        self.proj_in = nn.Linear(c, c, **kw)
+        self.blocks = nn.ModuleList(TransformerBlock(c, ctx_dim, **kw)
+                                    for _ in range(depth))
+        self.proj_out = nn.Linear(c, c, **kw)
+
+    def forward(self, x, context, kv=None):
+        b, c, h, w = x.shape
+        y = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
+        y = self.proj_in(y)
+        for i, block in enumerate(self.blocks):
+            y = block(y, context, self.n_head, None if kv is None else kv[i])
+        y = self.proj_out(y).reshape(b, h, w, c).permute(0, 3, 1, 2)
+        return x + y
+
+
+class UNetBlock(nn.Module):
+    """One entry of the block plan; submodules named as in the reference's
+    parameter tree (conv / res / transformer / upsample)."""
+
+    def __init__(self, spec: BlockSpec, cfg: UNetConfig, **kw):
+        super().__init__()
+        self.kind = spec.kind
+        if spec.kind in ("conv", "down"):
+            self.conv = Conv2d(spec.ch_in, spec.ch_out, 3,
+                               stride=2 if spec.kind == "down" else 1, **kw)
+            return
+        self.res = ResBlock(spec.ch_in, spec.ch_out, cfg.time_embed_dim, **kw)
+        if spec.kind in ("res_t", "res_t_up"):
+            self.transformer = SpatialTransformer(
+                spec.ch_out, cfg.context_dim, spec.depth, spec.n_head, **kw)
+        if spec.kind in ("res_up", "res_t_up"):
+            self.upsample = Conv2d(spec.ch_out, spec.ch_out, 3, **kw)
+
+    def forward(self, x, emb, context, kv=None):
+        if self.kind in ("conv", "down"):
+            return self.conv(x)
+        x = self.res(x, emb)
+        if self.kind in ("res_t", "res_t_up"):
+            x = self.transformer(x, context, kv)
+        if self.kind in ("res_up", "res_t_up"):
+            x = self.upsample(upsample_nearest_2x(x))
+        return x
+
+
+def _mlp2(c_in: int, c_out: int, **kw) -> nn.ModuleDict:
+    return nn.ModuleDict({"lin1": nn.Linear(c_in, c_out, **kw),
+                          "lin2": nn.Linear(c_out, c_out, **kw)})
+
+
+class UNet(nn.Module):
+    def __init__(self, cfg: UNetConfig, device=None, dtype=torch.bfloat16):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        in_plan, mid_spec, out_plan = unet_block_plan(cfg)
+        emb_dim = cfg.time_embed_dim
+        self.time_embed = _mlp2(cfg.model_channels, emb_dim, **kw)
+        self.label_embed = (_mlp2(cfg.adm_in_channels, emb_dim, **kw)
+                            if cfg.adm_in_channels else None)
+        self.input_blocks = nn.ModuleList(UNetBlock(s, cfg, **kw)
+                                          for s in in_plan)
+        c = mid_spec.ch_out
+        self.middle_block = nn.ModuleDict({
+            "res1": ResBlock(c, c, emb_dim, **kw),
+            "transformer": SpatialTransformer(c, cfg.context_dim,
+                                              mid_spec.depth, mid_spec.n_head,
+                                              **kw),
+            "res2": ResBlock(c, c, emb_dim, **kw),
+        })
+        self.norm_out = GroupNorm(cfg.model_channels, **kw)
+        self.conv_out = Conv2d(cfg.model_channels, cfg.out_channels, 3, **kw)
+        self.output_blocks = nn.ModuleList(UNetBlock(s, cfg, **kw)
+                                           for s in out_plan)
+
+    def forward(self, x, timesteps, context, label, cross_kv=None):
+        return unet_forward(self, x, timesteps, context, label, cross_kv)
+
+
+def _unet_embed(model: UNet, timesteps, label, dtype):
+    te = model.time_embed
+    t_emb = timestep_embedding(timesteps, model.cfg.model_channels).to(dtype)
+    emb = te["lin2"](F.silu(te["lin1"](t_emb)))
+    if model.label_embed is not None:
+        le = model.label_embed
+        emb = emb + le["lin2"](F.silu(le["lin1"](label.to(dtype))))
+    return emb
+
+
+def unet_forward(model: UNet, x: torch.Tensor, timesteps: torch.Tensor,
+                 context: torch.Tensor, label: Optional[torch.Tensor],
+                 cross_kv=None) -> torch.Tensor:
+    """x: [B, h, w, C_in] NHWC latent -> [B, h, w, C_out] NHWC.
+
+    cross_kv: optional precompute_cross_kv() output (the context is fixed
+    for a whole sampling run, so every cross-attention K/V is too)."""
+    emb = _unet_embed(model, timesteps, label, x.dtype)
+    ckv = cross_kv or {}
+    in_kv = ckv.get("input_blocks", {})
+    out_kv = ckv.get("output_blocks", {})
+    x = x.permute(0, 3, 1, 2).contiguous()
+    saved = []
+    for i, block in enumerate(model.input_blocks):
+        x = block(x, emb, context, in_kv.get(i))
+        saved.append(x)
+    mid = model.middle_block
+    x = mid["res1"](x, emb)
+    x = mid["transformer"](x, context, ckv.get("middle_block"))
+    x = mid["res2"](x, emb)
+    for i, block in enumerate(model.output_blocks):
+        x = block(torch.cat([x, saved.pop()], dim=1), emb, context,
+                  out_kv.get(i))
+    x = model.conv_out(F.silu(model.norm_out(x)))
+    return x.permute(0, 2, 3, 1)
+
+
+def precompute_cross_kv(model: UNet, context: torch.Tensor):
+    """Cross-attention K/V of a fixed context for every transformer block:
+    {"input_blocks": {i: [{"k", "v"}] * depth}, "middle_block": [...],
+    "output_blocks": {i: [...]}} (the reference's layout)."""
+
+    def st_kv(st: SpatialTransformer):
+        return [{"k": blk.attn2.k(context), "v": blk.attn2.v(context)}
+                for blk in st.blocks]
+
+    def blocks_kv(blocks):
+        return {i: st_kv(b.transformer) for i, b in enumerate(blocks)
+                if hasattr(b, "transformer")}
+
+    return {
+        "input_blocks": blocks_kv(model.input_blocks),
+        "middle_block": st_kv(model.middle_block["transformer"]),
+        "output_blocks": blocks_kv(model.output_blocks),
+    }

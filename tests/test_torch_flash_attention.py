@@ -1,0 +1,112 @@
+"""The port's flash attention (plain version on CPU) and qkv_attention
+against the JAX reference.
+
+The JAX kernel runs in interpret mode on the CPU, as tests/test_flash_attention.py
+runs it, with explicit small blocks so the ragged-q padding and the
+n_valid kv masking are exercised. Tolerance 2e-5 in f32 (online vs one-shot
+softmax reorders the f32 sums); 2e-2 in bf16, the kernel's on-device bound
+(bench.py:53-66), since the plain version rounds the normalised p to bf16
+where the kernel rounds the unnormalised one.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sdxl_tpu.ops.attention import causal_mask as j_causal_mask
+from sdxl_tpu.ops.attention import qkv_attention as j_qkv_attention
+from sdxl_tpu.ops.flash_attention import flash_attention_bhtd as j_flash
+from sdxl_tpu.ops.flash_attention import use_flash as j_use_flash
+from sdxl_tpu_torch.ops import flash_attention as fa
+from sdxl_tpu_torch.ops.attention import causal_mask, qkv_attention
+
+
+def inputs(shape_q, shape_k, seed=0):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal(shape_q).astype(np.float32)
+    k = rng.standard_normal(shape_k).astype(np.float32)
+    v = rng.standard_normal(shape_k).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("shape,blocks", [
+    ((1, 2, 200, 64), (64, 128)),     # ragged q and kv, two k blocks
+    ((2, 1, 300, 128), (128, 128)),   # ragged, three k blocks, d=128
+    ((1, 1, 140, 512), (32, 128)),    # VAE head width, ragged
+])
+def test_plain_matches_jax_kernel_f32(shape, blocks):
+    q, k, v = inputs(shape, shape)
+    want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              *blocks))
+    got = fa.flash_attention_bhtd(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert got.shape == shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+
+def test_plain_matches_jax_kernel_bf16():
+    shape = (1, 2, 200, 64)
+    q, k, v = inputs(shape, shape, seed=1)
+    want = j_flash(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)), 64, 128)
+    got = fa.flash_attention_bhtd(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=2e-2, rtol=0)
+
+
+def test_short_kv_matches_jax_kernel():
+    """Tq != Tk with a short kv (the 77-token context the kernel masks)."""
+    q, k, v = inputs((1, 2, 160, 64), (1, 2, 77, 64), seed=2)
+    want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              64, 128))
+    got = fa.flash_attention_bhtd(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+
+GATE_CASES = [
+    (77, 77, 64, False), (4096, 77, 64, False), (1024, 77, 64, False),
+    (1024, 1024, 64, True), (4096, 4096, 64, False),
+    (16384, 16384, 512, False), (15808, 15808, 512, False),
+    (3952, 3952, 64, False), (988, 988, 64, False), (924, 924, 64, False),
+    (923, 923, 64, False), (512, 512, 64, False), (1024, 1024, 128, False),
+    (1024, 1024, 512, False), (3696, 3696, 512, False),
+    (3696, 3696, 384, False), (4096, 4096, 320, False),
+    (4096, 4096, 32, False), (4096, 4096, 640, False),
+]
+
+
+@pytest.mark.parametrize("tq,tk,d,has_mask", GATE_CASES)
+def test_use_flash_matches_reference_gate(tq, tk, d, has_mask):
+    assert fa.use_flash(tq, tk, d, has_mask) == j_use_flash(tq, tk, d,
+                                                            has_mask)
+
+
+@pytest.mark.parametrize("tq,tk,c,h,masked", [
+    (1024, 1024, 128, 2, False),   # routed to flash (plain version on CPU)
+    (988, 988, 128, 2, False),     # routed, ragged
+    (256, 77, 64, 4, False),       # cross-attention: plain math
+    (77, 77, 32, 4, True),         # causal CLIP attention: plain math
+])
+def test_qkv_attention_matches_reference(tq, tk, c, h, masked):
+    q, k, v = inputs((1, tq, c), (1, tk, c), seed=3)
+    assert fa.use_flash(tq, tk, c // h, masked) == (tq == tk and not masked)
+    jmask = j_causal_mask(tq) if masked else None
+    want = np.asarray(j_qkv_attention(jnp.asarray(q), jnp.asarray(k),
+                                      jnp.asarray(v), jmask, h))
+    mask = causal_mask(tq) if masked else None
+    got = qkv_attention(*(torch.from_numpy(a) for a in (q, k, v)), mask, h)
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+
+
+def test_causal_mask_matches_reference():
+    np.testing.assert_array_equal(causal_mask(9).numpy(),
+                                  np.asarray(j_causal_mask(9)))
+
+
+def test_kernel_wrapper_has_no_silent_fallback():
+    """Only CPU tensors take the plain version; any other device must
+    launch the kernel or raise."""
+    q = torch.empty((1, 1, 1024, 64), device="meta")
+    with pytest.raises(ValueError):
+        fa.flash_attention_bhtd(q, q, q)

@@ -1,0 +1,148 @@
+"""The whole slice: the port's txt2img against the JAX pipeline, f32 on CPU.
+
+A tiny pipeline (CLIP towers of width 32, UNet model_channels 32, a small
+VAE) with the same weights on both sides (drawn in the reference's tree
+layout, carried across by io/bridge.py) runs 2 DDIM steps from the same
+injected starting latent. Final latent within 1e-3, uint8 images within
+one level. A subprocess proves the port never imports JAX.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from sdxl_tpu.configs import CLIPConfig, EmbedderConfig
+from sdxl_tpu.models.clip import init_clip
+from sdxl_tpu.models.unet import fuse_unet_qkv, init_unet
+from sdxl_tpu.models.vae import init_autoencoder
+from sdxl_tpu.pipeline.pipeline import SDXLPipeline as JPipeline
+from sdxl_tpu.pipeline.sampler import sample_latent as j_sample_latent
+from sdxl_tpu.pipeline.sampler import scaled_linear_alphas_cumprod
+from sdxl_tpu.tokenizer import ClipTokenizer, OpenClipTokenizer
+from sdxl_tpu_torch.io.bridge import (
+    clip_state_dict,
+    unet_state_dict,
+    vae_decoder_state_dict,
+)
+from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
+from tests.test_pipeline_e2e import TINY_DIFFUSER, TINY_VAE
+from tests.test_torch_unet import random_tree
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+TINY_EMBEDDER = EmbedderConfig(
+    clip_config=CLIPConfig(n_vocab=49408, n_state=32, embed_dim=32, n_head=4,
+                           n_ctx=77, n_layer=2, quick_gelu=True),
+    open_clip_config=CLIPConfig(n_vocab=49408, n_state=32, embed_dim=32,
+                                n_head=4, n_ctx=77, n_layer=2,
+                                quick_gelu=False),
+)
+PROMPTS = ["a (red:1.3) cat on a [wooden] table", "a photo of a dog"]
+NEGATIVE = "blurry"
+RES = (64, 64)
+
+
+@pytest.fixture(scope="module")
+def pipes():
+    emb = {"clip": random_tree(init_clip, TINY_EMBEDDER.clip_config, seed=1),
+           "open_clip": random_tree(init_clip, TINY_EMBEDDER.open_clip_config,
+                                    seed=2)}
+    unet = jax.tree.map(np.asarray, fuse_unet_qkv(random_tree(
+        init_unet, TINY_DIFFUSER.unet_config(), jnp.float32, seed=3)))
+    vae = random_tree(init_autoencoder, TINY_VAE, seed=4, scale=0.05)
+    alphas = scaled_linear_alphas_cumprod()
+    jpipe = JPipeline(
+        embedder_cfg=TINY_EMBEDDER, embedder_params=emb,
+        diffuser_cfg=TINY_DIFFUSER, unet_params=unet,
+        alphas_cumprod=jnp.asarray(alphas), vae_cfg=TINY_VAE,
+        vae_params=vae, clip_tokenizer=ClipTokenizer(None),
+        open_clip_tokenizer=OpenClipTokenizer(None),
+        compute_dtype=jnp.float32)
+    tpipe = random_pipeline(device="cpu", embedder_cfg=TINY_EMBEDDER,
+                            diffuser_cfg=TINY_DIFFUSER, vae_cfg=TINY_VAE,
+                            unet_dtype=torch.float32)
+    for k in ("clip", "open_clip"):
+        tpipe.embedder[k].load_state_dict(clip_state_dict(emb[k]))
+    tpipe.unet.load_state_dict(unet_state_dict(unet))
+    tpipe.vae.load_state_dict(vae_decoder_state_dict(vae))
+    return jpipe, tpipe
+
+
+def test_txt2img_matches_reference(pipes):
+    jpipe, tpipe = pipes
+    noise = np.random.default_rng(5).standard_normal(
+        (len(PROMPTS), RES[0] // 8, RES[1] // 8, 4)).astype(np.float32)
+
+    cond = jpipe.conditioning(PROMPTS, RES, negative_prompt=NEGATIVE)
+    want_latent = np.asarray(j_sample_latent(
+        jpipe.unet_params, TINY_DIFFUSER, jpipe.alphas_cumprod, cond,
+        jax.random.PRNGKey(0), 7.5, 2, jnp.float32,
+        initial_noise=jnp.asarray(noise)))
+    want_images = jpipe.txt2img(PROMPTS, RES, n_steps=2,
+                                negative_prompt=NEGATIVE,
+                                initial_latent=jnp.asarray(noise))
+
+    got_images = tpipe.txt2img(PROMPTS, RES, n_steps=2,
+                               negative_prompt=NEGATIVE,
+                               initial_latent=torch.from_numpy(noise))
+    got_latent = tpipe.last_latent.numpy()
+    assert got_latent.shape == want_latent.shape == noise.shape
+    assert np.abs(want_latent - noise).max() > 0.1  # the steps did move it
+    np.testing.assert_allclose(got_latent, want_latent, atol=1e-3, rtol=0)
+    assert got_images.shape == (2, 64, 64, 3) and got_images.dtype == np.uint8
+    assert got_images.std() > 0
+    diff = np.abs(got_images.astype(int) - np.asarray(want_images).astype(int))
+    assert diff.max() <= 1
+
+
+def test_unported_options_raise(pipes):
+    _, tpipe = pipes
+    with pytest.raises(NotImplementedError):
+        tpipe.txt2img("a cat", RES, n_steps=2, use_refiner=True)
+    with pytest.raises(NotImplementedError):
+        tpipe.txt2img("a cat", RES, n_steps=2, sampler="euler")
+
+
+def test_port_never_imports_jax():
+    """Every module of the port imports, and a tiny pipeline runs, with
+    `import jax` made to fail."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        import torch
+        import sdxl_tpu_torch
+        for m in pkgutil.walk_packages(sdxl_tpu_torch.__path__,
+                                       "sdxl_tpu_torch."):
+            importlib.import_module(m.name)
+        from sdxl_tpu.configs import AutoencoderConfig, CLIPConfig, \\
+            DiffuserConfig, EmbedderConfig
+        from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
+        clip = CLIPConfig(n_vocab=49408, n_state=32, embed_dim=32, n_head=4,
+                          n_ctx=77, n_layer=2)
+        pipe = random_pipeline(
+            device="cpu", embedder_cfg=EmbedderConfig(clip, clip),
+            diffuser_cfg=DiffuserConfig(
+                adm_in_channels=32 + 6 * 256, model_channels=32,
+                num_head_channels=8, transformer_depths=(1, 1, 1),
+                context_dim=64),
+            vae_cfg=AutoencoderConfig(
+                decoder_channels=((16, 16), (16, 16), (16, 8), (8, 8)),
+                n_group=4),
+            unet_dtype=torch.float32)
+        img = pipe.txt2img("a cat", (64, 64), n_steps=1)
+        assert img.shape == (1, 64, 64, 3), img.shape
+        assert not any(k == "jax" or k.startswith("jax.")
+                       for k, v in sys.modules.items() if v is not None)
+        print("NO_JAX_OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK" in proc.stdout
