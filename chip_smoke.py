@@ -4,22 +4,34 @@ Run from the repo root:  python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the result line):
   1. the device, and `nvidia-smi` name and power limit;
-  2. build the hand-written kernels from sdxl_tpu_torch/csrc (nvcc, with
-     the -Xptxas -v report);
+  2. build the hand-written kernels from sdxl_tpu_torch/csrc, one nvcc per
+     source, all started together (with the -Xptxas -v report);
   3. each kernel against its plain PyTorch version on the card at the
-     main path's shapes: max abs error within the stated tolerance, and
-     both timed with CUDA events after a warm-up;
-  4. the main path: random_pipeline(device="cuda") at SDXL-base widths
-     answers three txt2img requests (two at 1024x1024, one at 832x1216 for
-     the ragged token counts), 30 DDIM steps, CFG 7.5 — latency, stage
-     split and peak memory per request; the final latents must be finite,
-     the images [B, H, W, 3] uint8, and the kernels must have been
-     launched from the UNet and from the VAE during these requests;
+     main paths' shapes: max abs error within the stated tolerance, the
+     kernel, its plain version and torch's scaled_dot_product_attention
+     (forward, and backward for K3; a yardstick, never on the path) timed
+     with CUDA events after a warm-up, beside the kernel's bound;
+  4. the txt2img path: random_pipeline(device="cuda") at SDXL-base widths
+     answers three requests (two at 1024x1024, one at 832x1216 for the
+     ragged token counts), 30 DDIM steps, CFG 7.5 — latency, stage split
+     and peak memory per request; the final latents must be finite, the
+     images [B, H, W, 3] uint8, and K1 must have been launched from the
+     UNet and from the VAE during these requests;
   5. the last request's UNet step and VAE decode again with the plain
      attention in place of the kernel: outputs must agree;
   6. with --profile only: three unfenced 1024x1024 requests, then one
      under torch.profiler — device time by the op that launched each
-     kernel, and the device's idle share against the unfenced latency.
+     kernel, and the device's idle share against the unfenced latency;
+  7. the LoRA training path on the same pipeline: encode two random
+     1024x1024 images with captions (the VAE encoder launches K1's f32
+     route), then five LoRA steps (rank 16, attn targets, lr 1e-4, batch
+     1, remat) — time and loss per step, peak memory; the losses must be
+     finite, the ups must have moved, and K2, K3a and K3b must have been
+     launched during the steps;
+  8. one training step's factor gradients again with the plain attention
+     (forward and backward) in place of the kernels: they must agree;
+  9. with --profile only: three timed LoRA steps, then one under
+     torch.profiler, reported as in phase 6.
 The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
@@ -31,7 +43,9 @@ import sys
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from sdxl_tpu_torch.models.unet import unet_forward
@@ -40,10 +54,33 @@ from sdxl_tpu_torch.ops import flash_attention as fa
 from sdxl_tpu_torch.pipeline.latent import decode_latent_to_images
 from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
 from sdxl_tpu_torch.pipeline.sampler import _cfg_contexts
+from sdxl_tpu_torch.train.finetune import (
+    FinetuneConfig,
+    _encode_items,
+    _unet_loss_fn,
+    finetune_lora,
+    sample_batch,
+)
+from sdxl_tpu_torch.train.lora import clear_factors
+from sdxl_tpu_torch.train.step import (
+    TrainState,
+    adamw_cosine,
+    make_train_step,
+    value_and_grad,
+)
 
-SOURCE = "sdxl_tpu_torch/csrc/flash_attention.cu"
-REPLACES = "sdxl_tpu/ops/flash_attention.py:140"
-# (B, H, T, D, dtype, tolerance): the main path's attention shapes
+FWD_SRC = "sdxl_tpu_torch/csrc/flash_attention.cu"
+BWD_SRC = "sdxl_tpu_torch/csrc/flash_attention_bwd.cu"
+REF = "sdxl_tpu/ops/flash_attention.py"
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "sdxl_flash_attention_bf16": (FWD_SRC, f"{REF}:140"),
+    "sdxl_flash_attention_f32": (FWD_SRC, f"{REF}:140"),
+    "sdxl_flash_attention_lse_bf16": (FWD_SRC, f"{REF}:102"),
+    "sdxl_flash_attention_bwd_dq_bf16": (BWD_SRC, f"{REF}:272"),
+    "sdxl_flash_attention_bwd_dkv_bf16": (BWD_SRC, f"{REF}:302"),
+}
+# (B, H, T, D, dtype, tolerance): K1's shapes on the txt2img path
 # (bench.py:53-66) — UNet levels 2 and 1 at 1024x1024 and at 832x1216,
 # and the VAE mid-block attention at 1024x1024 — plus one d=128 case, a
 # route of the bf16 kernel the SDXL-base path does not take
@@ -55,15 +92,41 @@ KERNEL_CASES = [
     (1, 1, 16384, 512, torch.float32, 1e-3),
     (1, 2, 1000, 128, torch.bfloat16, 2e-2),
 ]
+# K2 and K3's shapes on the training path (batch 1): UNet levels 1 and 2
+# at 1024x1024 and at 832x1216, and one d=128 case. Tolerances: bf16
+# outputs 2e-2 (as K1), lse (f32, base-2 units) 1e-3, and the gradients
+# 2e-2 of max(1, their largest magnitude)
+TRAIN_CASES = [
+    (1, 10, 4096, 64),
+    (1, 20, 1024, 64),
+    (1, 10, 3952, 64),
+    (1, 20, 988, 64),
+    (1, 2, 1000, 128),
+]
+BF16_TOL, LSE_TOL, GRAD_TOL = 2e-2, 1e-3, 2e-2
 # the shape each kernel's reported time is taken at
 TIMED_SHAPE = {"sdxl_flash_attention_bf16": (2, 10, 4096, 64),
-               "sdxl_flash_attention_f32": (1, 1, 16384, 512)}
+               "sdxl_flash_attention_f32": (1, 1, 16384, 512),
+               "sdxl_flash_attention_lse_bf16": (1, 10, 4096, 64),
+               "sdxl_flash_attention_bwd_dq_bf16": (1, 10, 4096, 64),
+               "sdxl_flash_attention_bwd_dkv_bf16": (1, 10, 4096, 64)}
+# the H100 SXM's published dense peaks (NVIDIA H100 datasheet)
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
 REQUESTS = [((1024, 1024), 1), ((1024, 1024), 2), ((832, 1216), 3)]
 PROMPT = "a photograph of an astronaut riding a horse"
 # kernel vs plain attention inside the real path, relative to the output's
-# largest magnitude: bf16 UNet eps, f32 VAE image in u8 levels
+# largest magnitude: bf16 UNet eps, f32 VAE image in u8 levels, and the
+# LoRA factor gradients of one training step (max |dg| / max |g|)
 UNET_REL_TOL = 2e-2
 VAE_LEVEL_TOL = 1
+GRAD_REL_TOL = 5e-2
+TRAIN_RES = 1024
+CAPTIONS = ["a photograph of an astronaut riding a horse",
+            "a red crab on a sandy beach, (masterpiece:1.2)"]
+TRAIN_STEPS = 5
+ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
+              torch.profiler.ProfilerActivity.CUDA]
 
 
 def fail(msg: str) -> None:
@@ -84,6 +147,54 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(name: str, shape, dtype) -> tuple:
+    """(least ms, "operations" | "bytes") of one call at `shape`: the
+    larger of its operations (the reference's counts, 4, 6 and 8 x
+    B*H*T^2*D for the forward, dq and dk/dv) over the peak rate for its
+    type, and its bytes (each input read once, each output written once)
+    over the memory rate."""
+    b, h, t, d = shape
+    n = b * h * t * d * torch.tensor([], dtype=dtype).element_size()
+    rows = b * h * t * 4  # one f32 per row: lse, delta
+    mult, nbytes = {
+        "sdxl_flash_attention_bf16": (4, 4 * n),
+        "sdxl_flash_attention_f32": (4, 4 * n),
+        "sdxl_flash_attention_lse_bf16": (4, 4 * n + rows),
+        "sdxl_flash_attention_bwd_dq_bf16": (6, 5 * n + 2 * rows),
+        "sdxl_flash_attention_bwd_dkv_bf16": (8, 6 * n + 2 * rows),
+    }[name]
+    ops_ms = mult * b * h * t * t * d / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def sdpa_backend(q, k, v) -> str:
+    """The longest device kernel of one scaled_dot_product_attention call
+    (names the backend torch picked)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, v)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return "unknown"
+    return max(kernels, key=lambda e: e.time_range.elapsed_us()).name[:90]
+
+
+def record_case(results, name, shape, dtype, err, ms, plain_ms, sdpa_ms):
+    bound_ms, bound_by = bound(name, shape, dtype)
+    print(f"  {name} shape={shape} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} sdpa_ms={sdpa_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}) "
+          f"share_of_bound={bound_ms / ms:.3f}", flush=True)
+    r = results.setdefault(name, {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    if shape == TIMED_SHAPE[name]:
+        r.update(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
+                 bound_ms=bound_ms, bound_by=bound_by)
+
+
 def check_kernels() -> dict:
     results = {}
     for b, h, t, d, dtype, tol in KERNEL_CASES:
@@ -97,21 +208,71 @@ def check_kernels() -> dict:
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         finite = bool(torch.isfinite(out).all())
-        iters = 5 if d == 512 else 20
-        ms = cuda_ms(lambda: fa.flash_attention_bhtd(q, k, v), iters)
-        plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v), iters)
         name = ("sdxl_flash_attention_bf16" if dtype == torch.bfloat16
                 else "sdxl_flash_attention_f32")
-        print(f"kernel {name} shape={(b, h, t, d)} max_abs_err={err:.3e} "
-              f"tol={tol:g} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}",
-              flush=True)
+        print(f"K1 {(b, h, t, d)} {dtype}: tol {tol:g}; sdpa backend "
+              f"{sdpa_backend(q, k, v)}", flush=True)
         if not (finite and err < tol):
             fail(f"{name} at {(b, h, t, d)}: max_abs_err {err} >= {tol} "
                  f"or non-finite output")
-        r = results.setdefault(name, {"max_abs_err": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        if (b, h, t, d) == TIMED_SHAPE[name]:
-            r["ms"], r["plain_ms"] = ms, plain_ms
+        iters = 5 if d == 512 else 20
+        record_case(
+            results, name, (b, h, t, d), dtype, err,
+            cuda_ms(lambda: fa.flash_attention_bhtd(q, k, v), iters),
+            cuda_ms(lambda: fa.flash_attention_plain(q, k, v), iters),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters))
+
+    for shape in TRAIN_CASES:
+        b, h, t, d = shape
+        g = torch.Generator(device="cuda").manual_seed(43)
+        q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        o, lse = fa.flash_attention_lse(q, k, v)
+        ref_o, ref_lse = fa.flash_attention_lse_plain(q, k, v)
+        grads = fa.flash_attention_bwd(q, k, v, ref_o, ref_lse, do)
+        ref_grads = fa.flash_attention_bwd_plain(q, k, v, ref_o, ref_lse, do)
+        torch.cuda.synchronize()
+        err_o = (o.float() - ref_o.float()).abs().max().item()
+        err_lse = (lse - ref_lse).abs().max().item()
+        errs, tols = [], []
+        for got, want in zip(grads, ref_grads):
+            errs.append((got.float() - want.float()).abs().max().item())
+            tols.append(GRAD_TOL * max(1.0, want.float().abs().max().item()))
+        finite = all(bool(torch.isfinite(x).all())
+                     for x in (o, lse, *grads))
+        print(f"K2/K3 {shape} bf16: o err {err_o:.3e} (tol {BF16_TOL:g}), "
+              f"lse err {err_lse:.3e} (tol {LSE_TOL:g}), dq/dk/dv err "
+              f"{errs} (tol {tols})", flush=True)
+        if not (finite and err_o < BF16_TOL and err_lse < LSE_TOL
+                and all(e < tl for e, tl in zip(errs, tols))):
+            fail(f"K2/K3 at {shape}: outside the tolerance or non-finite")
+
+        iters = 20
+        delta = (do.float() * ref_o.float()).sum(-1)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        sdpa_o = F.scaled_dot_product_attention(qg, kg, vg)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+            sdpa_o, (qg, kg, vg), do, retain_graph=True), iters)
+        plain_bwd_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+            q, k, v, ref_o, ref_lse, do), 5)
+        record_case(
+            results, "sdxl_flash_attention_lse_bf16", shape, torch.bfloat16,
+            max(err_o, err_lse),
+            cuda_ms(lambda: fa.flash_attention_lse(q, k, v), iters),
+            cuda_ms(lambda: fa.flash_attention_lse_plain(q, k, v), iters),
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters))
+        # the plain version and torch's backward compute dq, dk and dv
+        # together: both rows carry their whole time
+        record_case(
+            results, "sdxl_flash_attention_bwd_dq_bf16", shape,
+            torch.bfloat16, errs[0],
+            cuda_ms(lambda: fa.launch_bwd_dq(q, k, v, do, ref_lse, delta), iters),
+            plain_bwd_ms, sdpa_bwd_ms)
+        record_case(
+            results, "sdxl_flash_attention_bwd_dkv_bf16", shape,
+            torch.bfloat16, max(errs[1:]),
+            cuda_ms(lambda: fa.launch_bwd_dkv(q, k, v, do, ref_lse, delta), iters),
+            plain_bwd_ms, sdpa_bwd_ms)
     return results
 
 
@@ -193,6 +354,20 @@ def device_time_by_op(events) -> dict:
     return dict(rows)
 
 
+def print_profile(what: str, prof, wall: float, latencies) -> None:
+    rows = device_time_by_op(prof.events())
+    device_s = sum(us for us, _ in rows.values()) / 1e6
+    if device_s == 0:
+        fail("the profiler recorded no device time")
+    median = statistics.median(latencies)
+    print(f"profile {what}: unfenced latencies {latencies} s; profiled wall "
+          f"{wall} s; device kernel time {device_s} s; idle share against "
+          f"the median unfenced latency {1 - device_s / median}", flush=True)
+    for name, (us, n) in sorted(rows.items(), key=lambda r: -r[1][0])[:20]:
+        print(f"  {us / 1e3:10.3f} ms {us / 1e6 / device_s:7.2%} "
+              f"{n:7d}  {name}", flush=True)
+
+
 @torch.inference_mode()
 def profile_request(pipe) -> None:
     resolution = REQUESTS[0][0]
@@ -201,30 +376,120 @@ def profile_request(pipe) -> None:
         t0 = time.perf_counter()
         pipe.txt2img(PROMPT, resolution, seed=seed, profile_stages=False)
         latencies.append(time.perf_counter() - t0)
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities) as prof:
+    with torch.profiler.profile(activities=ACTIVITIES) as prof:
         t0 = time.perf_counter()
         pipe.txt2img(PROMPT, resolution, seed=13, profile_stages=False)
         wall = time.perf_counter() - t0
-    rows = device_time_by_op(prof.events())
-    device_s = sum(us for us, _ in rows.values()) / 1e6
-    if device_s == 0:
-        fail("the profiler recorded no device time")
-    median = statistics.median(latencies)
-    print(f"profile {resolution[0]}x{resolution[1]}: unfenced latencies "
-          f"{latencies} s; profiled wall {wall} s; device kernel time "
-          f"{device_s} s; idle share against the median unfenced latency "
-          f"{1 - device_s / median}", flush=True)
-    for name, (us, n) in sorted(rows.items(), key=lambda r: -r[1][0])[:20]:
-        print(f"  {us / 1e3:10.3f} ms {us / 1e6 / device_s:7.2%} "
-              f"{n:7d}  {name}", flush=True)
+    print_profile(f"{resolution[0]}x{resolution[1]} request", prof, wall,
+                  latencies)
+
+
+def profile_training_step(pipe, data, cfg, factors) -> None:
+    """Three timed LoRA steps, then one under torch.profiler."""
+    tx = adamw_cosine(cfg.lr, cfg.steps)
+    state = TrainState.create(factors, tx)
+    step = make_train_step(_unet_loss_fn(pipe, cfg), tx)
+    batch = {k: torch.as_tensor(v, device=pipe.device) for k, v in
+             sample_batch(data, 1, np.random.default_rng(1)).items()}
+    gen = torch.Generator(device=pipe.device).manual_seed(3)
+    latencies = []
+    try:
+        for _ in range(3):
+            t0 = time.perf_counter()
+            state, loss = step(state, batch, gen)
+            float(loss)
+            latencies.append(time.perf_counter() - t0)
+        with torch.profiler.profile(activities=ACTIVITIES) as prof:
+            t0 = time.perf_counter()
+            state, loss = step(state, batch, gen)
+            float(loss)
+            wall = time.perf_counter() - t0
+    finally:
+        clear_factors(pipe.unet)
+    print_profile("LoRA step", prof, wall, latencies)
+
+
+def run_training(pipe):
+    """Encode two random images, then the LoRA steps; returns (dataset,
+    config, trained factors, launches on this path)."""
+    g = torch.Generator(device=pipe.device).manual_seed(7)
+    images = torch.randint(0, 256, (len(CAPTIONS), TRAIN_RES, TRAIN_RES, 3),
+                           generator=g, device=pipe.device,
+                           dtype=torch.uint8).cpu().numpy()
+    cfg = FinetuneConfig(rank=16, targets="attn", steps=TRAIN_STEPS, lr=1e-4,
+                         batch_size=1, log_every=0)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    data = _encode_items(pipe, images, CAPTIONS)
+    torch.cuda.synchronize()
+    print(f"train encode {len(CAPTIONS)} images at {TRAIN_RES}x{TRAIN_RES}: "
+          f"{time.perf_counter() - t0:.3f}s latents "
+          f"{tuple(data.latents.shape)}; launches {dict(fa.launch_counts)}",
+          flush=True)
+    losses, last = [], [time.perf_counter()]
+
+    def on_step(i, state, loss):
+        now = time.perf_counter()  # float(loss) synchronised the step
+        print(f"train step {i}: {now - last[0]:.3f}s loss={loss}", flush=True)
+        losses.append(loss)
+        last[0] = now
+
+    factors, _ = finetune_lora(pipe, data, cfg, on_step=on_step)
+    launches = dict(fa.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    up_max = max(v.abs().max().item() for k, v in factors.items()
+                 if k.endswith("lora_up"))
+    print(f"train: {len(factors) // 2} LoRA sites, peak_mem={peak_gib:.2f}GiB,"
+          f" max |up| {up_max:.3e}; launches (encode + steps) {launches}",
+          flush=True)
+    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        fail(f"training losses {losses}")
+    if up_max == 0:
+        fail("the LoRA ups did not move")
+    for name in ("sdxl_flash_attention_f32", "sdxl_flash_attention_lse_bf16",
+                 "sdxl_flash_attention_bwd_dq_bf16",
+                 "sdxl_flash_attention_bwd_dkv_bf16"):
+        if launches[name] == 0:
+            fail(f"{name} was not launched on the training path")
+    return data, cfg, factors, launches
+
+
+def check_training_grads(pipe, data, cfg, factors) -> None:
+    """One step's factor gradients with the kernels and with the plain
+    attention (K2's and K3's plain versions) swapped into ops.attention."""
+    batch = {k: torch.as_tensor(v, device=pipe.device) for k, v in
+             sample_batch(data, 1, np.random.default_rng(0)).items()}
+    g = torch.Generator(device=pipe.device).manual_seed(11)
+    draw = {"t": torch.tensor([500], device=pipe.device),
+            "noise": torch.randn(batch["latents"].shape, generator=g,
+                                 device=pipe.device)}
+    loss_fn = _unet_loss_fn(pipe, cfg)
+    swaps = {"flash_attention_lse": fa.flash_attention_lse_plain,
+             "flash_attention_bwd": fa.flash_attention_bwd_plain}
+    try:
+        loss_k, g_k = value_and_grad(loss_fn, factors, batch, draw)
+        for name, plain in swaps.items():
+            setattr(attention_mod, name, plain)
+        loss_p, g_p = value_and_grad(loss_fn, factors, batch, draw)
+    finally:
+        for name in swaps:
+            setattr(attention_mod, name, getattr(fa, name))
+        clear_factors(pipe.unet)
+    diff = max((g_k[k] - g_p[k]).abs().max().item() for k in g_k)
+    scale = max(v.abs().max().item() for v in g_p.values())
+    print(f"training grad check: loss {loss_k.item()} vs {loss_p.item()}; "
+          f"max|dg| / max|g| = {diff / scale:.3e} (tol {GRAD_REL_TOL:g})",
+          flush=True)
+    if not diff / scale < GRAD_REL_TOL:
+        fail("the kernels' factor gradients disagree with the plain path")
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="add phase 6, the profiled request")
+                        help="add the profiled request (phase 6) and "
+                        "training step (phase 9)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -237,34 +502,46 @@ def main() -> None:
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
-    _, seconds, log = fa.load_library()
-    print(f"build: {seconds:.1f}s\n{log}", flush=True)
+    t0 = time.perf_counter()
+    built = fa.build_kernels()
+    print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
+    for source, (seconds, log) in built.items():
+        print(f"{source}: {seconds:.1f}s\n{log}", flush=True)
 
     results = check_kernels()
 
     t0 = time.perf_counter()
-    pipe = random_pipeline(device="cuda")
+    pipe = random_pipeline(device="cuda", with_encoder=True)
     torch.cuda.synchronize()
     print(f"random_pipeline: {time.perf_counter() - t0:.1f}s", flush=True)
     fa.reset_launch_counts()
     run_requests(pipe)
     launches = dict(fa.launch_counts)
     print(f"launches during the requests: {launches}", flush=True)
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"{name} was not launched on the main path")
+    for name in ("sdxl_flash_attention_bf16", "sdxl_flash_attention_f32"):
+        if launches[name] == 0:
+            fail(f"{name} was not launched on the txt2img path")
 
     check_path_against_plain(pipe)
     if args.profile:
         profile_request(pipe)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+
+    data, cfg, factors, train_launches = run_training(pipe)
+    check_training_grads(pipe, data, cfg, factors)
+    if args.profile:
+        profile_training_step(pipe, data, cfg, factors)
+    loaded = [m for m in sys.modules if m in ("jax", "sdxl_tpu")
+              or m.startswith(("jax.", "sdxl_tpu."))]
+    if loaded:
+        fail(f"imported {loaded}")
 
     record = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": launches[name],
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1],
+         "launches": launches[name] + train_launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]}
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for name, r in results.items()]}
     print(smi)
     print(json.dumps(record))

@@ -1,9 +1,12 @@
 // Flash-attention forward for Hopper (sm_90a), bound to Python with ctypes.
 //
-// Replaces the Pallas TPU kernel sdxl_tpu/ops/flash_attention.py
-// `flash_attention_bhtd` (return_lse=False) -> `_flash_kernel` ->
-// `_flash_kernel_core`: unmasked softmax(q k^T / sqrt(d)) v over [B,H,T,D],
-// with the reference's semantics kept exactly:
+// Replaces the Pallas TPU kernels of sdxl_tpu/ops/flash_attention.py
+// `flash_attention_bhtd`: K1 (return_lse=False -> `_flash_kernel` ->
+// `_flash_kernel_core`) and K2 (return_lse=True -> `_flash_kernel_lse`,
+// which also stores the row's base-2 log-sum-exp m + log2(l) for the
+// backward; here one f32 per row, without the TPU's lane replication):
+// unmasked softmax(q k^T / sqrt(d)) v over [B,H,T,D], with the reference's
+// semantics kept exactly:
 //   - q is multiplied by d^-0.5 * log2(e) in f32 and rounded to q's dtype
 //     before any product (flash_attention.py:185);
 //   - the online softmax runs in base 2 with f32 running max m, normaliser l
@@ -21,7 +24,8 @@
 //
 // Two kernels, for the two kinds of call the SDXL main path makes:
 //
-// flash_fwd_bf16 (UNet self-attention, d = 64 or 128, bf16 in/out).
+// flash_fwd_bf16 (UNet self-attention, d = 64 or 128, bf16 in/out; K2 is
+// its kLse instance, the training forward).
 //   Bound by tensor-core issue and shared-memory traffic: at T=4096, d=64,
 //   B*H=20 one call is 4*B*H*T^2*d = 86 GFLOP against 42 MB of q/k/v/o, so
 //   it is far above the card's ~295 FLOP/byte ridge. Four warps each own 16
@@ -49,7 +53,15 @@
 
 #include <atomic>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using flash::allow_smem_once;
+using flash::kThreads;
+using flash::ld32;
+using flash::mma_16816;
+using flash::pack_bf16;
 
 // ---------------------------------------------------------------------------
 // bf16, d in {64, 128}
@@ -57,38 +69,21 @@ namespace {
 
 constexpr int kBQ = 64;       // query rows per block (4 warps x 16)
 constexpr int kBK = 64;       // keys per tile
-constexpr int kThreads = 128;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D[16x8] += A[16x16] * B[16x8]; bf16 operands, f32 accumulators.
-__device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 template <int D>
 constexpr int bf16_smem_bytes() {
   return (kBQ * (D + 8) + kBK * (D + 8) + D * (kBK + 8)) * 2;
 }
 
-template <int D>
+// kLse: also store each row's base-2 log-sum-exp m + log2(l) to lse
+// ([B*H, tq] f32), the residual the backward recomputes p from (K2).
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
-               __nv_bfloat16* __restrict__ o, int tq, int tk, float scale) {
+               __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int tq,
+               int tk, float scale) {
   constexpr int LD = D + 8;     // Q and K tiles: [row][LD]
   constexpr int LDV = kBK + 8;  // transposed V tile: [d][LDV]
   extern __shared__ __align__(16) unsigned char smem[];
@@ -236,6 +231,12 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     if (r0 + 8 < tq)
       *reinterpret_cast<__nv_bfloat162*>(o + q_base + (size_t)(r0 + 8) * D + c) =
           __floats2bfloat162_rn(acc[dt][2] / l_run[1], acc[dt][3] / l_run[1]);
+  }
+  // m and l are already reduced across the quad: one lane of four stores.
+  if (kLse && tg == 0) {
+    float* lrow = lse + (size_t)blockIdx.y * tq;
+    if (r0 < tq) lrow[r0] = m_run[0] + log2f(l_run[0]);
+    if (r0 + 8 < tq) lrow[r0 + 8] = m_run[1] + log2f(l_run[1]);
   }
 }
 
@@ -410,35 +411,19 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Opting a kernel in to more than 48 KB of dynamic shared memory is a
-// setting of the kernel on the current device: made once per device (one
-// bit of *done each), not on every launch.
-template <typename Kernel>
-cudaError_t allow_smem_once(Kernel kernel, int smem,
-                            std::atomic<unsigned long long>* done) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (done->load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) done->fetch_or(bit, std::memory_order_relaxed);
-  return err;
-}
-
-template <int D>
+template <int D, bool kLse>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
-                        int bh, int tq, int tk, float scale, cudaStream_t s) {
+                        float* lse, int bh, int tq, int tk, float scale,
+                        cudaStream_t s) {
   constexpr int smem = bf16_smem_bytes<D>();
   static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t err = allow_smem_once(flash_fwd_bf16<D>, smem, &smem_set);
+  cudaError_t err = allow_smem_once(flash_fwd_bf16<D, kLse>, smem, &smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + kBQ - 1) / kBQ, bh);
-  flash_fwd_bf16<D><<<grid, kThreads, smem, s>>>(
+  flash_fwd_bf16<D, kLse><<<grid, kThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), tq,
-      tk, scale);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      tq, tk, scale);
   return cudaGetLastError();
 }
 
@@ -451,8 +436,21 @@ extern "C" int sdxl_flash_attention_bf16(const void* q, const void* k,
                                          int tq, int tk, int d, float scale,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_bf16<64>(q, k, v, o, bh, tq, tk, scale, s);
-  if (d == 128) return launch_bf16<128>(q, k, v, o, bh, tq, tk, scale, s);
+  if (d == 64) return launch_bf16<64, false>(q, k, v, o, nullptr, bh, tq, tk, scale, s);
+  if (d == 128) return launch_bf16<128, false>(q, k, v, o, nullptr, bh, tq, tk, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// K2: the bf16 forward that also writes lse ([B*H, tq] f32 device buffer).
+extern "C" int sdxl_flash_attention_lse_bf16(const void* q, const void* k,
+                                             const void* v, void* o,
+                                             void* lse, int bh, int tq,
+                                             int tk, int d, float scale,
+                                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (d == 64) return launch_bf16<64, true>(q, k, v, o, l, bh, tq, tk, scale, s);
+  if (d == 128) return launch_bf16<128, true>(q, k, v, o, l, bh, tq, tk, scale, s);
   return cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,5 @@
-"""Reference parameter trees -> the port's state_dicts.
+"""Reference parameter trees -> the port's state_dicts, and LoRA factors
+both ways.
 
 The reference keeps its weights as nested dicts/lists of arrays
 (NHWC-era layouts). Given such a tree with numpy leaves (``np.asarray`` of
@@ -9,12 +10,16 @@ the tree:
 - ``w`` -> ``weight``: linear [in, out] -> [out, in]; conv HWIO -> OIHW;
 - ``b`` -> ``bias``; norm ``gamma``/``beta`` -> ``weight``/``bias``;
 - other leaves (embedding tables, ``text_projection``) keep name and layout;
-- the fused self-attention ``qkv`` [C, 3C] stays fused (-> [3C, C]);
+- the self-attention projections take the layout asked for: fused
+  ``qkv`` [3C, C] (inference) or separate q/k/v (training), from either
+  layout of the tree;
 - a folded upsample conv (``w4``, the reference's 4-phase TPU form,
   sdxl_tpu/ops/conv.py fold_upsample_conv) is unfolded back to its 3x3
   kernel in f32 numpy, the exact inverse of the fold.
 
-The VAE encoder and ``quant_conv`` are not ported yet and are skipped.
+LoRA factors keep the reference's flat keys (``"<module path>.lora_down"``
+[d_in, r], ``"<module path>.lora_up"`` [r, d_out]) and orientation on both
+sides: the reference's paths are the port's module names.
 """
 
 from __future__ import annotations
@@ -81,14 +86,22 @@ def clip_state_dict(tree) -> Dict[str, torch.Tensor]:
     return tree_to_state_dict(tree)
 
 
-def unet_state_dict(tree) -> Dict[str, torch.Tensor]:
-    """UNet tree, fused (fuse_unet_qkv) or not: unfused self-attention
-    q/k/v are concatenated into the port's fused qkv."""
+def unet_state_dict(tree, fused: bool = True) -> Dict[str, torch.Tensor]:
+    """UNet tree, fused (fuse_unet_qkv) or not, -> the state_dict of a
+    ``UNet`` (fused: self-attention q/k/v concatenated into one qkv) or of
+    an ``unfuse_unet_qkv``'d one (fused=False: a fused qkv split)."""
     sd = tree_to_state_dict(tree)
-    for key in [k for k in sd if k.endswith(".attn1.q.weight")]:
-        stem = key[: -len("q.weight")]
-        sd[stem + "qkv.weight"] = torch.cat(
-            [sd.pop(stem + n + ".weight") for n in "qkv"], dim=0)
+    if fused:
+        for key in [k for k in sd if k.endswith(".attn1.q.weight")]:
+            stem = key[: -len("q.weight")]
+            sd[stem + "qkv.weight"] = torch.cat(
+                [sd.pop(stem + n + ".weight") for n in "qkv"], dim=0)
+    else:
+        for key in [k for k in sd if k.endswith(".attn1.qkv.weight")]:
+            stem = key[: -len("qkv.weight")]
+            w = sd.pop(key)
+            for n, part in zip("qkv", w.split(w.shape[1], dim=0)):
+                sd[stem + n + ".weight"] = part.contiguous()
     return sd
 
 
@@ -96,3 +109,19 @@ def vae_decoder_state_dict(tree) -> Dict[str, torch.Tensor]:
     """Autoencoder tree -> VAEDecoder state_dict (decoder + post_quant_conv)."""
     return tree_to_state_dict({"post_quant_conv": tree["post_quant_conv"],
                                "decoder": tree["decoder"]})
+
+
+def vae_encoder_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """Autoencoder tree -> VAEEncoder state_dict (encoder + quant_conv)."""
+    return tree_to_state_dict({"encoder": tree["encoder"],
+                               "quant_conv": tree["quant_conv"]})
+
+
+def factors_to_torch(flat, device=None) -> Dict[str, torch.Tensor]:
+    """Reference LoRA factors (numpy leaves) -> f32 tensors, same keys."""
+    return {k: _to_tensor(v).float().to(device) for k, v in flat.items()}
+
+
+def factors_to_numpy(flat) -> Dict[str, np.ndarray]:
+    """The port's LoRA factors -> f32 numpy arrays, same keys."""
+    return {k: v.detach().float().cpu().numpy() for k, v in flat.items()}

@@ -3,6 +3,7 @@
 Each holds its parameters under PyTorch's usual names (``weight``,
 ``bias``) so io/bridge.py can map the reference's parameter trees onto
 ``state_dict`` keys, and its forward calls the plain op in ops/.
+``Linear`` also carries a slot for an unmerged LoRA factor pair.
 ``init_reference_`` redraws every parameter with the reference's random
 init (normal weights at a fixed scale, zero biases, unit norm gains).
 """
@@ -13,7 +14,20 @@ import torch
 from torch import nn
 
 from ..ops.conv import conv2d
+from ..ops.linear import LoRA, linear
 from ..ops.norms import groupnorm, layernorm_affine
+
+
+class Linear(nn.Linear):
+    """nn.Linear through ops.linear. ``lora`` is None or an unmerged
+    (down [d_in, r], up [r, d_out]) factor pair added at the use site;
+    train/lora.py sets it. It is a plain attribute, not a parameter, so it
+    is not in the state_dict and the base weight stays frozen."""
+
+    lora: LoRA = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self.weight, self.bias, self.lora)
 
 
 class Conv2d(nn.Conv2d):

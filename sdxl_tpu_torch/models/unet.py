@@ -5,8 +5,16 @@ transformers at the configured levels, stride-2 conv downsample,
 nearest-2x + 3x3 conv upsample, skip-cat U topology. ResBlock: GN -> SiLU
 -> conv + time-embedding inject -> GN -> SiLU -> conv (+1x1 skip).
 SpatialTransformer: GN -> flatten HW -> proj_in -> pre-LN blocks
-(self-attention with a fused [3C, C] qkv projection, cross-attention
-against the text context, GEGLU MLP) -> proj_out + residual.
+(self-attention, cross-attention against the text context, GEGLU MLP) ->
+proj_out + residual.
+
+Two layouts of the self-attention projections, as in the reference:
+inference fuses q/k/v into one [3C, C] ``qkv`` (``fuse_unet_qkv``);
+training keeps separate ``q``/``k``/``v`` (``unfuse_unet_qkv``), the
+linears LoRA factors target. Every linear is a ``layers.Linear`` with a
+LoRA slot; cross-attention K/V are computed inline from the context, so
+factors on ``attn2.k``/``attn2.v`` act there (``precompute_cross_kv`` is
+for sampling, where the context is fixed).
 
 Layout: ``unet_forward`` takes and returns NHWC latents [B, h, w, C] like
 the reference; inside, activations are contiguous NCHW (PyTorch's default
@@ -28,8 +36,7 @@ from ..configs import UNetConfig
 from ..ops.attention import qkv_attention
 from ..ops.conv import upsample_nearest_2x
 from ..ops.embeddings import timestep_embedding
-from ..ops.linear import linear_nobias
-from .layers import Conv2d, GroupNorm, LayerNorm
+from .layers import Conv2d, GroupNorm, LayerNorm, Linear
 
 
 # ---------------------------------------------------------------------------
@@ -106,7 +113,7 @@ class ResBlock(nn.Module):
         super().__init__()
         self.norm_in = GroupNorm(c_in, **kw)
         self.conv_in = Conv2d(c_in, c_out, 3, **kw)
-        self.lin_embed = nn.Linear(emb_dim, c_out, **kw)
+        self.lin_embed = Linear(emb_dim, c_out, **kw)
         self.norm_out = GroupNorm(c_out, **kw)
         self.conv_out = Conv2d(c_out, c_out, 3, **kw)
         self.skip = Conv2d(c_in, c_out, 1, **kw) if c_in != c_out else None
@@ -121,25 +128,29 @@ class ResBlock(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Self-attention with the reference's fused [3C, C] qkv projection."""
+    """Self-attention: a fused [3C, C] ``qkv`` projection (inference), or
+    separate ``q``/``k``/``v`` after ``unfuse_unet_qkv`` (training)."""
 
     def __init__(self, c: int, **kw):
         super().__init__()
-        self.qkv = nn.Linear(c, 3 * c, bias=False, **kw)
-        self.out = nn.Linear(c, c, **kw)
+        self.qkv = Linear(c, 3 * c, bias=False, **kw)
+        self.out = Linear(c, c, **kw)
 
     def forward(self, x, n_head):
-        q, k, v = linear_nobias(x, self.qkv.weight).chunk(3, dim=-1)
+        if hasattr(self, "qkv"):
+            q, k, v = self.qkv(x).chunk(3, dim=-1)
+        else:
+            q, k, v = self.q(x), self.k(x), self.v(x)
         return self.out(qkv_attention(q, k, v, None, n_head))
 
 
 class CrossAttention(nn.Module):
     def __init__(self, c: int, ctx_dim: int, **kw):
         super().__init__()
-        self.q = nn.Linear(c, c, bias=False, **kw)
-        self.k = nn.Linear(ctx_dim, c, bias=False, **kw)
-        self.v = nn.Linear(ctx_dim, c, bias=False, **kw)
-        self.out = nn.Linear(c, c, **kw)
+        self.q = Linear(c, c, bias=False, **kw)
+        self.k = Linear(ctx_dim, c, bias=False, **kw)
+        self.v = Linear(ctx_dim, c, bias=False, **kw)
+        self.out = Linear(c, c, **kw)
 
     def forward(self, x, context, n_head, kv=None):
         """kv: optional precomputed {"k", "v"} of a loop-invariant context
@@ -153,8 +164,8 @@ class CrossAttention(nn.Module):
 class GEGLU(nn.Module):
     def __init__(self, c: int, **kw):
         super().__init__()
-        self.proj = nn.Linear(c, 8 * c, **kw)
-        self.lin = nn.Linear(4 * c, c, **kw)
+        self.proj = Linear(c, 8 * c, **kw)
+        self.lin = Linear(4 * c, c, **kw)
 
     def forward(self, x):
         a, gate = self.proj(x).chunk(2, dim=-1)
@@ -182,10 +193,10 @@ class SpatialTransformer(nn.Module):
         super().__init__()
         self.n_head = n_head
         self.norm = GroupNorm(c, **kw)
-        self.proj_in = nn.Linear(c, c, **kw)
+        self.proj_in = Linear(c, c, **kw)
         self.blocks = nn.ModuleList(TransformerBlock(c, ctx_dim, **kw)
                                     for _ in range(depth))
-        self.proj_out = nn.Linear(c, c, **kw)
+        self.proj_out = Linear(c, c, **kw)
 
     def forward(self, x, context, kv=None):
         b, c, h, w = x.shape
@@ -227,8 +238,8 @@ class UNetBlock(nn.Module):
 
 
 def _mlp2(c_in: int, c_out: int, **kw) -> nn.ModuleDict:
-    return nn.ModuleDict({"lin1": nn.Linear(c_in, c_out, **kw),
-                          "lin2": nn.Linear(c_out, c_out, **kw)})
+    return nn.ModuleDict({"lin1": Linear(c_in, c_out, **kw),
+                          "lin2": Linear(c_out, c_out, **kw)})
 
 
 class UNet(nn.Module):
@@ -315,3 +326,22 @@ def precompute_cross_kv(model: UNet, context: torch.Tensor):
         "middle_block": st_kv(model.middle_block["transformer"]),
         "output_blocks": blocks_kv(model.output_blocks),
     }
+
+
+@torch.no_grad()
+def unfuse_unet_qkv(model: UNet) -> UNet:
+    """Split every fused self-attention ``qkv`` [3C, C] into separate
+    q/k/v linears, in place (the reference's ``unfuse_unet_qkv``: row
+    blocks of the weight are independent, so the split is exact). The
+    training layout: LoRA targets the unfused projections. Idempotent."""
+    for m in model.modules():
+        if isinstance(m, SelfAttention) and hasattr(m, "qkv"):
+            w = m.qkv.weight
+            c = w.shape[1]
+            for name, part in zip("qkv", w.split(c, dim=0)):
+                lin = Linear(c, c, bias=False, device=w.device, dtype=w.dtype)
+                lin.weight.copy_(part)
+                lin.requires_grad_(w.requires_grad)
+                setattr(m, name, lin)
+            del m.qkv
+    return model

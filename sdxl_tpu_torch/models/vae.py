@@ -1,14 +1,20 @@
-"""SDXL VAE decoder (counterpart of sdxl_tpu/models/vae.py; the encoder is
-not ported yet).
+"""SDXL VAE (counterpart of sdxl_tpu/models/vae.py).
+
+Encoder: conv_in 3 -> 128, four blocks of two ResnetBlocks with a
+stride-2 3x3 downsampler on all but the last (PyTorch's asymmetric
+(0, 1, 0, 1) padding: one zero row below, one column right), mid,
+GN/SiLU/conv_out to 8 quant channels; ``quant_conv`` (1x1) follows and
+``encode_image`` keeps the first 4 channels, the posterior mean (no
+sampling).
 
 Decoder: conv_in 4 -> 512, mid (ResnetBlock, single-head spatial
 self-attention with 1x1-conv q/k/v, ResnetBlock), four blocks of three
 ResnetBlocks with a nearest-2x + 3x3 conv upsampler on all but the last,
 GN/SiLU/conv_out to RGB. ``post_quant_conv`` (1x1) runs first.
 
-Layout: ``decode_latent`` takes NHWC [B, h, w, 4] and returns NHWC
-[B, 8h, 8w, 3] like the reference; inside, activations are contiguous NCHW
-and the mid attention sees [B, HW, C] tokens. The pipeline runs it in f32.
+Layout: ``encode_image`` and ``decode_latent`` take and return NHWC like
+the reference; inside, activations are contiguous NCHW and the mid
+attention sees [B, HW, C] tokens. The pipelines run both halves in f32.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from torch import nn
 
 from ..configs import AutoencoderConfig
 from ..ops.attention import qkv_attention
-from ..ops.conv import upsample_nearest_2x
+from ..ops.conv import conv2d_pad_br, upsample_nearest_2x
 from .layers import Conv2d, GroupNorm
 
 
@@ -73,6 +79,53 @@ class Mid(nn.Module):
         return self.block_2(self.attn(self.block_1(x)))
 
 
+class Downsample(Conv2d):
+    """Stride-2 3x3 conv after one zero row below and one column right."""
+
+    def __init__(self, c: int, **kw):
+        super().__init__(c, c, 3, stride=2, **kw)
+
+    def forward(self, x):
+        return conv2d_pad_br(x, self.weight, self.bias, 2)
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, c_in: int, c_out: int, n_group: int, downsample: bool,
+                 **kw):
+        super().__init__()
+        self.res1 = ResnetBlock(c_in, c_out, n_group, **kw)
+        self.res2 = ResnetBlock(c_out, c_out, n_group, **kw)
+        self.downsampler = Downsample(c_out, **kw) if downsample else None
+
+    def forward(self, x):
+        x = self.res2(self.res1(x))
+        if self.downsampler is not None:
+            x = self.downsampler(x)
+        return x
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: AutoencoderConfig, **kw):
+        super().__init__()
+        g = cfg.n_group
+        chans = cfg.encoder_channels
+        first, last = chans[0][1], chans[-1][1]
+        self.conv_in = Conv2d(3, first, 3, **kw)
+        self.blocks = nn.ModuleList(
+            EncoderBlock(ci, co, g, i != len(chans) - 1, **kw)
+            for i, (ci, co) in enumerate(chans))
+        self.mid = Mid(last, g, **kw)
+        self.norm_out = GroupNorm(last, g, **kw)
+        self.conv_out = Conv2d(last, cfg.n_channels_out, 3, **kw)
+
+    def forward(self, x):
+        x = self.conv_in(x)
+        for block in self.blocks:
+            x = block(x)
+        x = self.mid(x)
+        return self.conv_out(F.silu(self.norm_out(x)))
+
+
 class DecoderBlock(nn.Module):
     def __init__(self, c_in: int, c_out: int, n_group: int, upsample: bool,
                  **kw):
@@ -121,6 +174,25 @@ class VAEDecoder(nn.Module):
         self.post_quant_conv = Conv2d(cfg.latent_channels,
                                       cfg.latent_channels, 1, **kw)
         self.decoder = Decoder(cfg, **kw)
+
+
+class VAEEncoder(nn.Module):
+    """The encoding half of the autoencoder: encoder + quant_conv."""
+
+    def __init__(self, cfg: AutoencoderConfig, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.cfg = cfg
+        self.encoder = Encoder(cfg, **kw)
+        self.quant_conv = Conv2d(cfg.n_channels_out, cfg.n_channels_out, 1,
+                                 **kw)
+
+
+def encode_image(model: VAEEncoder, x: torch.Tensor) -> torch.Tensor:
+    """RGB [B, H, W, 3] in [-1, 1] -> posterior mean [B, H/8, W/8, 4]."""
+    h = model.quant_conv(model.encoder(x.permute(0, 3, 1, 2).contiguous()))
+    return h[:, :model.cfg.latent_channels].permute(0, 2, 3, 1)
 
 
 def decode_latent(model: VAEDecoder, latent: torch.Tensor) -> torch.Tensor:

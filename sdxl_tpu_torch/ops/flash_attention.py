@@ -1,20 +1,31 @@
-"""Flash-attention forward over [B, H, T, D]: the Hopper kernel and its plain version.
+"""Flash attention over [B, H, T, D]: the Hopper kernels and their plain versions.
 
-Counterpart of sdxl_tpu/ops/flash_attention.py (`flash_attention_bhtd`,
-return_lse=False, and `use_flash`). The kernel lives in
-``csrc/flash_attention.cu``; it is compiled with nvcc for sm_90a into a
-shared library with a plain C interface, at first use, into
-``build/kernels/`` at the repo root (keyed by a hash of the source and the
-flags), and loaded with ctypes.
+Counterpart of sdxl_tpu/ops/flash_attention.py:
 
-``flash_attention_bhtd`` takes the plain PyTorch version for tensors on the
-CPU and launches the kernel for CUDA tensors; a CUDA call the kernel does
-not take raises. Both follow the reference's numerics: q is pre-scaled by
-d^-0.5 * log2(e) and rounded to its dtype, the softmax runs in base 2 over
-f32 logits, and p is rounded to v's dtype before P.V.
+- ``flash_attention_bhtd``: K1, the forward (return_lse=False);
+- ``flash_attention_lse``: K2, the forward that also returns the base-2
+  row log-sum-exp (return_lse=True), the residual of the backward;
+- ``flash_attention_bwd``: K3a and K3b, the FlashAttention-2 backward
+  (``flash_attention_bwd_bhtd``: dq, then dk and dv);
+- ``use_flash``, the reference's routing rule.
 
-Kernel routes on CUDA: bf16 with d in (64, 128) (UNet self-attention) and
-f32 with d = 512 (VAE mid-block attention).
+The kernels live in ``csrc/`` (flash_attention.cu: K1 and K2;
+flash_attention_bwd.cu: K3a and K3b). Each source is compiled with nvcc
+for sm_90a into a shared library with a plain C interface, at first use,
+into ``build/kernels/`` at the repo root (keyed by a hash of the sources
+and the flags), and loaded with ctypes; ``build_kernels`` compiles every
+source at once, one nvcc each.
+
+Each wrapper takes the plain PyTorch version for tensors on the CPU and
+launches its kernel for CUDA tensors; a CUDA call the kernel does not take
+raises, as does any other device. Both follow the reference's numerics: q
+is pre-scaled by d^-0.5 * log2(e) and rounded to its dtype, the softmax
+runs in base 2 over f32 logits, p is rounded to v's dtype before P.V, and
+the backward recomputes p from the same rounded q and the forward's lse.
+
+Kernel routes on CUDA: K1 takes bf16 with d in (64, 128) (UNet
+self-attention) and f32 with d = 512 (VAE mid-block attention); K2 and K3
+take bf16 with d in (64, 128).
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Dict, Tuple
 
 import torch
 
@@ -38,20 +50,34 @@ _LOG2E = math.log2(math.e)
 # as the reference gate; not re-derived for the H100 yet.
 FLASH_MIN_T = 924
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
+HEADERS = ("flash_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# dtype -> (head dims the kernel takes, exported C function)
+# exported C function -> (source, pointer arguments, float arguments); every
+# function then takes (bh, tq, tk, d) ints, the floats, and the stream
+_KERNELS = {
+    "sdxl_flash_attention_bf16": ("flash_attention.cu", 4, 1),
+    "sdxl_flash_attention_f32": ("flash_attention.cu", 4, 1),
+    "sdxl_flash_attention_lse_bf16": ("flash_attention.cu", 5, 1),
+    "sdxl_flash_attention_bwd_dq_bf16": ("flash_attention_bwd.cu", 7, 2),
+    "sdxl_flash_attention_bwd_dkv_bf16": ("flash_attention_bwd.cu", 8, 1),
+}
+
+# K1: dtype -> (head dims the kernel takes, exported C function)
 _ROUTES = {
     torch.bfloat16: ((64, 128), "sdxl_flash_attention_bf16"),
     torch.float32: ((512,), "sdxl_flash_attention_f32"),
 }
+# K2 and K3 take bf16 only
+_TRAIN_DIMS = (64, 128)
 
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one exactly where it launches its kernel.
-launch_counts = {"sdxl_flash_attention_bf16": 0, "sdxl_flash_attention_f32": 0}
+launch_counts = {name: 0 for name in _KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -72,91 +98,245 @@ def use_flash(tq: int, tk: int, d: int, has_mask: bool) -> bool:
     )
 
 
+
+
+def _acc(x: torch.Tensor) -> torch.Tensor:
+    """x in the plain versions' accumulation dtype: f32, or f64 for f64
+    inputs (so autograd's gradcheck can run them)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _prescale_q(q: torch.Tensor) -> torch.Tensor:
     d = q.shape[-1]
-    return (q.float() * (d ** -0.5 * _LOG2E)).to(q.dtype)
+    return (_acc(q) * (d ** -0.5 * _LOG2E)).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor) -> Tuple[torch.Tensor,
+                                                        torch.Tensor]:
+    """Plain PyTorch version of K2: base-2 logits from the rounded
+    pre-scaled q in f32, f32 softmax, p cast to v's dtype, f32 accumulate.
+    Returns (o, lse) with lse = m + log2(l) [B, H, Tq] f32, in the base-2
+    units of the pre-scaled q."""
+    s = _acc(_prescale_q(q)) @ _acc(k).transpose(-1, -2)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = (_acc((p / l).to(v.dtype)) @ _acc(v)).to(v.dtype)
+    return o, (m + torch.log2(l)).squeeze(-1)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: base-2 logits from the rounded
-    pre-scaled q in f32, f32 softmax, p cast to v's dtype, f32 accumulate."""
-    s = _prescale_q(q).float() @ k.float().transpose(-1, -2)
-    p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
-    p = (p / p.sum(dim=-1, keepdim=True)).to(v.dtype)
-    return (p.float() @ v.float()).to(v.dtype)
+    """Plain PyTorch version of K1: the output of K2's."""
+    return flash_attention_lse_plain(q, k, v)[0]
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              lse: torch.Tensor, do: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain PyTorch version of K3a/K3b, the reference's formulas
+    (flash_attention.py:250-269): p from the rounded pre-scaled q and lse,
+    delta = rowsum(dO * O) in f32, p rounded to dO's dtype before dv, dz
+    rounded to k's (qf's) dtype before dq (dk), f32 accumulation."""
+    d = q.shape[-1]
+    do = do.to(q.dtype)
+    qf = _prescale_q(q)
+    p = torch.exp2(_acc(qf) @ _acc(k).transpose(-1, -2) - _acc(lse)[..., None])
+    delta = (_acc(do) * _acc(o)).sum(-1, keepdim=True)
+    dz = p * (_acc(do) @ _acc(v).transpose(-1, -2) - delta)
+    dv = _acc(p.to(do.dtype)).transpose(-1, -2) @ _acc(do)
+    dq = (_acc(dz.to(k.dtype)) @ _acc(k)) * d ** -0.5
+    dk = (_acc(dz.to(qf.dtype)).transpose(-1, -2) @ _acc(qf)) / _LOG2E
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------------------
+# build and load
+# ---------------------------------------------------------------------------
+
+def _lib_path(source: str) -> Path:
+    h = hashlib.sha256()
+    for name in (source, *HEADERS):
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_kernels() -> Dict[str, Tuple[float, str]]:
+    """Compile every kernel source not built yet, one nvcc per source, all
+    started together. Returns {source: (build seconds, nvcc/ptxas log)}
+    for the sources this call built."""
+    todo = [src for src in SOURCES if not _lib_path(src).exists()]
+    if not todo:
+        return {}
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found: the flash-attention kernels are "
+                           "built from source with the CUDA toolkit")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for src in todo:
+        tmp = _lib_path(src).with_suffix(f".{os.getpid()}.tmp")
+        procs[src] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+             str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built, failed = {}, []
+    for src, (tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed building {src}:\n{log}")
+            continue
+        os.replace(tmp, _lib_path(src))
+        built[src] = (time.perf_counter() - t0, log)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return built
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> tuple:
-    """Build (once per source hash) and load the kernel library.
-
-    Returns (ctypes library, build seconds, nvcc/ptxas log); the log and
-    seconds are those of this process's build, or empty/0 when the library
-    was already built."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"flash_attention-{key}.so"
-    seconds, log = 0.0, ""
-    if not lib_path.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the flash-attention kernel "
-                               "is built from source with the CUDA toolkit")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{log}")
-        os.replace(tmp, lib_path)
-    lib = ctypes.CDLL(str(lib_path))
-    for _, name in _ROUTES.values():
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-            ctypes.c_float, ctypes.c_void_p]
-    return lib, seconds, log
+def load_library(source: str) -> ctypes.CDLL:
+    """The kernel library of one source, built first if needed."""
+    if not _lib_path(source).exists():
+        build_kernels()
+    lib = ctypes.CDLL(str(_lib_path(source)))
+    for name, (src, n_ptr, n_float) in _KERNELS.items():
+        if src == source:
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
+                           + [ctypes.c_float] * n_float + [ctypes.c_void_p])
+    return lib
 
 
-def flash_attention_bhtd(q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor) -> torch.Tensor:
-    """Unmasked softmax(q kᵀ / sqrt(D)) v over [B, H, T, D]; any Tq, Tk >= 1."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention has no kernel for {q.device}")
-    b, h, tq, d = q.shape
-    tk = k.shape[2]
-    if (k.shape != (b, h, tk, d) or v.shape != k.shape
-            or not (q.dtype == k.dtype == v.dtype)
-            or not (q.device == k.device == v.device)):
-        raise ValueError(
-            f"flash attention: mismatched q/k/v {tuple(q.shape)} "
-            f"{tuple(k.shape)} {tuple(v.shape)} {q.dtype} {k.dtype} {v.dtype}")
-    route = _ROUTES.get(q.dtype)
-    if route is None or d not in route[0]:
-        raise ValueError(f"flash attention kernel takes bf16 with d in "
-                         f"(64, 128) or f32 with d = 512, not {q.dtype} d={d}")
-    for t in (q, k, v):
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("flash attention kernel needs contiguous, "
-                             "16-byte aligned q/k/v")
-    if tq == 0 or tk == 0:
-        raise ValueError("flash attention needs at least one query and key")
-    name = route[1]
-    lib = load_library()[0]
-    out = torch.empty_like(q)
-    scale = d ** -0.5 * _LOG2E
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, name)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 out.data_ptr(), b * h, tq, tk, d, scale,
-                                 stream)
+def _launch(name: str, tensors, dims, floats) -> None:
+    device = tensors[0].device
+    fn = getattr(load_library(_KERNELS[name][0]), name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(t.data_ptr() for t in tensors), *dims, *floats, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
+
+
+def _check_cuda(what: str, tensors, dtypes, dims) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte aligned CUDA
+    tensor on one device, q/k/v-like ones of one dtype the kernel takes,
+    with a head dim it takes."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{what} has no kernel for {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{what}: tensors on {dev} and {t.device}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what} kernel needs contiguous, 16-byte "
+                             f"aligned inputs")
+    q = tensors[0]
+    if q.dtype not in dtypes or q.shape[-1] not in dims:
+        raise ValueError(f"{what} kernel takes {dtypes} with d in {dims}, "
+                         f"not {q.dtype} d={q.shape[-1]}")
+
+
+def _check_qkv(what: str, q, k, v) -> Tuple[int, int, int, int, int]:
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if (k.shape != (b, h, tk, d) or v.shape != k.shape
+            or not (q.dtype == k.dtype == v.dtype)):
+        raise ValueError(
+            f"{what}: mismatched q/k/v {tuple(q.shape)} {tuple(k.shape)} "
+            f"{tuple(v.shape)} {q.dtype} {k.dtype} {v.dtype}")
+    if tq == 0 or tk == 0:
+        raise ValueError(f"{what} needs at least one query and key")
+    return b, h, tq, tk, d
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def flash_attention_bhtd(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """K1: unmasked softmax(q kᵀ / sqrt(D)) v over [B, H, T, D]; any
+    Tq, Tk >= 1."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v)
+    b, h, tq, tk, d = _check_qkv("flash attention", q, k, v)
+    route = _ROUTES.get(q.dtype)
+    dims = route[0] if route else ()
+    _check_cuda("flash attention", (q, k, v), tuple(_ROUTES), dims)
+    out = torch.empty_like(q)
+    _launch(route[1], (q, k, v, out), (b * h, tq, tk, d),
+            (d ** -0.5 * _LOG2E,))
     return out
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: K1's output and the base-2 row log-sum-exp lse [B, H, Tq] f32."""
+    if q.device.type == "cpu":
+        return flash_attention_lse_plain(q, k, v)
+    b, h, tq, tk, d = _check_qkv("flash attention (lse)", q, k, v)
+    _check_cuda("flash attention (lse)", (q, k, v), (torch.bfloat16,),
+                _TRAIN_DIMS)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
+    _launch("sdxl_flash_attention_lse_bf16", (q, k, v, out, lse),
+            (b * h, tq, tk, d), (d ** -0.5 * _LOG2E,))
+    return out, lse
+
+
+def launch_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
+    """K3a alone (flash_attention_bwd's first launch; exposed to time the
+    kernel by itself): dq from bf16 q, k, v, do and f32 lse, delta."""
+    b, h, tq, tk, d = _check_qkv("flash attention backward", q, k, v)
+    _check_cuda("flash attention backward", (q, k, v, do, lse, delta),
+                (torch.bfloat16,), _TRAIN_DIMS)
+    dq = torch.empty_like(q)
+    _launch("sdxl_flash_attention_bwd_dq_bf16",
+            (q, k, v, do, lse, delta, dq), (b * h, tq, tk, d),
+            (d ** -0.5 * _LOG2E, d ** -0.5))
+    return dq
+
+
+def launch_bwd_dkv(q, k, v, do, lse, delta
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3b alone (flash_attention_bwd's second launch): dk and dv."""
+    b, h, tq, tk, d = _check_qkv("flash attention backward", q, k, v)
+    _check_cuda("flash attention backward", (q, k, v, do, lse, delta),
+                (torch.bfloat16,), _TRAIN_DIMS)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("sdxl_flash_attention_bwd_dkv_bf16",
+            (q, k, v, do, lse, delta, dk, dv), (b * h, tq, tk, d),
+            (d ** -0.5 * _LOG2E,))
+    return dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3a then K3b: (dq, dk, dv) of unmasked flash attention from the
+    forward's inputs, its output o, its lse and the output cotangent do.
+    delta = rowsum(dO * O) is one f32 torch reduction here, as the
+    reference computes it outside its kernels."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, o, lse, do)
+    b, h, tq = q.shape[:3]
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, tq):
+        raise ValueError(f"flash attention backward: o {tuple(o.shape)}, "
+                         f"do {tuple(do.shape)}, lse {tuple(lse.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    do = do.to(q.dtype).contiguous()
+    lse = lse.float().contiguous()
+    delta = (do.float() * o.float()).sum(-1)
+    dq = launch_bwd_dq(q, k, v, do, lse, delta)
+    return (dq, *launch_bwd_dkv(q, k, v, do, lse, delta))

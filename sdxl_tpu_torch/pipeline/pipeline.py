@@ -25,8 +25,6 @@ import numpy as np
 import torch
 from torch import nn
 
-from sdxl_tpu.tokenizer import ClipTokenizer, OpenClipTokenizer
-
 from ..configs import (
     SDXL_BASE_DIFFUSER,
     SDXL_EMBEDDER,
@@ -37,7 +35,8 @@ from ..configs import (
 from ..models.clip import CLIPTextModel
 from ..models.layers import init_reference_
 from ..models.unet import UNet
-from ..models.vae import VAEDecoder
+from ..models.vae import VAEDecoder, VAEEncoder
+from ..tokenizer import ClipTokenizer, OpenClipTokenizer
 from ..utils import StageTimer, fence, log
 from .conditioning import Conditioning, text_to_conditioning
 from .latent import decode_latent_to_images
@@ -56,6 +55,9 @@ class SDXLPipeline:
     vae: VAEDecoder
     clip_tokenizer: object
     open_clip_tokenizer: object
+    # the VAE's encoding half, for training (train/finetune.py); None when
+    # the pipeline only samples
+    vae_encoder: Optional[VAEEncoder] = None
     scale_factor: float = 0.13025
     timer: StageTimer = field(default_factory=StageTimer)
     # final latent [B, h, w, 4] f32 of the last txt2img call
@@ -143,16 +145,19 @@ class SDXLPipeline:
 def random_pipeline(
     seed: int = 0,
     *,
-    device,
+    device="cuda",
     embedder_cfg: EmbedderConfig = SDXL_EMBEDDER,
     diffuser_cfg: DiffuserConfig = SDXL_BASE_DIFFUSER,
     vae_cfg: AutoencoderConfig = AutoencoderConfig(),
     unet_dtype: torch.dtype = torch.bfloat16,
+    with_encoder: bool = False,
 ) -> SDXLPipeline:
-    """Pipeline with random weights drawn on ``device`` from one seeded
-    torch.Generator, with the reference's init distributions (weights
-    N(0, 0.02^2), VAE convs N(0, 0.05^2), zero biases, unit norm gains) so
-    activations stay in the same range as the JAX bring-up pipeline."""
+    """Pipeline with random weights drawn on ``device`` (the card unless
+    the caller asks for the CPU) from one seeded torch.Generator, with the
+    reference's init distributions (weights N(0, 0.02^2), VAE convs
+    N(0, 0.05^2), zero biases, unit norm gains) so activations stay in the
+    same range as the JAX bring-up pipeline.
+    with_encoder adds the VAE encoder, drawn last, for training."""
     device = torch.device(device)
     g = torch.Generator(device=device).manual_seed(seed)
     log("initializing random weights (no checkpoint)")
@@ -165,8 +170,11 @@ def random_pipeline(
     unet = init_reference_(UNet(diffuser_cfg.unet_config(), device,
                                 unet_dtype), g)
     vae = init_reference_(VAEDecoder(vae_cfg, device), g, conv_scale=0.05)
-    for m in (embedder, unet, vae):
-        m.eval().requires_grad_(False)
+    encoder = (init_reference_(VAEEncoder(vae_cfg, device), g, conv_scale=0.05)
+               if with_encoder else None)
+    for m in (embedder, unet, vae, encoder):
+        if m is not None:
+            m.eval().requires_grad_(False)
     return SDXLPipeline(
         embedder_cfg=embedder_cfg,
         embedder=embedder,
@@ -178,4 +186,5 @@ def random_pipeline(
         vae=vae,
         clip_tokenizer=ClipTokenizer(),
         open_clip_tokenizer=OpenClipTokenizer(),
+        vae_encoder=encoder,
     )

@@ -4,7 +4,8 @@ A tiny pipeline (CLIP towers of width 32, UNet model_channels 32, a small
 VAE) with the same weights on both sides (drawn in the reference's tree
 layout, carried across by io/bridge.py) runs 2 DDIM steps from the same
 injected starting latent. Final latent within 1e-3, uint8 images within
-one level. A subprocess proves the port never imports JAX.
+one level. A subprocess proves the port imports neither JAX nor the JAX
+package.
 """
 
 import os
@@ -111,16 +112,18 @@ def test_unported_options_raise(pipes):
 
 def test_port_never_imports_jax():
     """Every module of the port imports, and a tiny pipeline runs, with
-    `import jax` made to fail."""
+    `import jax` and `import sdxl_tpu` made to fail: the port keeps its own
+    configs and tokenizer."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
+        sys.modules["sdxl_tpu"] = None
         import torch
         import sdxl_tpu_torch
         for m in pkgutil.walk_packages(sdxl_tpu_torch.__path__,
                                        "sdxl_tpu_torch."):
             importlib.import_module(m.name)
-        from sdxl_tpu.configs import AutoencoderConfig, CLIPConfig, \\
+        from sdxl_tpu_torch.configs import AutoencoderConfig, CLIPConfig, \\
             DiffuserConfig, EmbedderConfig
         from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
         clip = CLIPConfig(n_vocab=49408, n_state=32, embed_dim=32, n_head=4,
@@ -137,7 +140,7 @@ def test_port_never_imports_jax():
             unet_dtype=torch.float32)
         img = pipe.txt2img("a cat", (64, 64), n_steps=1)
         assert img.shape == (1, 64, 64, 3), img.shape
-        assert not any(k == "jax" or k.startswith("jax.")
+        assert not any(k.split(".")[0] in ("jax", "sdxl_tpu")
                        for k, v in sys.modules.items() if v is not None)
         print("NO_JAX_OK")
     """)
