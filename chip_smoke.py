@@ -7,35 +7,60 @@ Phases (any failure exits non-zero before the result line):
   2. build the hand-written kernels from sdxl_tpu_torch/csrc, one nvcc per
      source, all started together (with the -Xptxas -v report);
   3. each kernel against its plain PyTorch version on the card at the
-     main paths' shapes: max abs error within the stated tolerance, the
-     kernel, its plain version and torch's scaled_dot_product_attention
-     (forward, and backward for K3; a yardstick, never on the path) timed
-     with CUDA events after a warm-up, beside the kernel's bound;
-  4. the txt2img path: random_pipeline(device="cuda") at SDXL-base widths
+     main paths' shapes — K1 on every route (bf16 d 64/128 and 512, f32 d
+     64/128 and 512), K2, K3a, K3b: max abs error within the stated
+     tolerance, the kernel, its plain version and torch's
+     scaled_dot_product_attention (forward, and backward for K3; a
+     yardstick, never on the path) timed with CUDA events after a
+     warm-up, beside the kernel's bound;
+  3b. the experiments X1 (every tile), X2 (every mode) and X3 (every
+     tile) against their plain versions at [2,10,4096,64] and
+     [2,20,1024,64] bf16, timed by `timeit` and `chained_time`, with SDPA
+     where the function is attention, and X2's split of the time;
+  4. the experiment path: the four `sdxl_tpu_torch.scripts` mains
+     (exp_flash_exp2, exp_flash_floor, exp_flash_pipelined,
+     bench_flash_ragged, whose seven cases must agree with the plain
+     attention within 3e-2); every X kernel must have been launched;
+  5. the f32 UNet: random_pipeline(unet_dtype=torch.float32) answers one
+     1024x1024 request (K1's f32 d=64 route in the UNet); then one
+     pair-batched CFG UNet call through K1 and through the plain
+     attention: eps within 2e-3 relative, 70 launches of the f32 d=64
+     route; the f32 pipeline is freed;
+  6. the txt2img path: random_pipeline(device="cuda") at SDXL-base widths
      answers three requests (two at 1024x1024, one at 832x1216 for the
      ragged token counts), 30 DDIM steps, CFG 7.5 — latency, stage split
      and peak memory per request; the final latents must be finite, the
      images [B, H, W, 3] uint8, and K1 must have been launched from the
      UNet and from the VAE during these requests;
-  5. the last request's UNet step and VAE decode again with the plain
+  7. the last request's UNet step and VAE decode again with the plain
      attention in place of the kernel: outputs must agree;
-  6. with --profile only: three unfenced 1024x1024 requests, then one
+  8. the bf16 decode: one 1024x1024 request with vae_dtype=torch.bfloat16
+     (K1's bf16 d=512 route); then its decode through K1 and through the
+     plain attention: the mid-block attention on the decode's own inputs
+     within the bf16 bound, the two images within 1 u8 level on average,
+     and the kernel's image as close to the f32 decode of the same latent
+     as the plain attention's (max + 1 level, mean + 0.05);
+  9. with --profile only: three unfenced 1024x1024 requests, then one
      under torch.profiler — device time by the op that launched each
      kernel, and the device's idle share against the unfenced latency;
-  7. the LoRA training path on the same pipeline: encode two random
+  10. the LoRA training path on the same pipeline: encode two random
      1024x1024 images with captions (the VAE encoder launches K1's f32
      route), then five LoRA steps (rank 16, attn targets, lr 1e-4, batch
      1, remat) — time and loss per step, peak memory; the losses must be
      finite, the ups must have moved, and K2, K3a and K3b must have been
      launched during the steps;
-  8. one training step's factor gradients again with the plain attention
+  11. one training step's factor gradients again with the plain attention
      (forward and backward) in place of the kernels: they must agree;
-  9. with --profile only: three timed LoRA steps, then one under
-     torch.profiler, reported as in phase 6.
-The last two lines are the kernels' JSON record and {"ok": true, ...}.
+  12. with --profile only: three timed LoRA steps, then one under
+     torch.profiler, reported as in phase 9.
+Each path (phases 4, 5, 6, 8, 10) runs with the launch counts set to 0
+just before it and read just after; the JSON record's launches are their
+sum. The last two lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
 import argparse
+import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -54,6 +79,11 @@ from sdxl_tpu_torch.ops import flash_attention as fa
 from sdxl_tpu_torch.pipeline.latent import decode_latent_to_images
 from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
 from sdxl_tpu_torch.pipeline.sampler import _cfg_contexts
+from sdxl_tpu_torch.scripts import bench_flash_ragged
+from sdxl_tpu_torch.scripts import exp_flash_exp2 as x1
+from sdxl_tpu_torch.scripts import exp_flash_floor as x2
+from sdxl_tpu_torch.scripts import exp_flash_pipelined as x3
+from sdxl_tpu_torch.scripts.timing import chained_time, timeit
 from sdxl_tpu_torch.train.finetune import (
     FinetuneConfig,
     _encode_items,
@@ -69,21 +99,31 @@ from sdxl_tpu_torch.train.step import (
     value_and_grad,
 )
 
-FWD_SRC = "sdxl_tpu_torch/csrc/flash_attention.cu"
-BWD_SRC = "sdxl_tpu_torch/csrc/flash_attention_bwd.cu"
+CSRC = "sdxl_tpu_torch/csrc"
+FWD_SRC = f"{CSRC}/flash_attention.cu"
+BWD_SRC = f"{CSRC}/flash_attention_bwd.cu"
 REF = "sdxl_tpu/ops/flash_attention.py"
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
-    "sdxl_flash_attention_bf16": (FWD_SRC, f"{REF}:140"),
-    "sdxl_flash_attention_f32": (FWD_SRC, f"{REF}:140"),
+    **{name: (FWD_SRC, f"{REF}:140") for name in set(fa._ROUTES.values())},
     "sdxl_flash_attention_lse_bf16": (FWD_SRC, f"{REF}:102"),
     "sdxl_flash_attention_bwd_dq_bf16": (BWD_SRC, f"{REF}:272"),
     "sdxl_flash_attention_bwd_dkv_bf16": (BWD_SRC, f"{REF}:302"),
+    **{f"sdxl_flash2_bf16_q{bq}_k{bk}": (f"{CSRC}/flash_experiments.cu",
+                                         "scripts/exp_flash_exp2.py:71")
+       for bq, bk in x1.TILES},
+    **{f"sdxl_flash_floor_{m}_bf16": (f"{CSRC}/flash_experiments.cu",
+                                      "scripts/exp_flash_floor.py:91")
+       for m in x2.MODES},
+    **{f"sdxl_flash_pipelined_bf16_q{bq}_k{bk}": (
+        f"{CSRC}/flash_pipelined.cu", "scripts/exp_flash_pipelined.py:94")
+       for bq, bk in x1.TILES},
 }
-# (B, H, T, D, dtype, tolerance): K1's shapes on the txt2img path
-# (bench.py:53-66) — UNet levels 2 and 1 at 1024x1024 and at 832x1216,
-# and the VAE mid-block attention at 1024x1024 — plus one d=128 case, a
-# route of the bf16 kernel the SDXL-base path does not take
+# (B, H, T, D, dtype, tolerance): K1's shapes on the paths — the bf16 UNet
+# (bench.py:53-66) at levels 2 and 1 at 1024x1024 and at 832x1216, the f32
+# VAE mid-block attention at 1024x1024, the f32 UNet at 1024x1024 and the
+# bf16 VAE decode at 1024x1024 and 832x1216 — plus one d=128 case of each
+# dtype, routes the SDXL-base paths do not take
 KERNEL_CASES = [
     (2, 20, 1024, 64, torch.bfloat16, 2e-2),
     (2, 10, 4096, 64, torch.bfloat16, 2e-2),
@@ -91,6 +131,11 @@ KERNEL_CASES = [
     (2, 20, 988, 64, torch.bfloat16, 2e-2),
     (1, 1, 16384, 512, torch.float32, 1e-3),
     (1, 2, 1000, 128, torch.bfloat16, 2e-2),
+    (2, 10, 4096, 64, torch.float32, 1e-3),
+    (2, 20, 1024, 64, torch.float32, 1e-3),
+    (1, 2, 1000, 128, torch.float32, 1e-3),
+    (1, 1, 16384, 512, torch.bfloat16, 2e-2),
+    (1, 1, 15808, 512, torch.bfloat16, 2e-2),
 ]
 # K2 and K3's shapes on the training path (batch 1): UNet levels 1 and 2
 # at 1024x1024 and at 832x1216, and one d=128 case. Tolerances: bf16
@@ -104,22 +149,41 @@ TRAIN_CASES = [
     (1, 2, 1000, 128),
 ]
 BF16_TOL, LSE_TOL, GRAD_TOL = 2e-2, 1e-3, 2e-2
-# the shape each kernel's reported time is taken at
+# the shape each kernel's reported time is taken at (the experiments':
+# EXP_SHAPES[0])
 TIMED_SHAPE = {"sdxl_flash_attention_bf16": (2, 10, 4096, 64),
                "sdxl_flash_attention_f32": (1, 1, 16384, 512),
+               "sdxl_flash_attention_f32_d64": (2, 10, 4096, 64),
+               "sdxl_flash_attention_f32_d128": (1, 2, 1000, 128),
+               "sdxl_flash_attention_bf16_d512": (1, 1, 16384, 512),
                "sdxl_flash_attention_lse_bf16": (1, 10, 4096, 64),
                "sdxl_flash_attention_bwd_dq_bf16": (1, 10, 4096, 64),
                "sdxl_flash_attention_bwd_dkv_bf16": (1, 10, 4096, 64)}
+EXP_SHAPES = [shape for _, shape in x1.SHAPES]
 # the H100 SXM's published dense peaks (NVIDIA H100 datasheet)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 REQUESTS = [((1024, 1024), 1), ((1024, 1024), 2), ((832, 1216), 3)]
+# the f32 pipeline's request: 4 DDIM steps (4 UNet calls) keep its cost
+# near one bf16 request's
+F32_STEPS = 4
 PROMPT = "a photograph of an astronaut riding a horse"
 # kernel vs plain attention inside the real path, relative to the output's
 # largest magnitude: bf16 UNet eps, f32 VAE image in u8 levels, and the
 # LoRA factor gradients of one training step (max |dg| / max |g|)
 UNET_REL_TOL = 2e-2
 VAE_LEVEL_TOL = 1
+# the f32 UNet's eps, kernel vs plain attention: the reference's UNet
+# bound (goldens/full_scale). The bf16 decode, kernel vs plain attention:
+# bf16 rounds at other places in the two attentions, and the bf16 decoder
+# carries a one-ulp change of the mid-block attention to up to 7 u8 levels
+# at a pixel (0.64 on average) — as far as two plain attentions with
+# different rounding points differ — so the images are held to a mean
+# distance and to their distance from the f32 decode, and the attention
+# itself to the bf16 bound
+F32_UNET_REL_TOL = 2e-3
+BF16_VAE_MEAN_TOL = 1.0
+BF16_VAE_F32_SLACK = (1, 0.05)  # (max, mean) levels over the plain's
 GRAD_REL_TOL = 5e-2
 TRAIN_RES = 1024
 CAPTIONS = ["a photograph of an astronaut riding a horse",
@@ -156,13 +220,13 @@ def bound(name: str, shape, dtype) -> tuple:
     b, h, t, d = shape
     n = b * h * t * d * torch.tensor([], dtype=dtype).element_size()
     rows = b * h * t * 4  # one f32 per row: lse, delta
+    # every other kernel is a forward: q, k, v in, o out (X2's variants
+    # have the forward's products)
     mult, nbytes = {
-        "sdxl_flash_attention_bf16": (4, 4 * n),
-        "sdxl_flash_attention_f32": (4, 4 * n),
         "sdxl_flash_attention_lse_bf16": (4, 4 * n + rows),
         "sdxl_flash_attention_bwd_dq_bf16": (6, 5 * n + 2 * rows),
         "sdxl_flash_attention_bwd_dkv_bf16": (8, 6 * n + 2 * rows),
-    }[name]
+    }.get(name, (4, 4 * n))
     ops_ms = mult * b * h * t * t * d / PEAK_FLOPS[dtype] * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
@@ -182,17 +246,22 @@ def sdpa_backend(q, k, v) -> str:
     return max(kernels, key=lambda e: e.time_range.elapsed_us()).name[:90]
 
 
-def record_case(results, name, shape, dtype, err, ms, plain_ms, sdpa_ms):
+def record_case(results, name, shape, dtype, err, ms, plain_ms, sdpa_ms,
+                chained_ms=None, timed_shape=None):
     bound_ms, bound_by = bound(name, shape, dtype)
-    print(f"  {name} shape={shape} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} sdpa_ms={sdpa_ms:.4f} "
+    sdpa = "n/a" if sdpa_ms is None else f"{sdpa_ms:.4f}"
+    chained = "" if chained_ms is None else f" chained_ms={chained_ms:.4f}"
+    print(f"  {name} shape={shape} max_abs_err={err:.3e} kernel_ms={ms:.4f}"
+          f"{chained} plain_ms={plain_ms:.4f} sdpa_ms={sdpa} "
           f"bound_ms={bound_ms:.4f} ({bound_by}) "
           f"share_of_bound={bound_ms / ms:.3f}", flush=True)
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
-    if shape == TIMED_SHAPE[name]:
+    if shape == (timed_shape or TIMED_SHAPE[name]):
         r.update(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms,
                  bound_ms=bound_ms, bound_by=bound_by)
+        if chained_ms is not None:
+            r["chained_ms"] = chained_ms
 
 
 def check_kernels() -> dict:
@@ -208,14 +277,13 @@ def check_kernels() -> dict:
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
         finite = bool(torch.isfinite(out).all())
-        name = ("sdxl_flash_attention_bf16" if dtype == torch.bfloat16
-                else "sdxl_flash_attention_f32")
+        name = fa._ROUTES[dtype, d]
         print(f"K1 {(b, h, t, d)} {dtype}: tol {tol:g}; sdpa backend "
               f"{sdpa_backend(q, k, v)}", flush=True)
         if not (finite and err < tol):
             fail(f"{name} at {(b, h, t, d)}: max_abs_err {err} >= {tol} "
                  f"or non-finite output")
-        iters = 5 if d == 512 else 20
+        iters = 5 if d == 512 or dtype == torch.float32 else 20
         record_case(
             results, name, (b, h, t, d), dtype, err,
             cuda_ms(lambda: fa.flash_attention_bhtd(q, k, v), iters),
@@ -276,13 +344,105 @@ def check_kernels() -> dict:
     return results
 
 
-def run_requests(pipe) -> None:
-    for (height, width), seed in REQUESTS:
+def experiment_kernels():
+    """(kernel, wrapper, plain version, mode) of X1-X3; the mode is X2's,
+    "attention" for the functions that are attention."""
+    kernels = [(f"sdxl_flash2_bf16_q{bq}_k{bk}",
+                functools.partial(x1.flash2, block_q=bq, block_k=bk),
+                x1.flash2_plain, "attention") for bq, bk in x1.TILES]
+    kernels += [(f"sdxl_flash_floor_{m}_bf16",
+                 functools.partial(x2.attn, mode=m),
+                 functools.partial(x2.attn_plain, mode=m), m)
+                for m in x2.MODES]
+    kernels += [(f"sdxl_flash_pipelined_bf16_q{bq}_k{bk}",
+                 functools.partial(x3.flash_pipelined, bq=bq, bk=bk),
+                 fa.flash_attention_plain, "attention") for bq, bk in x1.TILES]
+    return kernels
+
+
+def nan_aware_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """Max abs difference, counting NaN where the plain version is NaN as
+    agreement and NaN anywhere else as infinitely wrong."""
+    d = (out.float() - ref.float()).abs()
+    d = torch.where(out.isnan() & ref.isnan(), torch.zeros_like(d), d)
+    return torch.nan_to_num(d, nan=float("inf")).max().item()
+
+
+def check_experiments(results) -> None:
+    """X1-X3 against their plain versions (bf16 outputs within 2e-2;
+    mxu_only within 2e-2 of its largest magnitude; noexp NaN everywhere in
+    both), timed by timeit and chained_time, and X2's split."""
+    for shape in EXP_SHAPES:
+        q, k, v = x1.random_qkv(shape, seed=44)
+        sdpa_ms = timeit(F.scaled_dot_product_attention, q, k, v,
+                         iters=20) * 1e3
+        split = {}
+        for name, f, plain, mode in experiment_kernels():
+            out, ref = f(q, k, v), plain(q, k, v)
+            torch.cuda.synchronize()
+            err = nan_aware_err(out, ref)
+            if mode == "noexp":
+                ok = bool(out.isnan().all()) and bool(ref.isnan().all())
+                tol = "NaN everywhere in both"
+            else:
+                tol = BF16_TOL * (ref.float().abs().max().item()
+                                  if mode == "mxu_only" else 1.0)
+                ok = err < tol
+            print(f"{name} {shape}: tol {tol}", flush=True)
+            if not ok:
+                fail(f"{name} at {shape}: max_abs_err {err} against its "
+                     f"plain version ({tol})")
+            ms = timeit(f, q, k, v, iters=20) * 1e3
+            chained_ms = chained_time(f, q, k, v) * 1e3
+            plain_ms = timeit(plain, q, k, v, iters=3) * 1e3
+            attention = mode in ("attention", "full", "qscaled")
+            record_case(results, name, shape, torch.bfloat16, err, ms,
+                        plain_ms, sdpa_ms if attention else None,
+                        chained_ms, timed_shape=EXP_SHAPES[0])
+            if mode != "attention":
+                split[mode] = chained_ms * 1e3
+        full = split["full"]
+        print(f"X2 split {shape} (chained, us/call): " + ", ".join(
+            f"{m} {us:.1f} ({us / full:.1%} of full)"
+            for m, us in split.items()) +
+            f"; exp2 {full - split['noexp']:.1f}, softmax bookkeeping "
+            f"{full - split['mxu_only']:.1f}, scale pass "
+            f"{full - split['qscaled']:.1f}", flush=True)
+
+
+def run_path(label: str, drive, must, total) -> object:
+    """Drive one path with every launch count set to 0 just before it;
+    fail unless each kernel in `must` was launched; add the counts to
+    `total`. Returns what drive returned."""
+    fa.reset_launch_counts()
+    out = drive()
+    torch.cuda.synchronize()
+    launches = {k: n for k, n in fa.launch_counts.items() if n}
+    print(f"launches during {label}: {launches}", flush=True)
+    for name in must:
+        if not launches.get(name):
+            fail(f"{name} was not launched on the {label} path")
+    for name, n in launches.items():
+        total[name] += n
+    return out
+
+
+def experiment_path():
+    """The four experiment scripts' mains, as a user runs them."""
+    for mod in (x1, x2, x3):
+        print(f"-- python -m {mod.__name__}", flush=True)
+        mod.main()
+    print(f"-- python -m {bench_flash_ragged.__name__}", flush=True)
+    return bench_flash_ragged.main()
+
+
+def run_requests(pipe, requests=REQUESTS, n_steps=30) -> None:
+    for (height, width), seed in requests:
         pipe.timer.stages.clear()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        images = pipe.txt2img(PROMPT, resolution=(height, width), n_steps=30,
-                              guidance_scale=7.5, seed=seed)
+        images = pipe.txt2img(PROMPT, resolution=(height, width),
+                              n_steps=n_steps, guidance_scale=7.5, seed=seed)
         latency = time.perf_counter() - t0
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         latent = pipe.last_latent
@@ -297,6 +457,95 @@ def run_requests(pipe) -> None:
             fail(f"images {images.shape} {images.dtype}")
         if images.std() == 0:
             fail("constant image")
+
+
+def with_attention(fn, attn=fa.flash_attention_plain):
+    """fn() with attn (the plain attention by default) in ops.attention."""
+    attention_mod.flash_attention_bhtd = attn
+    try:
+        return fn()
+    finally:
+        attention_mod.flash_attention_bhtd = fa.flash_attention_bhtd
+
+
+@torch.inference_mode()
+def check_f32_unet(pipe) -> None:
+    """One pair-batched CFG call of the f32 UNet at 1024x1024 through K1
+    (70 launches of its f32 d=64 route) and through the plain attention."""
+    cond = pipe.conditioning(PROMPT, (1024, 1024)).astype(torch.float32)
+    ctx2, ch2 = _cfg_contexts(pipe.diffuser_cfg, cond, torch.float32)
+    x2_ = torch.cat([pipe.last_latent] * 2).float()
+    t2 = torch.full((2,), 999, device=pipe.device)
+    fa.reset_launch_counts()
+    eps_k = unet_forward(pipe.unet, x2_, t2, ctx2, ch2)
+    torch.cuda.synchronize()
+    n = fa.launch_counts["sdxl_flash_attention_f32_d64"]
+    eps_p = with_attention(
+        lambda: unet_forward(pipe.unet, x2_, t2, ctx2, ch2))
+    rel = ((eps_k - eps_p).abs().max() / eps_p.abs().max()).item()
+    print(f"f32 UNet call 1024x1024 B=2: f32 d=64 launches {n}; eps "
+          f"rel_err={rel:.3e} (tol {F32_UNET_REL_TOL:g}); TF32 matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
+          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+    if n != 70:
+        fail(f"the f32 UNet call launched K1's f32 d=64 route {n} times, "
+             f"not 70")
+    if not (bool(torch.isfinite(eps_k).all()) and rel < F32_UNET_REL_TOL):
+        fail("the f32 UNet through K1 disagrees with the plain attention")
+
+
+def bf16_decode_request(pipe) -> None:
+    pipe.vae_dtype = torch.bfloat16
+    try:
+        run_requests(pipe, [((1024, 1024), 4)])
+    finally:
+        pipe.vae_dtype = torch.float32
+
+
+@torch.inference_mode()
+def check_bf16_decode(pipe) -> None:
+    """The bf16 decode of the last latent through K1 and through the plain
+    attention: the mid-block attention on the decode's own inputs, and the
+    two images against each other and against the f32 decode; printed
+    beside them, how far two plain attentions with different rounding
+    points (K1's plain version and bench_flash_ragged's plain_ref) move
+    the bf16 image."""
+    latent = pipe.last_latent
+    seen = []
+
+    def kernel(q, k, v):
+        seen.append((q, k, v))
+        return fa.flash_attention_bhtd(q, k, v)
+
+    def decode(dtype=torch.bfloat16):
+        return decode_latent_to_images(pipe.vae, latent, pipe.scale_factor,
+                                       dtype).int()
+
+    img_k = with_attention(decode, kernel)
+    img_p = with_attention(decode)
+    img_r = with_attention(decode, bench_flash_ragged.plain_ref)
+    img_f = decode(torch.float32)
+    (q, k, v), = seen  # the mid-block's one attention
+    ref = fa.flash_attention_plain(q, k, v).float()
+    attn_err = ((fa.flash_attention_bhtd(q, k, v).float() - ref).abs().max()
+                / ref.abs().max().clamp(min=1.0)).item()
+    kp, kf, pf, pr = ((a - b).abs().float() for a, b in
+                      ((img_k, img_p), (img_k, img_f), (img_p, img_f),
+                       (img_p, img_r)))
+    slack_max, slack_mean = BF16_VAE_F32_SLACK
+    print(f"bf16 decode 1024x1024: mid-block attention {tuple(q.shape)} "
+          f"kernel vs plain {attn_err:.3e} of max(1, |o|) (tol {BF16_TOL:g}); "
+          f"image kernel vs plain mean {kp.mean().item():.4f} (tol "
+          f"{BF16_VAE_MEAN_TOL:g}) max {kp.max().item():.0f} levels; vs the "
+          f"f32 decode: kernel mean {kf.mean().item():.4f} max "
+          f"{kf.max().item():.0f}, plain mean {pf.mean().item():.4f} max "
+          f"{pf.max().item():.0f} levels; the two plain attentions "
+          f"(flash_attention_plain, plain_ref) mean {pr.mean().item():.4f} "
+          f"max {pr.max().item():.0f} levels apart", flush=True)
+    if not (attn_err < BF16_TOL and kp.mean() <= BF16_VAE_MEAN_TOL
+            and kf.max() <= pf.max() + slack_max
+            and kf.mean() <= pf.mean() + slack_mean):
+        fail("the bf16 decode through K1 disagrees with the plain attention")
 
 
 @torch.inference_mode()
@@ -316,11 +565,7 @@ def check_path_against_plain(pipe) -> None:
         return eps, img.int()
 
     eps_k, img_k = run()
-    attention_mod.flash_attention_bhtd = fa.flash_attention_plain
-    try:
-        eps_p, img_p = run()
-    finally:
-        attention_mod.flash_attention_bhtd = fa.flash_attention_bhtd
+    eps_p, img_p = with_attention(run)
     rel = ((eps_k - eps_p).abs().max() / eps_p.abs().max()).item()
     levels = (img_k - img_p).abs().max().item()
     print(f"path check {height}x{width}: unet eps rel_err={rel:.3e} "
@@ -488,8 +733,8 @@ def check_training_grads(pipe, data, cfg, factors) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="add the profiled request (phase 6) and "
-                        "training step (phase 9)")
+                        help="add the profiled request (phase 9) and "
+                        "training step (phase 12)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -509,24 +754,49 @@ def main() -> None:
         print(f"{source}: {seconds:.1f}s\n{log}", flush=True)
 
     results = check_kernels()
+    check_experiments(results)
+    x_names = [name for name, *_ in experiment_kernels()]
+    path = defaultdict(int)  # launches on the paths, summed over them
+
+    rows = run_path("the experiments", experiment_path,
+                    x_names + ["sdxl_flash_attention_bf16",
+                               "sdxl_flash_attention_bf16_d512"], path)
+    by_t = {row["case"][2]: row for row in rows}
+    print("bench_flash_ragged speed-ups (plain / K1): " + ", ".join(
+        f"T={t} {by_t[t]['speedup']:.2f}x" for t in sorted(by_t)),
+        flush=True)
+
+    t0 = time.perf_counter()
+    pipe32 = random_pipeline(device="cuda", unet_dtype=torch.float32)
+    torch.cuda.synchronize()
+    print(f"random_pipeline(unet_dtype=float32): "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    run_path("the f32 UNet request",
+             lambda: run_requests(pipe32, REQUESTS[:1], F32_STEPS),
+             ["sdxl_flash_attention_f32_d64", "sdxl_flash_attention_f32"],
+             path)
+    check_f32_unet(pipe32)
+    del pipe32
+    gc.collect()
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     pipe = random_pipeline(device="cuda", with_encoder=True)
     torch.cuda.synchronize()
     print(f"random_pipeline: {time.perf_counter() - t0:.1f}s", flush=True)
-    fa.reset_launch_counts()
-    run_requests(pipe)
-    launches = dict(fa.launch_counts)
-    print(f"launches during the requests: {launches}", flush=True)
-    for name in ("sdxl_flash_attention_bf16", "sdxl_flash_attention_f32"):
-        if launches[name] == 0:
-            fail(f"{name} was not launched on the txt2img path")
-
+    run_path("the txt2img requests", lambda: run_requests(pipe),
+             ["sdxl_flash_attention_bf16", "sdxl_flash_attention_f32"], path)
     check_path_against_plain(pipe)
+    run_path("the bf16-decode request", lambda: bf16_decode_request(pipe),
+             ["sdxl_flash_attention_bf16", "sdxl_flash_attention_bf16_d512"],
+             path)
+    check_bf16_decode(pipe)
     if args.profile:
         profile_request(pipe)
 
     data, cfg, factors, train_launches = run_training(pipe)
+    for name, n in train_launches.items():
+        path[name] += n
     check_training_grads(pipe, data, cfg, factors)
     if args.profile:
         profile_training_step(pipe, data, cfg, factors)
@@ -538,11 +808,13 @@ def main() -> None:
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNELS[name][0],
          "replaces": KERNELS[name][1],
-         "launches": launches[name] + train_launches[name],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "launches": path[name], "max_abs_err": r["max_abs_err"],
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         **({"chained_ms": r["chained_ms"]} if "chained_ms" in r else {})}
         for name, r in results.items()]}
+    if set(results) != set(KERNELS):
+        fail(f"kernels not checked: {sorted(set(KERNELS) - set(results))}")
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

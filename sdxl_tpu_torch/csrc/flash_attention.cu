@@ -22,7 +22,7 @@
 // order, so each thread block owns one (batch*head, q-tile) and walks all
 // k-tiles in a loop of its own; nothing crosses blocks.
 //
-// Two kernels, for the two kinds of call the SDXL main path makes:
+// Two kernels, for the kinds of call the SDXL paths make:
 //
 // flash_fwd_bf16 (UNet self-attention, d = 64 or 128, bf16 in/out; K2 is
 // its kLse instance, the training forward).
@@ -36,14 +36,21 @@
 //   shared memory so every B fragment is one 32-bit load. No wgmma, TMA or
 //   software pipelining yet.
 //
-// flash_fwd_f32 (VAE mid-block attention, d = 512, f32 in/out).
-//   Must stay in full f32 (no TF32, no bf16 tensor cores: the bound is
-//   1e-3 against plain f32 attention), so it runs on the f32 FMA pipes
-//   (67 TFLOP/s peak) and is bound by them and by shared-memory bandwidth.
+// flash_fwd_fma<T, D> (the FMA route): f32 in/out at d = 512 (the VAE
+// mid-block attention), d = 64 (the f32 UNet's self-attention) and
+// d = 128, and bf16 in/out at d = 512 (the bf16 VAE decode).
+//   f32 must stay in full f32 (no TF32, no bf16 tensor cores: the bound is
+//   1e-3 against plain f32 attention), so the route runs on the f32 FMA
+//   pipes (67 TFLOP/s peak) and is bound by them and by shared-memory
+//   bandwidth. The bf16 instance computes in f32 from bf16 tiles (a
+//   512-wide head does not fit the mma.sync route's registers) and rounds
+//   where the reference does: the pre-scaled q and p before P V are
+//   rounded to bf16, the logits, m, l and acc stay f32, the output is bf16.
 //   A 32x512 f32 tile is 64 KB, so a block holds 32 query rows and a 32-key
-//   tile of K and V (about 200 KB of dynamic shared memory, one block per
-//   SM). Each thread computes 4x1 logits and an 8x8 register tile of the
-//   output; Q/K rows are padded by 4 floats so the float4 reads of eight
+//   tile of K and V (about 200 KB of dynamic shared memory at d = 512, one
+//   block per SM; 34 KB at d = 64). Each thread computes 4x1 logits and an
+//   8x8 (d 512), 4x4 (d 128) or 2x4 (d 64) register tile of the output;
+//   Q/K rows are padded by 4 floats so the float4 reads of eight
 //   consecutive rows hit distinct banks.
 
 #include <cuda_bf16.h>
@@ -241,51 +248,88 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// f32, d = 512
+// FMA route: f32 at d in {64, 128, 512}, bf16 at d = 512
 // ---------------------------------------------------------------------------
 
-constexpr int kFD = 512;
 constexpr int kFBQ = 32;
 constexpr int kFBK = 32;
 constexpr int kFThreads = 256;
-constexpr int kFLD = kFD + 4;     // padded Q/K row stride (floats)
 constexpr int kFLS = kFBK + 1;    // padded logit row stride
 
-constexpr int f32_smem_bytes() {
-  return (kFBQ * kFLD + kFBK * kFLD + kFBK * kFD + kFBQ * kFLS + kFBK * kFBQ +
-          3 * kFBQ) * 4;
+// Tile plan of the FMA kernel at head dim D: in P V each thread owns kRows
+// query rows and kChunks float4 column chunks (the chunks D / kChunks
+// apart); the kColThreads threads of a row group cover the D columns.
+template <int D>
+struct FmaPlan {
+  static constexpr int LD = D + 4;  // padded Q/K row stride (floats)
+  static constexpr int kChunks = D >= 512 ? 2 : 1;
+  static constexpr int kColThreads = D / (4 * kChunks);  // 64, 32, 16
+  static constexpr int kRows = kFBQ * kColThreads / kFThreads;  // 8, 4, 2
+  static constexpr int kSmemBytes =
+      (kFBQ * LD + kFBK * LD + kFBK * D + kFBQ * kFLS + kFBK * kFBQ + 3 * kFBQ) * 4;
+};
+
+// Four consecutive elements as f32, and back.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  uint2 u;
+  u.x = pack_bf16(x.x, x.y);
+  u.y = pack_bf16(x.z, x.w);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+// x rounded to T's precision (the reference's rounding points: the
+// pre-scaled q and p before P V)
+__device__ __forceinline__ float round_to(float x, const float*) { return x; }
+__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+template <typename T, int D>
 __global__ void __launch_bounds__(kFThreads, 1)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int tq,
-              int tk, float scale) {
+flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, T* __restrict__ o, int tq, int tk,
+              float scale) {
+  using P = FmaPlan<D>;
+  constexpr int LD = P::LD;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* sQ = reinterpret_cast<float*>(smem);  // [kFBQ][kFLD]
-  float* sK = sQ + kFBQ * kFLD;                // [kFBK][kFLD]
-  float* sV = sK + kFBK * kFLD;                // [kFBK][kFD]
-  float* sS = sV + kFBK * kFD;                 // [kFBQ][kFLS] logits
+  float* sQ = reinterpret_cast<float*>(smem);  // [kFBQ][LD]
+  float* sK = sQ + kFBQ * LD;                  // [kFBK][LD]
+  float* sV = sK + kFBK * LD;                  // [kFBK][D]
+  float* sS = sV + kFBK * D;                   // [kFBQ][kFLS] logits
   float* sPt = sS + kFBQ * kFLS;               // [kFBK][kFBQ] probabilities
   float* sM = sPt + kFBK * kFBQ;               // running max
   float* sL = sM + kFBQ;                       // running normaliser
   float* sAlpha = sL + kFBQ;                   // this tile's rescale
+  const T* rounding = nullptr;                 // selects round_to for T
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kFBQ;
-  const size_t q_base = (size_t)blockIdx.y * tq * kFD;
-  const size_t kv_base = (size_t)blockIdx.y * tk * kFD;
+  const size_t q_base = (size_t)blockIdx.y * tq * D;
+  const size_t kv_base = (size_t)blockIdx.y * tk * D;
 
-  for (int i = tid; i < kFBQ * kFD / 4; i += kFThreads) {
-    const int r = i / (kFD / 4), c = (i % (kFD / 4)) * 4;
+  // Q tile, pre-scaled in f32 and rounded to T as the reference does.
+  for (int i = tid; i < kFBQ * D / 4; i += kFThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < tq) {
-      x = *reinterpret_cast<const float4*>(q + q_base + (size_t)(q0 + r) * kFD + c);
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
+      x = load4(q + q_base + (size_t)(q0 + r) * D + c);
+      x.x = round_to(x.x * scale, rounding);
+      x.y = round_to(x.y * scale, rounding);
+      x.z = round_to(x.z * scale, rounding);
+      x.w = round_to(x.w * scale, rounding);
     }
-    *reinterpret_cast<float4*>(sQ + r * kFLD + c) = x;
+    *reinterpret_cast<float4*>(sQ + r * LD + c) = x;
   }
   if (tid < kFBQ) {
     sM[tid] = -INFINITY;
@@ -296,41 +340,42 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int sc = tid % kFBK, sr0 = (tid / kFBK) * 4;
   // softmax: 8 threads per row, keys j, j+8, j+16, j+24
   const int pr = tid / 8, pj = tid % 8;
-  // P V: thread owns rows or0 .. or0+7 and columns oc, oc+1..3, 256+oc..
-  const int oc = (tid % 64) * 4, or0 = (tid / 64) * 8;
-  float acc[8][8];
+  // P V: rows or0 .. or0+kRows-1, columns oc..oc+3 of each chunk
+  const int oc = (tid % P::kColThreads) * 4;
+  const int or0 = (tid / P::kColThreads) * P::kRows;
+  float acc[P::kRows][4 * P::kChunks];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < P::kRows; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4 * P::kChunks; ++j) acc[i][j] = 0.f;
 
   const int n_kt = (tk + kFBK - 1) / kFBK;
   for (int kt = 0; kt < n_kt; ++kt) {
     const int k0 = kt * kFBK;
     __syncthreads();
-    for (int i = tid; i < kFBK * kFD / 4; i += kFThreads) {
-      const int r = i / (kFD / 4), c = (i % (kFD / 4)) * 4;
+    for (int i = tid; i < kFBK * D / 4; i += kFThreads) {
+      const int r = i / (D / 4), c = (i % (D / 4)) * 4;
       float4 kx = make_float4(0.f, 0.f, 0.f, 0.f), vx = kx;
       if (k0 + r < tk) {
-        const size_t off = kv_base + (size_t)(k0 + r) * kFD + c;
-        kx = *reinterpret_cast<const float4*>(k + off);
-        vx = *reinterpret_cast<const float4*>(v + off);
+        const size_t off = kv_base + (size_t)(k0 + r) * D + c;
+        kx = load4(k + off);
+        vx = load4(v + off);
       }
-      *reinterpret_cast<float4*>(sK + r * kFLD + c) = kx;
-      *reinterpret_cast<float4*>(sV + r * kFD + c) = vx;
+      *reinterpret_cast<float4*>(sK + r * LD + c) = kx;
+      *reinterpret_cast<float4*>(sV + r * D + c) = vx;
     }
     __syncthreads();
 
     {
       float sacc[4] = {0.f, 0.f, 0.f, 0.f};
-      const float* kr = sK + sc * kFLD;
+      const float* kr = sK + sc * LD;
 #pragma unroll 4
-      for (int d = 0; d < kFD; d += 4) {
+      for (int d = 0; d < D; d += 4) {
         const float4 kx = *reinterpret_cast<const float4*>(kr + d);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float4 qx =
-              *reinterpret_cast<const float4*>(sQ + (sr0 + i) * kFLD + d);
+              *reinterpret_cast<const float4*>(sQ + (sr0 + i) * LD + d);
           sacc[i] = fmaf(qx.x, kx.x, sacc[i]);
           sacc[i] = fmaf(qx.y, kx.y, sacc[i]);
           sacc[i] = fmaf(qx.z, kx.z, sacc[i]);
@@ -361,7 +406,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const float p = exp2f(sv[u] - m_new);
-        sPt[(pj + 8 * u) * kFBQ + pr] = p;
+        // P V takes p rounded to T; the normaliser sums the f32 p
+        sPt[(pj + 8 * u) * kFBQ + pr] = round_to(p, rounding);
         sum += p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -377,38 +423,62 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < P::kRows; ++i) {
       const float a = sAlpha[or0 + i];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= a;
+      for (int j = 0; j < 4 * P::kChunks; ++j) acc[i][j] *= a;
     }
 #pragma unroll 2
     for (int kk = 0; kk < kFBK; ++kk) {
-      const float4 v0 = *reinterpret_cast<const float4*>(sV + kk * kFD + oc);
-      const float4 v1 = *reinterpret_cast<const float4*>(sV + kk * kFD + 256 + oc);
-      const float4 p0 = *reinterpret_cast<const float4*>(sPt + kk * kFBQ + or0);
-      const float4 p1 = *reinterpret_cast<const float4*>(sPt + kk * kFBQ + or0 + 4);
-      const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+      float p[P::kRows], vv[4 * P::kChunks];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < P::kRows; ++i) p[i] = sPt[kk * kFBQ + or0 + i];
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
+      for (int c = 0; c < P::kChunks; ++c) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            sV + kk * D + c * (D / P::kChunks) + oc);
+        vv[4 * c] = x.x;
+        vv[4 * c + 1] = x.y;
+        vv[4 * c + 2] = x.z;
+        vv[4 * c + 3] = x.w;
+      }
+#pragma unroll
+      for (int i = 0; i < P::kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < 4 * P::kChunks; ++j)
+          acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
     }
   }
   __syncthreads();
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < P::kRows; ++i) {
     const int r = q0 + or0 + i;
     if (r >= tq) continue;
     const float l = sL[or0 + i];
-    float* orow = o + q_base + (size_t)r * kFD;
-    *reinterpret_cast<float4*>(orow + oc) =
-        make_float4(acc[i][0] / l, acc[i][1] / l, acc[i][2] / l, acc[i][3] / l);
-    *reinterpret_cast<float4*>(orow + 256 + oc) =
-        make_float4(acc[i][4] / l, acc[i][5] / l, acc[i][6] / l, acc[i][7] / l);
+    T* orow = o + q_base + (size_t)r * D;
+#pragma unroll
+    for (int c = 0; c < P::kChunks; ++c)
+      store4(orow + c * (D / P::kChunks) + oc,
+             make_float4(acc[i][4 * c] / l, acc[i][4 * c + 1] / l,
+                         acc[i][4 * c + 2] / l, acc[i][4 * c + 3] / l));
   }
+}
+
+template <typename T, int D>
+cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
+                       int bh, int tq, int tk, int d, float scale,
+                       cudaStream_t s) {
+  if (d != D) return cudaErrorInvalidValue;
+  constexpr int smem = FmaPlan<D>::kSmemBytes;
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = allow_smem_once(flash_fwd_fma<T, D>, smem, &smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid((tq + kFBQ - 1) / kFBQ, bh);
+  flash_fwd_fma<T, D><<<grid, kFThreads, smem, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), tq, tk, scale);
+  return cudaGetLastError();
 }
 
 template <int D, bool kLse>
@@ -454,18 +524,15 @@ extern "C" int sdxl_flash_attention_lse_bf16(const void* q, const void* k,
   return cudaErrorInvalidValue;
 }
 
-extern "C" int sdxl_flash_attention_f32(const void* q, const void* k,
-                                        const void* v, void* o, int bh, int tq,
-                                        int tk, int d, float scale,
-                                        void* stream) {
-  if (d != kFD) return cudaErrorInvalidValue;
-  constexpr int smem = f32_smem_bytes();
-  static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t err = allow_smem_once(flash_fwd_f32, smem, &smem_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid((tq + kFBQ - 1) / kFBQ, bh);
-  flash_fwd_f32<<<grid, kFThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), tq, tk, scale);
-  return cudaGetLastError();
-}
+// The FMA route, one export for each (type, head dim) it takes.
+#define SDXL_FMA_EXPORT(name, T, D)                                          \
+  extern "C" int name(const void* q, const void* k, const void* v, void* o,  \
+                      int bh, int tq, int tk, int d, float scale,            \
+                      void* stream) {                                        \
+    return launch_fma<T, D>(q, k, v, o, bh, tq, tk, d, scale,                \
+                            static_cast<cudaStream_t>(stream));              \
+  }
+SDXL_FMA_EXPORT(sdxl_flash_attention_f32, float, 512)
+SDXL_FMA_EXPORT(sdxl_flash_attention_f32_d64, float, 64)
+SDXL_FMA_EXPORT(sdxl_flash_attention_f32_d128, float, 128)
+SDXL_FMA_EXPORT(sdxl_flash_attention_bf16_d512, __nv_bfloat16, 512)

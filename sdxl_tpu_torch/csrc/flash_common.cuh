@@ -1,7 +1,8 @@
-// Helpers shared by the flash-attention kernels (flash_attention.cu and
-// flash_attention_bwd.cu): bf16 packing, 32-bit shared-memory loads of mma
-// fragments, the m16n8k16 bf16 mma.sync, tile staging, and the one-time
-// opt-in to more than 48 KB of dynamic shared memory.
+// Helpers shared by the flash-attention kernels (flash_attention.cu,
+// flash_attention_bwd.cu, flash_experiments.cu, flash_pipelined.cu): bf16
+// packing, 32-bit shared-memory loads of mma fragments, the m16n8k16 bf16
+// mma.sync, tile staging, cp.async and ldmatrix, and the one-time opt-in
+// to more than 48 KB of dynamic shared memory.
 //
 // mma.sync.m16n8k16 fragment layout (g = lane / 4, tg = lane % 4):
 //   A (16x16, row-major): a0 = A[g][2tg..+1],   a1 = A[g+8][2tg..+1],
@@ -81,6 +82,36 @@ __device__ __forceinline__ void stage_tile(const __nv_bfloat16* __restrict__ g,
       for (int j = 0; j < 8; ++j) tr[(c + j) * ldt + r] = e[j];
     }
   }
+}
+
+// Asynchronous 16-byte copy from device memory to shared memory (cp.async,
+// bypassing L1), and its commit and wait groups: wait<N> returns once at
+// most N of this thread's committed groups are still in flight.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four 8x8 bf16 matrices from shared memory, each transposed: lane l gives
+// the address of row l % 8 of matrix l / 8, and r[i] receives matrix i's
+// elements [2 tg][g] and [2 tg + 1][g]. On a row-major [key][d] V tile this
+// is the B fragment of P V (b0 = keys 0-7, b1 = keys 8-15 of a 16-key step).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* smem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
 }
 
 // Opting a kernel in to more than 48 KB of dynamic shared memory is a

@@ -10,7 +10,9 @@ Counterpart of sdxl_tpu/ops/flash_attention.py:
 - ``use_flash``, the reference's routing rule.
 
 The kernels live in ``csrc/`` (flash_attention.cu: K1 and K2;
-flash_attention_bwd.cu: K3a and K3b). Each source is compiled with nvcc
+flash_attention_bwd.cu: K3a and K3b; flash_experiments.cu and
+flash_pipelined.cu: the experiments X1-X3, whose wrappers live in
+``sdxl_tpu_torch/scripts/``). Each source is compiled with nvcc
 for sm_90a into a shared library with a plain C interface, at first use,
 into ``build/kernels/`` at the repo root (keyed by a hash of the sources
 and the flags), and loaded with ctypes; ``build_kernels`` compiles every
@@ -23,9 +25,11 @@ is pre-scaled by d^-0.5 * log2(e) and rounded to its dtype, the softmax
 runs in base 2 over f32 logits, p is rounded to v's dtype before P.V, and
 the backward recomputes p from the same rounded q and the forward's lse.
 
-Kernel routes on CUDA: K1 takes bf16 with d in (64, 128) (UNet
-self-attention) and f32 with d = 512 (VAE mid-block attention); K2 and K3
-take bf16 with d in (64, 128).
+Kernel routes on CUDA: K1 takes bf16 with d in (64, 128) (the bf16 UNet's
+self-attention, mma.sync) and d = 512 (the bf16 VAE decode's mid-block
+attention, FMA), and f32 with d in (64, 128) (the f32 UNet's
+self-attention) and d = 512 (the f32 VAE's mid-block attention), both on
+the FMA route; K2 and K3 take bf16 with d in (64, 128).
 """
 
 from __future__ import annotations
@@ -51,7 +55,8 @@ _LOG2E = math.log2(math.e)
 FLASH_MIN_T = 924
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+           "flash_experiments.cu", "flash_pipelined.cu")
 HEADERS = ("flash_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,16 +66,29 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # function then takes (bh, tq, tk, d) ints, the floats, and the stream
 _KERNELS = {
     "sdxl_flash_attention_bf16": ("flash_attention.cu", 4, 1),
+    "sdxl_flash_attention_bf16_d512": ("flash_attention.cu", 4, 1),
     "sdxl_flash_attention_f32": ("flash_attention.cu", 4, 1),
+    "sdxl_flash_attention_f32_d64": ("flash_attention.cu", 4, 1),
+    "sdxl_flash_attention_f32_d128": ("flash_attention.cu", 4, 1),
     "sdxl_flash_attention_lse_bf16": ("flash_attention.cu", 5, 1),
     "sdxl_flash_attention_bwd_dq_bf16": ("flash_attention_bwd.cu", 7, 2),
     "sdxl_flash_attention_bwd_dkv_bf16": ("flash_attention_bwd.cu", 8, 1),
+    **{f"sdxl_flash2_bf16_q{bq}_k{bk}": ("flash_experiments.cu", 4, 1)
+       for bq in (64, 128) for bk in (64, 128)},
+    **{f"sdxl_flash_floor_{mode}_bf16": ("flash_experiments.cu", 4, 1)
+       for mode in ("full", "qscaled", "noexp", "mxu_only")},
+    **{f"sdxl_flash_pipelined_bf16_q{bq}_k{bk}": ("flash_pipelined.cu", 4, 1)
+       for bq in (64, 128) for bk in (64, 128)},
 }
 
-# K1: dtype -> (head dims the kernel takes, exported C function)
+# K1: (dtype, head dim) -> exported C function
 _ROUTES = {
-    torch.bfloat16: ((64, 128), "sdxl_flash_attention_bf16"),
-    torch.float32: ((512,), "sdxl_flash_attention_f32"),
+    (torch.bfloat16, 64): "sdxl_flash_attention_bf16",
+    (torch.bfloat16, 128): "sdxl_flash_attention_bf16",
+    (torch.bfloat16, 512): "sdxl_flash_attention_bf16_d512",
+    (torch.float32, 64): "sdxl_flash_attention_f32_d64",
+    (torch.float32, 128): "sdxl_flash_attention_f32_d128",
+    (torch.float32, 512): "sdxl_flash_attention_f32",
 }
 # K2 and K3 take bf16 only
 _TRAIN_DIMS = (64, 128)
@@ -267,15 +285,19 @@ def _check_qkv(what: str, q, k, v) -> Tuple[int, int, int, int, int]:
 def flash_attention_bhtd(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor) -> torch.Tensor:
     """K1: unmasked softmax(q kᵀ / sqrt(D)) v over [B, H, T, D]; any
-    Tq, Tk >= 1."""
+    Tq, Tk >= 1; on CUDA bf16 or f32 with d in (64, 128, 512)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     b, h, tq, tk, d = _check_qkv("flash attention", q, k, v)
-    route = _ROUTES.get(q.dtype)
-    dims = route[0] if route else ()
-    _check_cuda("flash attention", (q, k, v), tuple(_ROUTES), dims)
+    if d not in (64, 128, 512):
+        raise ValueError(f"flash attention kernel takes d in (64, 128, 512), "
+                         f"not {d}: use_flash also routes d 256 and 384, but "
+                         f"no SDXL path of the port or the reference has "
+                         f"such a head")
+    _check_cuda("flash attention", (q, k, v),
+                (torch.bfloat16, torch.float32), (d,))
     out = torch.empty_like(q)
-    _launch(route[1], (q, k, v, out), (b * h, tq, tk, d),
+    _launch(_ROUTES[q.dtype, d], (q, k, v, out), (b * h, tq, tk, d),
             (d ** -0.5 * _LOG2E,))
     return out
 

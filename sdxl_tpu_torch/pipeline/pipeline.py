@@ -2,7 +2,8 @@
 (the txt2img main path of sdxl_tpu/pipeline/pipeline.py).
 
 Stages, as in the reference: dual-CLIP conditioning (f32) -> pair-batched
-CFG DDIM over the base UNet (bf16) -> VAE decode (f32) -> uint8 RGB.
+CFG DDIM over the base UNet (bf16, or f32) -> VAE decode (f32, or bf16 with
+``vae_dtype``) -> uint8 RGB.
 
 Precision: building a pipeline sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -59,6 +60,9 @@ class SDXLPipeline:
     # the pipeline only samples
     vae_encoder: Optional[VAEEncoder] = None
     scale_factor: float = 0.13025
+    # the VAE decode's dtype: f32 as the reference's default; bf16 is its
+    # opt-in half-precision decode (decode_latent_to_images)
+    vae_dtype: torch.dtype = torch.float32
     timer: StageTimer = field(default_factory=StageTimer)
     # final latent [B, h, w, 4] f32 of the last txt2img call
     last_latent: Optional[torch.Tensor] = None
@@ -137,7 +141,8 @@ class SDXLPipeline:
 
         with self.timer.stage("vae_decode"):
             images = decode_latent_to_images(self.vae, latent,
-                                             self.scale_factor)
+                                             self.scale_factor,
+                                             self.vae_dtype)
             fence(images)
         return images.cpu().numpy()
 

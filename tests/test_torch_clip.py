@@ -21,6 +21,10 @@ from sdxl_tpu_torch.models.clip import (
     clip_hidden_pooled,
 )
 
+# One intra-op thread: the suite runs six workers on shared cores,
+# where torch's default of a thread per core makes small ops spin.
+torch.set_num_threads(1)
+
 TOL = 1e-4
 
 

@@ -54,6 +54,10 @@ from sdxl_tpu_torch.train.finetune import (
 from tests.test_torch_pipeline import TINY_EMBEDDER
 from tests.test_torch_unet import random_tree
 
+# One intra-op thread: the suite runs six workers on shared cores,
+# where torch's default of a thread per core makes small ops spin.
+torch.set_num_threads(1)
+
 DIFFUSER = DiffuserConfig(adm_in_channels=32 + 6 * 256, model_channels=64,
                           channel_mults=(1, 2), num_head_channels=64,
                           transformer_depths=(1, 1), context_dim=64,

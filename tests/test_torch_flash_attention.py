@@ -21,6 +21,10 @@ from sdxl_tpu.ops.flash_attention import use_flash as j_use_flash
 from sdxl_tpu_torch.ops import flash_attention as fa
 from sdxl_tpu_torch.ops.attention import causal_mask, qkv_attention
 
+# One intra-op thread: the suite runs six workers on shared cores,
+# where torch's default of a thread per core makes small ops spin.
+torch.set_num_threads(1)
+
 
 def inputs(shape_q, shape_k, seed=0):
     rng = np.random.default_rng(seed)

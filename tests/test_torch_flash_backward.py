@@ -25,6 +25,10 @@ from sdxl_tpu.ops.flash_attention import flash_attention_bwd_bhtd as j_flash_bwd
 from sdxl_tpu_torch.ops import flash_attention as fa
 from sdxl_tpu_torch.ops.attention import FlashSDPA, qkv_attention
 
+# One intra-op thread: the suite runs six workers on shared cores,
+# where torch's default of a thread per core makes small ops spin.
+torch.set_num_threads(1)
+
 
 def arrays(*shapes, seed=0):
     rng = np.random.default_rng(seed)
@@ -145,7 +149,7 @@ def test_gradcheck_plain_f64(d):
     """The plain K2/K3 pair (d <= 128) and the wide-head path are the
     exact gradient of the forward, checked by finite differences in f64."""
     g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn((1, 1, 6, d), generator=g, dtype=torch.float64,
+    q, k, v = (torch.randn((1, 1, 3, d), generator=g, dtype=torch.float64,
                            requires_grad=True) for _ in range(3))
     assert torch.autograd.gradcheck(FlashSDPA.apply, (q, k, v))
 

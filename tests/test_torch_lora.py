@@ -35,6 +35,10 @@ from sdxl_tpu_torch.train.lora import (
 )
 from tests.test_torch_unet import TINY, random_tree
 
+# One intra-op thread: the suite runs six workers on shared cores,
+# where torch's default of a thread per core makes small ops spin.
+torch.set_num_threads(1)
+
 
 def rnd(rng, *shape):
     return rng.standard_normal(shape).astype(np.float32)

@@ -23,6 +23,10 @@ from sdxl_tpu.ops.linear import linear_nobias as j_linear_nobias
 from sdxl_tpu_torch.io.bridge import unet_state_dict
 from sdxl_tpu_torch.ops import conv, embeddings, linear, norms
 
+# One intra-op thread: the suite runs six workers on shared cores,
+# where torch's default of a thread per core makes small ops spin.
+torch.set_num_threads(1)
+
 TOL = 1e-5
 
 

@@ -3,9 +3,10 @@
 A tiny pipeline (CLIP towers of width 32, UNet model_channels 32, a small
 VAE) with the same weights on both sides (drawn in the reference's tree
 layout, carried across by io/bridge.py) runs 2 DDIM steps from the same
-injected starting latent. Final latent within 1e-3, uint8 images within
-one level. A subprocess proves the port imports neither JAX nor the JAX
-package.
+injected starting latent: the port's txt2img against the reference's
+conditioning, sample_latent and decode_latent_to_images, the stages of its
+txt2img. Final latent within 1e-3, uint8 images within one level. A
+subprocess proves the port imports neither JAX nor the JAX package.
 """
 
 import os
@@ -23,6 +24,7 @@ from sdxl_tpu.configs import CLIPConfig, EmbedderConfig
 from sdxl_tpu.models.clip import init_clip
 from sdxl_tpu.models.unet import fuse_unet_qkv, init_unet
 from sdxl_tpu.models.vae import init_autoencoder
+from sdxl_tpu.pipeline.latent import decode_latent_to_images as j_decode_images
 from sdxl_tpu.pipeline.pipeline import SDXLPipeline as JPipeline
 from sdxl_tpu.pipeline.sampler import sample_latent as j_sample_latent
 from sdxl_tpu.pipeline.sampler import scaled_linear_alphas_cumprod
@@ -32,9 +34,14 @@ from sdxl_tpu_torch.io.bridge import (
     unet_state_dict,
     vae_decoder_state_dict,
 )
+from sdxl_tpu_torch.pipeline.latent import decode_latent_to_images
 from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
 from tests.test_pipeline_e2e import TINY_DIFFUSER, TINY_VAE
 from tests.test_torch_unet import random_tree
+
+# One intra-op thread: the suite runs six workers on shared cores,
+# where torch's default of a thread per core makes small ops spin.
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_EMBEDDER = EmbedderConfig(
@@ -85,9 +92,11 @@ def test_txt2img_matches_reference(pipes):
         jpipe.unet_params, TINY_DIFFUSER, jpipe.alphas_cumprod, cond,
         jax.random.PRNGKey(0), 7.5, 2, jnp.float32,
         initial_noise=jnp.asarray(noise)))
-    want_images = jpipe.txt2img(PROMPTS, RES, n_steps=2,
-                                negative_prompt=NEGATIVE,
-                                initial_latent=jnp.asarray(noise))
+    # what the reference's txt2img does with this latent: one compile of
+    # the sampling loop, not a second one inside jpipe.txt2img
+    want_images = j_decode_images(jpipe.vae_params, TINY_VAE,
+                                  jnp.asarray(want_latent),
+                                  jpipe.scale_factor)
 
     got_images = tpipe.txt2img(PROMPTS, RES, n_steps=2,
                                negative_prompt=NEGATIVE,
@@ -100,6 +109,25 @@ def test_txt2img_matches_reference(pipes):
     assert got_images.std() > 0
     diff = np.abs(got_images.astype(int) - np.asarray(want_images).astype(int))
     assert diff.max() <= 1
+
+
+def test_vae_dtype_bf16_decodes_through_the_bf16_copy(pipes):
+    """SDXLPipeline.vae_dtype (f32 by default, as the reference's) sets
+    the decode's dtype: with bf16 the images are decode_latent_to_images
+    of the final latent with compute_dtype=bfloat16."""
+    _, tpipe = pipes
+    assert tpipe.vae_dtype == torch.float32
+    noise = np.random.default_rng(6).standard_normal(
+        (1, RES[0] // 8, RES[1] // 8, 4)).astype(np.float32)
+    tpipe.vae_dtype = torch.bfloat16
+    try:
+        images = tpipe.txt2img(PROMPTS[1], RES, n_steps=1,
+                               initial_latent=torch.from_numpy(noise))
+    finally:
+        tpipe.vae_dtype = torch.float32
+    want = decode_latent_to_images(tpipe.vae, tpipe.last_latent,
+                                   tpipe.scale_factor, torch.bfloat16)
+    np.testing.assert_array_equal(images, want.numpy())
 
 
 def test_unported_options_raise(pipes):
@@ -144,7 +172,7 @@ def test_port_never_imports_jax():
                        for k, v in sys.modules.items() if v is not None)
         print("NO_JAX_OK")
     """)
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]

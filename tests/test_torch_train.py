@@ -28,6 +28,10 @@ from sdxl_tpu.train.step import make_train_step as j_make_train_step
 from sdxl_tpu_torch.train.losses import diffusion_loss
 from sdxl_tpu_torch.train.step import TrainState, adamw_cosine, make_train_step
 
+# One intra-op thread: the suite runs six workers on shared cores,
+# where torch's default of a thread per core makes small ops spin.
+torch.set_num_threads(1)
+
 ALPHAS = np.asarray(scaled_linear_alphas_cumprod(), np.float32)
 
 

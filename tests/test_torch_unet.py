@@ -32,6 +32,10 @@ from sdxl_tpu_torch.models.unet import (
 )
 from sdxl_tpu_torch.ops.flash_attention import use_flash
 
+# One intra-op thread: the suite runs six workers on shared cores,
+# where torch's default of a thread per core makes small ops spin.
+torch.set_num_threads(1)
+
 TINY = UNetConfig(adm_in_channels=32 + 6 * 256, model_channels=32,
                   channel_mults=(1, 2, 4), n_head_channels=8,
                   transformer_depths=(1, 1, 2), context_dim=64)

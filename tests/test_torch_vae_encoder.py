@@ -23,6 +23,10 @@ from sdxl_tpu_torch.ops.conv import conv2d_pad_br
 from sdxl_tpu_torch.pipeline.latent import encode_images_to_latent
 from tests.test_torch_vae import TINY, random_tree
 
+# One intra-op thread: the suite runs six workers on shared cores,
+# where torch's default of a thread per core makes small ops spin.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("hw", [(9, 8), (8, 8)])
 def test_conv_pad_bottom_right(hw):
