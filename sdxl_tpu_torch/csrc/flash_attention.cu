@@ -2,10 +2,11 @@
 //
 // Replaces the Pallas TPU kernels of sdxl_tpu/ops/flash_attention.py
 // `flash_attention_bhtd`: K1 (return_lse=False -> `_flash_kernel` ->
-// `_flash_kernel_core`) and K2 (return_lse=True -> `_flash_kernel_lse`,
-// which also stores the row's base-2 log-sum-exp m + log2(l) for the
-// backward; here one f32 per row, without the TPU's lane replication):
-// unmasked softmax(q k^T / sqrt(d)) v over [B,H,T,D], with the reference's
+// `_flash_kernel_core`) on its f32 routes, and K2 (return_lse=True ->
+// `_flash_kernel_lse`, which also stores the row's base-2 log-sum-exp m +
+// log2(l) for the backward; here one f32 per row, without the TPU's lane
+// replication). K1's bf16 routes run on wgmma and TMA in flash_hopper.cu.
+// Unmasked softmax(q k^T / sqrt(d)) v over [B,H,T,D], with the reference's
 // semantics kept exactly:
 //   - q is multiplied by d^-0.5 * log2(e) in f32 and rounded to q's dtype
 //     before any product (flash_attention.py:185);
@@ -22,10 +23,10 @@
 // order, so each thread block owns one (batch*head, q-tile) and walks all
 // k-tiles in a loop of its own; nothing crosses blocks.
 //
-// Two kernels, for the kinds of call the SDXL paths make:
+// Two kernels:
 //
-// flash_fwd_bf16 (UNet self-attention, d = 64 or 128, bf16 in/out; K2 is
-// its kLse instance, the training forward).
+// flash_fwd_bf16 (K2, the training forward, d = 64 or 128, bf16 in/out,
+// also storing lse).
 //   Bound by tensor-core issue and shared-memory traffic: at T=4096, d=64,
 //   B*H=20 one call is 4*B*H*T^2*d = 86 GFLOP against 42 MB of q/k/v/o, so
 //   it is far above the card's ~295 FLOP/byte ridge. Four warps each own 16
@@ -36,22 +37,18 @@
 //   shared memory so every B fragment is one 32-bit load. No wgmma, TMA or
 //   software pipelining yet.
 //
-// flash_fwd_fma<T, D> (the FMA route): f32 in/out at d = 512 (the VAE
+// flash_fwd_fma<D> (the FMA route): f32 in/out at d = 512 (the VAE
 // mid-block attention), d = 64 (the f32 UNet's self-attention) and
-// d = 128, and bf16 in/out at d = 512 (the bf16 VAE decode).
+// d = 128.
 //   f32 must stay in full f32 (no TF32, no bf16 tensor cores: the bound is
 //   1e-3 against plain f32 attention), so the route runs on the f32 FMA
 //   pipes (67 TFLOP/s peak) and is bound by them and by shared-memory
-//   bandwidth. The bf16 instance computes in f32 from bf16 tiles (a
-//   512-wide head does not fit the mma.sync route's registers) and rounds
-//   where the reference does: the pre-scaled q and p before P V are
-//   rounded to bf16, the logits, m, l and acc stay f32, the output is bf16.
-//   A 32x512 f32 tile is 64 KB, so a block holds 32 query rows and a 32-key
-//   tile of K and V (about 200 KB of dynamic shared memory at d = 512, one
-//   block per SM; 34 KB at d = 64). Each thread computes 4x1 logits and an
-//   8x8 (d 512), 4x4 (d 128) or 2x4 (d 64) register tile of the output;
-//   Q/K rows are padded by 4 floats so the float4 reads of eight
-//   consecutive rows hit distinct banks.
+//   bandwidth. A 32x512 f32 tile is 64 KB, so a block holds 32 query rows
+//   and a 32-key tile of K and V (about 200 KB of dynamic shared memory at
+//   d = 512, one block per SM; 34 KB at d = 64). Each thread computes 4x1
+//   logits and an 8x8 (d 512), 4x4 (d 128) or 2x4 (d 64) register tile of
+//   the output; Q/K rows are padded by 4 floats so the float4 reads of
+//   eight consecutive rows hit distinct banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,7 +68,7 @@ using flash::mma_16816;
 using flash::pack_bf16;
 
 // ---------------------------------------------------------------------------
-// bf16, d in {64, 128}
+// K2: bf16, d in {64, 128}
 // ---------------------------------------------------------------------------
 
 constexpr int kBQ = 64;       // query rows per block (4 warps x 16)
@@ -82,9 +79,9 @@ constexpr int bf16_smem_bytes() {
   return (kBQ * (D + 8) + kBK * (D + 8) + D * (kBK + 8)) * 2;
 }
 
-// kLse: also store each row's base-2 log-sum-exp m + log2(l) to lse
-// ([B*H, tq] f32), the residual the backward recomputes p from (K2).
-template <int D, bool kLse>
+// Also stores each row's base-2 log-sum-exp m + log2(l) to lse ([B*H, tq]
+// f32), the residual the backward recomputes p from.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
@@ -240,7 +237,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
           __floats2bfloat162_rn(acc[dt][2] / l_run[1], acc[dt][3] / l_run[1]);
   }
   // m and l are already reduced across the quad: one lane of four stores.
-  if (kLse && tg == 0) {
+  if (tg == 0) {
     float* lrow = lse + (size_t)blockIdx.y * tq;
     if (r0 < tq) lrow[r0] = m_run[0] + log2f(l_run[0]);
     if (r0 + 8 < tq) lrow[r0 + 8] = m_run[1] + log2f(l_run[1]);
@@ -248,7 +245,7 @@ flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
-// FMA route: f32 at d in {64, 128, 512}, bf16 at d = 512
+// FMA route: f32 at d in {64, 128, 512}
 // ---------------------------------------------------------------------------
 
 constexpr int kFBQ = 32;
@@ -273,33 +270,14 @@ struct FmaPlan {
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-  uint2 u;
-  u.x = pack_bf16(x.x, x.y);
-  u.y = pack_bf16(x.z, x.w);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-// x rounded to T's precision (the reference's rounding points: the
-// pre-scaled q and p before P V)
-__device__ __forceinline__ float round_to(float x, const float*) { return x; }
-__device__ __forceinline__ float round_to(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kFThreads, 1)
-flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int tq, int tk,
-              float scale) {
+flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int tq,
+              int tk, float scale) {
   using P = FmaPlan<D>;
   constexpr int LD = P::LD;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -311,23 +289,22 @@ flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
   float* sM = sPt + kFBK * kFBQ;               // running max
   float* sL = sM + kFBQ;                       // running normaliser
   float* sAlpha = sL + kFBQ;                   // this tile's rescale
-  const T* rounding = nullptr;                 // selects round_to for T
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kFBQ;
   const size_t q_base = (size_t)blockIdx.y * tq * D;
   const size_t kv_base = (size_t)blockIdx.y * tk * D;
 
-  // Q tile, pre-scaled in f32 and rounded to T as the reference does.
+  // Q tile, pre-scaled in f32 as the reference does.
   for (int i = tid; i < kFBQ * D / 4; i += kFThreads) {
     const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < tq) {
       x = load4(q + q_base + (size_t)(q0 + r) * D + c);
-      x.x = round_to(x.x * scale, rounding);
-      x.y = round_to(x.y * scale, rounding);
-      x.z = round_to(x.z * scale, rounding);
-      x.w = round_to(x.w * scale, rounding);
+      x.x *= scale;
+      x.y *= scale;
+      x.z *= scale;
+      x.w *= scale;
     }
     *reinterpret_cast<float4*>(sQ + r * LD + c) = x;
   }
@@ -406,8 +383,7 @@ flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const float p = exp2f(sv[u] - m_new);
-        // P V takes p rounded to T; the normaliser sums the f32 p
-        sPt[(pj + 8 * u) * kFBQ + pr] = round_to(p, rounding);
+        sPt[(pj + 8 * u) * kFBQ + pr] = p;
         sum += p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
@@ -456,7 +432,7 @@ flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
     const int r = q0 + or0 + i;
     if (r >= tq) continue;
     const float l = sL[or0 + i];
-    T* orow = o + q_base + (size_t)r * D;
+    float* orow = o + q_base + (size_t)r * D;
 #pragma unroll
     for (int c = 0; c < P::kChunks; ++c)
       store4(orow + c * (D / P::kChunks) + oc,
@@ -465,32 +441,32 @@ flash_fwd_fma(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
                        int bh, int tq, int tk, int d, float scale,
                        cudaStream_t s) {
   if (d != D) return cudaErrorInvalidValue;
   constexpr int smem = FmaPlan<D>::kSmemBytes;
   static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t err = allow_smem_once(flash_fwd_fma<T, D>, smem, &smem_set);
+  cudaError_t err = allow_smem_once(flash_fwd_fma<D>, smem, &smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + kFBQ - 1) / kFBQ, bh);
-  flash_fwd_fma<T, D><<<grid, kFThreads, smem, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), tq, tk, scale);
+  flash_fwd_fma<D><<<grid, kFThreads, smem, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), tq, tk, scale);
   return cudaGetLastError();
 }
 
-template <int D, bool kLse>
+template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
                         float* lse, int bh, int tq, int tk, float scale,
                         cudaStream_t s) {
   constexpr int smem = bf16_smem_bytes<D>();
   static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t err = allow_smem_once(flash_fwd_bf16<D, kLse>, smem, &smem_set);
+  cudaError_t err = allow_smem_once(flash_fwd_bf16<D>, smem, &smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + kBQ - 1) / kBQ, bh);
-  flash_fwd_bf16<D, kLse><<<grid, kThreads, smem, s>>>(
+  flash_fwd_bf16<D><<<grid, kThreads, smem, s>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
       tq, tk, scale);
@@ -501,16 +477,6 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o,
 
 // q, k, v, o: contiguous [B*H, T, D] device buffers; scale = d^-0.5*log2(e).
 // Returns a cudaError_t; 0 means the kernel was launched.
-extern "C" int sdxl_flash_attention_bf16(const void* q, const void* k,
-                                         const void* v, void* o, int bh,
-                                         int tq, int tk, int d, float scale,
-                                         void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_bf16<64, false>(q, k, v, o, nullptr, bh, tq, tk, scale, s);
-  if (d == 128) return launch_bf16<128, false>(q, k, v, o, nullptr, bh, tq, tk, scale, s);
-  return cudaErrorInvalidValue;
-}
-
 // K2: the bf16 forward that also writes lse ([B*H, tq] f32 device buffer).
 extern "C" int sdxl_flash_attention_lse_bf16(const void* q, const void* k,
                                              const void* v, void* o,
@@ -519,20 +485,19 @@ extern "C" int sdxl_flash_attention_lse_bf16(const void* q, const void* k,
                                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (d == 64) return launch_bf16<64, true>(q, k, v, o, l, bh, tq, tk, scale, s);
-  if (d == 128) return launch_bf16<128, true>(q, k, v, o, l, bh, tq, tk, scale, s);
+  if (d == 64) return launch_bf16<64>(q, k, v, o, l, bh, tq, tk, scale, s);
+  if (d == 128) return launch_bf16<128>(q, k, v, o, l, bh, tq, tk, scale, s);
   return cudaErrorInvalidValue;
 }
 
-// The FMA route, one export for each (type, head dim) it takes.
-#define SDXL_FMA_EXPORT(name, T, D)                                          \
+// The FMA route, one export for each head dim it takes.
+#define SDXL_FMA_EXPORT(name, D)                                             \
   extern "C" int name(const void* q, const void* k, const void* v, void* o,  \
                       int bh, int tq, int tk, int d, float scale,            \
                       void* stream) {                                        \
-    return launch_fma<T, D>(q, k, v, o, bh, tq, tk, d, scale,                \
-                            static_cast<cudaStream_t>(stream));              \
+    return launch_fma<D>(q, k, v, o, bh, tq, tk, d, scale,                   \
+                         static_cast<cudaStream_t>(stream));                 \
   }
-SDXL_FMA_EXPORT(sdxl_flash_attention_f32, float, 512)
-SDXL_FMA_EXPORT(sdxl_flash_attention_f32_d64, float, 64)
-SDXL_FMA_EXPORT(sdxl_flash_attention_f32_d128, float, 128)
-SDXL_FMA_EXPORT(sdxl_flash_attention_bf16_d512, __nv_bfloat16, 512)
+SDXL_FMA_EXPORT(sdxl_flash_attention_f32, 512)
+SDXL_FMA_EXPORT(sdxl_flash_attention_f32_d64, 64)
+SDXL_FMA_EXPORT(sdxl_flash_attention_f32_d128, 128)

@@ -9,7 +9,8 @@ Counterpart of sdxl_tpu/ops/flash_attention.py:
   (``flash_attention_bwd_bhtd``: dq, then dk and dv);
 - ``use_flash``, the reference's routing rule.
 
-The kernels live in ``csrc/`` (flash_attention.cu: K1 and K2;
+The kernels live in ``csrc/`` (flash_hopper.cu: K1's bf16 routes on
+wgmma and TMA; flash_attention.cu: K1's f32 routes and K2;
 flash_attention_bwd.cu: K3a and K3b; flash_experiments.cu and
 flash_pipelined.cu: the experiments X1-X3, whose wrappers live in
 ``sdxl_tpu_torch/scripts/``). Each source is compiled with nvcc
@@ -26,10 +27,11 @@ runs in base 2 over f32 logits, p is rounded to v's dtype before P.V, and
 the backward recomputes p from the same rounded q and the forward's lse.
 
 Kernel routes on CUDA: K1 takes bf16 with d in (64, 128) (the bf16 UNet's
-self-attention, mma.sync) and d = 512 (the bf16 VAE decode's mid-block
-attention, FMA), and f32 with d in (64, 128) (the f32 UNet's
-self-attention) and d = 512 (the f32 VAE's mid-block attention), both on
-the FMA route; K2 and K3 take bf16 with d in (64, 128).
+self-attention) and d = 512 (the bf16 VAE decode's mid-block attention),
+both on wgmma with a TMA/mbarrier ring, and f32 with d in (64, 128) (the
+f32 UNet's self-attention) and d = 512 (the f32 VAE's mid-block
+attention), both on the FMA route; K2 and K3 take bf16 with d in (64,
+128), on mma.sync.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ _LOG2E = math.log2(math.e)
 FLASH_MIN_T = 924
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+SOURCES = ("flash_hopper.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "flash_experiments.cu", "flash_pipelined.cu")
 HEADERS = ("flash_common.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -65,8 +67,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # exported C function -> (source, pointer arguments, float arguments); every
 # function then takes (bh, tq, tk, d) ints, the floats, and the stream
 _KERNELS = {
-    "sdxl_flash_attention_bf16": ("flash_attention.cu", 4, 1),
-    "sdxl_flash_attention_bf16_d512": ("flash_attention.cu", 4, 1),
+    "sdxl_flash_attention_bf16": ("flash_hopper.cu", 4, 1),
+    "sdxl_flash_attention_bf16_d512": ("flash_hopper.cu", 4, 1),
     "sdxl_flash_attention_f32": ("flash_attention.cu", 4, 1),
     "sdxl_flash_attention_f32_d64": ("flash_attention.cu", 4, 1),
     "sdxl_flash_attention_f32_d128": ("flash_attention.cu", 4, 1),
@@ -187,6 +189,12 @@ def _lib_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
+def build_log(source: str) -> str:
+    """The nvcc/ptxas log (``-Xptxas -v``: registers, spills) of one
+    source's library, kept beside it when it was built."""
+    return _lib_path(source).with_suffix(".log").read_text()
+
+
 def build_kernels() -> Dict[str, Tuple[float, str]]:
     """Compile every kernel source not built yet, one nvcc per source, all
     started together. Returns {source: (build seconds, nvcc/ptxas log)}
@@ -213,6 +221,7 @@ def build_kernels() -> Dict[str, Tuple[float, str]]:
         if proc.returncode != 0:
             failed.append(f"nvcc failed building {src}:\n{log}")
             continue
+        _lib_path(src).with_suffix(".log").write_text(log)
         os.replace(tmp, _lib_path(src))
         built[src] = (time.perf_counter() - t0, log)
     if failed:

@@ -9,6 +9,8 @@ softmax reorders the f32 sums); 2e-2 in bf16, the kernel's on-device bound
 where the kernel rounds the unnormalised one.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -114,3 +116,36 @@ def test_kernel_wrapper_has_no_silent_fallback():
     q = torch.empty((1, 1, 1024, 64), device="meta")
     with pytest.raises(ValueError):
         fa.flash_attention_bhtd(q, q, q)
+
+
+def _exporters():
+    """{exported C function: the sources that define it}."""
+    found = {}
+    for src in fa.SOURCES:
+        text = (fa.CSRC / src).read_text()
+        for name in re.findall(r'(?:extern "C" int|_EXPORT\()\s*(sdxl_\w+)',
+                               text):
+            found.setdefault(name, set()).add(src)
+    return found
+
+
+@pytest.mark.parametrize("routes,names,source", [
+    # K1 bf16 d 64/128: the wgmma/TMA kernel
+    ([(torch.bfloat16, 64), (torch.bfloat16, 128)],
+     ["sdxl_flash_attention_bf16"], "flash_hopper.cu"),
+    # K1 bf16 d 512: the tensor-core kernel
+    ([(torch.bfloat16, 512)], ["sdxl_flash_attention_bf16_d512"],
+     "flash_hopper.cu"),
+    # K2 (mma.sync) and K1's f32 FMA routes keep their source
+    ([(torch.float32, 64), (torch.float32, 128), (torch.float32, 512)],
+     ["sdxl_flash_attention_lse_bf16", "sdxl_flash_attention_f32_d64",
+      "sdxl_flash_attention_f32_d128", "sdxl_flash_attention_f32"],
+     "flash_attention.cu"),
+])
+def test_routes_name_the_source_that_defines_them(routes, names, source):
+    assert sorted({fa._ROUTES[r] for r in routes}) == sorted(
+        n for n in names if n != "sdxl_flash_attention_lse_bf16")
+    exporters = _exporters()
+    for name in names:
+        assert fa._KERNELS[name][0] == source
+        assert exporters[name] == {source}
