@@ -6,18 +6,24 @@ Phases (any failure exits non-zero before the result line):
   1. the device, and `nvidia-smi` name and power limit;
   2. build the hand-written kernels from sdxl_tpu_torch/csrc, one nvcc per
      source, all started together (with the -Xptxas -v report); then
-     `cuobjdump -sass` of flash_hopper.cu's library: K1's d 64/128 kernel
-     must hold HGMMA (wgmma) and UTMALDG (TMA) instructions, its d=512
-     kernel HGMMA or HMMA, and ptxas must report no spills for either
-     (counts, registers and shared memory printed);
+     `cuobjdump -sass` of flash_hopper.cu's library: K1's bf16 d 64/128
+     kernel and K2 (its lse instances) must hold HGMMA (wgmma) and UTMALDG
+     (TMA) instructions, K1's bf16 d=512 kernel HGMMA or HMMA, K1's f32
+     d=64 kernel (3xTF32) HGMMA and UTMALDG, and ptxas must report no
+     spills for any of them (counts, registers and shared memory printed);
   3. each kernel against its plain PyTorch version on the card at the
      main paths' shapes — K1 on every route (bf16 d 64/128 and 512, f32 d
-     64/128 and 512), K2, K3a, K3b: max abs error within the stated
-     tolerance (K1: the tolerance times min(1, max|plain output|), and
-     the error's relative L2 norm within 1e-2 bf16 / 1e-4 f32), the
-     kernel, its plain version and torch's scaled_dot_product_attention
-     (forward, and backward for K3; a yardstick, never on the path) timed
-     with CUDA events after a warm-up, beside the kernel's bound;
+     64/128 and 512), K2, K3a, K3b: K1 and K2's output within the
+     tolerance times min(1, max|plain output|) and a relative L2 error
+     within 1e-2 bf16 / 1e-4 f32; K2's lse within 1e-3; K3's dq, dk, dv
+     within 2e-2 of max(1, max|plain|) and a relative L2 error within
+     1e-2; each reading printed beside its limit. The kernel, its plain
+     version and torch's scaled_dot_product_attention (forward, and
+     backward for K3; a yardstick, never on the path) timed with CUDA
+     events after a warm-up, beside the kernel's bound; K2 and the f32
+     d=64 route and SDPA's forward beside them also inside one CUDA graph
+     of 20 calls, SDPA's backward as its kernels' device time
+     (torch.profiler);
   3b. the experiments X1 (every tile), X2 (every mode) and X3 (every
      tile) against their plain versions at [2,10,4096,64] and
      [2,20,1024,64] bf16, timed by `timeit` and `chained_time`, with SDPA
@@ -49,6 +55,7 @@ Phases (any failure exits non-zero before the result line):
   9. with --profile only: three unfenced 1024x1024 requests, then one
      under torch.profiler — device time by the op that launched each
      kernel, and the device's idle share against the unfenced latency;
+     the same for the f32 UNet's 4-step request after phase 5;
   10. the LoRA training path on the same pipeline: encode two random
      1024x1024 images with captions (the VAE encoder launches K1's f32
      route), then five LoRA steps (rank 16, attn targets, lr 1e-4, batch
@@ -93,7 +100,7 @@ from sdxl_tpu_torch.scripts import bench_flash_ragged
 from sdxl_tpu_torch.scripts import exp_flash_exp2 as x1
 from sdxl_tpu_torch.scripts import exp_flash_floor as x2
 from sdxl_tpu_torch.scripts import exp_flash_pipelined as x3
-from sdxl_tpu_torch.scripts.timing import chained_time, timeit
+from sdxl_tpu_torch.scripts.timing import chained_time, graph_time, timeit
 from sdxl_tpu_torch.train.finetune import (
     FinetuneConfig,
     _encode_items,
@@ -110,14 +117,15 @@ from sdxl_tpu_torch.train.step import (
 )
 
 CSRC = "sdxl_tpu_torch/csrc"
-FWD_SRC = f"{CSRC}/flash_attention.cu"
 BWD_SRC = f"{CSRC}/flash_attention_bwd.cu"
 REF = "sdxl_tpu/ops/flash_attention.py"
+K2 = "sdxl_flash_attention_lse_bf16"
+F32_D64 = "sdxl_flash_attention_f32_d64"
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     **{name: (f"{CSRC}/{fa._KERNELS[name][0]}", f"{REF}:140")
        for name in set(fa._ROUTES.values())},
-    "sdxl_flash_attention_lse_bf16": (FWD_SRC, f"{REF}:102"),
+    K2: (f"{CSRC}/{fa._KERNELS[K2][0]}", f"{REF}:102"),
     "sdxl_flash_attention_bwd_dq_bf16": (BWD_SRC, f"{REF}:272"),
     "sdxl_flash_attention_bwd_dkv_bf16": (BWD_SRC, f"{REF}:302"),
     **{f"sdxl_flash2_bf16_q{bq}_k{bk}": (f"{CSRC}/flash_experiments.cu",
@@ -134,7 +142,8 @@ KERNELS = {
 # (bench.py:53-66) at levels 2 and 1 at 1024x1024, 832x1216 and the
 # smallest buckets (924 and 3696 tokens, where 128-row tiles are most
 # ragged), the f32 VAE mid-block attention at 1024x1024, the f32 UNet at
-# 1024x1024 and the bf16 VAE decode at 1024x1024, 832x1216 and the
+# 1024x1024 and 832x1216 (ragged 64-key tiles) and the bf16 VAE decode at
+# 1024x1024, 832x1216 and the
 # smallest VAE bucket (14336 tokens) — plus one d=128 case of each dtype,
 # routes the SDXL-base paths do not take. The max abs error's limit is the
 # tolerance times min(1, max|plain output|): with random inputs each output
@@ -155,22 +164,34 @@ KERNEL_CASES = [
     (1, 2, 1000, 128, torch.bfloat16, 2e-2),
     (2, 10, 4096, 64, torch.float32, 1e-3),
     (2, 20, 1024, 64, torch.float32, 1e-3),
+    (2, 10, 3952, 64, torch.float32, 1e-3),
+    (2, 20, 988, 64, torch.float32, 1e-3),
     (1, 2, 1000, 128, torch.float32, 1e-3),
     (1, 1, 16384, 512, torch.bfloat16, 2e-2),
     (1, 1, 15808, 512, torch.bfloat16, 2e-2),
     (1, 1, 14336, 512, torch.bfloat16, 2e-2),
 ]
 K1_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
-# K1's bf16 routes on wgmma and TMA: the source, and for each kernel (a
-# substring of its symbol) the SASS instructions it must contain (one of
-# each tuple)
+# The kernels on wgmma and TMA (flash_hopper.cu): for each, a pattern its
+# symbols must match (the bool template argument of flash_fwd_wgmma is
+# LSE), how many instances it has, the kernel index of the source's
+# flash_hopper_smem_bytes, and the SASS instructions it must contain (one
+# of each tuple)
 HOPPER_SRC = "flash_hopper.cu"
-HOPPER_SASS = {"flash_fwd_wgmma": (("HGMMA",), ("UTMALDG",)),
-               "flash_fwd_d512": (("HGMMA", "HMMA"),)}
+HOPPER_SASS = [
+    ("K1 bf16 d 64/128", r"flash_fwd_wgmmaILi\d+ELb0E", 2, 0,
+     (("HGMMA",), ("UTMALDG",))),
+    ("K2 bf16 d 64/128", r"flash_fwd_wgmmaILi\d+ELb1E", 2, 0,
+     (("HGMMA",), ("UTMALDG",))),
+    ("K1 bf16 d 512", r"flash_fwd_d512", 1, 1, (("HGMMA", "HMMA"),)),
+    ("K1 f32 d 64 (3xTF32)", r"flash_fwd_tf32", 1, 2,
+     (("HGMMA",), ("UTMALDG",))),
+]
 # K2 and K3's shapes on the training path (batch 1): UNet levels 1 and 2
-# at 1024x1024 and at 832x1216, and one d=128 case. Tolerances: bf16
-# outputs 2e-2 (as K1), lse (f32, base-2 units) 1e-3, and the gradients
-# 2e-2 of max(1, their largest magnitude)
+# at 1024x1024 and at 832x1216, and one d=128 case. Tolerances: K2's o as
+# K1's bf16 (2e-2 of min(1, max|o|), relative L2 1e-2), lse (f32, base-2
+# units) 1e-3 absolute, and the gradients 2e-2 of max(1, their largest
+# magnitude) and relative L2 1e-2 each
 TRAIN_CASES = [
     (1, 10, 4096, 64),
     (1, 20, 1024, 64),
@@ -179,6 +200,10 @@ TRAIN_CASES = [
     (1, 2, 1000, 128),
 ]
 BF16_TOL, LSE_TOL, GRAD_TOL = 2e-2, 1e-3, 2e-2
+TRAIN_REL_TOL = 1e-2
+# K2's and the f32 d=64 route's calls are also timed as one CUDA graph of
+# GRAPH_CALLS calls (no host launch between them), as is SDPA's forward
+GRAPH_CALLS = 20
 # the shape each kernel's reported time is taken at (the experiments':
 # EXP_SHAPES[0])
 TIMED_SHAPE = {"sdxl_flash_attention_bf16": (2, 10, 4096, 64),
@@ -190,8 +215,11 @@ TIMED_SHAPE = {"sdxl_flash_attention_bf16": (2, 10, 4096, 64),
                "sdxl_flash_attention_bwd_dq_bf16": (1, 10, 4096, 64),
                "sdxl_flash_attention_bwd_dkv_bf16": (1, 10, 4096, 64)}
 EXP_SHAPES = [shape for _, shape in x1.SHAPES]
-# the H100 SXM's published dense peaks (NVIDIA H100 datasheet)
+# the H100 SXM's published dense peaks (NVIDIA H100 datasheet): bf16 and
+# f32 FMA, and TF32 for the f32 d=64 route, which runs three TF32 passes
+# of each product
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_PEAK, TF32_PASSES = 495e12, 3
 PEAK_BYTES = 3.35e12
 REQUESTS = [((1024, 1024), 1), ((1024, 1024), 2), ((832, 1216), 3)]
 # K1 d 64/128 launches in one bf16 1024x1024 request of 30 DDIM steps: 31
@@ -244,10 +272,37 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = GRAPH_CALLS, iters: int = 5) -> float:
+    """ms per call of fn inside one CUDA graph of `calls` calls: the
+    device's time with no host launch between the calls."""
+    def run():
+        for _ in range(calls):
+            fn()
+    return graph_time(run, iters) * 1e3 / calls
+
+
+def kernel_ms(fn, iters: int) -> float:
+    """ms per call of fn as the device time of the kernels it launches,
+    summed from torch.profiler over `iters` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us == 0:
+        fail("the profiler recorded no device time")
+    return us / 1e3 / iters
+
+
 def bound(name: str, shape, dtype) -> tuple:
     """(least ms, "operations" | "bytes") of one call at `shape`: the
     larger of its operations (the reference's counts, 4, 6 and 8 x
-    B*H*T^2*D for the forward, dq and dk/dv) over the peak rate for its
+    B*H*T^2*D for the forward, dq and dk/dv; three times the forward's
+    at the TF32 rate for the f32 d=64 route) over the peak rate for its
     type, and its bytes (each input read once, each output written once)
     over the memory rate."""
     b, h, t, d = shape
@@ -260,7 +315,10 @@ def bound(name: str, shape, dtype) -> tuple:
         "sdxl_flash_attention_bwd_dq_bf16": (6, 5 * n + 2 * rows),
         "sdxl_flash_attention_bwd_dkv_bf16": (8, 6 * n + 2 * rows),
     }.get(name, (4, 4 * n))
-    ops_ms = mult * b * h * t * t * d / PEAK_FLOPS[dtype] * 1e3
+    peak = PEAK_FLOPS[dtype]
+    if name == F32_D64:
+        mult, peak = mult * TF32_PASSES, TF32_PEAK
+    ops_ms = mult * b * h * t * t * d / peak * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
                                                               "bytes")
@@ -280,12 +338,16 @@ def sdpa_backend(q, k, v) -> str:
 
 
 def record_case(results, name, shape, dtype, err, ms, plain_ms, sdpa_ms,
-                chained_ms=None, timed_shape=None):
+                chained_ms=None, timed_shape=None, graph=None):
+    """Print one case's readings and keep the timed shape's in `results`;
+    graph: (kernel, SDPA) ms per call inside one CUDA graph."""
     bound_ms, bound_by = bound(name, shape, dtype)
     sdpa = "n/a" if sdpa_ms is None else f"{sdpa_ms:.4f}"
     chained = "" if chained_ms is None else f" chained_ms={chained_ms:.4f}"
+    graphed = ("" if graph is None else
+               f" graph_ms={graph[0]:.4f} sdpa_graph_ms={graph[1]:.4f}")
     print(f"  {name} shape={shape} max_abs_err={err:.3e} kernel_ms={ms:.4f}"
-          f"{chained} plain_ms={plain_ms:.4f} sdpa_ms={sdpa} "
+          f"{chained}{graphed} plain_ms={plain_ms:.4f} sdpa_ms={sdpa} "
           f"bound_ms={bound_ms:.4f} ({bound_by}) "
           f"share_of_bound={bound_ms / ms:.3f}", flush=True)
     r = results.setdefault(name, {"max_abs_err": 0.0})
@@ -295,10 +357,18 @@ def record_case(results, name, shape, dtype, err, ms, plain_ms, sdpa_ms,
                  bound_ms=bound_ms, bound_by=bound_by)
         if chained_ms is not None:
             r["chained_ms"] = chained_ms
+        if graph is not None:
+            r["graph_ms"], r["library_graph_ms"] = graph
 
 
-def check_kernels() -> dict:
-    results = {}
+def readings(got, want) -> tuple:
+    """(max abs error, relative L2 error, max |want|), in f32."""
+    diff = got.float() - want.float()
+    return (diff.abs().max().item(), (diff.norm() / want.float().norm()).item(),
+            want.float().abs().max().item())
+
+
+def check_k1(results) -> None:
     for b, h, t, d, dtype, tol in KERNEL_CASES:
         g = torch.Generator(device="cuda").manual_seed(42)
         q, k, v = (torch.randn((b, h, t, d), generator=g, device="cuda")
@@ -308,10 +378,7 @@ def check_kernels() -> dict:
         out = fa.flash_attention_bhtd(q, k, v)
         ref = fa.flash_attention_plain(q, k, v)
         torch.cuda.synchronize()
-        diff = out.float() - ref.float()
-        err = diff.abs().max().item()
-        rel = (diff.norm() / ref.float().norm()).item()
-        ref_max = ref.float().abs().max().item()
+        err, rel, ref_max = readings(out, ref)
         limit, rel_tol = tol * min(1.0, ref_max), K1_REL_TOL[dtype]
         finite = bool(torch.isfinite(out).all())
         name = fa._ROUTES[dtype, d]
@@ -324,12 +391,21 @@ def check_kernels() -> dict:
                  f"{limit}), relative L2 error {rel} (limit {rel_tol}), "
                  f"finite {finite}")
         iters = 5 if d == 512 or dtype == torch.float32 else 20
+        graph = None
+        if name == F32_D64:
+            graph = (graph_ms(lambda: fa.flash_attention_bhtd(q, k, v)),
+                     graph_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
         record_case(
             results, name, (b, h, t, d), dtype, err,
             cuda_ms(lambda: fa.flash_attention_bhtd(q, k, v), iters),
             cuda_ms(lambda: fa.flash_attention_plain(q, k, v), iters),
-            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters))
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters),
+            graph=graph)
 
+
+def check_train_kernels(results) -> None:
+    """K2, K3a and K3b against their plain versions at TRAIN_CASES, each
+    reading printed beside its limit; then timed."""
     for shape in TRAIN_CASES:
         b, h, t, d = shape
         g = torch.Generator(device="cuda").manual_seed(43)
@@ -340,35 +416,44 @@ def check_kernels() -> dict:
         grads = fa.flash_attention_bwd(q, k, v, ref_o, ref_lse, do)
         ref_grads = fa.flash_attention_bwd_plain(q, k, v, ref_o, ref_lse, do)
         torch.cuda.synchronize()
-        err_o = (o.float() - ref_o.float()).abs().max().item()
+        err_o, rel_o, max_o = readings(o, ref_o)
         err_lse = (lse - ref_lse).abs().max().item()
-        errs, tols = [], []
-        for got, want in zip(grads, ref_grads):
-            errs.append((got.float() - want.float()).abs().max().item())
-            tols.append(GRAD_TOL * max(1.0, want.float().abs().max().item()))
+        checks = [("o max abs", err_o, BF16_TOL * min(1.0, max_o)),
+                  ("o relative L2", rel_o, TRAIN_REL_TOL),
+                  ("lse max abs", err_lse, LSE_TOL)]
+        errs = []
+        for what, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+            err, rel, max_g = readings(got, want)
+            errs.append(err)
+            checks += [(f"{what} max abs", err, GRAD_TOL * max(1.0, max_g)),
+                       (f"{what} relative L2", rel, TRAIN_REL_TOL)]
         finite = all(bool(torch.isfinite(x).all())
                      for x in (o, lse, *grads))
-        print(f"K2/K3 {shape} bf16: o err {err_o:.3e} (tol {BF16_TOL:g}), "
-              f"lse err {err_lse:.3e} (tol {LSE_TOL:g}), dq/dk/dv err "
-              f"{errs} (tol {tols})", flush=True)
-        if not (finite and err_o < BF16_TOL and err_lse < LSE_TOL
-                and all(e < tl for e, tl in zip(errs, tols))):
-            fail(f"K2/K3 at {shape}: outside the tolerance or non-finite")
+        print(f"K2/K3 {shape} bf16 (reading / limit): " + ", ".join(
+            f"{what} {got:.3e} / {lim:.3e}" for what, got, lim in checks),
+            flush=True)
+        bad = [f"{what} {got} (limit {lim})" for what, got, lim in checks
+               if not got < lim]
+        if bad or not finite:
+            fail(f"K2/K3 at {shape}: {', '.join(bad)}; finite {finite}")
 
         iters = 20
         delta = (do.float() * ref_o.float()).sum(-1)
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
         sdpa_o = F.scaled_dot_product_attention(qg, kg, vg)
-        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(
+        # SDPA's backward as the device time of its kernels (the host's
+        # autograd work between them left out)
+        sdpa_bwd_ms = kernel_ms(lambda: torch.autograd.grad(
             sdpa_o, (qg, kg, vg), do, retain_graph=True), iters)
         plain_bwd_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, ref_o, ref_lse, do), 5)
         record_case(
-            results, "sdxl_flash_attention_lse_bf16", shape, torch.bfloat16,
-            max(err_o, err_lse),
+            results, K2, shape, torch.bfloat16, max(err_o, err_lse),
             cuda_ms(lambda: fa.flash_attention_lse(q, k, v), iters),
             cuda_ms(lambda: fa.flash_attention_lse_plain(q, k, v), iters),
-            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters))
+            cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters),
+            graph=(graph_ms(lambda: fa.flash_attention_lse(q, k, v)),
+                   graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))))
         # the plain version and torch's backward compute dq, dk and dv
         # together: both rows carry their whole time
         record_case(
@@ -381,7 +466,6 @@ def check_kernels() -> dict:
             torch.bfloat16, max(errs[1:]),
             cuda_ms(lambda: fa.launch_bwd_dkv(q, k, v, do, ref_lse, delta), iters),
             plain_bwd_ms, sdpa_bwd_ms)
-    return results
 
 
 def experiment_kernels():
@@ -466,8 +550,9 @@ def find_cuobjdump() -> str:
 
 
 def check_hopper_build() -> None:
-    """flash_hopper.cu's kernels as compiled: the SASS instructions each
-    must contain (wgmma, TMA), and no spills in ptxas' report."""
+    """flash_hopper.cu's kernels as compiled: each HOPPER_SASS kernel's
+    instances, the SASS instructions each must contain (wgmma, TMA), and
+    no spills in ptxas' report."""
     sass = subprocess.run(
         [find_cuobjdump(), "-sass", str(fa._lib_path(HOPPER_SRC))],
         capture_output=True, text=True, check=True).stdout
@@ -484,26 +569,28 @@ def check_hopper_build() -> None:
         r"(\d+) bytes spill loads.*?Used (\d+) registers",
         fa.build_log(HOPPER_SRC), re.S)}
     smem = fa.load_library(HOPPER_SRC).flash_hopper_smem_bytes
-    smem.restype, smem.argtypes = ctypes.c_int, [ctypes.c_int]
-    for kernel, required in HOPPER_SASS.items():
-        found = [f for f in ops if kernel in f]
-        if not found:
-            fail(f"{kernel} not found in the SASS of {HOPPER_SRC}")
+    smem.restype = ctypes.c_int
+    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    for label, pattern, count, kernel, required in HOPPER_SASS:
+        found = [f for f in ops if re.search(pattern, f)]
+        if len(found) != count:
+            fail(f"{label}: {len(found)} instances of {pattern} in the SASS "
+                 f"of {HOPPER_SRC}, not {count}")
         for f in found:
             m = re.search(r"ILi(\d+)E", f)
-            d = int(m[1]) if m else 512
+            d = int(m[1]) if m else 0
             stores, loads, regs = ptxas.get(f, (None, None, None))
-            print(f"{kernel} d={d}: SASS {dict(ops[f])}; ptxas {regs} "
-                  f"registers a thread at launch (setmaxnreg then moves "
-                  f"them from the producer to the consumers), spill stores "
-                  f"{stores}, spill loads {loads}; dynamic shared memory "
-                  f"{smem(d)} bytes", flush=True)
+            print(f"{label} {f}: SASS {dict(ops[f])}; ptxas {regs} registers "
+                  f"a thread at launch (setmaxnreg then moves them from the "
+                  f"producer to the consumers), spill stores {stores}, spill "
+                  f"loads {loads}; dynamic shared memory "
+                  f"{smem(kernel, d)} bytes", flush=True)
             for names in required:
                 if not any(ops[f][n] for n in names):
-                    fail(f"{kernel} d={d} has no {' or '.join(names)} "
+                    fail(f"{label} ({f}) has no {' or '.join(names)} "
                          f"instruction")
             if regs is None or stores or loads:
-                fail(f"{kernel} d={d}: ptxas reports spills or no report")
+                fail(f"{label} ({f}): ptxas reports spills or no report")
 
 
 def run_path(label: str, drive, must, total) -> object:
@@ -720,19 +807,21 @@ def print_profile(what: str, prof, wall: float, latencies) -> None:
 
 
 @torch.inference_mode()
-def profile_request(pipe) -> None:
+def profile_request(pipe, n_steps: int = 30) -> None:
     resolution = REQUESTS[0][0]
     latencies = []
     for seed in (10, 11, 12):
         t0 = time.perf_counter()
-        pipe.txt2img(PROMPT, resolution, seed=seed, profile_stages=False)
+        pipe.txt2img(PROMPT, resolution, n_steps=n_steps, seed=seed,
+                     profile_stages=False)
         latencies.append(time.perf_counter() - t0)
     with torch.profiler.profile(activities=ACTIVITIES) as prof:
         t0 = time.perf_counter()
-        pipe.txt2img(PROMPT, resolution, seed=13, profile_stages=False)
+        pipe.txt2img(PROMPT, resolution, n_steps=n_steps, seed=13,
+                     profile_stages=False)
         wall = time.perf_counter() - t0
-    print_profile(f"{resolution[0]}x{resolution[1]} request", prof, wall,
-                  latencies)
+    print_profile(f"{resolution[0]}x{resolution[1]} {pipe.compute_dtype} "
+                  f"request, {n_steps} steps", prof, wall, latencies)
 
 
 def profile_training_step(pipe, data, cfg, factors) -> None:
@@ -839,7 +928,7 @@ def check_training_grads(pipe, data, cfg, factors) -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
-                        help="add the profiled request (phase 9) and "
+                        help="add the profiled requests (phase 9) and "
                         "training step (phase 12)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -860,7 +949,9 @@ def main() -> None:
         print(f"{source}: {seconds:.1f}s\n{log}", flush=True)
     check_hopper_build()
 
-    results = check_kernels()
+    results = {}
+    check_k1(results)
+    check_train_kernels(results)
     check_experiments(results)
     x_names = [name for name, *_ in experiment_kernels()]
     path = defaultdict(int)  # launches on the paths, summed over them
@@ -883,6 +974,8 @@ def main() -> None:
              ["sdxl_flash_attention_f32_d64", "sdxl_flash_attention_f32"],
              path)
     check_f32_unet(pipe32)
+    if args.profile:
+        profile_request(pipe32, F32_STEPS)
     del pipe32
     gc.collect()
     torch.cuda.empty_cache()
@@ -918,7 +1011,8 @@ def main() -> None:
          "launches": path[name], "max_abs_err": r["max_abs_err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-         **({"chained_ms": r["chained_ms"]} if "chained_ms" in r else {})}
+         **{k: r[k] for k in ("chained_ms", "graph_ms", "library_graph_ms")
+            if k in r}}
         for name, r in results.items()]}
     if set(results) != set(KERNELS):
         fail(f"kernels not checked: {sorted(set(KERNELS) - set(results))}")

@@ -24,7 +24,7 @@
 // Design. Two kernels and no atomics, so the result is deterministic: each
 // output tile is written by exactly one block, which loops over the other
 // axis itself (on the TPU that loop was the sequential last grid axis).
-// Like the forward, four warps each own 16 rows and run mma.sync m16n8k16
+// Four warps each own 16 rows and run mma.sync m16n8k16
 // (bf16 in, f32 accumulate); C fragments are re-packed in place as bf16 A
 // operands. Bound: 6 (dq) and 8 (dk/dv) x B*H*Tq*Tk*d operations against
 // a few MB, far above the card's ~295 FLOP/byte ridge, so tensor-core issue

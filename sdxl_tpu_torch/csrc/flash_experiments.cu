@@ -25,8 +25,9 @@
 //
 // Bound. 4*B*H*T^2*D tensor-core operations at 989 TFLOP/s: at T=4096,
 // D=64, B*H=20 one call is 86 GFLOP against 42 MB of q/k/v/o, far above
-// the card's ~295 FLOP/byte ridge. The design is K1's bf16 route
-// (flash_attention.cu), so that the variants time K1's own structure:
+// the card's ~295 FLOP/byte ridge. The design is K1's first bf16 route
+// (an mma.sync kernel, since replaced by flash_hopper.cu's wgmma kernel),
+// so that the variants time that route's own structure:
 // BQ/16 warps each own 16 query rows and run mma.sync m16n8k16 (bf16 in,
 // f32 accumulate); S = Q K^T stays in registers, the softmax runs on the
 // accumulator fragments with quad shuffles, and the f32 fragment of S is

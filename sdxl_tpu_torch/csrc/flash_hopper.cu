@@ -1,26 +1,30 @@
-// K1's two bf16 routes on Hopper's own machinery (sm_90a): TMA loads into
-// a ring of shared-memory stages tracked by mbarriers, warpgroup matrix
-// products (wgmma), and a producer warpgroup that hands its registers to
-// the consumers (setmaxnreg). Bound to Python with ctypes.
+// The flash-attention forwards on Hopper's own machinery (sm_90a): TMA
+// loads into a ring of shared-memory stages tracked by mbarriers, warpgroup
+// matrix products (wgmma), and a producer warpgroup that hands its
+// registers to the consumers (setmaxnreg). Bound to Python with ctypes.
 //
-// Replaces the Pallas TPU kernel of sdxl_tpu/ops/flash_attention.py
-// `flash_attention_bhtd` with return_lse=False (:140; `_flash_kernel` :92,
-// `_flash_kernel_core` :40, pallas_call :207) on its two bf16 routes:
-// unmasked softmax(q k^T / sqrt(d)) v over [B,H,T,D] with the reference's
-// numerics kept exactly:
-//   - q is multiplied by d^-0.5 * log2(e) in f32 and rounded to bf16
+// Replaces the Pallas TPU kernels of sdxl_tpu/ops/flash_attention.py
+// `flash_attention_bhtd` (:140; pallas_call :207): K1 (return_lse=False,
+// `_flash_kernel` :92, `_flash_kernel_core` :40) on its bf16 routes and
+// its f32 d=64 route, and K2 (return_lse=True, `_flash_kernel_lse` :102,
+// which also stores the row's base-2 log-sum-exp m + log2(l) for the
+// backward; here one f32 per row, [B*H, tq], without the TPU's lane
+// replication). Unmasked softmax(q k^T / sqrt(d)) v over [B,H,T,D] with
+// the reference's numerics kept:
+//   - q is multiplied by d^-0.5 * log2(e) in f32 and rounded to q's dtype
 //     before any product (flash_attention.py:185);
 //   - the online softmax runs in base 2 with f32 logits, running max m,
 //     normaliser l and accumulator (exp2 flushes results below 2^-126 to
-//     zero, as the TPU's f32 does); p is rounded to bf16 before P V while
-//     l sums the f32 p;
-//   - the output is acc / l rounded to bf16.
+//     zero, as the TPU's f32 does); p is rounded to v's dtype before P V
+//     while l sums the f32 p;
+//   - the output is acc / l rounded to v's dtype.
 // Ragged token counts: the tensor maps are 3-D over [B*H, T, D], so a tile
 // that runs past T is zero-filled by the TMA unit and never reads the next
 // head's rows; keys >= tk still get a -inf logit (a zero key would give
 // logit 0), and query rows >= tq are never stored.
 //
-// flash_fwd_wgmma<D> (the UNet's self-attention, d = 64 or 128).
+// flash_fwd_wgmma<D, LSE> (the UNet's bf16 self-attention, d = 64 or
+// 128: K1 without the lse, K2 with it).
 //   Bound: 4*B*H*T^2*D tensor-core operations against 8 bytes of q/k/v/o
 //   per element, far above the card's ~295 FLOP/byte ridge, so the bound
 //   is the bf16 tensor-core rate (989 TFLOP/s). The mma.sync kernel it
@@ -49,7 +53,14 @@
 //   bf16 pairs) or 232 (d 128: O 64 f32). The q pre-scale is an
 //   elementwise pass over the consumer's own Q rows in shared memory after
 //   the TMA load (the swizzle only permutes 16-byte chunks), followed by a
-//   proxy fence so that wgmma's async-proxy reads see it.
+//   proxy fence so that wgmma's async-proxy reads see it. With LSE (K2, the
+//   training forward) one lane of each quad stores m + log2(l) of its two
+//   rows after the last tile: the split max and sum chains are already
+//   combined across the quad inside each softmax step, as the final 1/l
+//   needs them. K2 runs at batch 1, where 192-row tiles leave more of the
+//   last wave idle; 128-row tiles (two consumers) were still slower there
+//   (0.132 against 0.109 ms at [1,10,4096,64], 0.030 against 0.021 at
+//   [1,20,1024,64]; PERF.md), so K2 keeps K1's tiles.
 //
 // flash_fwd_d512 (the bf16 VAE decode's mid-block attention, [1,1,T,512]).
 //   Bound: the same operation count, 4*T^2*512; at T = 16384 the
@@ -70,6 +81,48 @@
 //   resident, two K/V stages of 32 + 32 KB, the partial-S exchange 2 x 16
 //   KB (double-buffered by tile parity, so one barrier a tile suffices):
 //   224 KB, one block per SM; 256 blocks at T = 16384.
+//
+// flash_fwd_tf32 (the f32 UNet's self-attention, f32 d = 64) on the
+// TF32 tensor cores in three passes (3xTF32, CUTLASS's
+// OpMultiplyAddFastF32). One TF32 product keeps 10 mantissa bits of each
+// operand: its relative error, about 2^-11, puts f32 attention about 4e-4
+// (relative L2) off the f32 result, four times the route's 1e-4 bound. So
+// each f32 operand x is split into x_hi = rna(x) and x_lo = rna(x - x_hi),
+// both TF32 (`cvt.rna.tf32.f32`, rounded to nearest, ties away from zero),
+// and a b is taken as a_hi b_hi + a_hi b_lo + a_lo b_hi summed in f32: the
+// dropped a_lo b_lo and the rounding of x_lo leave about 2^-21 of each
+// product, near f32's own 2^-24 (tests/test_torch_flash_attention.py pins
+// this arithmetic on the CPU).
+//   Bound: three TF32 passes of 4*B*H*T^2*64 operations at 495 TFLOP/s,
+//   0.521 ms at [2,10,4096,64]; the FMA route it replaces ran on the f32
+//   pipes (bound 1.28 ms) at 24% of that.
+//   wgmma takes 32-bit operands only K-major. Q and K ([T, 64], d
+//   contiguous) already are for S = Q K^T; for P V the operand is V^T with
+//   keys contiguous. A pre-pass (split_kv_tf32) writes K_hi, K_lo ([B*H,
+//   tk, 64]) and V^T_hi, V^T_lo ([B*H, 64, tp], tp = tk rounded up to 8)
+//   to a scratch buffer the wrapper allocates: 4 x B*H*T*64 floats, 84 MB
+//   at [2,10,4096,64], about 0.04 ms of the call's bytes. Each consumer
+//   splits its own pre-scaled Q rows in shared memory after the TMA load
+//   (hi in place, lo beside it).
+//   P stays in registers: S's f32 accumulator fragment holds keys (2tg,
+//   2tg + 1) of each group of 8 for rows g and g + 8, while the TF32
+//   A-register fragment of a k8 step holds k-columns tg and tg + 4 (CUTLASS
+//   ALayout_64x8). So the pre-pass stores V^T's keys permuted within each
+//   group of 8 (position c holds key 2c for c < 4, key 2c - 7 after): the
+//   A fragment is then {s[4j], s[4j + 2], s[4j + 1], s[4j + 3]} with no
+//   shuffle, split into hi and lo in registers.
+//   Each 64-key tile's P V goes to a fresh accumulator that is added to O
+//   on the FMA pipes (O = alpha O + PV in one fmaf): with O itself
+//   accumulated in the tensor cores, T/8 x 3 products summed there drifted
+//   linearly in T (relative L2 2.9e-5 at T = 4096 against 1.3e-6 this
+//   way; PERF.md).
+//   Tiles: three consumer warpgroups of 64 query rows (192 rows a tile),
+//   64 keys a stage (P hi and lo take 64 registers beside S's 32, O's 32
+//   and the tile's P V 32; the consumers rise to 160). Two consumers were
+//   2% faster at T = 4096 and 10% slower at T = 1024, where 60 of the f32
+//   UNet's 70 calls run. Shared memory: Q hi and lo, 32 KB a consumer; two
+//   stages of K_hi, K_lo, V^T_hi, V^T_lo, 16 KB each, all in
+//   128-byte-swizzled boxes of 32 floats: 225 KB, one block per SM.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -263,6 +316,37 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t a[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// D[64x64] (+)= A[64x8] B[8x64] in TF32: A and B K-major in shared memory
+// (32-bit operands have no transpose).
+__device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31},"
+      " %32, %33, p, 1, 1;\n}\n"
+      : SDXL_F16(0), SDXL_F16(16)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D[64x64] (+)= A[64x8] B[8x64] in TF32: A in registers, B K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
+                                                  const uint32_t a[4],
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : SDXL_F16(0), SDXL_F16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
 #undef SDXL_F16
 #undef SDXL_F4
 
@@ -379,6 +463,47 @@ __device__ __forceinline__ void store_rows(const float (&acc)[N],
   }
 }
 
+// The f32 counterpart of store_rows.
+template <int N>
+__device__ __forceinline__ void store_rows_f32(const float (&acc)[N], float* o,
+                                               int d, int r, int tq, int tg,
+                                               const float (&l)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (r + 8 * h >= tq) continue;
+    float* row = o + (size_t)(r + 8 * h) * d + 2 * tg;
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j)
+      *reinterpret_cast<float2*>(row + 8 * j) = make_float2(
+          acc[4 * j + 2 * h] / l[h], acc[4 * j + 2 * h + 1] / l[h]);
+  }
+}
+
+// Rows (r, r + 8)'s base-2 log-sum-exp m + log2(l), stored by one lane of
+// the quad (m and l are already the whole row's there); rows >= tq skipped.
+__device__ __forceinline__ void store_lse(float* lse, int r, int tq, int tg,
+                                          const float (&m)[2],
+                                          const float (&l)[2]) {
+  if (tg != 0) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (r + 8 * h < tq) lse[r + 8 * h] = m[h] + log2f(l[h]);
+}
+
+// x rounded to TF32 (10 mantissa bits; to nearest, ties away from zero),
+// as an f32 whose low 13 bits are zero.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return __uint_as_float(y & 0xffffe000u);
+}
+
+// x = hi + lo, both TF32: hi = rna(x), lo = rna(x - hi).
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
+}
+
 // ---------------------------------------------------------------------------
 // bf16, d in {64, 128}
 // ---------------------------------------------------------------------------
@@ -403,13 +528,14 @@ struct WsPlan {
   static constexpr int kSmemBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
 };
 
-// One block a (b*h, q-tile) tile.
-template <int D>
+// One block a (b*h, q-tile) tile; with LSE also lse ([B*H, tq] f32).
+template <int D, bool LSE>
 __global__ void __launch_bounds__(WsPlan<D>::kThreads, 1)
 flash_fwd_wgmma(__grid_constant__ const CUtensorMap q_map,
                 __grid_constant__ const CUtensorMap k_map,
                 __grid_constant__ const CUtensorMap v_map,
-                __nv_bfloat16* __restrict__ o, int tq, int tk, float scale) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int tq, int tk, float scale) {
   using P = WsPlan<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -531,8 +657,9 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap q_map,
     mbar_arrive(&kv_empty[s]);
   }
 
-  store_rows(acc, o + (size_t)h * tq * D, D, q0 + 64 * c + 16 * warp + g, tq,
-             0, tg, l_run);
+  const int r = q0 + 64 * c + 16 * warp + g;
+  store_rows(acc, o + (size_t)h * tq * D, D, r, tq, 0, tg, l_run);
+  if constexpr (LSE) store_lse(lse + (size_t)h * tq, r, tq, tg, m_run, l_run);
 }
 
 // ---------------------------------------------------------------------------
@@ -699,6 +826,248 @@ flash_fwd_d512(__grid_constant__ const CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
+// f32, d = 64, on TF32 tensor cores in three passes
+// ---------------------------------------------------------------------------
+
+constexpr int kKeysTf32 = 64;      // keys a stage, and a pre-pass block's keys
+constexpr int kBoxF32 = 32;        // f32 columns in a 128-byte swizzle box
+
+// Position c of each group of 8 keys in V^T holds key perm8(c): keys 2c
+// and 2c + 1 of S's accumulator fragment become k-columns c and c + 4 of
+// P V's TF32 A fragment.
+__device__ __forceinline__ int perm8(int c) {
+  return c < 4 ? 2 * c : 2 * c - 7;
+}
+
+// The pre-pass: one block a (64-key tile, b*h). K_hi, K_lo [bh, tk, 64];
+// V^T_hi, V^T_lo [bh, 64, tp] with keys permuted by perm8, zero at keys >=
+// tk.
+__global__ void __launch_bounds__(256)
+split_kv_tf32(const float* __restrict__ k, const float* __restrict__ v,
+              float* __restrict__ k_hi, float* __restrict__ k_lo,
+              float* __restrict__ vt_hi, float* __restrict__ vt_lo, int tk,
+              int tp) {
+  __shared__ float tile[kKeysTf32][65];  // V rows [key][d], padded
+  const int k0 = blockIdx.x * kKeysTf32;
+  const size_t base = (size_t)blockIdx.y * tk * 64;
+  for (int i = threadIdx.x; i < kKeysTf32 * 16; i += 256) {
+    const int r = i / 16, c = (i % 16) * 4;
+    float4 vx = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k0 + r < tk) {
+      const size_t off = base + (size_t)(k0 + r) * 64 + c;
+      const float4 kx = *reinterpret_cast<const float4*>(k + off);
+      vx = *reinterpret_cast<const float4*>(v + off);
+      float4 hi, lo;
+      split_tf32(kx.x, hi.x, lo.x);
+      split_tf32(kx.y, hi.y, lo.y);
+      split_tf32(kx.z, hi.z, lo.z);
+      split_tf32(kx.w, hi.w, lo.w);
+      *reinterpret_cast<float4*>(k_hi + off) = hi;
+      *reinterpret_cast<float4*>(k_lo + off) = lo;
+    }
+    tile[r][c] = vx.x;
+    tile[r][c + 1] = vx.y;
+    tile[r][c + 2] = vx.z;
+    tile[r][c + 3] = vx.w;
+  }
+  __syncthreads();
+  const size_t vt = (size_t)blockIdx.y * 64 * tp;
+  for (int i = threadIdx.x; i < 64 * kKeysTf32; i += 256) {
+    const int d = i / kKeysTf32, p = i % kKeysTf32;
+    if (k0 + p >= tp) continue;
+    float hi, lo;
+    split_tf32(tile[(p & ~7) + perm8(p & 7)][d], hi, lo);
+    vt_hi[vt + (size_t)d * tp + k0 + p] = hi;
+    vt_lo[vt + (size_t)d * tp + k0 + p] = lo;
+  }
+}
+
+struct Tf32Plan {
+  static constexpr int kNC = 3;  // consumer warpgroups
+  static constexpr int kThreads = 128 * (kNC + 1);
+  static constexpr int kConsumers = 128 * kNC;
+  static constexpr int kRowsQ = 64 * kNC;
+  static constexpr int kQBox = kRowsQ * kRowBytes;   // 32 columns of Q
+  static constexpr int kQBytes = 2 * kQBox;          // Q hi (or lo)
+  static constexpr int kBox = kKeysTf32 * kRowBytes; // 8 KB
+  static constexpr int kPart = 2 * kBox;  // K_hi, K_lo, V^T_hi or V^T_lo
+  // stage s: K_hi, K_lo, V^T_hi, V^T_lo
+  static constexpr int kKV = 2 * kQBytes;
+  static constexpr int kBars = kKV + kStages * 4 * kPart;
+  static constexpr int kSmemBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
+};
+
+// Pre-scale `bytes` of f32 Q in shared memory and split each value: hi in
+// place, lo at the same offset in `lo`, `threads` threads from thread t.
+__device__ __forceinline__ void prescale_split(unsigned char* hi,
+                                               unsigned char* lo, int bytes,
+                                               float scale, int t,
+                                               int threads) {
+  for (int i = t * 16; i < bytes; i += threads * 16) {
+    float4 x = *reinterpret_cast<float4*>(hi + i);
+    float4 h, l;
+    split_tf32(x.x * scale, h.x, l.x);
+    split_tf32(x.y * scale, h.y, l.y);
+    split_tf32(x.z * scale, h.z, l.z);
+    split_tf32(x.w * scale, h.w, l.w);
+    *reinterpret_cast<float4*>(hi + i) = h;
+    *reinterpret_cast<float4*>(lo + i) = l;
+  }
+}
+
+// One block a (b*h, q-tile) tile.
+__global__ void __launch_bounds__(Tf32Plan::kThreads, 1)
+flash_fwd_tf32(__grid_constant__ const CUtensorMap q_map,
+               __grid_constant__ const CUtensorMap khi_map,
+               __grid_constant__ const CUtensorMap klo_map,
+               __grid_constant__ const CUtensorMap vthi_map,
+               __grid_constant__ const CUtensorMap vtlo_map,
+               float* __restrict__ o, int tq, int tk, float scale) {
+  using P = Tf32Plan;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + P::kBars);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* kv_empty = v_full + kStages;
+
+  const int wg = threadIdx.x / 128;
+  const int q0 = blockIdx.x * P::kRowsQ, h = blockIdx.y;
+  const int n_kt = (tk + kKeysTf32 - 1) / kKeysTf32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&kv_empty[s], P::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread starts every copy
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, P::kQBytes);
+      for (int b = 0; b < 2; ++b)
+        tma_load(smem + b * P::kQBox, &q_map, q_full, b * kBoxF32, q0, h);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        const int s = kt % kStages, k0 = kt * kKeysTf32;
+        mbar_wait(&kv_empty[s], ((kt / kStages) & 1) ^ 1);
+        unsigned char* st = smem + P::kKV + s * 4 * P::kPart;
+        mbar_expect_tx(&k_full[s], 2 * P::kPart);
+        for (int b = 0; b < 2; ++b) {
+          tma_load(st + b * P::kBox, &khi_map, &k_full[s], b * kBoxF32, k0, h);
+          tma_load(st + P::kPart + b * P::kBox, &klo_map, &k_full[s],
+                   b * kBoxF32, k0, h);
+        }
+        mbar_expect_tx(&v_full[s], 2 * P::kPart);
+        for (int b = 0; b < 2; ++b) {
+          tma_load(st + 2 * P::kPart + b * P::kBox, &vthi_map, &v_full[s],
+                   k0 + b * kBoxF32, 0, h);
+          tma_load(st + 3 * P::kPart + b * P::kBox, &vtlo_map, &v_full[s],
+                   k0 + b * kBoxF32, 0, h);
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<160>();
+  const int c = wg - 1;  // this warpgroup's rows: 64c .. 64c + 63
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const uint32_t qhi_addr = smem_u32(smem) + c * 64 * kRowBytes;
+  const uint32_t qlo_addr = qhi_addr + P::kQBytes;
+
+  mbar_wait(q_full, 0);
+  for (int b = 0; b < 2; ++b) {
+    unsigned char* rows = smem + b * P::kQBox + c * 64 * kRowBytes;
+    prescale_split(rows, rows + P::kQBytes, 64 * kRowBytes, scale, t, 128);
+  }
+  fence_proxy_async();
+  bar_sync(1 + c, 128);
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int s = kt % kStages;
+    const uint32_t parity = (kt / kStages) & 1;
+    const uint32_t khi = smem_u32(smem + P::kKV + s * 4 * P::kPart);
+    const uint32_t klo = khi + P::kPart;
+    const uint32_t vthi = khi + 2 * P::kPart, vtlo = khi + 3 * P::kPart;
+
+    // S = Q_hi K_lo + Q_lo K_hi + Q_hi K_hi over 64 keys, the small terms
+    // first: eight k8 steps each, four to a 32-column box.
+    float sc[kKeysTf32 / 2];
+    mbar_wait(&k_full[s], parity);
+    wgmma_fence();
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass) {
+      const uint32_t qa = pass == 1 ? qlo_addr : qhi_addr;
+      const uint32_t kb = pass == 0 ? klo : khi;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss_tf32_n64(sc, desc128(qa + (kk / 4) * P::kQBox + off, 16),
+                          desc128(kb + (kk / 4) * P::kBox + off, 16),
+                          pass > 0 || kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sc);
+
+    float alpha[2];
+    softmax_step<kKeysTf32>(sc, kt * kKeysTf32, tk, tg, m_run, l_run, alpha);
+
+    // pv = P_lo V_hi + P_hi V_lo + P_hi V_hi: eight k8 steps of 8 keys
+    // each, the A fragment in V^T's permuted key order; a fresh
+    // accumulator, added to O on the FMA pipes below.
+    uint32_t p_hi[kKeysTf32 / 8][4], p_lo[kKeysTf32 / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeysTf32 / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float hi, lo;
+        split_tf32(sc[4 * j + (e >> 1) + 2 * (e & 1)], hi, lo);
+        p_hi[j][e] = __float_as_uint(hi);
+        p_lo[j][e] = __float_as_uint(lo);
+      }
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    float pv[32];
+    mbar_wait(&v_full[s], parity);
+    wgmma_fence();
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass) {
+      const uint32_t vb = pass == 1 ? vtlo : vthi;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk)
+        wgmma_rs_tf32_n64(pv, pass == 0 ? p_lo[kk] : p_hi[kk],
+                          desc128(vb + (kk / 4) * P::kBox + (kk % 4) * 32, 16),
+                          pass > 0 || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(pv);
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    mbar_arrive(&kv_empty[s]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], pv[i]);
+  }
+
+  store_rows_f32(acc, o + (size_t)h * tq * 64, 64,
+                 q0 + 64 * c + 16 * warp + g, tq, tg, l_run);
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -725,21 +1094,26 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a contiguous [bh, t, d] bf16 tensor, boxes of 64 columns
-// by `rows` rows of one head, 128-byte swizzled; reads past t are zeros.
-cudaError_t make_map(CUtensorMap* map, const void* base, int bh, int t, int d,
-                     int rows) {
+// A 3-D map over a contiguous [n2, n1, n0] bf16 or f32 tensor (n0
+// innermost), boxes of one 128-byte row segment (64 bf16 or 32 f32) by
+// `rows` rows of one [n1, n0] slice, 128-byte swizzled; reads past n1 or n0
+// are zeros.
+cudaError_t make_map(CUtensorMap* map, const void* base, bool f32, int n2,
+                     int n1, int n0, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)kBoxCols, (cuuint32_t)rows, 1};
+  const cuuint64_t elem = f32 ? 4 : 2;
+  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
+  const cuuint64_t strides[2] = {n0 * elem, (cuuint64_t)n1 * n0 * elem};
+  const cuuint32_t box[3] = {(cuuint32_t)(kRowBytes / elem), (cuuint32_t)rows,
+                             1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      map,
+      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
@@ -747,45 +1121,102 @@ struct Maps {
   CUtensorMap q, k, v;
 };
 
+// Maps over bf16 [bh, t, d] q, k and v.
 cudaError_t make_maps(Maps* m, const void* q, const void* k, const void* v,
                       int bh, int tq, int tk, int d, int q_rows, int kv_rows) {
-  cudaError_t err = make_map(&m->q, q, bh, tq, d, q_rows);
-  if (err == cudaSuccess) err = make_map(&m->k, k, bh, tk, d, kv_rows);
-  if (err == cudaSuccess) err = make_map(&m->v, v, bh, tk, d, kv_rows);
+  cudaError_t err = make_map(&m->q, q, false, bh, tq, d, q_rows);
+  if (err == cudaSuccess) err = make_map(&m->k, k, false, bh, tk, d, kv_rows);
+  if (err == cudaSuccess) err = make_map(&m->v, v, false, bh, tk, d, kv_rows);
   return err;
 }
 
-template <int D>
+template <int D, bool LSE>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         int bh, int tq, int tk, float scale, cudaStream_t s) {
-  constexpr int smem = WsPlan<D>::kSmemBytes;
+                         float* lse, int bh, int tq, int tk, float scale,
+                         cudaStream_t s) {
+  using P = WsPlan<D>;
   static std::atomic<unsigned long long> smem_set{0};
   Maps m;
-  cudaError_t err =
-      make_maps(&m, q, k, v, bh, tq, tk, D, WsPlan<D>::kRowsQ, kTile);
+  cudaError_t err = make_maps(&m, q, k, v, bh, tq, tk, D, P::kRowsQ, kTile);
   if (err == cudaSuccess)
-    err = allow_smem_once(flash_fwd_wgmma<D>, smem, &smem_set);
+    err = allow_smem_once(flash_fwd_wgmma<D, LSE>, P::kSmemBytes, &smem_set);
   if (err != cudaSuccess) return err;
-  dim3 grid((tq + WsPlan<D>::kRowsQ - 1) / WsPlan<D>::kRowsQ, bh);
-  flash_fwd_wgmma<D><<<grid, WsPlan<D>::kThreads, smem, s>>>(
-      m.q, m.k, m.v, static_cast<__nv_bfloat16*>(o), tq, tk, scale);
+  dim3 grid((tq + P::kRowsQ - 1) / P::kRowsQ, bh);
+  flash_fwd_wgmma<D, LSE><<<grid, P::kThreads, P::kSmemBytes, s>>>(
+      m.q, m.k, m.v, static_cast<__nv_bfloat16*>(o), lse, tq, tk, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
+                        void* scratch, int bh, int tq, int tk, float scale,
+                        cudaStream_t s) {
+  using P = Tf32Plan;
+  static std::atomic<unsigned long long> smem_set{0};
+  const int tp = (tk + 7) / 8 * 8;
+  float* k_hi = static_cast<float*>(scratch);
+  float* k_lo = k_hi + (size_t)bh * tk * 64;
+  float* vt_hi = k_lo + (size_t)bh * tk * 64;
+  float* vt_lo = vt_hi + (size_t)bh * 64 * tp;
+  CUtensorMap q_map, khi_map, klo_map, vthi_map, vtlo_map;
+  cudaError_t err = make_map(&q_map, q, true, bh, tq, 64, P::kRowsQ);
+  if (err == cudaSuccess)
+    err = make_map(&khi_map, k_hi, true, bh, tk, 64, kKeysTf32);
+  if (err == cudaSuccess)
+    err = make_map(&klo_map, k_lo, true, bh, tk, 64, kKeysTf32);
+  if (err == cudaSuccess)
+    err = make_map(&vthi_map, vt_hi, true, bh, 64, tp, 64);
+  if (err == cudaSuccess)
+    err = make_map(&vtlo_map, vt_lo, true, bh, 64, tp, 64);
+  if (err == cudaSuccess)
+    err = allow_smem_once(flash_fwd_tf32, P::kSmemBytes, &smem_set);
+  if (err != cudaSuccess) return err;
+  split_kv_tf32<<<dim3((tp + kKeysTf32 - 1) / kKeysTf32, bh), 256, 0, s>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v), k_hi, k_lo,
+      vt_hi, vt_lo, tk, tp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dim3 grid((tq + P::kRowsQ - 1) / P::kRowsQ, bh);
+  flash_fwd_tf32<<<grid, P::kThreads, P::kSmemBytes, s>>>(
+      q_map, khi_map, klo_map, vthi_map, vtlo_map, static_cast<float*>(o), tq,
+      tk, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: contiguous [B*H, T, D] bf16 device buffers, 16-byte aligned;
-// scale = d^-0.5*log2(e). Returns a cudaError_t; 0 means launched.
+// q, k, v, o: contiguous [B*H, T, D] device buffers of the route's dtype,
+// 16-byte aligned; scale = d^-0.5*log2(e). Each returns a cudaError_t; 0
+// means launched.
+
+// K1, bf16 d 64/128.
 extern "C" int sdxl_flash_attention_bf16(const void* q, const void* k,
                                          const void* v, void* o, int bh,
                                          int tq, int tk, int d, float scale,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch_wgmma<64>(q, k, v, o, bh, tq, tk, scale, s);
-  if (d == 128) return launch_wgmma<128>(q, k, v, o, bh, tq, tk, scale, s);
+  if (d == 64)
+    return launch_wgmma<64, false>(q, k, v, o, nullptr, bh, tq, tk, scale, s);
+  if (d == 128)
+    return launch_wgmma<128, false>(q, k, v, o, nullptr, bh, tq, tk, scale, s);
   return cudaErrorInvalidValue;
 }
 
+// K2: K1's bf16 d 64/128 output and lse ([B*H, tq] f32 device buffer).
+extern "C" int sdxl_flash_attention_lse_bf16(const void* q, const void* k,
+                                             const void* v, void* o,
+                                             void* lse, int bh, int tq,
+                                             int tk, int d, float scale,
+                                             void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  if (d == 64)
+    return launch_wgmma<64, true>(q, k, v, o, l, bh, tq, tk, scale, s);
+  if (d == 128)
+    return launch_wgmma<128, true>(q, k, v, o, l, bh, tq, tk, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// K1, bf16 d 512.
 extern "C" int sdxl_flash_attention_bf16_d512(const void* q, const void* k,
                                               const void* v, void* o, int bh,
                                               int tq, int tk, int d,
@@ -804,10 +1235,26 @@ extern "C" int sdxl_flash_attention_bf16_d512(const void* q, const void* k,
   return cudaGetLastError();
 }
 
-// The dynamic shared memory each kernel of this file launches with, by
-// head dim (for the build report).
-extern "C" int flash_hopper_smem_bytes(int d) {
-  return d == 64 ? WsPlan<64>::kSmemBytes
-         : d == 128 ? WsPlan<128>::kSmemBytes
-         : d == 512 ? D512Plan::kSmemBytes : 0;
+// K1, f32 d 64 (3xTF32). scratch: a device buffer of 2 * B*H * 64 * (tk +
+// tp) floats, tp = tk rounded up to a multiple of 8, for the pre-pass's
+// K_hi, K_lo, V^T_hi and V^T_lo.
+extern "C" int sdxl_flash_attention_f32_d64(const void* q, const void* k,
+                                            const void* v, void* o,
+                                            void* scratch, int bh, int tq,
+                                            int tk, int d, float scale,
+                                            void* stream) {
+  if (d != 64) return cudaErrorInvalidValue;
+  return launch_tf32(q, k, v, o, scratch, bh, tq, tk, scale,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// The dynamic shared memory a kernel of this file launches with (for the
+// build report): kernel 0 flash_fwd_wgmma<d>, 1 flash_fwd_d512, 2
+// flash_fwd_tf32; 0 for any other.
+extern "C" int flash_hopper_smem_bytes(int kernel, int d) {
+  if (kernel == 0 && d == 64) return WsPlan<64>::kSmemBytes;
+  if (kernel == 0 && d == 128) return WsPlan<128>::kSmemBytes;
+  if (kernel == 1) return D512Plan::kSmemBytes;
+  if (kernel == 2) return Tf32Plan::kSmemBytes;
+  return 0;
 }

@@ -9,15 +9,15 @@ Counterpart of sdxl_tpu/ops/flash_attention.py:
   (``flash_attention_bwd_bhtd``: dq, then dk and dv);
 - ``use_flash``, the reference's routing rule.
 
-The kernels live in ``csrc/`` (flash_hopper.cu: K1's bf16 routes on
-wgmma and TMA; flash_attention.cu: K1's f32 routes and K2;
-flash_attention_bwd.cu: K3a and K3b; flash_experiments.cu and
-flash_pipelined.cu: the experiments X1-X3, whose wrappers live in
-``sdxl_tpu_torch/scripts/``). Each source is compiled with nvcc
-for sm_90a into a shared library with a plain C interface, at first use,
-into ``build/kernels/`` at the repo root (keyed by a hash of the sources
-and the flags), and loaded with ctypes; ``build_kernels`` compiles every
-source at once, one nvcc each.
+The kernels live in ``csrc/`` (flash_hopper.cu: K1's bf16 routes, its f32
+d=64 route and K2, on wgmma and TMA; flash_attention.cu: K1's other f32
+routes on the FMA pipes; flash_attention_bwd.cu: K3a and K3b;
+flash_experiments.cu and flash_pipelined.cu: the experiments X1-X3, whose
+wrappers live in ``sdxl_tpu_torch/scripts/``). Each source is compiled
+with nvcc for sm_90a into a shared library with a plain C interface, at
+first use, into ``build/kernels/`` at the repo root (keyed by a hash of
+the sources and the flags), and loaded with ctypes; ``build_kernels``
+compiles every source at once, one nvcc each.
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; a CUDA call the kernel does not take
@@ -26,12 +26,22 @@ is pre-scaled by d^-0.5 * log2(e) and rounded to its dtype, the softmax
 runs in base 2 over f32 logits, p is rounded to v's dtype before P.V, and
 the backward recomputes p from the same rounded q and the forward's lse.
 
-Kernel routes on CUDA: K1 takes bf16 with d in (64, 128) (the bf16 UNet's
-self-attention) and d = 512 (the bf16 VAE decode's mid-block attention),
-both on wgmma with a TMA/mbarrier ring, and f32 with d in (64, 128) (the
-f32 UNet's self-attention) and d = 512 (the f32 VAE's mid-block
-attention), both on the FMA route; K2 and K3 take bf16 with d in (64,
-128), on mma.sync.
+Kernel routes on CUDA:
+
+- K1, bf16 with d in (64, 128) (the bf16 UNet's self-attention) and d =
+  512 (the bf16 VAE decode's mid-block attention): bf16 tensor cores
+  (wgmma), K, V by TMA through an mbarrier ring;
+- K1, f32 with d = 64 (the f32 UNet's self-attention): TF32 tensor cores
+  in three passes. One TF32 product rounds each operand to 10 mantissa
+  bits, about 4e-4 of relative L2 error over an attention output, past
+  the f32 bound of 1e-4; split into a high and a low TF32 part, a b =
+  a_hi b_hi + a_hi b_lo + a_lo b_hi keeps about 2^-21 of each product
+  (tests/test_torch_flash_attention.py pins this on the CPU). A pre-pass
+  splits K and V into scratch the wrapper allocates (``_tf32_scratch``);
+- K1, f32 with d in (128, 512) (no SDXL path at 128; the f32 VAE's
+  mid-block attention at 512): full f32 on the FMA pipes;
+- K2, bf16 with d in (64, 128): K1's bf16 kernel with an lse store;
+- K3a and K3b, bf16 with d in (64, 128): mma.sync.
 """
 
 from __future__ import annotations
@@ -70,9 +80,9 @@ _KERNELS = {
     "sdxl_flash_attention_bf16": ("flash_hopper.cu", 4, 1),
     "sdxl_flash_attention_bf16_d512": ("flash_hopper.cu", 4, 1),
     "sdxl_flash_attention_f32": ("flash_attention.cu", 4, 1),
-    "sdxl_flash_attention_f32_d64": ("flash_attention.cu", 4, 1),
+    "sdxl_flash_attention_f32_d64": ("flash_hopper.cu", 5, 1),
     "sdxl_flash_attention_f32_d128": ("flash_attention.cu", 4, 1),
-    "sdxl_flash_attention_lse_bf16": ("flash_attention.cu", 5, 1),
+    "sdxl_flash_attention_lse_bf16": ("flash_hopper.cu", 5, 1),
     "sdxl_flash_attention_bwd_dq_bf16": ("flash_attention_bwd.cu", 7, 2),
     "sdxl_flash_attention_bwd_dkv_bf16": ("flash_attention_bwd.cu", 8, 1),
     **{f"sdxl_flash2_bf16_q{bq}_k{bk}": ("flash_experiments.cu", 4, 1)
@@ -103,6 +113,14 @@ launch_counts = {name: 0 for name in _KERNELS}
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def _tf32_scratch(bh: int, tk: int, device) -> torch.Tensor:
+    """The f32 d=64 route's scratch: K_hi, K_lo [bh, tk, 64] and V^T_hi,
+    V^T_lo [bh, 64, tp] f32, tp = tk rounded up to a multiple of 8."""
+    tp = -(-tk // 8) * 8
+    return torch.empty(2 * bh * 64 * (tk + tp), dtype=torch.float32,
+                       device=device)
 
 
 def use_flash(tq: int, tk: int, d: int, has_mask: bool) -> bool:
@@ -306,8 +324,11 @@ def flash_attention_bhtd(q: torch.Tensor, k: torch.Tensor,
     _check_cuda("flash attention", (q, k, v),
                 (torch.bfloat16, torch.float32), (d,))
     out = torch.empty_like(q)
-    _launch(_ROUTES[q.dtype, d], (q, k, v, out), (b * h, tq, tk, d),
-            (d ** -0.5 * _LOG2E,))
+    name = _ROUTES[q.dtype, d]
+    tensors = (q, k, v, out)
+    if name == "sdxl_flash_attention_f32_d64":
+        tensors += (_tf32_scratch(b * h, tk, q.device),)
+    _launch(name, tensors, (b * h, tq, tk, d), (d ** -0.5 * _LOG2E,))
     return out
 
 

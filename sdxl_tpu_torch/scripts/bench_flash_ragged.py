@@ -4,7 +4,7 @@ counts, on the card (counterpart of scripts/bench_flash_ragged.py).
 Checks the kernel's in-kernel ragged masking (max error against
 ``plain_ref`` below 3e-2, or it raises) and times both at the UNet's
 level-1 and level-2 token counts and the VAE mid-block attention (bf16 at
-d = 512, K1's FMA route): ``use_flash`` sends T >= 924 to the kernel, and
+d = 512, K1's tensor-core route): ``use_flash`` sends T >= 924 to the kernel, and
 the speed-ups say whether it wins there.
 
 Run on the card: python -m sdxl_tpu_torch.scripts.bench_flash_ragged

@@ -6,8 +6,9 @@ scripts/exp_flash_floor.py:129 and scripts/exp_flash_pipelined.py:136).
   events (the reference ends its timing with a host read-back).
 - ``chained_time``: the reference chains ``n_chain`` dependent calls,
   ``out = f(out, k, v) + 1e-3``, inside one jit and runs the chain
-  ``iters`` times. Here the chain is captured once as a CUDA graph and
-  replayed ``iters`` times, so the time per call carries no host dispatch.
+  ``iters`` times. Here the chain is captured once as a CUDA graph
+  (``graph_time``) and replayed ``iters`` times, so the time per call
+  carries no host dispatch.
 
 Both return seconds per call and raise unless the inputs are on a CUDA
 device: a time taken on the CPU is not a device time.
@@ -59,14 +60,21 @@ def chained_time(f: Callable, q: torch.Tensor, k: torch.Tensor,
             out = f(out, k, v) + 1e-3
         return out
 
+    return graph_time(chain, iters) / n_chain
+
+
+def graph_time(run: Callable[[], object], iters: int = 10) -> float:
+    """Seconds per replay of run(), captured once as a CUDA graph (after a
+    warm-up call off the capturing stream) and replayed ``iters`` times
+    after one warm-up replay: the device's time with no host dispatch."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capturing stream
-        chain()
+        run()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        chain()
+        run()
     graph.replay()
     torch.cuda.synchronize()
-    return _events_seconds(graph.replay, iters) / n_chain
+    return _events_seconds(graph.replay, iters)

@@ -130,16 +130,17 @@ def _exporters():
 
 
 @pytest.mark.parametrize("routes,names,source", [
-    # K1 bf16 d 64/128: the wgmma/TMA kernel
+    # K1 bf16 d 64/128 and K2: the wgmma/TMA kernel, with and without lse
     ([(torch.bfloat16, 64), (torch.bfloat16, 128)],
-     ["sdxl_flash_attention_bf16"], "flash_hopper.cu"),
-    # K1 bf16 d 512: the tensor-core kernel
-    ([(torch.bfloat16, 512)], ["sdxl_flash_attention_bf16_d512"],
+     ["sdxl_flash_attention_bf16", "sdxl_flash_attention_lse_bf16"],
      "flash_hopper.cu"),
-    # K2 (mma.sync) and K1's f32 FMA routes keep their source
-    ([(torch.float32, 64), (torch.float32, 128), (torch.float32, 512)],
-     ["sdxl_flash_attention_lse_bf16", "sdxl_flash_attention_f32_d64",
-      "sdxl_flash_attention_f32_d128", "sdxl_flash_attention_f32"],
+    # K1 bf16 d 512 and f32 d 64: bf16 and 3xTF32 tensor-core kernels
+    ([(torch.bfloat16, 512), (torch.float32, 64)],
+     ["sdxl_flash_attention_bf16_d512", "sdxl_flash_attention_f32_d64"],
+     "flash_hopper.cu"),
+    # K1's f32 FMA routes
+    ([(torch.float32, 128), (torch.float32, 512)],
+     ["sdxl_flash_attention_f32_d128", "sdxl_flash_attention_f32"],
      "flash_attention.cu"),
 ])
 def test_routes_name_the_source_that_defines_them(routes, names, source):
@@ -149,3 +150,44 @@ def test_routes_name_the_source_that_defines_them(routes, names, source):
     for name in names:
         assert fa._KERNELS[name][0] == source
         assert exporters[name] == {source}
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: 10 mantissa bits, to
+    nearest, ties away from zero (on the sign-magnitude bits, adding half
+    an ulp and clearing the 13 low bits rounds the magnitude)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int):
+    """a @ b with TF32 operands summed in f32: one pass a_tf32 b_tf32, or
+    three, a_hi b_hi + a_hi b_lo + a_lo b_hi with x_lo = tf32(x - x_hi)."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_hi @ b_lo + a_lo @ b_hi + a_hi @ b_hi
+
+
+def test_3xtf32_attention_keeps_the_f32_bound():
+    """The f32 d=64 route's arithmetic (csrc/flash_hopper.cu
+    flash_fwd_tf32): both products of the attention on TF32 operands in
+    three passes stay within 1e-3 x min(1, max|o|) and a relative L2 error
+    of 1e-4 of the reference's f32 kernel; one pass does not."""
+    shape = (1, 2, 256, 64)
+    q, k, v = inputs(shape, shape, seed=5)
+    want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                              64, 128))
+    qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+    qs = qt * (64 ** -0.5 * fa._LOG2E)
+    rel = {}
+    for passes in (1, 3):
+        s = _tf32_matmul(qs, kt.transpose(-1, -2), passes)
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        o = _tf32_matmul(p, vt, passes) / p.sum(-1, keepdim=True)
+        diff = o.numpy() - want
+        rel[passes] = np.linalg.norm(diff) / np.linalg.norm(want)
+        if passes == 3:
+            assert np.abs(diff).max() < 1e-3 * min(1.0, np.abs(want).max())
+    assert rel[3] < 1e-4 < rel[1], rel
