@@ -8,16 +8,18 @@ Phases (any failure exits non-zero before the result line):
      source, all started together (with the -Xptxas -v report); then
      `cuobjdump -sass` of flash_hopper.cu's library: K1's bf16 d 64/128
      kernel and K2 (its lse instances) must hold HGMMA (wgmma) and UTMALDG
-     (TMA) instructions, K1's bf16 d=512 kernel HGMMA or HMMA, K1's f32
-     d=64 kernel (3xTF32) HGMMA and UTMALDG, and ptxas must report no
-     spills for any of them (counts, registers and shared memory printed);
+     (TMA) instructions, K1's bf16 d=512 kernel HGMMA or HMMA, K1's and
+     K2's f32 d=64 kernel (3xTF32) HGMMA and UTMALDG, K1's f32 d=512
+     kernel (3xTF32 on mma.sync) HMMA, and ptxas must report no spills for
+     any of them (counts, registers and shared memory printed);
   3. each kernel against its plain PyTorch version on the card at the
      main paths' shapes — K1 on every route (bf16 d 64/128 and 512, f32 d
-     64/128 and 512), K2, K3a, K3b: K1 and K2's output within the
-     tolerance times min(1, max|plain output|) and a relative L2 error
-     within 1e-2 bf16 / 1e-4 f32; K2's lse within 1e-3; K3's dq, dk, dv
-     within 2e-2 of max(1, max|plain|) and a relative L2 error within
-     1e-2; each reading printed beside its limit. The kernel, its plain
+     64/128 and 512), K2, K3a, K3b in bf16 and in f32: K1 and K2's output
+     within the tolerance times min(1, max|plain output|) and a relative
+     L2 error within 1e-2 bf16 / 1e-4 f32; K2's lse within 1e-3; K3's dq,
+     dk, dv within 2e-2 (bf16) or 1e-3 (f32) of max(1, max|plain|) and a
+     relative L2 error within 1e-2 / 1e-4; each reading printed beside its
+     limit. The kernel, its plain
      version and torch's scaled_dot_product_attention (forward, and
      backward for K3; a yardstick, never on the path) timed with CUDA
      events after a warm-up, beside the kernel's bound; K2 and the f32
@@ -32,11 +34,22 @@ Phases (any failure exits non-zero before the result line):
      (exp_flash_exp2, exp_flash_floor, exp_flash_pipelined,
      bench_flash_ragged, whose seven cases must agree with the plain
      attention within 3e-2); every X kernel must have been launched;
-  5. the f32 UNet: random_pipeline(unet_dtype=torch.float32) answers one
-     1024x1024 request (K1's f32 d=64 route in the UNet); then one
+  5. the f32 UNet: random_pipeline(unet_dtype=torch.float32,
+     with_encoder=True) answers one 1024x1024 request (K1's f32 d=64 route
+     in the UNet, its f32 d=512 route in the decode); then one
      pair-batched CFG UNet call through K1 and through the plain
      attention: eps within 2e-3 relative, 70 launches of the f32 d=64
-     route; the f32 pipeline is freed;
+     route;
+  5b. the f32 LoRA training path (the reference's `train --f32`) on the
+     same pipeline: encode two random 1024x1024 images (K1's f32 d=512
+     route), three LoRA steps (rank 16, attn targets, batch 1, remat) —
+     time and loss per step, peak memory; the losses must be finite, the
+     ups must have moved, and K2's f32 d=64 route, K3a and K3b's f32
+     routes and K1's f32 d=512 route must have been launched; then one
+     step's factor gradients again with the plain attention: max|dg| /
+     max|g| within 2e-3 (the reference's f32 UNet bound); with --profile
+     three timed steps and one under torch.profiler, as phase 12; the f32
+     pipeline is freed;
   6. the txt2img path: random_pipeline(device="cuda") at SDXL-base widths
      answers three requests (two at 1024x1024, one at 832x1216 for the
      ragged token counts), 30 DDIM steps, CFG 7.5 — latency, stage split
@@ -58,17 +71,18 @@ Phases (any failure exits non-zero before the result line):
      the same for the f32 UNet's 4-step request after phase 5;
   10. the LoRA training path on the same pipeline: encode two random
      1024x1024 images with captions (the VAE encoder launches K1's f32
-     route), then five LoRA steps (rank 16, attn targets, lr 1e-4, batch
-     1, remat) — time and loss per step, peak memory; the losses must be
-     finite, the ups must have moved, and K2, K3a and K3b must have been
-     launched during the steps;
+     d=512 route), then five LoRA steps (rank 16, attn targets, lr 1e-4,
+     batch 1, remat) — time and loss per step, peak memory; the losses
+     must be finite, the ups must have moved, and K2, K3a and K3b must
+     have been launched during the steps;
   11. one training step's factor gradients again with the plain attention
      (forward and backward) in place of the kernels: they must agree;
   12. with --profile only: three timed LoRA steps, then one under
      torch.profiler, reported as in phase 9.
-Each path (phases 4, 5, 6, 8, 10) runs with the launch counts set to 0
-just before it and read just after; the JSON record's launches are their
-sum. The last two lines are the kernels' JSON record and {"ok": true, ...}.
+Each path (phases 4, 5, 5b, 6, 8, 10) runs with the launch counts set to
+0 just before it and read just after; the JSON record's launches are their
+sum. Each phase's seconds are printed. The last two lines are the kernels'
+JSON record and {"ok": true, ...}.
 """
 
 import argparse
@@ -117,17 +131,20 @@ from sdxl_tpu_torch.train.step import (
 )
 
 CSRC = "sdxl_tpu_torch/csrc"
-BWD_SRC = f"{CSRC}/flash_attention_bwd.cu"
 REF = "sdxl_tpu/ops/flash_attention.py"
-K2 = "sdxl_flash_attention_lse_bf16"
 F32_D64 = "sdxl_flash_attention_f32_d64"
-# kernel -> (source, the TPU kernel it replaces)
+F32_D512 = "sdxl_flash_attention_f32_d512"
+# the kernels on TF32 tensor cores in three passes: K1 f32 d 64 and 512,
+# K2 f32 d 64
+TF32_KERNELS = (F32_D64, F32_D512, "sdxl_flash_attention_lse_f32_d64")
+# kernel -> (source, the TPU kernel it replaces): K1's routes, then K2,
+# K3a and K3b's (the reference's kernel :102, :272, :302)
 KERNELS = {
     **{name: (f"{CSRC}/{fa._KERNELS[name][0]}", f"{REF}:140")
        for name in set(fa._ROUTES.values())},
-    K2: (f"{CSRC}/{fa._KERNELS[K2][0]}", f"{REF}:102"),
-    "sdxl_flash_attention_bwd_dq_bf16": (BWD_SRC, f"{REF}:272"),
-    "sdxl_flash_attention_bwd_dkv_bf16": (BWD_SRC, f"{REF}:302"),
+    **{name: (f"{CSRC}/{fa._KERNELS[name][0]}", f"{REF}:{line}")
+       for names in fa._TRAIN_ROUTES.values()
+       for name, line in zip(names, (102, 272, 302))},
     **{f"sdxl_flash2_bf16_q{bq}_k{bk}": (f"{CSRC}/flash_experiments.cu",
                                          "scripts/exp_flash_exp2.py:71")
        for bq, bk in x1.TILES},
@@ -144,7 +161,8 @@ KERNELS = {
 # ragged), the f32 VAE mid-block attention at 1024x1024, the f32 UNet at
 # 1024x1024 and 832x1216 (ragged 64-key tiles) and the bf16 VAE decode at
 # 1024x1024, 832x1216 and the
-# smallest VAE bucket (14336 tokens) — plus one d=128 case of each dtype,
+# smallest VAE bucket (14336 tokens), the f32 VAE's likewise — plus one
+# d=128 case of each dtype,
 # routes the SDXL-base paths do not take. The max abs error's limit is the
 # tolerance times min(1, max|plain output|): with random inputs each output
 # is an average over about a thousand keys or more, 0.01-0.5 in size, so a
@@ -161,6 +179,8 @@ KERNEL_CASES = [
     (2, 20, 924, 64, torch.bfloat16, 2e-2),
     (2, 10, 3696, 64, torch.bfloat16, 2e-2),
     (1, 1, 16384, 512, torch.float32, 1e-3),
+    (1, 1, 15808, 512, torch.float32, 1e-3),
+    (1, 1, 14336, 512, torch.float32, 1e-3),
     (1, 2, 1000, 128, torch.bfloat16, 2e-2),
     (2, 10, 4096, 64, torch.float32, 1e-3),
     (2, 20, 1024, 64, torch.float32, 1e-3),
@@ -172,11 +192,11 @@ KERNEL_CASES = [
     (1, 1, 14336, 512, torch.bfloat16, 2e-2),
 ]
 K1_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
-# The kernels on wgmma and TMA (flash_hopper.cu): for each, a pattern its
-# symbols must match (the bool template argument of flash_fwd_wgmma is
-# LSE), how many instances it has, the kernel index of the source's
-# flash_hopper_smem_bytes, and the SASS instructions it must contain (one
-# of each tuple)
+# The kernels of flash_hopper.cu: for each, a pattern its symbols must
+# match (the bool template argument of flash_fwd_wgmma and of
+# flash_fwd_tf32 is LSE), how many instances it has, the kernel index of
+# the source's flash_hopper_smem_bytes, and the SASS instructions it must
+# contain (one of each tuple)
 HOPPER_SRC = "flash_hopper.cu"
 HOPPER_SASS = [
     ("K1 bf16 d 64/128", r"flash_fwd_wgmmaILi\d+ELb0E", 2, 0,
@@ -184,14 +204,19 @@ HOPPER_SASS = [
     ("K2 bf16 d 64/128", r"flash_fwd_wgmmaILi\d+ELb1E", 2, 0,
      (("HGMMA",), ("UTMALDG",))),
     ("K1 bf16 d 512", r"flash_fwd_d512", 1, 1, (("HGMMA", "HMMA"),)),
-    ("K1 f32 d 64 (3xTF32)", r"flash_fwd_tf32", 1, 2,
+    ("K1 f32 d 64 (3xTF32)", r"flash_fwd_tf32ILb0E", 1, 2,
      (("HGMMA",), ("UTMALDG",))),
+    ("K2 f32 d 64 (3xTF32)", r"flash_fwd_tf32ILb1E", 1, 2,
+     (("HGMMA",), ("UTMALDG",))),
+    ("K1 f32 d 512 (3xTF32, mma.sync)", r"flash_fwd_f32_d512", 1, 3,
+     (("HMMA",),)),
 ]
-# K2 and K3's shapes on the training path (batch 1): UNet levels 1 and 2
-# at 1024x1024 and at 832x1216, and one d=128 case. Tolerances: K2's o as
-# K1's bf16 (2e-2 of min(1, max|o|), relative L2 1e-2), lse (f32, base-2
-# units) 1e-3 absolute, and the gradients 2e-2 of max(1, their largest
-# magnitude) and relative L2 1e-2 each
+# K2 and K3's shapes on the training path (batch 1), bf16 and f32: UNet
+# levels 1 and 2 at 1024x1024 and at 832x1216, and one d=128 case.
+# Tolerances (bench.py:53-66): K2's o as K1's (2e-2 / 1e-3 of min(1,
+# max|o|), relative L2 1e-2 / 1e-4), lse (f32, base-2 units) 1e-3
+# absolute, and the gradients 2e-2 / 1e-3 of max(1, their largest
+# magnitude) and relative L2 1e-2 / 1e-4 each
 TRAIN_CASES = [
     (1, 10, 4096, 64),
     (1, 20, 1024, 64),
@@ -199,25 +224,30 @@ TRAIN_CASES = [
     (1, 20, 988, 64),
     (1, 2, 1000, 128),
 ]
-BF16_TOL, LSE_TOL, GRAD_TOL = 2e-2, 1e-3, 2e-2
-TRAIN_REL_TOL = 1e-2
+BF16_TOL, LSE_TOL = 2e-2, 1e-3
+# dtype -> (o and gradient tolerance, relative L2 tolerance)
+TRAIN_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-3, 1e-4)}
 # K2's and the f32 d=64 route's calls are also timed as one CUDA graph of
 # GRAPH_CALLS calls (no host launch between them), as is SDPA's forward
 GRAPH_CALLS = 20
 # the shape each kernel's reported time is taken at (the experiments':
 # EXP_SHAPES[0])
 TIMED_SHAPE = {"sdxl_flash_attention_bf16": (2, 10, 4096, 64),
-               "sdxl_flash_attention_f32": (1, 1, 16384, 512),
+               "sdxl_flash_attention_f32_d512": (1, 1, 16384, 512),
                "sdxl_flash_attention_f32_d64": (2, 10, 4096, 64),
                "sdxl_flash_attention_f32_d128": (1, 2, 1000, 128),
                "sdxl_flash_attention_bf16_d512": (1, 1, 16384, 512),
                "sdxl_flash_attention_lse_bf16": (1, 10, 4096, 64),
                "sdxl_flash_attention_bwd_dq_bf16": (1, 10, 4096, 64),
-               "sdxl_flash_attention_bwd_dkv_bf16": (1, 10, 4096, 64)}
+               "sdxl_flash_attention_bwd_dkv_bf16": (1, 10, 4096, 64),
+               "sdxl_flash_attention_lse_f32_d64": (1, 10, 4096, 64),
+               "sdxl_flash_attention_lse_f32_d128": (1, 2, 1000, 128),
+               "sdxl_flash_attention_bwd_dq_f32": (1, 10, 4096, 64),
+               "sdxl_flash_attention_bwd_dkv_f32": (1, 10, 4096, 64)}
 EXP_SHAPES = [shape for _, shape in x1.SHAPES]
 # the H100 SXM's published dense peaks (NVIDIA H100 datasheet): bf16 and
-# f32 FMA, and TF32 for the f32 d=64 route, which runs three TF32 passes
-# of each product
+# f32 FMA, and TF32 for TF32_KERNELS, which run three TF32 passes of each
+# product
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TF32_PEAK, TF32_PASSES = 495e12, 3
 PEAK_BYTES = 3.35e12
@@ -246,10 +276,14 @@ F32_UNET_REL_TOL = 2e-3
 BF16_VAE_MEAN_TOL = 1.0
 BF16_VAE_F32_SLACK = (1, 0.05)  # (max, mean) levels over the plain's
 GRAD_REL_TOL = 5e-2
+# the f32 trainer's factor gradients, kernels vs plain attention: the
+# reference's f32 UNet bound (goldens/full_scale)
+F32_GRAD_REL_TOL = 2e-3
 TRAIN_RES = 1024
 CAPTIONS = ["a photograph of an astronaut riding a horse",
             "a red crab on a sandy beach, (masterpiece:1.2)"]
 TRAIN_STEPS = 5
+F32_TRAIN_STEPS = 3
 ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
               torch.profiler.ProfilerActivity.CUDA]
 
@@ -302,7 +336,7 @@ def bound(name: str, shape, dtype) -> tuple:
     """(least ms, "operations" | "bytes") of one call at `shape`: the
     larger of its operations (the reference's counts, 4, 6 and 8 x
     B*H*T^2*D for the forward, dq and dk/dv; three times the forward's
-    at the TF32 rate for the f32 d=64 route) over the peak rate for its
+    at the TF32 rate for TF32_KERNELS) over the peak rate for its
     type, and its bytes (each input read once, each output written once)
     over the memory rate."""
     b, h, t, d = shape
@@ -310,13 +344,16 @@ def bound(name: str, shape, dtype) -> tuple:
     rows = b * h * t * 4  # one f32 per row: lse, delta
     # every other kernel is a forward: q, k, v in, o out (X2's variants
     # have the forward's products)
-    mult, nbytes = {
-        "sdxl_flash_attention_lse_bf16": (4, 4 * n + rows),
-        "sdxl_flash_attention_bwd_dq_bf16": (6, 5 * n + 2 * rows),
-        "sdxl_flash_attention_bwd_dkv_bf16": (8, 6 * n + 2 * rows),
-    }.get(name, (4, 4 * n))
+    if "_lse_" in name:
+        mult, nbytes = 4, 4 * n + rows
+    elif "_bwd_dq_" in name:
+        mult, nbytes = 6, 5 * n + 2 * rows
+    elif "_bwd_dkv_" in name:
+        mult, nbytes = 8, 6 * n + 2 * rows
+    else:
+        mult, nbytes = 4, 4 * n
     peak = PEAK_FLOPS[dtype]
-    if name == F32_D64:
+    if name in TF32_KERNELS:
         mult, peak = mult * TF32_PASSES, TF32_PEAK
     ops_ms = mult * b * h * t * t * d / peak * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
@@ -404,13 +441,15 @@ def check_k1(results) -> None:
 
 
 def check_train_kernels(results) -> None:
-    """K2, K3a and K3b against their plain versions at TRAIN_CASES, each
-    reading printed beside its limit; then timed."""
-    for shape in TRAIN_CASES:
+    """K2, K3a and K3b against their plain versions at TRAIN_CASES, in bf16
+    and f32, each reading printed beside its limit; then timed."""
+    for dtype, shape in ((dt, sh) for dt in TRAIN_TOL for sh in TRAIN_CASES):
         b, h, t, d = shape
+        tol, rel_tol = TRAIN_TOL[dtype]
+        k2, k3a, k3b = fa._TRAIN_ROUTES[dtype, d]
         g = torch.Generator(device="cuda").manual_seed(43)
         q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
-                       .to(torch.bfloat16) for _ in range(4))
+                       .to(dtype) for _ in range(4))
         o, lse = fa.flash_attention_lse(q, k, v)
         ref_o, ref_lse = fa.flash_attention_lse_plain(q, k, v)
         grads = fa.flash_attention_bwd(q, k, v, ref_o, ref_lse, do)
@@ -418,24 +457,25 @@ def check_train_kernels(results) -> None:
         torch.cuda.synchronize()
         err_o, rel_o, max_o = readings(o, ref_o)
         err_lse = (lse - ref_lse).abs().max().item()
-        checks = [("o max abs", err_o, BF16_TOL * min(1.0, max_o)),
-                  ("o relative L2", rel_o, TRAIN_REL_TOL),
+        checks = [("o max abs", err_o, tol * min(1.0, max_o)),
+                  ("o relative L2", rel_o, rel_tol),
                   ("lse max abs", err_lse, LSE_TOL)]
         errs = []
         for what, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
             err, rel, max_g = readings(got, want)
             errs.append(err)
-            checks += [(f"{what} max abs", err, GRAD_TOL * max(1.0, max_g)),
-                       (f"{what} relative L2", rel, TRAIN_REL_TOL)]
+            checks += [(f"{what} max abs", err, tol * max(1.0, max_g)),
+                       (f"{what} relative L2", rel, rel_tol)]
         finite = all(bool(torch.isfinite(x).all())
                      for x in (o, lse, *grads))
-        print(f"K2/K3 {shape} bf16 (reading / limit): " + ", ".join(
+        print(f"K2/K3 {shape} {dtype} (reading / limit): " + ", ".join(
             f"{what} {got:.3e} / {lim:.3e}" for what, got, lim in checks),
             flush=True)
         bad = [f"{what} {got} (limit {lim})" for what, got, lim in checks
                if not got < lim]
         if bad or not finite:
-            fail(f"K2/K3 at {shape}: {', '.join(bad)}; finite {finite}")
+            fail(f"K2/K3 {dtype} at {shape}: {', '.join(bad)}; finite "
+                 f"{finite}")
 
         iters = 20
         delta = (do.float() * ref_o.float()).sum(-1)
@@ -448,7 +488,7 @@ def check_train_kernels(results) -> None:
         plain_bwd_ms = cuda_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, ref_o, ref_lse, do), 5)
         record_case(
-            results, K2, shape, torch.bfloat16, max(err_o, err_lse),
+            results, k2, shape, dtype, max(err_o, err_lse),
             cuda_ms(lambda: fa.flash_attention_lse(q, k, v), iters),
             cuda_ms(lambda: fa.flash_attention_lse_plain(q, k, v), iters),
             cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters),
@@ -457,13 +497,11 @@ def check_train_kernels(results) -> None:
         # the plain version and torch's backward compute dq, dk and dv
         # together: both rows carry their whole time
         record_case(
-            results, "sdxl_flash_attention_bwd_dq_bf16", shape,
-            torch.bfloat16, errs[0],
+            results, k3a, shape, dtype, errs[0],
             cuda_ms(lambda: fa.launch_bwd_dq(q, k, v, do, ref_lse, delta), iters),
             plain_bwd_ms, sdpa_bwd_ms)
         record_case(
-            results, "sdxl_flash_attention_bwd_dkv_bf16", shape,
-            torch.bfloat16, max(errs[1:]),
+            results, k3b, shape, dtype, max(errs[1:]),
             cuda_ms(lambda: fa.launch_bwd_dkv(q, k, v, do, ref_lse, delta), iters),
             plain_bwd_ms, sdpa_bwd_ms)
 
@@ -849,14 +887,15 @@ def profile_training_step(pipe, data, cfg, factors) -> None:
     print_profile("LoRA step", prof, wall, latencies)
 
 
-def run_training(pipe):
-    """Encode two random images, then the LoRA steps; returns (dataset,
-    config, trained factors, launches on this path)."""
+def run_training(pipe, steps, must):
+    """Encode two random images, then `steps` LoRA steps; fail unless each
+    kernel in `must` was launched. Returns (dataset, config, trained
+    factors, launches on this path)."""
     g = torch.Generator(device=pipe.device).manual_seed(7)
     images = torch.randint(0, 256, (len(CAPTIONS), TRAIN_RES, TRAIN_RES, 3),
                            generator=g, device=pipe.device,
                            dtype=torch.uint8).cpu().numpy()
-    cfg = FinetuneConfig(rank=16, targets="attn", steps=TRAIN_STEPS, lr=1e-4,
+    cfg = FinetuneConfig(rank=16, targets="attn", steps=steps, lr=1e-4,
                          batch_size=1, log_every=0)
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
@@ -880,24 +919,24 @@ def run_training(pipe):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     up_max = max(v.abs().max().item() for k, v in factors.items()
                  if k.endswith("lora_up"))
-    print(f"train: {len(factors) // 2} LoRA sites, peak_mem={peak_gib:.2f}GiB,"
-          f" max |up| {up_max:.3e}; launches (encode + steps) {launches}",
+    print(f"train {pipe.compute_dtype}: {len(factors) // 2} LoRA sites, "
+          f"peak_mem={peak_gib:.2f}GiB, max |up| {up_max:.3e}; launches "
+          f"(encode + steps) { {k: n for k, n in launches.items() if n} }",
           flush=True)
-    if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
+    if len(losses) != steps or not all(np.isfinite(losses)):
         fail(f"training losses {losses}")
     if up_max == 0:
         fail("the LoRA ups did not move")
-    for name in ("sdxl_flash_attention_f32", "sdxl_flash_attention_lse_bf16",
-                 "sdxl_flash_attention_bwd_dq_bf16",
-                 "sdxl_flash_attention_bwd_dkv_bf16"):
+    for name in must:
         if launches[name] == 0:
             fail(f"{name} was not launched on the training path")
     return data, cfg, factors, launches
 
 
-def check_training_grads(pipe, data, cfg, factors) -> None:
+def check_training_grads(pipe, data, cfg, factors, tol) -> None:
     """One step's factor gradients with the kernels and with the plain
-    attention (K2's and K3's plain versions) swapped into ops.attention."""
+    attention (K2's and K3's plain versions) swapped into ops.attention:
+    max|dg| / max|g| within tol."""
     batch = {k: torch.as_tensor(v, device=pipe.device) for k, v in
              sample_batch(data, 1, np.random.default_rng(0)).items()}
     g = torch.Generator(device=pipe.device).manual_seed(11)
@@ -918,10 +957,10 @@ def check_training_grads(pipe, data, cfg, factors) -> None:
         clear_factors(pipe.unet)
     diff = max((g_k[k] - g_p[k]).abs().max().item() for k in g_k)
     scale = max(v.abs().max().item() for v in g_p.values())
-    print(f"training grad check: loss {loss_k.item()} vs {loss_p.item()}; "
-          f"max|dg| / max|g| = {diff / scale:.3e} (tol {GRAD_REL_TOL:g})",
-          flush=True)
-    if not diff / scale < GRAD_REL_TOL:
+    print(f"training grad check {pipe.compute_dtype}: loss {loss_k.item()} "
+          f"vs {loss_p.item()}; max|dg| / max|g| = {diff / scale:.3e} (tol "
+          f"{tol:g})", flush=True)
+    if not diff / scale < tol:
         fail("the kernels' factor gradients disagree with the plain path")
 
 
@@ -942,17 +981,26 @@ def main() -> None:
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
     print(smi, flush=True)
 
-    t0 = time.perf_counter()
+    clock = [time.perf_counter()]
+
+    def phase_done(label: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {label}: {now - clock[0]:.1f}s", flush=True)
+        clock[0] = now
+
     built = fa.build_kernels()
-    print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"build: {time.perf_counter() - clock[0]:.1f}s", flush=True)
     for source, (seconds, log) in built.items():
         print(f"{source}: {seconds:.1f}s\n{log}", flush=True)
     check_hopper_build()
+    phase_done("2 (build, SASS)")
 
     results = {}
     check_k1(results)
     check_train_kernels(results)
+    phase_done("3 (K1, K2, K3)")
     check_experiments(results)
+    phase_done("3b (X1-X3)")
     x_names = [name for name, *_ in experiment_kernels()]
     path = defaultdict(int)  # launches on the paths, summed over them
 
@@ -963,43 +1011,58 @@ def main() -> None:
     print("bench_flash_ragged speed-ups (plain / K1): " + ", ".join(
         f"T={t} {by_t[t]['speedup']:.2f}x" for t in sorted(by_t)),
         flush=True)
+    phase_done("4 (experiment path)")
 
     t0 = time.perf_counter()
-    pipe32 = random_pipeline(device="cuda", unet_dtype=torch.float32)
+    pipe32 = random_pipeline(device="cuda", unet_dtype=torch.float32,
+                             with_encoder=True)
     torch.cuda.synchronize()
-    print(f"random_pipeline(unet_dtype=float32): "
+    print(f"random_pipeline(unet_dtype=float32, with_encoder=True): "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     run_path("the f32 UNet request",
              lambda: run_requests(pipe32, REQUESTS[:1], F32_STEPS),
-             ["sdxl_flash_attention_f32_d64", "sdxl_flash_attention_f32"],
-             path)
+             [F32_D64, F32_D512], path)
     check_f32_unet(pipe32)
     if args.profile:
         profile_request(pipe32, F32_STEPS)
-    del pipe32
+    phase_done("5 (f32 UNet)")
+    data, cfg, factors, train_launches = run_training(
+        pipe32, F32_TRAIN_STEPS,
+        [F32_D512, *fa._TRAIN_ROUTES[torch.float32, 64]])
+    for name, n in train_launches.items():
+        path[name] += n
+    check_training_grads(pipe32, data, cfg, factors, F32_GRAD_REL_TOL)
+    if args.profile:
+        profile_training_step(pipe32, data, cfg, factors)
+    del pipe32, data, factors
     gc.collect()
     torch.cuda.empty_cache()
+    phase_done("5b (f32 LoRA training)")
 
     t0 = time.perf_counter()
     pipe = random_pipeline(device="cuda", with_encoder=True)
     torch.cuda.synchronize()
     print(f"random_pipeline: {time.perf_counter() - t0:.1f}s", flush=True)
     run_path("the txt2img requests", lambda: run_requests(pipe),
-             ["sdxl_flash_attention_bf16", "sdxl_flash_attention_f32"], path)
+             ["sdxl_flash_attention_bf16", F32_D512], path)
     check_path_against_plain(pipe)
+    phase_done("6-7 (txt2img)")
     run_path("the bf16-decode request", lambda: bf16_decode_request(pipe),
              ["sdxl_flash_attention_bf16", "sdxl_flash_attention_bf16_d512"],
              path)
     check_bf16_decode(pipe)
     if args.profile:
         profile_request(pipe)
+    phase_done("8-9 (bf16 decode, profile)")
 
-    data, cfg, factors, train_launches = run_training(pipe)
+    data, cfg, factors, train_launches = run_training(
+        pipe, TRAIN_STEPS, [F32_D512, *fa._TRAIN_ROUTES[torch.bfloat16, 64]])
     for name, n in train_launches.items():
         path[name] += n
-    check_training_grads(pipe, data, cfg, factors)
+    check_training_grads(pipe, data, cfg, factors, GRAD_REL_TOL)
     if args.profile:
         profile_training_step(pipe, data, cfg, factors)
+    phase_done("10-12 (LoRA training)")
     loaded = [m for m in sys.modules if m in ("jax", "sdxl_tpu")
               or m.startswith(("jax.", "sdxl_tpu."))]
     if loaded:

@@ -1,12 +1,16 @@
-// K1's f32 FMA routes for Hopper (sm_90a), bound to Python with ctypes.
+// K1's and K2's f32 d=128 route for Hopper (sm_90a), on the FMA pipes,
+// bound to Python with ctypes.
 //
 // Replaces the Pallas TPU kernel of sdxl_tpu/ops/flash_attention.py
-// `flash_attention_bhtd` (return_lse=False -> `_flash_kernel` ->
-// `_flash_kernel_core`) on its f32 routes at d = 512 (the f32 VAE's
-// mid-block attention) and d = 128 (no SDXL path). K1's bf16 routes, its
-// f32 d=64 route (the f32 UNet's self-attention, on TF32 tensor cores in
-// three passes) and K2 run on wgmma and TMA in flash_hopper.cu.
-// Unmasked softmax(q k^T / sqrt(d)) v over [B,H,T,D] in f32, with the
+// `flash_attention_bhtd` (:140; pallas_call :207) on its f32 route at d =
+// 128: K1 (return_lse=False -> `_flash_kernel` :92 -> `_flash_kernel_core`
+// :40) and K2 (return_lse=True -> `_flash_kernel_lse` :102, which also
+// stores the row's base-2 log-sum-exp m + log2(l); here one f32 per row,
+// [B*H, tq]). No SDXL path launches it: the reference's `_flash_sdpa_fwd`
+// routes every head dim up to 128 to K2, so the port keeps the route. K1's
+// bf16 routes, its f32 d 64 and 512 routes (TF32 tensor cores in three
+// passes) and K2's bf16 and f32 d=64 routes live in flash_hopper.cu.
+// Unmasked softmax(q k^T / sqrt(d)) v over [B,H,T,128] in f32, with the
 // reference's semantics kept exactly:
 //   - q is multiplied by d^-0.5 * log2(e) in f32 before any product
 //     (flash_attention.py:185);
@@ -22,20 +26,14 @@
 // order, so each thread block owns one (batch*head, q-tile) and walks all
 // k-tiles in a loop of its own; nothing crosses blocks.
 //
-// flash_fwd_fma<D> (the FMA route): f32 in/out at d = 512 and d = 128.
-//   These routes stay in full f32 on the f32 FMA pipes (67 TFLOP/s peak),
-//   bound by them and by shared-memory bandwidth: one TF32 product keeps
-//   only 10 mantissa bits, which breaks the 1e-3 bound against plain f32
-//   attention, and the three-pass TF32 split that keeps it (flash_hopper.cu,
-//   d = 64) needs a high and a low part of every Q, K and V tile: at d =
-//   512 a 64-row Q tile alone is 256 KB, more than a block's shared memory,
-//   and at d = 128 Q and two K/V stages take 256 KB (queued in ROADMAP).
-//   A 32x512 f32 tile is 64 KB, so a block holds 32 query rows and a
-//   32-key tile of K and V (about 200 KB of dynamic shared memory at d =
-//   512, one block per SM). Each thread computes 4x1 logits and an 8x8 (d
-//   512) or 4x4 (d 128) register tile of the output; Q/K rows are padded by
-//   4 floats so the float4 reads of eight consecutive rows hit distinct
-//   banks.
+// flash_fwd_fma<LSE>: full f32 on the f32 FMA pipes (67 TFLOP/s peak),
+//   bound by them and by shared-memory bandwidth. The three-pass TF32
+//   split (flash_hopper.cu, d 64 and 512) is queued for this route in
+//   ROADMAP. A block holds 32 query rows and a 32-key tile of K and V; each
+//   thread computes 4x1 logits and a 4x4 register tile of the output; Q/K
+//   rows are padded by 4 floats so the float4 reads of eight consecutive
+//   rows hit distinct banks. With LSE the rows' m + log2(l) are stored from
+//   shared memory after the last tile.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,27 +47,18 @@ namespace {
 
 using flash::allow_smem_once;
 
-// ---------------------------------------------------------------------------
-// FMA route: f32 at d in {128, 512}
-// ---------------------------------------------------------------------------
-
+constexpr int D = 128;
 constexpr int kFBQ = 32;
 constexpr int kFBK = 32;
 constexpr int kFThreads = 256;
 constexpr int kFLS = kFBK + 1;    // padded logit row stride
-
-// Tile plan of the FMA kernel at head dim D: in P V each thread owns kRows
-// query rows and kChunks float4 column chunks (the chunks D / kChunks
-// apart); the kColThreads threads of a row group cover the D columns.
-template <int D>
-struct FmaPlan {
-  static constexpr int LD = D + 4;  // padded Q/K row stride (floats)
-  static constexpr int kChunks = D >= 512 ? 2 : 1;
-  static constexpr int kColThreads = D / (4 * kChunks);  // 64, 32
-  static constexpr int kRows = kFBQ * kColThreads / kFThreads;  // 8, 4
-  static constexpr int kSmemBytes =
-      (kFBQ * LD + kFBK * LD + kFBK * D + kFBQ * kFLS + kFBK * kFBQ + 3 * kFBQ) * 4;
-};
+constexpr int LD = D + 4;         // padded Q/K row stride (floats)
+// in P V each thread owns kRows query rows and one float4 column chunk;
+// the kColThreads threads of a row group cover the D columns
+constexpr int kColThreads = D / 4;                      // 32
+constexpr int kRows = kFBQ * kColThreads / kFThreads;   // 4
+constexpr int kSmemBytes =
+    (kFBQ * LD + kFBK * LD + kFBK * D + kFBQ * kFLS + kFBK * kFBQ + 3 * kFBQ) * 4;
 
 // Four consecutive elements as f32, and back.
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -78,13 +67,13 @@ __device__ __forceinline__ float4 load4(const float* p) {
 __device__ __forceinline__ void store4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
 }
-template <int D>
+
+// With LSE also lse ([B*H, tq] f32).
+template <bool LSE>
 __global__ void __launch_bounds__(kFThreads, 1)
 flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int tq,
-              int tk, float scale) {
-  using P = FmaPlan<D>;
-  constexpr int LD = P::LD;
+              const float* __restrict__ v, float* __restrict__ o,
+              float* __restrict__ lse, int tq, int tk, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* sQ = reinterpret_cast<float*>(smem);  // [kFBQ][LD]
   float* sK = sQ + kFBQ * LD;                  // [kFBK][LD]
@@ -122,14 +111,14 @@ flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
   const int sc = tid % kFBK, sr0 = (tid / kFBK) * 4;
   // softmax: 8 threads per row, keys j, j+8, j+16, j+24
   const int pr = tid / 8, pj = tid % 8;
-  // P V: rows or0 .. or0+kRows-1, columns oc..oc+3 of each chunk
-  const int oc = (tid % P::kColThreads) * 4;
-  const int or0 = (tid / P::kColThreads) * P::kRows;
-  float acc[P::kRows][4 * P::kChunks];
+  // P V: rows or0 .. or0+kRows-1, columns oc..oc+3
+  const int oc = (tid % kColThreads) * 4;
+  const int or0 = (tid / kColThreads) * kRows;
+  float acc[kRows][4];
 #pragma unroll
-  for (int i = 0; i < P::kRows; ++i)
+  for (int i = 0; i < kRows; ++i)
 #pragma unroll
-    for (int j = 0; j < 4 * P::kChunks; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
   const int n_kt = (tk + kFBK - 1) / kFBK;
   for (int kt = 0; kt < n_kt; ++kt) {
@@ -204,75 +193,73 @@ flash_fwd_fma(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();
 
 #pragma unroll
-    for (int i = 0; i < P::kRows; ++i) {
+    for (int i = 0; i < kRows; ++i) {
       const float a = sAlpha[or0 + i];
 #pragma unroll
-      for (int j = 0; j < 4 * P::kChunks; ++j) acc[i][j] *= a;
+      for (int j = 0; j < 4; ++j) acc[i][j] *= a;
     }
 #pragma unroll 2
     for (int kk = 0; kk < kFBK; ++kk) {
-      float p[P::kRows], vv[4 * P::kChunks];
+      float p[kRows];
 #pragma unroll
-      for (int i = 0; i < P::kRows; ++i) p[i] = sPt[kk * kFBQ + or0 + i];
+      for (int i = 0; i < kRows; ++i) p[i] = sPt[kk * kFBQ + or0 + i];
+      const float4 x = *reinterpret_cast<const float4*>(sV + kk * D + oc);
+      const float vv[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-      for (int c = 0; c < P::kChunks; ++c) {
-        const float4 x = *reinterpret_cast<const float4*>(
-            sV + kk * D + c * (D / P::kChunks) + oc);
-        vv[4 * c] = x.x;
-        vv[4 * c + 1] = x.y;
-        vv[4 * c + 2] = x.z;
-        vv[4 * c + 3] = x.w;
-      }
+      for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int i = 0; i < P::kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < 4 * P::kChunks; ++j)
-          acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(p[i], vv[j], acc[i][j]);
     }
   }
   __syncthreads();
 
 #pragma unroll
-  for (int i = 0; i < P::kRows; ++i) {
+  for (int i = 0; i < kRows; ++i) {
     const int r = q0 + or0 + i;
     if (r >= tq) continue;
     const float l = sL[or0 + i];
-    float* orow = o + q_base + (size_t)r * D;
-#pragma unroll
-    for (int c = 0; c < P::kChunks; ++c)
-      store4(orow + c * (D / P::kChunks) + oc,
-             make_float4(acc[i][4 * c] / l, acc[i][4 * c + 1] / l,
-                         acc[i][4 * c + 2] / l, acc[i][4 * c + 3] / l));
+    store4(o + q_base + (size_t)r * D + oc,
+           make_float4(acc[i][0] / l, acc[i][1] / l, acc[i][2] / l,
+                       acc[i][3] / l));
   }
+  if (LSE && tid < kFBQ && q0 + tid < tq)
+    lse[(size_t)blockIdx.y * tq + q0 + tid] = sM[tid] + log2f(sL[tid]);
 }
 
-template <int D>
+template <bool LSE>
 cudaError_t launch_fma(const void* q, const void* k, const void* v, void* o,
-                       int bh, int tq, int tk, int d, float scale,
+                       float* lse, int bh, int tq, int tk, int d, float scale,
                        cudaStream_t s) {
   if (d != D) return cudaErrorInvalidValue;
-  constexpr int smem = FmaPlan<D>::kSmemBytes;
   static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t err = allow_smem_once(flash_fwd_fma<D>, smem, &smem_set);
+  cudaError_t err = allow_smem_once(flash_fwd_fma<LSE>, kSmemBytes, &smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + kFBQ - 1) / kFBQ, bh);
-  flash_fwd_fma<D><<<grid, kFThreads, smem, s>>>(
+  flash_fwd_fma<LSE><<<grid, kFThreads, kSmemBytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), tq, tk, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, tq, tk,
+      scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, o: contiguous [B*H, T, D] f32 device buffers; scale =
-// d^-0.5*log2(e). Returns a cudaError_t; 0 means the kernel was launched.
-// The FMA route, one export for each head dim it takes.
-#define SDXL_FMA_EXPORT(name, D)                                             \
-  extern "C" int name(const void* q, const void* k, const void* v, void* o,  \
-                      int bh, int tq, int tk, int d, float scale,            \
-                      void* stream) {                                        \
-    return launch_fma<D>(q, k, v, o, bh, tq, tk, d, scale,                   \
-                         static_cast<cudaStream_t>(stream));                 \
-  }
-SDXL_FMA_EXPORT(sdxl_flash_attention_f32, 512)
-SDXL_FMA_EXPORT(sdxl_flash_attention_f32_d128, 128)
+// q, k, v, o: contiguous [B*H, T, 128] f32 device buffers; lse: [B*H, tq]
+// f32; scale = d^-0.5*log2(e). Each returns a cudaError_t; 0 means the
+// kernel was launched.
+extern "C" int sdxl_flash_attention_f32_d128(const void* q, const void* k,
+                                             const void* v, void* o, int bh,
+                                             int tq, int tk, int d,
+                                             float scale, void* stream) {
+  return launch_fma<false>(q, k, v, o, nullptr, bh, tq, tk, d, scale,
+                           static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int sdxl_flash_attention_lse_f32_d128(const void* q, const void* k,
+                                                 const void* v, void* o,
+                                                 void* lse, int bh, int tq,
+                                                 int tk, int d, float scale,
+                                                 void* stream) {
+  return launch_fma<true>(q, k, v, o, static_cast<float*>(lse), bh, tq, tk, d,
+                          scale, static_cast<cudaStream_t>(stream));
+}

@@ -6,7 +6,8 @@
 // Replaces the Pallas TPU kernels of sdxl_tpu/ops/flash_attention.py
 // `flash_attention_bhtd` (:140; pallas_call :207): K1 (return_lse=False,
 // `_flash_kernel` :92, `_flash_kernel_core` :40) on its bf16 routes and
-// its f32 d=64 route, and K2 (return_lse=True, `_flash_kernel_lse` :102,
+// its f32 d 64 and 512 routes, and K2 (return_lse=True, bf16 and f32 d =
+// 64; `_flash_kernel_lse` :102,
 // which also stores the row's base-2 log-sum-exp m + log2(l) for the
 // backward; here one f32 per row, [B*H, tq], without the TPU's lane
 // replication). Unmasked softmax(q k^T / sqrt(d)) v over [B,H,T,D] with
@@ -82,7 +83,8 @@
 //   KB (double-buffered by tile parity, so one barrier a tile suffices):
 //   224 KB, one block per SM; 256 blocks at T = 16384.
 //
-// flash_fwd_tf32 (the f32 UNet's self-attention, f32 d = 64) on the
+// flash_fwd_tf32<LSE> (the f32 UNet's self-attention, f32 d = 64:
+// K1 without the lse, K2 of the f32 trainer with it) on the
 // TF32 tensor cores in three passes (3xTF32, CUTLASS's
 // OpMultiplyAddFastF32). One TF32 product keeps 10 mantissa bits of each
 // operand: its relative error, about 2^-11, puts f32 attention about 4e-4
@@ -122,7 +124,48 @@
 //   2% faster at T = 4096 and 10% slower at T = 1024, where 60 of the f32
 //   UNet's 70 calls run. Shared memory: Q hi and lo, 32 KB a consumer; two
 //   stages of K_hi, K_lo, V^T_hi, V^T_lo, 16 KB each, all in
-//   128-byte-swizzled boxes of 32 floats: 225 KB, one block per SM.
+//   128-byte-swizzled boxes of 32 floats: 225 KB, one block per SM. With
+//   LSE one lane of each quad stores m + log2(l) of its rows, as K2's bf16
+//   kernel does. K2 runs at batch 1 (at T = 1024, 6 tiles x 20 heads = 120
+//   blocks on 132 SMs); two consumers (128-row tiles) were still slower
+//   there than three (0.103 against 0.077 ms at [1,20,1024,64], 0.503
+//   against 0.448-0.456 at [1,10,4096,64]; scripts/probe_f32_kernels.py,
+//   PERF.md), so K2 keeps K1's tiles.
+//
+// flash_fwd_f32_d512 (the f32 VAE's mid-block attention, f32 d = 512, in
+// every f32 decode and in the training set's encode) on the TF32 tensor
+// cores in three passes, through mma.sync.m16n8k8.
+//   Bound: 3 x 4*T^2*512 TF32 operations at 495 TFLOP/s, 3.33 ms at T =
+//   16384; the FMA kernel it replaces (8.21 ms bound) took 26.6 ms.
+//   Three passes need a high and a low part of every operand, and a 64-row
+//   Q tile's alone are 256 KB at d = 512, more than a block's 227 KB, so
+//   wgmma (64-row tiles, 32-bit operands K-major in shared memory) would
+//   need the head dim split over a cluster. Here the operands stay f32 in
+//   shared memory and are split in registers (mma.sync reads its operands
+//   from registers, in any majorness): hi = x with its 13 low mantissa bits
+//   cleared, lo = x - hi, which the tensor core truncates to TF32 in turn
+//   (about 2^-20 of each product; tests/test_torch_flash_attention.py
+//   pins this arithmetic on the CPU). Two instructions a split, no
+//   conversion.
+//   A block: 32 query rows, 8 warps, 32 keys a tile. For S each warp takes
+//   64 of the 512 head-dim columns (8 k8 steps, 2 x 4 m16n8 tiles: the
+//   operands of one k-step feed 24 products) and writes its partial S
+//   fragments to shared memory; every thread then sums one fragment
+//   position over the 8 warps in warp order (the same order for every
+//   element), so the softmax sees one S, and 16 lanes of a warp hold a
+//   row pair. They write P's hi and lo A fragments to shared memory in
+//   V's key order: V's rows are permuted by perm8 within each group of 8
+//   keys as they are loaded, so the S fragment (keys 2tg, 2tg + 1) is the
+//   A fragment (k-columns tg, tg + 4) as it stands. For P V each warp owns
+//   64 output columns (2 x 8 m16n8 tiles, 64 accumulators); each 8-column
+//   tile's P V over the 32 keys goes to a fresh accumulator added to O by
+//   fmaf (O summed inside the tensor core drifts linearly in T; PERF.md).
+//   K and V tiles come by cp.async (zero fill past tk): K(t + 1) during
+//   the softmax and P V of tile t, V(t + 1) during S of t + 1.
+//   Shared memory: Q 32 x 516 f32 (rows padded by 4 floats: conflict-free
+//   fragment loads) 64.5 KB, K 32 x 516 64.5 KB, V 32 x 520 65 KB, the
+//   partial S 32 KB (P's fragments reuse its first 8 KB), alpha and l
+//   256 B: 231,680 bytes, one block per SM, 512 blocks at T = 16384.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -137,6 +180,8 @@
 namespace {
 
 using flash::allow_smem_once;
+using flash::cp_async_commit;
+using flash::cp_async_wait;
 using flash::pack_bf16;
 
 constexpr int kBoxCols = 64;          // bf16 columns in a 128-byte swizzle box
@@ -915,14 +960,16 @@ __device__ __forceinline__ void prescale_split(unsigned char* hi,
   }
 }
 
-// One block a (b*h, q-tile) tile.
+// One block a (b*h, q-tile) tile; with LSE also lse ([B*H, tq] f32).
+template <bool LSE>
 __global__ void __launch_bounds__(Tf32Plan::kThreads, 1)
 flash_fwd_tf32(__grid_constant__ const CUtensorMap q_map,
                __grid_constant__ const CUtensorMap khi_map,
                __grid_constant__ const CUtensorMap klo_map,
                __grid_constant__ const CUtensorMap vthi_map,
                __grid_constant__ const CUtensorMap vtlo_map,
-               float* __restrict__ o, int tq, int tk, float scale) {
+               float* __restrict__ o, float* __restrict__ lse, int tq, int tk,
+               float scale) {
   using P = Tf32Plan;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
@@ -1063,8 +1110,318 @@ flash_fwd_tf32(__grid_constant__ const CUtensorMap q_map,
       acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], pv[i]);
   }
 
-  store_rows_f32(acc, o + (size_t)h * tq * 64, 64,
-                 q0 + 64 * c + 16 * warp + g, tq, tg, l_run);
+  const int r = q0 + 64 * c + 16 * warp + g;
+  store_rows_f32(acc, o + (size_t)h * tq * 64, 64, r, tq, tg, l_run);
+  if constexpr (LSE) store_lse(lse + (size_t)h * tq, r, tq, tg, m_run, l_run);
+}
+
+// ---------------------------------------------------------------------------
+// f32, d = 512, on TF32 tensor cores in three passes (mma.sync)
+// ---------------------------------------------------------------------------
+
+constexpr int kRowsF512 = 32;     // query rows a block
+constexpr int kKeysF512 = 32;     // keys a tile
+constexpr int kWarpsF512 = 8;     // each owns 64 head-dim columns
+constexpr int kThreadsF512 = 32 * kWarpsF512;
+
+struct F512Plan {
+  static constexpr int kLdQK = 512 + 4;  // Q, K row stride (floats)
+  static constexpr int kLdV = 512 + 8;   // V row stride
+  static constexpr int kK = kRowsF512 * kLdQK * 4;          // Q at 0: 64.5 KB
+  static constexpr int kV = kK + kKeysF512 * kLdQK * 4;     // K: 64.5 KB
+  static constexpr int kX = kV + kKeysF512 * kLdV * 4;      // V: 65 KB
+  // the warps' partial S fragments [warp][m-tile][n-tile][lane] (float4),
+  // then P's hi and lo A fragments [8-key step][m-tile][lane] in its first
+  // 8 KB: 32 KB
+  static constexpr int kXBytes = kWarpsF512 * 2 * 4 * 32 * 16;
+  static constexpr int kRow = kX + kXBytes;  // alpha[32], then l[32]
+  static constexpr int kSmemBytes = kRow + 2 * kRowsF512 * 4;  // 231,680
+};
+static_assert(F512Plan::kSmemBytes <= 232448, "over a block's shared memory");
+
+// D[16x8] += A[16x8] B[8x8] in TF32 (mma.sync; A row-major, B column-major
+// fragments in registers): a0 = A[g][tg], a1 = A[g + 8][tg], a2 = A[g][tg +
+// 4], a3 = A[g + 8][tg + 4]; b0 = B[tg][g], b1 = B[tg + 4][g]; d0, d1 =
+// D[g][2tg, 2tg + 1], d2, d3 = D[g + 8][2tg, 2tg + 1].
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo exactly, hi = x with its 13 low mantissa bits cleared (a TF32
+// value, x truncated), lo = x - hi; the tensor core reads lo's top 10
+// mantissa bits (it ignores the 13 low bits of a TF32 operand, truncating
+// lo as well).
+__device__ __forceinline__ void split_trunc(float x, uint32_t& hi,
+                                            uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// 16 bytes from device memory to shared memory, zeros where !valid.
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// One key tile into shared memory by cp.async (one group): K rows in key
+// order, or (PERM) V rows with each group of 8 keys permuted by perm8.
+template <bool PERM>
+__device__ __forceinline__ void load_kv_f512(float* dst, const float* src,
+                                             int k0, int tk, int ld) {
+  for (int i = threadIdx.x; i < kKeysF512 * 128; i += kThreadsF512) {
+    const int r = i / 128, c = (i % 128) * 4;
+    const int key = k0 + (PERM ? (r & ~7) + perm8(r & 7) : r);
+    const bool ok = key < tk;
+    cp_async16_zfill(dst + r * ld + c, src + (ok ? (size_t)key * 512 + c : 0),
+                     ok);
+  }
+  cp_async_commit();
+}
+
+// One block a (b*h, 32 query rows) tile, 8 warps.
+__global__ void __launch_bounds__(kThreadsF512, 1)
+flash_fwd_f32_d512(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ o, int tq,
+                   int tk, float scale) {
+  using P = F512Plan;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* sQ = reinterpret_cast<float*>(smem);
+  float* sK = reinterpret_cast<float*>(smem + P::kK);
+  float* sV = reinterpret_cast<float*>(smem + P::kV);
+  float4* sX = reinterpret_cast<float4*>(smem + P::kX);
+  uint4* sPhi = reinterpret_cast<uint4*>(smem + P::kX);
+  uint4* sPlo = sPhi + 4 * 2 * 32;
+  float* sAlpha = reinterpret_cast<float*>(smem + P::kRow);
+  float* sL = sAlpha + kRowsF512;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tg = lane % 4;
+  const int q0 = blockIdx.x * kRowsF512;
+  const float* kb = k + (size_t)blockIdx.y * tk * 512;
+  const float* vb = v + (size_t)blockIdx.y * tk * 512;
+  const int n_kt = (tk + kKeysF512 - 1) / kKeysF512;
+
+  load_kv_f512<false>(sK, kb, 0, tk, P::kLdQK);
+  load_kv_f512<true>(sV, vb, 0, tk, P::kLdV);
+  // Q, pre-scaled in f32; rows >= tq zero
+  for (int i = threadIdx.x; i < kRowsF512 * 128; i += kThreadsF512) {
+    const int r = i / 128, c = (i % 128) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < tq) {
+      x = *reinterpret_cast<const float4*>(
+          q + ((size_t)blockIdx.y * tq + q0 + r) * 512 + c);
+      x.x *= scale;
+      x.y *= scale;
+      x.z *= scale;
+      x.w *= scale;
+    }
+    *reinterpret_cast<float4*>(sQ + r * P::kLdQK + c) = x;
+  }
+
+  // The softmax's share of this thread: S rows r0 = 16 mt + g and r0 + 8,
+  // keys 8 nt + 2 tg + (0, 1) of each tile: the sum of the warps' partial
+  // fragments (mt, nt) at lane sl; the 16 threads of a row pair are 16
+  // consecutive lanes of one warp.
+  const int smt = threadIdx.x / 128, sg = (threadIdx.x / 16) % 8;
+  const int snt = (threadIdx.x / 4) % 4, stg = threadIdx.x % 4;
+  const int sl = sg * 4 + stg;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  float acc[2][8][4];  // O rows 16 mt + g (+ 8), columns 64 warp + 8 nt + 2 tg
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<1>();  // K(kt) (and Q's stores) done; V(kt) may be in flight
+    __syncthreads();
+
+    // This warp's partial S over head-dim columns 64 warp .. + 63: 8 k8
+    // steps, Q_lo K_hi + Q_hi K_lo + Q_hi K_hi each.
+    {
+      float sp[2][4][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sp[mt][nt][e] = 0.f;
+      const float* qw = sQ + g * P::kLdQK + 64 * warp + tg;
+      const float* kw = sK + g * P::kLdQK + 64 * warp + tg;
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        uint32_t ah[2][4], al[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* p = qw + 16 * mt * P::kLdQK + 8 * kk;
+          split_trunc(p[0], ah[mt][0], al[mt][0]);
+          split_trunc(p[8 * P::kLdQK], ah[mt][1], al[mt][1]);
+          split_trunc(p[4], ah[mt][2], al[mt][2]);
+          split_trunc(p[8 * P::kLdQK + 4], ah[mt][3], al[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const float* p = kw + 8 * nt * P::kLdQK + 8 * kk;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_trunc(p[0], bh0, bl0);
+          split_trunc(p[4], bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_tf32(sp[mt][nt], al[mt], bh0, bh1);
+            mma_tf32(sp[mt][nt], ah[mt], bl0, bl1);
+            mma_tf32(sp[mt][nt], ah[mt], bh0, bh1);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+          sX[((warp * 2 + mt) * 4 + nt) * 32 + lane] = make_float4(
+              sp[mt][nt][0], sp[mt][nt][1], sp[mt][nt][2], sp[mt][nt][3]);
+    }
+    __syncthreads();  // K(kt) read, the partials written
+    if (kt + 1 < n_kt) {
+      load_kv_f512<false>(sK, kb, (kt + 1) * kKeysF512, tk, P::kLdQK);
+    } else {
+      cp_async_commit();
+    }
+
+    // S = the partials summed in warp order (the same order for every
+    // element), then the online softmax of rows r0 and r0 + 8.
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int w = 0; w < kWarpsF512; ++w) {
+      const float4 x = sX[((w * 2 + smt) * 4 + snt) * 32 + sl];
+      s[0] += x.x;
+      s[1] += x.y;
+      s[2] += x.z;
+      s[3] += x.w;
+    }
+    const int key = kt * kKeysF512 + 8 * snt + 2 * stg;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (key + (e & 1) >= tk) s[e] = -INFINITY;
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = fmaxf(s[2 * h], s[2 * h + 1]);
+#pragma unroll
+      for (int x = 1; x < 16; x *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+      const float m_new = fmaxf(m_run[h], mx);
+      alpha[h] = exp2_ftz(m_run[h] - m_new);
+      m_run[h] = m_new;
+      s[2 * h] = exp2_ftz(s[2 * h] - m_new);
+      s[2 * h + 1] = exp2_ftz(s[2 * h + 1] - m_new);
+      float sum = s[2 * h] + s[2 * h + 1];
+#pragma unroll
+      for (int x = 1; x < 16; x *= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, x);
+      l_run[h] = alpha[h] * l_run[h] + sum;
+    }
+    __syncthreads();  // every partial read before P overwrites them
+    // P's A fragment of (8-key step snt, m-tile smt) at lane sl, in V's
+    // permuted key order: {P[r0][2tg], P[r0 + 8][2tg], P[r0][2tg + 1],
+    // P[r0 + 8][2tg + 1]}, split into hi and lo
+    {
+      uint4 hi, lo;
+      split_trunc(s[0], hi.x, lo.x);
+      split_trunc(s[2], hi.y, lo.y);
+      split_trunc(s[1], hi.z, lo.z);
+      split_trunc(s[3], hi.w, lo.w);
+      sPhi[(snt * 2 + smt) * 32 + sl] = hi;
+      sPlo[(snt * 2 + smt) * 32 + sl] = lo;
+      if (snt == 0 && stg == 0) {
+        sAlpha[16 * smt + sg] = alpha[0];
+        sAlpha[16 * smt + sg + 8] = alpha[1];
+      }
+    }
+    cp_async_wait<1>();  // V(kt) done; K(kt + 1) may be in flight
+    __syncthreads();
+
+    // O columns 64 warp .. + 63: per 8-column n-tile, P V over the 32 keys
+    // (P_lo V_hi + P_hi V_lo + P_hi V_hi) into a fresh accumulator, then O
+    // = alpha O + PV on the FMA pipes.
+    {
+      uint32_t ph[4][2][4], pl[4][2][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const uint4 h = sPhi[(ks * 2 + mt) * 32 + lane];
+          const uint4 l = sPlo[(ks * 2 + mt) * 32 + lane];
+          ph[ks][mt][0] = h.x, ph[ks][mt][1] = h.y, ph[ks][mt][2] = h.z,
+          ph[ks][mt][3] = h.w;
+          pl[ks][mt][0] = l.x, pl[ks][mt][1] = l.y, pl[ks][mt][2] = l.z,
+          pl[ks][mt][3] = l.w;
+        }
+      float a[2][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) a[mt][h] = sAlpha[16 * mt + g + 8 * h];
+      const float* vw = sV + tg * P::kLdV + 64 * warp + g;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        float pv[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const float* p = vw + 8 * ks * P::kLdV + 8 * nt;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_trunc(p[0], bh0, bl0);
+          split_trunc(p[4 * P::kLdV], bh1, bl1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_tf32(pv[mt], pl[ks][mt], bh0, bh1);
+            mma_tf32(pv[mt], ph[ks][mt], bl0, bl1);
+            mma_tf32(pv[mt], ph[ks][mt], bh0, bh1);
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[mt][nt][e] = fmaf(acc[mt][nt][e], a[mt][e >> 1], pv[mt][e]);
+      }
+    }
+    __syncthreads();  // V(kt), P and alpha read
+    if (kt + 1 < n_kt) {
+      load_kv_f512<true>(sV, vb, (kt + 1) * kKeysF512, tk, P::kLdV);
+    } else {
+      cp_async_commit();
+    }
+  }
+
+  if (snt == 0 && stg == 0) {
+    sL[16 * smt + sg] = l_run[0];
+    sL[16 * smt + sg + 8] = l_run[1];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 16 * mt + g + 8 * h;
+      if (q0 + r >= tq) continue;
+      const float l = sL[r];
+      float* row = o + ((size_t)blockIdx.y * tq + q0 + r) * 512 + 64 * warp +
+                   2 * tg;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        *reinterpret_cast<float2*>(row + 8 * nt) = make_float2(
+            acc[mt][nt][2 * h] / l, acc[mt][nt][2 * h + 1] / l);
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -1147,9 +1504,10 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+template <bool LSE>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
-                        void* scratch, int bh, int tq, int tk, float scale,
-                        cudaStream_t s) {
+                        float* lse, void* scratch, int bh, int tq, int tk,
+                        float scale, cudaStream_t s) {
   using P = Tf32Plan;
   static std::atomic<unsigned long long> smem_set{0};
   const int tp = (tk + 7) / 8 * 8;
@@ -1168,7 +1526,7 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess)
     err = make_map(&vtlo_map, vt_lo, true, bh, 64, tp, 64);
   if (err == cudaSuccess)
-    err = allow_smem_once(flash_fwd_tf32, P::kSmemBytes, &smem_set);
+    err = allow_smem_once(flash_fwd_tf32<LSE>, P::kSmemBytes, &smem_set);
   if (err != cudaSuccess) return err;
   split_kv_tf32<<<dim3((tp + kKeysTf32 - 1) / kKeysTf32, bh), 256, 0, s>>>(
       static_cast<const float*>(k), static_cast<const float*>(v), k_hi, k_lo,
@@ -1176,9 +1534,9 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   dim3 grid((tq + P::kRowsQ - 1) / P::kRowsQ, bh);
-  flash_fwd_tf32<<<grid, P::kThreads, P::kSmemBytes, s>>>(
-      q_map, khi_map, klo_map, vthi_map, vtlo_map, static_cast<float*>(o), tq,
-      tk, scale);
+  flash_fwd_tf32<LSE><<<grid, P::kThreads, P::kSmemBytes, s>>>(
+      q_map, khi_map, klo_map, vthi_map, vtlo_map, static_cast<float*>(o), lse,
+      tq, tk, scale);
   return cudaGetLastError();
 }
 
@@ -1244,17 +1602,48 @@ extern "C" int sdxl_flash_attention_f32_d64(const void* q, const void* k,
                                             int tk, int d, float scale,
                                             void* stream) {
   if (d != 64) return cudaErrorInvalidValue;
-  return launch_tf32(q, k, v, o, scratch, bh, tq, tk, scale,
-                     static_cast<cudaStream_t>(stream));
+  return launch_tf32<false>(q, k, v, o, nullptr, scratch, bh, tq, tk, scale,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// K2, f32 d 64: K1's f32 d=64 output and lse ([B*H, tq] f32), scratch as
+// above.
+extern "C" int sdxl_flash_attention_lse_f32_d64(const void* q, const void* k,
+                                                const void* v, void* o,
+                                                void* lse, void* scratch,
+                                                int bh, int tq, int tk, int d,
+                                                float scale, void* stream) {
+  if (d != 64) return cudaErrorInvalidValue;
+  return launch_tf32<true>(q, k, v, o, static_cast<float*>(lse), scratch, bh,
+                           tq, tk, scale, static_cast<cudaStream_t>(stream));
+}
+
+// K1, f32 d 512 (3xTF32 on mma.sync).
+extern "C" int sdxl_flash_attention_f32_d512(const void* q, const void* k,
+                                             const void* v, void* o, int bh,
+                                             int tq, int tk, int d,
+                                             float scale, void* stream) {
+  if (d != 512) return cudaErrorInvalidValue;
+  constexpr int smem = F512Plan::kSmemBytes;
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = allow_smem_once(flash_fwd_f32_d512, smem, &smem_set);
+  if (err != cudaSuccess) return err;
+  dim3 grid((tq + kRowsF512 - 1) / kRowsF512, bh);
+  flash_fwd_f32_d512<<<grid, kThreadsF512, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), tq, tk, scale);
+  return cudaGetLastError();
 }
 
 // The dynamic shared memory a kernel of this file launches with (for the
 // build report): kernel 0 flash_fwd_wgmma<d>, 1 flash_fwd_d512, 2
-// flash_fwd_tf32; 0 for any other.
+// flash_fwd_tf32, 3 flash_fwd_f32_d512; 0 for any other.
 extern "C" int flash_hopper_smem_bytes(int kernel, int d) {
   if (kernel == 0 && d == 64) return WsPlan<64>::kSmemBytes;
   if (kernel == 0 && d == 128) return WsPlan<128>::kSmemBytes;
   if (kernel == 1) return D512Plan::kSmemBytes;
   if (kernel == 2) return Tf32Plan::kSmemBytes;
+  if (kernel == 3) return F512Plan::kSmemBytes;
   return 0;
 }

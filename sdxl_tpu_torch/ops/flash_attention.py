@@ -9,9 +9,11 @@ Counterpart of sdxl_tpu/ops/flash_attention.py:
   (``flash_attention_bwd_bhtd``: dq, then dk and dv);
 - ``use_flash``, the reference's routing rule.
 
-The kernels live in ``csrc/`` (flash_hopper.cu: K1's bf16 routes, its f32
-d=64 route and K2, on wgmma and TMA; flash_attention.cu: K1's other f32
-routes on the FMA pipes; flash_attention_bwd.cu: K3a and K3b;
+The kernels live in ``csrc/`` (flash_hopper.cu: K1's bf16 routes and K2's
+bf16 route on wgmma and TMA, K1's and K2's f32 d=64 route and K1's f32
+d=512 route on TF32 tensor cores; flash_attention.cu: K1's and K2's f32
+d=128 route on the FMA pipes; flash_attention_bwd.cu: K3a and K3b, bf16
+and f32;
 flash_experiments.cu and flash_pipelined.cu: the experiments X1-X3, whose
 wrappers live in ``sdxl_tpu_torch/scripts/``). Each source is compiled
 with nvcc for sm_90a into a shared library with a plain C interface, at
@@ -26,22 +28,27 @@ is pre-scaled by d^-0.5 * log2(e) and rounded to its dtype, the softmax
 runs in base 2 over f32 logits, p is rounded to v's dtype before P.V, and
 the backward recomputes p from the same rounded q and the forward's lse.
 
-Kernel routes on CUDA:
+Kernel routes on CUDA (``_ROUTES`` for K1, ``_TRAIN_ROUTES`` for K2, K3a
+and K3b):
 
 - K1, bf16 with d in (64, 128) (the bf16 UNet's self-attention) and d =
   512 (the bf16 VAE decode's mid-block attention): bf16 tensor cores
   (wgmma), K, V by TMA through an mbarrier ring;
-- K1, f32 with d = 64 (the f32 UNet's self-attention): TF32 tensor cores
-  in three passes. One TF32 product rounds each operand to 10 mantissa
-  bits, about 4e-4 of relative L2 error over an attention output, past
-  the f32 bound of 1e-4; split into a high and a low TF32 part, a b =
-  a_hi b_hi + a_hi b_lo + a_lo b_hi keeps about 2^-21 of each product
-  (tests/test_torch_flash_attention.py pins this on the CPU). A pre-pass
-  splits K and V into scratch the wrapper allocates (``_tf32_scratch``);
-- K1, f32 with d in (128, 512) (no SDXL path at 128; the f32 VAE's
-  mid-block attention at 512): full f32 on the FMA pipes;
+- K1 and K2, f32 with d = 64 (the f32 UNet's self-attention, and its
+  training forward): TF32 tensor cores in three passes. One TF32 product
+  rounds each operand to 10 mantissa bits, about 4e-4 of relative L2 error
+  over an attention output, past the f32 bound of 1e-4; split into a high
+  and a low TF32 part, a b = a_hi b_hi + a_hi b_lo + a_lo b_hi keeps about
+  2^-21 of each product (tests/test_torch_flash_attention.py pins this on
+  the CPU). A pre-pass splits K and V into scratch the wrapper allocates
+  (``_tf32_scratch``);
+- K1, f32 with d = 512 (the f32 VAE's mid-block attention, in every f32
+  decode and in the training set's encode): TF32 tensor cores in three
+  passes on mma.sync, the head dim split over eight warps;
+- K1 and K2, f32 with d = 128 (no SDXL path): full f32 on the FMA pipes;
 - K2, bf16 with d in (64, 128): K1's bf16 kernel with an lse store;
-- K3a and K3b, bf16 with d in (64, 128): mma.sync.
+- K3a and K3b, bf16 with d in (64, 128): mma.sync; f32 with d in (64,
+  128) (the f32 trainer): the f32 FMA pipes.
 """
 
 from __future__ import annotations
@@ -79,12 +86,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _KERNELS = {
     "sdxl_flash_attention_bf16": ("flash_hopper.cu", 4, 1),
     "sdxl_flash_attention_bf16_d512": ("flash_hopper.cu", 4, 1),
-    "sdxl_flash_attention_f32": ("flash_attention.cu", 4, 1),
     "sdxl_flash_attention_f32_d64": ("flash_hopper.cu", 5, 1),
     "sdxl_flash_attention_f32_d128": ("flash_attention.cu", 4, 1),
+    "sdxl_flash_attention_f32_d512": ("flash_hopper.cu", 4, 1),
     "sdxl_flash_attention_lse_bf16": ("flash_hopper.cu", 5, 1),
+    "sdxl_flash_attention_lse_f32_d64": ("flash_hopper.cu", 6, 1),
+    "sdxl_flash_attention_lse_f32_d128": ("flash_attention.cu", 5, 1),
     "sdxl_flash_attention_bwd_dq_bf16": ("flash_attention_bwd.cu", 7, 2),
     "sdxl_flash_attention_bwd_dkv_bf16": ("flash_attention_bwd.cu", 8, 1),
+    "sdxl_flash_attention_bwd_dq_f32": ("flash_attention_bwd.cu", 7, 2),
+    "sdxl_flash_attention_bwd_dkv_f32": ("flash_attention_bwd.cu", 8, 1),
     **{f"sdxl_flash2_bf16_q{bq}_k{bk}": ("flash_experiments.cu", 4, 1)
        for bq in (64, 128) for bk in (64, 128)},
     **{f"sdxl_flash_floor_{mode}_bf16": ("flash_experiments.cu", 4, 1)
@@ -100,10 +111,19 @@ _ROUTES = {
     (torch.bfloat16, 512): "sdxl_flash_attention_bf16_d512",
     (torch.float32, 64): "sdxl_flash_attention_f32_d64",
     (torch.float32, 128): "sdxl_flash_attention_f32_d128",
-    (torch.float32, 512): "sdxl_flash_attention_f32",
+    (torch.float32, 512): "sdxl_flash_attention_f32_d512",
 }
-# K2 and K3 take bf16 only
-_TRAIN_DIMS = (64, 128)
+# K2, K3a, K3b: (dtype, head dim) -> their exported C functions
+_TRAIN_ROUTES = {
+    **{(torch.bfloat16, d): ("sdxl_flash_attention_lse_bf16",
+                             "sdxl_flash_attention_bwd_dq_bf16",
+                             "sdxl_flash_attention_bwd_dkv_bf16")
+       for d in (64, 128)},
+    **{(torch.float32, d): (f"sdxl_flash_attention_lse_f32_d{d}",
+                            "sdxl_flash_attention_bwd_dq_f32",
+                            "sdxl_flash_attention_bwd_dkv_f32")
+       for d in (64, 128)},
+}
 
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one exactly where it launches its kernel.
@@ -116,7 +136,7 @@ def reset_launch_counts() -> None:
 
 
 def _tf32_scratch(bh: int, tk: int, device) -> torch.Tensor:
-    """The f32 d=64 route's scratch: K_hi, K_lo [bh, tk, 64] and V^T_hi,
+    """K1's and K2's f32 d=64 scratch: K_hi, K_lo [bh, tk, 64] and V^T_hi,
     V^T_lo [bh, 64, tp] f32, tp = tk rounded up to a multiple of 8."""
     tp = -(-tk // 8) * 8
     return torch.empty(2 * bh * 64 * (tk + tp), dtype=torch.float32,
@@ -273,10 +293,10 @@ def _launch(name: str, tensors, dims, floats) -> None:
     launch_counts[name] += 1
 
 
-def _check_cuda(what: str, tensors, dtypes, dims) -> None:
+def _check_cuda(what: str, tensors, routes) -> None:
     """Raise unless every tensor is a contiguous, 16-byte aligned CUDA
-    tensor on one device, q/k/v-like ones of one dtype the kernel takes,
-    with a head dim it takes."""
+    tensor on one device and the first one's (dtype, head dim) is a key of
+    ``routes``."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{what} has no kernel for {dev}")
@@ -287,9 +307,10 @@ def _check_cuda(what: str, tensors, dtypes, dims) -> None:
             raise ValueError(f"{what} kernel needs contiguous, 16-byte "
                              f"aligned inputs")
     q = tensors[0]
-    if q.dtype not in dtypes or q.shape[-1] not in dims:
-        raise ValueError(f"{what} kernel takes {dtypes} with d in {dims}, "
-                         f"not {q.dtype} d={q.shape[-1]}")
+    if (q.dtype, q.shape[-1]) not in routes:
+        raise ValueError(f"{what} kernel takes (dtype, d) in "
+                         f"{sorted(routes, key=str)}, not ({q.dtype}, "
+                         f"{q.shape[-1]})")
 
 
 def _check_qkv(what: str, q, k, v) -> Tuple[int, int, int, int, int]:
@@ -321,8 +342,7 @@ def flash_attention_bhtd(q: torch.Tensor, k: torch.Tensor,
                          f"not {d}: use_flash also routes d 256 and 384, but "
                          f"no SDXL path of the port or the reference has "
                          f"such a head")
-    _check_cuda("flash attention", (q, k, v),
-                (torch.bfloat16, torch.float32), (d,))
+    _check_cuda("flash attention", (q, k, v), _ROUTES)
     out = torch.empty_like(q)
     name = _ROUTES[q.dtype, d]
     tensors = (q, k, v, out)
@@ -334,27 +354,31 @@ def flash_attention_bhtd(q: torch.Tensor, k: torch.Tensor,
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2: K1's output and the base-2 row log-sum-exp lse [B, H, Tq] f32."""
+    """K2: K1's output and the base-2 row log-sum-exp lse [B, H, Tq] f32;
+    on CUDA bf16 or f32 with d in (64, 128)."""
     if q.device.type == "cpu":
         return flash_attention_lse_plain(q, k, v)
     b, h, tq, tk, d = _check_qkv("flash attention (lse)", q, k, v)
-    _check_cuda("flash attention (lse)", (q, k, v), (torch.bfloat16,),
-                _TRAIN_DIMS)
+    _check_cuda("flash attention (lse)", (q, k, v), _TRAIN_ROUTES)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
-    _launch("sdxl_flash_attention_lse_bf16", (q, k, v, out, lse),
-            (b * h, tq, tk, d), (d ** -0.5 * _LOG2E,))
+    name = _TRAIN_ROUTES[q.dtype, d][0]
+    tensors = (q, k, v, out, lse)
+    if name == "sdxl_flash_attention_lse_f32_d64":
+        tensors += (_tf32_scratch(b * h, tk, q.device),)
+    _launch(name, tensors, (b * h, tq, tk, d), (d ** -0.5 * _LOG2E,))
     return out, lse
 
 
 def launch_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
     """K3a alone (flash_attention_bwd's first launch; exposed to time the
-    kernel by itself): dq from bf16 q, k, v, do and f32 lse, delta."""
+    kernel by itself): dq from q, k, v, do of one dtype and f32 lse,
+    delta."""
     b, h, tq, tk, d = _check_qkv("flash attention backward", q, k, v)
     _check_cuda("flash attention backward", (q, k, v, do, lse, delta),
-                (torch.bfloat16,), _TRAIN_DIMS)
+                _TRAIN_ROUTES)
     dq = torch.empty_like(q)
-    _launch("sdxl_flash_attention_bwd_dq_bf16",
+    _launch(_TRAIN_ROUTES[q.dtype, d][1],
             (q, k, v, do, lse, delta, dq), (b * h, tq, tk, d),
             (d ** -0.5 * _LOG2E, d ** -0.5))
     return dq
@@ -365,9 +389,9 @@ def launch_bwd_dkv(q, k, v, do, lse, delta
     """K3b alone (flash_attention_bwd's second launch): dk and dv."""
     b, h, tq, tk, d = _check_qkv("flash attention backward", q, k, v)
     _check_cuda("flash attention backward", (q, k, v, do, lse, delta),
-                (torch.bfloat16,), _TRAIN_DIMS)
+                _TRAIN_ROUTES)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("sdxl_flash_attention_bwd_dkv_bf16",
+    _launch(_TRAIN_ROUTES[q.dtype, d][2],
             (q, k, v, do, lse, delta, dk, dv), (b * h, tq, tk, d),
             (d ** -0.5 * _LOG2E,))
     return dk, dv

@@ -73,7 +73,7 @@ def launch_tiled(name: str, what: str, q: torch.Tensor, k: torch.Tensor,
     which the caller has checked divides T) on CUDA tensors; raise on
     anything else."""
     b, h, tq, tk, d = _check_qkv(what, q, k, v)
-    _check_cuda(what, (q, k, v), (torch.bfloat16,), (64,))
+    _check_cuda(what, (q, k, v), {(torch.bfloat16, 64)})
     if (block_q, block_k) not in tiles:
         raise ValueError(f"{what}: no kernel at tile ({block_q}, {block_k});"
                          f" the tiles built are {tuple(tiles)}")

@@ -134,18 +134,40 @@ def _exporters():
     ([(torch.bfloat16, 64), (torch.bfloat16, 128)],
      ["sdxl_flash_attention_bf16", "sdxl_flash_attention_lse_bf16"],
      "flash_hopper.cu"),
-    # K1 bf16 d 512 and f32 d 64: bf16 and 3xTF32 tensor-core kernels
+    # K1 bf16 d 512, and K1 and K2 f32 d 64: bf16 and 3xTF32 tensor-core
+    # kernels
     ([(torch.bfloat16, 512), (torch.float32, 64)],
-     ["sdxl_flash_attention_bf16_d512", "sdxl_flash_attention_f32_d64"],
+     ["sdxl_flash_attention_bf16_d512", "sdxl_flash_attention_f32_d64",
+      "sdxl_flash_attention_lse_f32_d64"],
      "flash_hopper.cu"),
-    # K1's f32 FMA routes
-    ([(torch.float32, 128), (torch.float32, 512)],
-     ["sdxl_flash_attention_f32_d128", "sdxl_flash_attention_f32"],
+    # K1 and K2's f32 d=128 FMA route
+    ([(torch.float32, 128)],
+     ["sdxl_flash_attention_f32_d128", "sdxl_flash_attention_lse_f32_d128"],
      "flash_attention.cu"),
+    # K1 f32 d 512: 3xTF32 on mma.sync
+    ([(torch.float32, 512)], ["sdxl_flash_attention_f32_d512"],
+     "flash_hopper.cu"),
+    # K2 f32 d 64 alone: the 3xTF32 kernel with its lse store
+    ([(torch.float32, 64)],
+     ["sdxl_flash_attention_f32_d64", "sdxl_flash_attention_lse_f32_d64"],
+     "flash_hopper.cu"),
+    # K3a and K3b, f32 and bf16
+    ([(torch.float32, 64), (torch.float32, 128)],
+     ["sdxl_flash_attention_bwd_dq_f32", "sdxl_flash_attention_bwd_dkv_f32"],
+     "flash_attention_bwd.cu"),
+    ([(torch.bfloat16, 64), (torch.bfloat16, 128)],
+     ["sdxl_flash_attention_bwd_dq_bf16", "sdxl_flash_attention_bwd_dkv_bf16"],
+     "flash_attention_bwd.cu"),
 ])
 def test_routes_name_the_source_that_defines_them(routes, names, source):
-    assert sorted({fa._ROUTES[r] for r in routes}) == sorted(
-        n for n in names if n != "sdxl_flash_attention_lse_bf16")
+    """The exports that these (dtype, head dim) routes take in _ROUTES (K1)
+    and _TRAIN_ROUTES (K2, K3a, K3b) from `source` are `names`, and only
+    `source` defines each."""
+    exported = set()
+    for route in routes:
+        exported |= {fa._ROUTES[route]} if route in fa._ROUTES else set()
+        exported |= set(fa._TRAIN_ROUTES.get(route, ()))
+    assert {n for n in exported if fa._KERNELS[n][0] == source} == set(names)
     exporters = _exporters()
     for name in names:
         assert fa._KERNELS[name][0] == source
@@ -170,22 +192,69 @@ def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int):
     return a_hi @ b_lo + a_lo @ b_hi + a_hi @ b_hi
 
 
-def test_3xtf32_attention_keeps_the_f32_bound():
-    """The f32 d=64 route's arithmetic (csrc/flash_hopper.cu
-    flash_fwd_tf32): both products of the attention on TF32 operands in
-    three passes stay within 1e-3 x min(1, max|o|) and a relative L2 error
-    of 1e-4 of the reference's f32 kernel; one pass does not."""
-    shape = (1, 2, 256, 64)
+def _trunc_split(x: torch.Tensor):
+    """x = hi + lo as the f32 d=512 route splits it: hi is x with its 13 low
+    mantissa bits cleared (x truncated to TF32), lo = x - hi, which the
+    tensor core truncates to TF32 in turn."""
+    def trunc(y):
+        return (y.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+    hi = trunc(x)
+    return hi, trunc(x - hi)
+
+
+def _trunc_matmul(a: torch.Tensor, b: torch.Tensor, passes: int):
+    (a_hi, a_lo), (b_hi, b_lo) = _trunc_split(a), _trunc_split(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _f32_d512_route(q, k, v, passes: int) -> torch.Tensor:
+    """The f32 d=512 route's arithmetic (csrc/flash_hopper.cu
+    flash_fwd_f32_d512): per 32-key tile, eight warps' partial S over 64
+    head-dim columns each, summed in warp order; the base-2 online softmax;
+    the tile's P V into a fresh accumulator added to O as O alpha + PV."""
+    qs = q * (512 ** -0.5 * fa._LOG2E)
+    o = torch.zeros_like(q)
+    m = torch.full(q.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros_like(m)
+    for k0 in range(0, k.shape[-2], 32):
+        kt, vt = k[..., k0:k0 + 32, :], v[..., k0:k0 + 32, :]
+        s = torch.zeros(q.shape[:-1] + (kt.shape[-2],))
+        for w in range(8):
+            cols = slice(64 * w, 64 * w + 64)
+            s = s + _trunc_matmul(qs[..., cols],
+                                  kt[..., cols].transpose(-1, -2), passes)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        o = o * alpha + _trunc_matmul(p, vt, passes)
+        m = m_new
+    return o / l
+
+
+@pytest.mark.parametrize("d", [64, 512])
+def test_3xtf32_attention_keeps_the_f32_bound(d):
+    """The f32 routes on TF32 tensor cores: d=64 (flash_fwd_tf32, operands
+    rounded to nearest) and d=512 (flash_fwd_f32_d512, operands truncated,
+    its head-dim split and key tiles emulated). Both products of the
+    attention on TF32 operands in three passes stay within 1e-3 x min(1,
+    max|o|) and a relative L2 error of 1e-4 of the reference's f32 kernel;
+    one pass does not."""
+    shape = (1, 2, 256, 64) if d == 64 else (1, 1, 512, 512)
     q, k, v = inputs(shape, shape, seed=5)
     want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                              64, 128))
+                              64 if d == 64 else 128, 128))
     qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
-    qs = qt * (64 ** -0.5 * fa._LOG2E)
     rel = {}
     for passes in (1, 3):
-        s = _tf32_matmul(qs, kt.transpose(-1, -2), passes)
-        p = torch.exp2(s - s.amax(-1, keepdim=True))
-        o = _tf32_matmul(p, vt, passes) / p.sum(-1, keepdim=True)
+        if d == 64:
+            qs = qt * (64 ** -0.5 * fa._LOG2E)
+            s = _tf32_matmul(qs, kt.transpose(-1, -2), passes)
+            p = torch.exp2(s - s.amax(-1, keepdim=True))
+            o = _tf32_matmul(p, vt, passes) / p.sum(-1, keepdim=True)
+        else:
+            o = _f32_d512_route(qt, kt, vt, passes)
         diff = o.numpy() - want
         rel[passes] = np.linalg.norm(diff) / np.linalg.norm(want)
         if passes == 3:

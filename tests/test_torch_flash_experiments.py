@@ -31,7 +31,7 @@ from sdxl_tpu_torch.scripts import bench_flash_ragged
 from sdxl_tpu_torch.scripts import exp_flash_exp2 as x1
 from sdxl_tpu_torch.scripts import exp_flash_floor as x2
 from sdxl_tpu_torch.scripts import exp_flash_pipelined as x3
-from sdxl_tpu_torch.scripts import timing
+from sdxl_tpu_torch.scripts import probe_f32_kernels, timing
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.
@@ -174,3 +174,12 @@ def test_every_wrapper_names_an_exported_kernel():
                                text):
             exported[name] = src
     assert {n: s for n, (s, _, _) in fa._KERNELS.items()} == exported
+
+
+def test_f32_kernel_probe_edits_the_kernels_it_names():
+    """Each variant of scripts/probe_f32_kernels.py finds the text it edits
+    in csrc/flash_hopper.cu once (it raises otherwise) and changes it."""
+    base = (fa.CSRC / "flash_hopper.cu").read_text()
+    sources = probe_f32_kernels.variant_sources()
+    assert set(sources) == set(probe_f32_kernels.VARIANTS)
+    assert all(text != base for text in sources.values())
