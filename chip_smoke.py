@@ -6,12 +6,14 @@ Phases (any failure exits non-zero before the result line):
   1. the device, and `nvidia-smi` name and power limit;
   2. build the hand-written kernels from sdxl_tpu_torch/csrc, one nvcc per
      source, all started together (with the -Xptxas -v report); then
-     `cuobjdump -sass` of flash_hopper.cu's library: K1's bf16 d 64/128
-     kernel and K2 (its lse instances) must hold HGMMA (wgmma) and UTMALDG
-     (TMA) instructions, K1's bf16 d=512 kernel HGMMA or HMMA, K1's and
-     K2's f32 d=64 kernel (3xTF32) HGMMA and UTMALDG, K1's f32 d=512
-     kernel (3xTF32 on mma.sync) HMMA, and ptxas must report no spills for
-     any of them (counts, registers and shared memory printed);
+     `cuobjdump -sass` of flash_hopper.cu's and flash_hopper_bwd.cu's
+     libraries: K1's bf16 d 64/128 kernel and K2 (its lse instances) must
+     hold HGMMA (wgmma) and UTMALDG (TMA) instructions, K1's bf16 d=512
+     kernel HGMMA or HMMA, K1's and K2's f32 d=64 kernel (3xTF32) HGMMA
+     and UTMALDG, K1's f32 d=512 kernel (3xTF32 on mma.sync) HMMA, K3a's
+     and K3b's bf16 kernels (dq and dk/dv, d 64 and 128) HGMMA and
+     UTMALDG, and ptxas must report no spills for any of them (counts,
+     registers and shared memory printed);
   3. each kernel against its plain PyTorch version on the card at the
      main paths' shapes — K1 on every route (bf16 d 64/128 and 512, f32 d
      64/128 and 512), K2, K3a, K3b in bf16 and in f32: K1 and K2's output
@@ -22,10 +24,10 @@ Phases (any failure exits non-zero before the result line):
      limit. The kernel, its plain
      version and torch's scaled_dot_product_attention (forward, and
      backward for K3; a yardstick, never on the path) timed with CUDA
-     events after a warm-up, beside the kernel's bound; K2 and the f32
-     d=64 route and SDPA's forward beside them also inside one CUDA graph
-     of 20 calls, SDPA's backward as its kernels' device time
-     (torch.profiler);
+     events after a warm-up, beside the kernel's bound; K2, K3a, K3b and
+     the f32 d=64 route (and SDPA's forward beside the forwards) also
+     inside one CUDA graph of 20 calls, SDPA's backward as its kernels'
+     device time (torch.profiler);
   3b. the experiments X1 (every tile), X2 (every mode) and X3 (every
      tile) against their plain versions at [2,10,4096,64] and
      [2,20,1024,64] bf16, timed by `timeit` and `chained_time`, with SDPA
@@ -73,8 +75,9 @@ Phases (any failure exits non-zero before the result line):
      1024x1024 images with captions (the VAE encoder launches K1's f32
      d=512 route), then five LoRA steps (rank 16, attn targets, lr 1e-4,
      batch 1, remat) — time and loss per step, peak memory; the losses
-     must be finite, the ups must have moved, and K2, K3a and K3b must
-     have been launched during the steps;
+     must be finite, the ups must have moved, and K2 must have been
+     launched during the steps, K3a and K3b 70 times a step each (one
+     backward of each of the UNet's 70 self-attentions);
   11. one training step's factor gradients again with the plain attention
      (forward and backward) in place of the kernels: they must agree;
   12. with --profile only: three timed LoRA steps, then one under
@@ -192,25 +195,28 @@ KERNEL_CASES = [
     (1, 1, 14336, 512, torch.bfloat16, 2e-2),
 ]
 K1_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
-# The kernels of flash_hopper.cu: for each, a pattern its symbols must
-# match (the bool template argument of flash_fwd_wgmma and of
-# flash_fwd_tf32 is LSE), how many instances it has, the kernel index of
-# the source's flash_hopper_smem_bytes, and the SASS instructions it must
-# contain (one of each tuple)
-HOPPER_SRC = "flash_hopper.cu"
-HOPPER_SASS = [
-    ("K1 bf16 d 64/128", r"flash_fwd_wgmmaILi\d+ELb0E", 2, 0,
-     (("HGMMA",), ("UTMALDG",))),
-    ("K2 bf16 d 64/128", r"flash_fwd_wgmmaILi\d+ELb1E", 2, 0,
-     (("HGMMA",), ("UTMALDG",))),
-    ("K1 bf16 d 512", r"flash_fwd_d512", 1, 1, (("HGMMA", "HMMA"),)),
-    ("K1 f32 d 64 (3xTF32)", r"flash_fwd_tf32ILb0E", 1, 2,
-     (("HGMMA",), ("UTMALDG",))),
-    ("K2 f32 d 64 (3xTF32)", r"flash_fwd_tf32ILb1E", 1, 2,
-     (("HGMMA",), ("UTMALDG",))),
-    ("K1 f32 d 512 (3xTF32, mma.sync)", r"flash_fwd_f32_d512", 1, 3,
-     (("HMMA",),)),
-]
+# The kernels of the Hopper sources: for each source, its export that
+# gives a kernel's dynamic shared memory, and for each kernel a pattern its
+# symbols must match (the bool template argument of flash_fwd_wgmma and of
+# flash_fwd_tf32 is LSE), how many instances it has, its kernel index in
+# that export, and the SASS instructions it must contain (one of each
+# tuple)
+WGMMA_TMA = (("HGMMA",), ("UTMALDG",))
+HOPPER_SASS = {
+    "flash_hopper.cu": ("flash_hopper_smem_bytes", [
+        ("K1 bf16 d 64/128", r"flash_fwd_wgmmaILi\d+ELb0E", 2, 0, WGMMA_TMA),
+        ("K2 bf16 d 64/128", r"flash_fwd_wgmmaILi\d+ELb1E", 2, 0, WGMMA_TMA),
+        ("K1 bf16 d 512", r"flash_fwd_d512", 1, 1, (("HGMMA", "HMMA"),)),
+        ("K1 f32 d 64 (3xTF32)", r"flash_fwd_tf32ILb0E", 1, 2, WGMMA_TMA),
+        ("K2 f32 d 64 (3xTF32)", r"flash_fwd_tf32ILb1E", 1, 2, WGMMA_TMA),
+        ("K1 f32 d 512 (3xTF32, mma.sync)", r"flash_fwd_f32_d512", 1, 3,
+         (("HMMA",),)),
+    ]),
+    "flash_hopper_bwd.cu": ("flash_hopper_bwd_smem_bytes", [
+        ("K3a bf16 d 64/128", r"flash_bwd_dq_wgmmaILi\d+E", 2, 0, WGMMA_TMA),
+        ("K3b bf16 d 64/128", r"flash_bwd_dkv_wgmmaILi\d+E", 2, 1, WGMMA_TMA),
+    ]),
+}
 # K2 and K3's shapes on the training path (batch 1), bf16 and f32: UNet
 # levels 1 and 2 at 1024x1024 and at 832x1216, and one d=128 case.
 # Tolerances (bench.py:53-66): K2's o as K1's (2e-2 / 1e-3 of min(1,
@@ -284,6 +290,9 @@ CAPTIONS = ["a photograph of an astronaut riding a horse",
             "a red crab on a sandy beach, (masterpiece:1.2)"]
 TRAIN_STEPS = 5
 F32_TRAIN_STEPS = 3
+# the UNet's self-attentions at 1024x1024 (10 at level 1, 60 at level 2):
+# each step runs one backward of each, one launch of K3a and one of K3b
+TRAIN_ATTENTIONS = 70
 ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
               torch.profiler.ProfilerActivity.CUDA]
 
@@ -377,12 +386,13 @@ def sdpa_backend(q, k, v) -> str:
 def record_case(results, name, shape, dtype, err, ms, plain_ms, sdpa_ms,
                 chained_ms=None, timed_shape=None, graph=None):
     """Print one case's readings and keep the timed shape's in `results`;
-    graph: (kernel, SDPA) ms per call inside one CUDA graph."""
+    graph: (kernel, SDPA or None) ms per call inside one CUDA graph."""
     bound_ms, bound_by = bound(name, shape, dtype)
     sdpa = "n/a" if sdpa_ms is None else f"{sdpa_ms:.4f}"
     chained = "" if chained_ms is None else f" chained_ms={chained_ms:.4f}"
-    graphed = ("" if graph is None else
-               f" graph_ms={graph[0]:.4f} sdpa_graph_ms={graph[1]:.4f}")
+    graphed = "" if graph is None else f" graph_ms={graph[0]:.4f}"
+    if graph is not None and graph[1] is not None:
+        graphed += f" sdpa_graph_ms={graph[1]:.4f}"
     print(f"  {name} shape={shape} max_abs_err={err:.3e} kernel_ms={ms:.4f}"
           f"{chained}{graphed} plain_ms={plain_ms:.4f} sdpa_ms={sdpa} "
           f"bound_ms={bound_ms:.4f} ({bound_by}) "
@@ -479,6 +489,7 @@ def check_train_kernels(results) -> None:
 
         iters = 20
         delta = (do.float() * ref_o.float()).sum(-1)
+        qf = fa._prescale_q(q)
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
         sdpa_o = F.scaled_dot_product_attention(qg, kg, vg)
         # SDPA's backward as the device time of its kernels (the host's
@@ -495,15 +506,18 @@ def check_train_kernels(results) -> None:
             graph=(graph_ms(lambda: fa.flash_attention_lse(q, k, v)),
                    graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))))
         # the plain version and torch's backward compute dq, dk and dv
-        # together: both rows carry their whole time
-        record_case(
-            results, k3a, shape, dtype, errs[0],
-            cuda_ms(lambda: fa.launch_bwd_dq(q, k, v, do, ref_lse, delta), iters),
-            plain_bwd_ms, sdpa_bwd_ms)
-        record_case(
-            results, k3b, shape, dtype, max(errs[1:]),
-            cuda_ms(lambda: fa.launch_bwd_dkv(q, k, v, do, ref_lse, delta), iters),
-            plain_bwd_ms, sdpa_bwd_ms)
+        # together: both rows carry their whole time. K3 is also timed
+        # inside a CUDA graph: at level 2 a call's host work (checks, four
+        # or six tensor maps) is about as long as the kernel
+        args = (qf, k, v, do, ref_lse, delta)
+        dq_call = functools.partial(fa.launch_bwd_dq, *args)
+        dkv_call = functools.partial(fa.launch_bwd_dkv, *args)
+        record_case(results, k3a, shape, dtype, errs[0],
+                    cuda_ms(dq_call, iters), plain_bwd_ms, sdpa_bwd_ms,
+                    graph=(graph_ms(dq_call), None))
+        record_case(results, k3b, shape, dtype, max(errs[1:]),
+                    cuda_ms(dkv_call, iters), plain_bwd_ms, sdpa_bwd_ms,
+                    graph=(graph_ms(dkv_call), None))
 
 
 def experiment_kernels():
@@ -588,11 +602,16 @@ def find_cuobjdump() -> str:
 
 
 def check_hopper_build() -> None:
-    """flash_hopper.cu's kernels as compiled: each HOPPER_SASS kernel's
+    """The Hopper sources' kernels as compiled: each HOPPER_SASS kernel's
     instances, the SASS instructions each must contain (wgmma, TMA), and
     no spills in ptxas' report."""
+    for source, (smem_export, kernels) in HOPPER_SASS.items():
+        check_sass(source, smem_export, kernels)
+
+
+def check_sass(source: str, smem_export: str, kernels) -> None:
     sass = subprocess.run(
-        [find_cuobjdump(), "-sass", str(fa._lib_path(HOPPER_SRC))],
+        [find_cuobjdump(), "-sass", str(fa._lib_path(source))],
         capture_output=True, text=True, check=True).stdout
     ops, fn = {}, None
     for line in sass.splitlines():
@@ -605,15 +624,15 @@ def check_hopper_build() -> None:
     ptxas = {m[1]: (int(m[2]), int(m[3]), int(m[4])) for m in re.finditer(
         r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, "
         r"(\d+) bytes spill loads.*?Used (\d+) registers",
-        fa.build_log(HOPPER_SRC), re.S)}
-    smem = fa.load_library(HOPPER_SRC).flash_hopper_smem_bytes
+        fa.build_log(source), re.S)}
+    smem = getattr(fa.load_library(source), smem_export)
     smem.restype = ctypes.c_int
     smem.argtypes = [ctypes.c_int, ctypes.c_int]
-    for label, pattern, count, kernel, required in HOPPER_SASS:
+    for label, pattern, count, kernel, required in kernels:
         found = [f for f in ops if re.search(pattern, f)]
         if len(found) != count:
             fail(f"{label}: {len(found)} instances of {pattern} in the SASS "
-                 f"of {HOPPER_SRC}, not {count}")
+                 f"of {source}, not {count}")
         for f in found:
             m = re.search(r"ILi(\d+)E", f)
             d = int(m[1]) if m else 0
@@ -889,8 +908,9 @@ def profile_training_step(pipe, data, cfg, factors) -> None:
 
 def run_training(pipe, steps, must):
     """Encode two random images, then `steps` LoRA steps; fail unless each
-    kernel in `must` was launched. Returns (dataset, config, trained
-    factors, launches on this path)."""
+    kernel in `must` was launched and K3a and K3b of the UNet's dtype
+    (d = 64) were launched TRAIN_ATTENTIONS times a step. Returns (dataset,
+    config, trained factors, launches on this path)."""
     g = torch.Generator(device=pipe.device).manual_seed(7)
     images = torch.randint(0, 256, (len(CAPTIONS), TRAIN_RES, TRAIN_RES, 3),
                            generator=g, device=pipe.device,
@@ -930,6 +950,10 @@ def run_training(pipe, steps, must):
     for name in must:
         if launches[name] == 0:
             fail(f"{name} was not launched on the training path")
+    for name in fa._TRAIN_ROUTES[pipe.compute_dtype, 64][1:]:
+        if launches[name] != TRAIN_ATTENTIONS * steps:
+            fail(f"{name} was launched {launches[name]} times in {steps} "
+                 f"steps, not {TRAIN_ATTENTIONS} a step")
     return data, cfg, factors, launches
 
 

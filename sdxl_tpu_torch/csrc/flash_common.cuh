@@ -1,8 +1,9 @@
-// Helpers shared by the flash-attention kernels (flash_attention.cu,
-// flash_attention_bwd.cu, flash_experiments.cu, flash_pipelined.cu): bf16
-// packing, 32-bit shared-memory loads of mma fragments, the m16n8k16 bf16
-// mma.sync, tile staging, cp.async and ldmatrix, and the one-time opt-in
-// to more than 48 KB of dynamic shared memory.
+// Helpers shared by the flash-attention kernels (flash_hopper.cu,
+// flash_hopper_bwd.cu, flash_attention.cu, flash_attention_bwd.cu,
+// flash_experiments.cu, flash_pipelined.cu): bf16 packing, 32-bit
+// shared-memory loads of mma fragments, the m16n8k16 bf16 mma.sync,
+// cp.async and ldmatrix, and the one-time opt-in to more than 48 KB of
+// dynamic shared memory.
 //
 // mma.sync.m16n8k16 fragment layout (g = lane / 4, tg = lane % 4):
 //   A (16x16, row-major): a0 = A[g][2tg..+1],   a1 = A[g+8][2tg..+1],
@@ -22,8 +23,6 @@
 
 namespace flash {
 
-constexpr int kThreads = 128;  // four warps, 16 rows each
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -41,47 +40,6 @@ __device__ __forceinline__ void mma_16816(float c[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The A fragment of rows [r0, r0 + 16) and columns [c0, c0 + 16) of a
-// row-major bf16 tile with row stride ld.
-__device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* t,
-                                       int ld, int r0, int c0, int g,
-                                       int tg) {
-  const __nv_bfloat16* p = t + (r0 + g) * ld + c0 + tg * 2;
-  a[0] = ld32(p);
-  a[1] = ld32(p + 8 * ld);
-  a[2] = ld32(p + 8);
-  a[3] = ld32(p + 8 * ld + 8);
-}
-
-// Copy rows [row0, row0 + ROWS) of a [n_rows, D] bf16 matrix into shared
-// memory, rows past n_rows zero-filled: row-major into rm (stride ld) and,
-// where tr is given, transposed into tr ([D][ldt]). With prescale, each
-// value is multiplied by `scale` in f32 and rounded back to bf16 first (the
-// reference's pre-scaled q).
-template <int ROWS, int D>
-__device__ __forceinline__ void stage_tile(const __nv_bfloat16* __restrict__ g,
-                                           int row0, int n_rows, bool prescale,
-                                           float scale, __nv_bfloat16* rm,
-                                           int ld, __nv_bfloat16* tr, int ldt) {
-  for (int i = threadIdx.x; i < ROWS * D / 8; i += kThreads) {
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n_rows)
-      x = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * D + c);
-    __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&x);
-    if (prescale) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale);
-    }
-    *reinterpret_cast<uint4*>(rm + r * ld + c) = x;
-    if (tr != nullptr) {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) tr[(c + j) * ldt + r] = e[j];
-    }
-  }
 }
 
 // Asynchronous 16-byte copy from device memory to shared memory (cp.async,

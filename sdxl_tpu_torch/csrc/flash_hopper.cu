@@ -176,230 +176,15 @@
 #include <atomic>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
+using namespace hopper;
 using flash::allow_smem_once;
 using flash::cp_async_commit;
 using flash::cp_async_wait;
 using flash::pack_bf16;
-
-constexpr int kBoxCols = 64;          // bf16 columns in a 128-byte swizzle box
-constexpr int kRowBytes = 128;        // one box row
-
-// ---------------------------------------------------------------------------
-// Hopper primitives (PTX)
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// Arrive once and add `bytes` to the transactions this phase waits for.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of a 3-D tensor map (coordinates innermost first) into shared
-// memory; its bytes count against the barrier's expected transactions.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// Make this thread's ordinary shared-memory writes visible to the async
-// proxy (wgmma's operand reads).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 128B.
-// K-major (Q, K): 8-row groups 1024 bytes apart (stride), the leading
-// offset unused. MN-major (V): 8-key groups 1024 bytes apart (stride),
-// 64-column boxes `lbo` bytes apart (leading).
-__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keep the compiler from touching registers across a wgmma that is still
-// in flight (accumulators, and the A fragments of a register-A product,
-// which must not change until its wait).
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-#define SDXL_F4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
-#define SDXL_F16(i) SDXL_F4(i), SDXL_F4(i + 4), SDXL_F4(i + 8), SDXL_F4(i + 12)
-
-// D[64x32] (+)= A[64x16] B[16x32]: A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a,
-                                             uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
-      " %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : SDXL_F16(0)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D[64x128] (+)= A[64x16] B[16x128]: A and B K-major in shared memory.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
-                                              uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
-      " %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
-      " %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : SDXL_F16(0), SDXL_F16(16), SDXL_F16(32), SDXL_F16(48)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D[64x64] += A[64x16] B[16x64]: A in registers, B MN-major in shared
-// memory (transpose-B).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t a[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-      " %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : SDXL_F16(0), SDXL_F16(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// D[64x128] += A[64x16] B[16x128]: A in registers, B MN-major in shared
-// memory (transpose-B).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t a[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
-      " %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
-      " %58, %59, %60, %61, %62, %63},"
-      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : SDXL_F16(0), SDXL_F16(16), SDXL_F16(32), SDXL_F16(48)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-// D[64x64] (+)= A[64x8] B[8x64] in TF32: A and B K-major in shared memory
-// (32-bit operands have no transpose).
-__device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t a,
-                                                  uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-      " %30, %31},"
-      " %32, %33, p, 1, 1;\n}\n"
-      : SDXL_F16(0), SDXL_F16(16)
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-// D[64x64] (+)= A[64x8] B[8x64] in TF32: A in registers, B K-major in
-// shared memory.
-__device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
-                                                  const uint32_t a[4],
-                                                  uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
-      " %30, %31},"
-      " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : SDXL_F16(0), SDXL_F16(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
-
-#undef SDXL_F16
-#undef SDXL_F4
-
-// The dynamic shared memory from its first 1024-byte boundary (a
-// 128-byte-swizzled tile must start on one).
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-}
 
 // Multiply `bytes` of bf16 in shared memory by `scale` in f32 and round
 // back to bf16 (the reference's pre-scaled q), `threads` threads from
@@ -416,16 +201,6 @@ __device__ __forceinline__ void prescale(unsigned char* p, int bytes,
     }
     *reinterpret_cast<uint4*>(p + i) = x;
   }
-}
-
-// 2^x on the SFU, results below 2^-126 flushed to zero (exp2f's
-// subnormal fix-up costs three more instructions an element; the TPU the
-// reference ran on flushes f32 subnormals too, and a p that small is
-// nothing beside l >= 1).
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Online-softmax step on one warpgroup's S fragment (f32, base 2) of NK
@@ -671,7 +446,7 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap q_map,
                     kk > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(sc);
 
     float alpha[2];
@@ -696,7 +471,7 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap q_map,
       }
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc);
     fence_regs(pa);
     mbar_arrive(&kv_empty[s]);
@@ -818,7 +593,7 @@ flash_fwd_d512(__grid_constant__ const CUtensorMap q_map,
                    desc128(k_addr + (kk / 4) * P::kKVBox + (kk % 4) * 32, 16),
                    kk > 0);
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(sc);
 
     // S = the sum of the two halves' partials (addition commutes, so both
@@ -856,7 +631,7 @@ flash_fwd_d512(__grid_constant__ const CUtensorMap q_map,
                       desc128(v_addr + 2 * h * P::kKVBox + kk * 16 * kRowBytes,
                               P::kKVBox));
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(acc[0]);
     fence_regs(acc[1]);
     fence_regs(pa);
@@ -1066,7 +841,7 @@ flash_fwd_tf32(__grid_constant__ const CUtensorMap q_map,
       }
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(sc);
 
     float alpha[2];
@@ -1100,7 +875,7 @@ flash_fwd_tf32(__grid_constant__ const CUtensorMap q_map,
                           pass > 0 || kk > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_regs(pv);
     fence_regs(p_hi);
     fence_regs(p_lo);
@@ -1427,52 +1202,6 @@ flash_fwd_f32_d512(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up once through the runtime's
-// entry-point query (so the library needs no link against libcuda).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                         cudaEnableDefault,
-                                         &found) != cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return static_cast<EncodeTiled>(nullptr);
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// A 3-D map over a contiguous [n2, n1, n0] bf16 or f32 tensor (n0
-// innermost), boxes of one 128-byte row segment (64 bf16 or 32 f32) by
-// `rows` rows of one [n1, n0] slice, 128-byte swizzled; reads past n1 or n0
-// are zeros.
-cudaError_t make_map(CUtensorMap* map, const void* base, bool f32, int n2,
-                     int n1, int n0, int rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t elem = f32 ? 4 : 2;
-  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
-  const cuuint64_t strides[2] = {n0 * elem, (cuuint64_t)n1 * n0 * elem};
-  const cuuint32_t box[3] = {(cuuint32_t)(kRowBytes / elem), (cuuint32_t)rows,
-                             1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = encode(
-      map,
-      f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      3, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
 
 struct Maps {
   CUtensorMap q, k, v;

@@ -11,9 +11,10 @@ Counterpart of sdxl_tpu/ops/flash_attention.py:
 
 The kernels live in ``csrc/`` (flash_hopper.cu: K1's bf16 routes and K2's
 bf16 route on wgmma and TMA, K1's and K2's f32 d=64 route and K1's f32
-d=512 route on TF32 tensor cores; flash_attention.cu: K1's and K2's f32
-d=128 route on the FMA pipes; flash_attention_bwd.cu: K3a and K3b, bf16
-and f32;
+d=512 route on TF32 tensor cores; flash_hopper_bwd.cu: K3a and K3b bf16
+on wgmma and TMA; hopper_common.cuh: the TMA, mbarrier and wgmma helpers
+both share; flash_attention.cu: K1's and K2's f32 d=128 route on the FMA
+pipes; flash_attention_bwd.cu: K3a and K3b f32 on the FMA pipes;
 flash_experiments.cu and flash_pipelined.cu: the experiments X1-X3, whose
 wrappers live in ``sdxl_tpu_torch/scripts/``). Each source is compiled
 with nvcc for sm_90a into a shared library with a plain C interface, at
@@ -26,7 +27,9 @@ launches its kernel for CUDA tensors; a CUDA call the kernel does not take
 raises, as does any other device. Both follow the reference's numerics: q
 is pre-scaled by d^-0.5 * log2(e) and rounded to its dtype, the softmax
 runs in base 2 over f32 logits, p is rounded to v's dtype before P.V, and
-the backward recomputes p from the same rounded q and the forward's lse.
+the backward recomputes p from the same rounded q (formed once by
+``flash_attention_bwd`` in torch, ``_prescale_q``, and read by both of its
+kernels) and the forward's lse.
 
 Kernel routes on CUDA (``_ROUTES`` for K1, ``_TRAIN_ROUTES`` for K2, K3a
 and K3b):
@@ -47,8 +50,10 @@ and K3b):
   passes on mma.sync, the head dim split over eight warps;
 - K1 and K2, f32 with d = 128 (no SDXL path): full f32 on the FMA pipes;
 - K2, bf16 with d in (64, 128): K1's bf16 kernel with an lse store;
-- K3a and K3b, bf16 with d in (64, 128): mma.sync; f32 with d in (64,
-  128) (the f32 trainer): the f32 FMA pipes.
+- K3a and K3b, bf16 with d in (64, 128) (the bf16 trainer): bf16 tensor
+  cores (wgmma), the resident rows and the streamed tiles by TMA through
+  an mbarrier ring; f32 with d in (64, 128) (the f32 trainer): the f32
+  FMA pipes.
 """
 
 from __future__ import annotations
@@ -74,9 +79,10 @@ _LOG2E = math.log2(math.e)
 FLASH_MIN_T = 924
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_hopper.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-           "flash_experiments.cu", "flash_pipelined.cu")
-HEADERS = ("flash_common.cuh",)
+SOURCES = ("flash_hopper.cu", "flash_hopper_bwd.cu", "flash_attention.cu",
+           "flash_attention_bwd.cu", "flash_experiments.cu",
+           "flash_pipelined.cu")
+HEADERS = ("flash_common.cuh", "hopper_common.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -92,10 +98,10 @@ _KERNELS = {
     "sdxl_flash_attention_lse_bf16": ("flash_hopper.cu", 5, 1),
     "sdxl_flash_attention_lse_f32_d64": ("flash_hopper.cu", 6, 1),
     "sdxl_flash_attention_lse_f32_d128": ("flash_attention.cu", 5, 1),
-    "sdxl_flash_attention_bwd_dq_bf16": ("flash_attention_bwd.cu", 7, 2),
-    "sdxl_flash_attention_bwd_dkv_bf16": ("flash_attention_bwd.cu", 8, 1),
-    "sdxl_flash_attention_bwd_dq_f32": ("flash_attention_bwd.cu", 7, 2),
-    "sdxl_flash_attention_bwd_dkv_f32": ("flash_attention_bwd.cu", 8, 1),
+    "sdxl_flash_attention_bwd_dq_bf16": ("flash_hopper_bwd.cu", 7, 1),
+    "sdxl_flash_attention_bwd_dkv_bf16": ("flash_hopper_bwd.cu", 8, 0),
+    "sdxl_flash_attention_bwd_dq_f32": ("flash_attention_bwd.cu", 7, 1),
+    "sdxl_flash_attention_bwd_dkv_f32": ("flash_attention_bwd.cu", 8, 0),
     **{f"sdxl_flash2_bf16_q{bq}_k{bk}": ("flash_experiments.cu", 4, 1)
        for bq in (64, 128) for bk in (64, 128)},
     **{f"sdxl_flash_floor_{mode}_bf16": ("flash_experiments.cu", 4, 1)
@@ -165,6 +171,8 @@ def _acc(x: torch.Tensor) -> torch.Tensor:
 
 
 def _prescale_q(q: torch.Tensor) -> torch.Tensor:
+    """qf, the reference's rounded pre-scaled q (flash_attention.py:381):
+    q * d^-0.5 * log2(e) in f32, rounded to q's dtype."""
     d = q.shape[-1]
     return (_acc(q) * (d ** -0.5 * _LOG2E)).to(q.dtype)
 
@@ -370,30 +378,30 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
-def launch_bwd_dq(q, k, v, do, lse, delta) -> torch.Tensor:
+def launch_bwd_dq(qf, k, v, do, lse, delta) -> torch.Tensor:
     """K3a alone (flash_attention_bwd's first launch; exposed to time the
-    kernel by itself): dq from q, k, v, do of one dtype and f32 lse,
-    delta."""
-    b, h, tq, tk, d = _check_qkv("flash attention backward", q, k, v)
-    _check_cuda("flash attention backward", (q, k, v, do, lse, delta),
+    kernel by itself): dq from the pre-scaled qf (``_prescale_q``), k, v,
+    do of one dtype and f32 lse, delta."""
+    b, h, tq, tk, d = _check_qkv("flash attention backward", qf, k, v)
+    _check_cuda("flash attention backward", (qf, k, v, do, lse, delta),
                 _TRAIN_ROUTES)
-    dq = torch.empty_like(q)
-    _launch(_TRAIN_ROUTES[q.dtype, d][1],
-            (q, k, v, do, lse, delta, dq), (b * h, tq, tk, d),
-            (d ** -0.5 * _LOG2E, d ** -0.5))
+    dq = torch.empty_like(qf)
+    _launch(_TRAIN_ROUTES[qf.dtype, d][1],
+            (qf, k, v, do, lse, delta, dq), (b * h, tq, tk, d),
+            (d ** -0.5,))
     return dq
 
 
-def launch_bwd_dkv(q, k, v, do, lse, delta
+def launch_bwd_dkv(qf, k, v, do, lse, delta
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3b alone (flash_attention_bwd's second launch): dk and dv."""
-    b, h, tq, tk, d = _check_qkv("flash attention backward", q, k, v)
-    _check_cuda("flash attention backward", (q, k, v, do, lse, delta),
+    """K3b alone (flash_attention_bwd's second launch): dk and dv from the
+    same inputs as ``launch_bwd_dq``."""
+    b, h, tq, tk, d = _check_qkv("flash attention backward", qf, k, v)
+    _check_cuda("flash attention backward", (qf, k, v, do, lse, delta),
                 _TRAIN_ROUTES)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(_TRAIN_ROUTES[q.dtype, d][2],
-            (q, k, v, do, lse, delta, dk, dv), (b * h, tq, tk, d),
-            (d ** -0.5 * _LOG2E,))
+    _launch(_TRAIN_ROUTES[qf.dtype, d][2],
+            (qf, k, v, do, lse, delta, dk, dv), (b * h, tq, tk, d), ())
     return dk, dv
 
 
@@ -402,8 +410,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3a then K3b: (dq, dk, dv) of unmasked flash attention from the
     forward's inputs, its output o, its lse and the output cotangent do.
-    delta = rowsum(dO * O) is one f32 torch reduction here, as the
-    reference computes it outside its kernels."""
+    qf (``_prescale_q``) and delta = rowsum(dO * O) are formed here in
+    torch, as the reference forms them outside its kernels; both kernels
+    read them."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, o, lse, do)
     b, h, tq = q.shape[:3]
@@ -414,5 +423,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     do = do.to(q.dtype).contiguous()
     lse = lse.float().contiguous()
     delta = (do.float() * o.float()).sum(-1)
-    dq = launch_bwd_dq(q, k, v, do, lse, delta)
-    return (dq, *launch_bwd_dkv(q, k, v, do, lse, delta))
+    qf = _prescale_q(q)
+    dq = launch_bwd_dq(qf, k, v, do, lse, delta)
+    return (dq, *launch_bwd_dkv(qf, k, v, do, lse, delta))

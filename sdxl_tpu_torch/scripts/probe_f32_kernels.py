@@ -67,29 +67,31 @@ K2_SHAPES = [(1, 10, 4096, 64), (1, 20, 1024, 64)]
 D512_SHAPE = (1, 1, 16384, 512)
 
 
-def variant_sources() -> dict:
-    """{variant: flash_hopper.cu with the variant's edits}."""
-    src = (fa.CSRC / "flash_hopper.cu").read_text()
+def variant_sources(source: str = "flash_hopper.cu",
+                    variants: dict = VARIANTS) -> dict:
+    """{variant: `source` (a file of csrc/) with the variant's edits}."""
+    src = (fa.CSRC / source).read_text()
     sources = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         text = src
         for old, new in edits:
             if text.count(old) != 1:
                 raise RuntimeError(f"{name}: the edited text is not in "
-                                   f"flash_hopper.cu once")
+                                   f"{source} once")
             text = text.replace(old, new)
         sources[name] = text
     return sources
 
 
-def build_variants() -> dict:
+def build_variants(source: str = "flash_hopper.cu",
+                   variants: dict = VARIANTS) -> dict:
     """{variant: its library}, one nvcc per variant, all started together,
     into build/kernels/probe/."""
     out = fa.BUILD_DIR / "probe"
     out.mkdir(parents=True, exist_ok=True)
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     procs = {}
-    for name, text in variant_sources().items():
+    for name, text in variant_sources(source, variants).items():
         cu = out / f"{name}.cu"
         cu.write_text(text)
         procs[name] = subprocess.Popen(
@@ -105,11 +107,11 @@ def build_variants() -> dict:
     return libs
 
 
-def _export(lib, name: str, n_ptr: int):
+def bind_export(lib, name: str, n_ptr: int, n_float: int = 1):
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4
-                   + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float] * n_float + [ctypes.c_void_p])
     return fn
 
 
@@ -119,7 +121,7 @@ def variant_k2(lib, q, k, v):
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     scratch = fa._tf32_scratch(b * h, t, q.device)
-    err = _export(lib, "sdxl_flash_attention_lse_f32_d64", 6)(
+    err = bind_export(lib, "sdxl_flash_attention_lse_f32_d64", 6)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), scratch.data_ptr(), b * h, t, t, d,
         d ** -0.5 * fa._LOG2E, torch.cuda.current_stream().cuda_stream)
@@ -132,7 +134,7 @@ def variant_d512(lib, q, k, v):
     """K1 f32 d=512 from a variant's library."""
     b, h, t, d = q.shape
     o = torch.empty_like(q)
-    err = _export(lib, "sdxl_flash_attention_f32_d512", 4)(
+    err = bind_export(lib, "sdxl_flash_attention_f32_d512", 4)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, t, t,
         d, d ** -0.5 * fa._LOG2E, torch.cuda.current_stream().cuda_stream)
     if err:
@@ -140,7 +142,7 @@ def variant_d512(lib, q, k, v):
     return o
 
 
-def _in_turns(fns: dict, iters: int) -> dict:
+def in_turns(fns: dict, iters: int) -> dict:
     """ms per call of each function, timed in turns (a, b, ..., b, a)."""
     order = list(fns) + list(fns)[::-1]
     times = {name: [] for name in fns}
@@ -164,7 +166,7 @@ def main() -> dict:
         ref_o, ref_lse = fa.flash_attention_lse_plain(q, k, v)
         rel = ((o - ref_o).norm() / ref_o.norm()).item()
         lse_err = (lse - ref_lse).abs().max().item()
-        rows[shape] = _in_turns({
+        rows[shape] = in_turns({
             "base": lambda: fa.flash_attention_lse(q, k, v),
             "k2_nc2": lambda: variant_k2(libs["k2_nc2"], q, k, v)}, 20)
         print(f"K2 f32 {shape}: k2_nc2 o relative L2 {rel:.3e}, lse "
@@ -178,7 +180,7 @@ def main() -> dict:
     fns = {"base": lambda: fa.flash_attention_bhtd(q, k, v)}
     fns.update({name: functools.partial(variant_d512, libs[name], q, k, v)
                 for name in VARIANTS if name.startswith("d512")})
-    rows[D512_SHAPE] = _in_turns(fns, 5)
+    rows[D512_SHAPE] = in_turns(fns, 5)
     print(f"K1 f32 {D512_SHAPE}: d512_pass1 relative L2 {rel:.3e}; ms "
           f"{rows[D512_SHAPE]}", flush=True)
     return rows

@@ -151,13 +151,13 @@ def _exporters():
     ([(torch.float32, 64)],
      ["sdxl_flash_attention_f32_d64", "sdxl_flash_attention_lse_f32_d64"],
      "flash_hopper.cu"),
-    # K3a and K3b, f32 and bf16
+    # K3a and K3b: f32 on the FMA pipes, bf16 on wgmma and TMA
     ([(torch.float32, 64), (torch.float32, 128)],
      ["sdxl_flash_attention_bwd_dq_f32", "sdxl_flash_attention_bwd_dkv_f32"],
      "flash_attention_bwd.cu"),
     ([(torch.bfloat16, 64), (torch.bfloat16, 128)],
      ["sdxl_flash_attention_bwd_dq_bf16", "sdxl_flash_attention_bwd_dkv_bf16"],
-     "flash_attention_bwd.cu"),
+     "flash_hopper_bwd.cu"),
 ])
 def test_routes_name_the_source_that_defines_them(routes, names, source):
     """The exports that these (dtype, head dim) routes take in _ROUTES (K1)

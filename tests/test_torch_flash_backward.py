@@ -21,6 +21,7 @@ import torch
 from sdxl_tpu.ops.attention import _flash_sdpa as j_flash_sdpa
 from sdxl_tpu.ops.attention import qkv_attention as j_qkv_attention
 from sdxl_tpu.ops.flash_attention import flash_attention_bhtd as j_flash
+from sdxl_tpu.ops.flash_attention import _LOG2E as J_LOG2E
 from sdxl_tpu.ops.flash_attention import flash_attention_bwd_bhtd as j_flash_bwd
 from sdxl_tpu_torch.ops import flash_attention as fa
 from sdxl_tpu_torch.ops.attention import FlashSDPA, qkv_attention
@@ -152,6 +153,23 @@ def test_gradcheck_plain_f64(d):
     q, k, v = (torch.randn((1, 1, 3, d), generator=g, dtype=torch.float64,
                            requires_grad=True) for _ in range(3))
     assert torch.autograd.gradcheck(FlashSDPA.apply, (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_prescale_q_matches_reference_bitwise(dtype):
+    """qf, the rounded pre-scaled q that the wrapper forms in torch and both
+    backward kernels read, bit for bit the reference's expression
+    (sdxl_tpu/ops/flash_attention.py:381), at a ragged shape."""
+    shape = (1, 3, 77, 64)
+    q, = arrays(shape, seed=5)
+    q = q * 4
+    jq = jnp.asarray(q, dtype)
+    want = (jq.astype(jnp.float32) * (shape[-1] ** -0.5 * J_LOG2E)).astype(
+        jq.dtype)
+    got = fa._prescale_q(t(q, getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype) and got.shape == shape
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
 
 
 def test_no_fallback_off_the_cpu():

@@ -31,7 +31,7 @@ from sdxl_tpu_torch.scripts import bench_flash_ragged
 from sdxl_tpu_torch.scripts import exp_flash_exp2 as x1
 from sdxl_tpu_torch.scripts import exp_flash_floor as x2
 from sdxl_tpu_torch.scripts import exp_flash_pipelined as x3
-from sdxl_tpu_torch.scripts import probe_f32_kernels, timing
+from sdxl_tpu_torch.scripts import probe_bwd_kernels, probe_f32_kernels, timing
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.
@@ -182,4 +182,14 @@ def test_f32_kernel_probe_edits_the_kernels_it_names():
     base = (fa.CSRC / "flash_hopper.cu").read_text()
     sources = probe_f32_kernels.variant_sources()
     assert set(sources) == set(probe_f32_kernels.VARIANTS)
+    assert all(text != base for text in sources.values())
+
+
+def test_bwd_kernel_probe_edits_the_kernels_it_names():
+    """Each variant of scripts/probe_bwd_kernels.py finds the text it edits
+    in csrc/flash_hopper_bwd.cu once (it raises otherwise) and changes it."""
+    base = (fa.CSRC / probe_bwd_kernels.SOURCE).read_text()
+    sources = probe_f32_kernels.variant_sources(probe_bwd_kernels.SOURCE,
+                                                probe_bwd_kernels.VARIANTS)
+    assert set(sources) == set(probe_bwd_kernels.VARIANTS)
     assert all(text != base for text in sources.values())
