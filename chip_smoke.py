@@ -11,23 +11,26 @@ Phases (any failure exits non-zero before the result line):
      hold HGMMA (wgmma) and UTMALDG (TMA) instructions, K1's bf16 d=512
      kernel HGMMA or HMMA, K1's and K2's f32 d=64 kernel (3xTF32) HGMMA
      and UTMALDG, K1's f32 d=512 kernel (3xTF32 on mma.sync) HMMA, K3a's
-     and K3b's bf16 kernels (dq and dk/dv, d 64 and 128) HGMMA and
-     UTMALDG, and ptxas must report no spills for any of them (counts,
-     registers and shared memory printed);
+     and K3b's bf16 kernels (dq and dk/dv, d 64 and 128) and their f32
+     d=64 kernels (3xTF32) HGMMA and UTMALDG, and ptxas must report no
+     spills for any of them (counts, registers and shared memory printed);
   3. each kernel against its plain PyTorch version on the card at the
-     main paths' shapes — K1 on every route (bf16 d 64/128 and 512, f32 d
+     main paths' shapes (and K2/K3 at a token count no multiple of 4) —
+     K1 on every route (bf16 d 64/128 and 512, f32 d
      64/128 and 512), K2, K3a, K3b in bf16 and in f32: K1 and K2's output
      within the tolerance times min(1, max|plain output|) and a relative
      L2 error within 1e-2 bf16 / 1e-4 f32; K2's lse within 1e-3; K3's dq,
      dk, dv within 2e-2 (bf16) or 1e-3 (f32) of max(1, max|plain|) and a
      relative L2 error within 1e-2 / 1e-4; each reading printed beside its
-     limit. The kernel, its plain
+     limit; every output finite, with the kernels' outputs and scratch
+     allocated NaN-filled (an element read or returned unwritten fails).
+     The kernel, its plain
      version and torch's scaled_dot_product_attention (forward, and
      backward for K3; a yardstick, never on the path) timed with CUDA
-     events after a warm-up, beside the kernel's bound; K2, K3a, K3b and
-     the f32 d=64 route (and SDPA's forward beside the forwards) also
-     inside one CUDA graph of 20 calls, SDPA's backward as its kernels'
-     device time (torch.profiler);
+     events after a warm-up, beside the kernel's bound; K2, K3a, K3b (in
+     both dtypes) and the f32 d=64 route (and SDPA's forward beside the
+     forwards) also inside one CUDA graph of 20 calls, SDPA's backward as
+     its kernels' device time (torch.profiler);
   3b. the experiments X1 (every tile), X2 (every mode) and X3 (every
      tile) against their plain versions at [2,10,4096,64] and
      [2,20,1024,64] bf16, timed by `timeit` and `chained_time`, with SDPA
@@ -89,6 +92,7 @@ JSON record and {"ok": true, ...}.
 """
 
 import argparse
+import contextlib
 import ctypes
 import functools
 import gc
@@ -138,8 +142,8 @@ REF = "sdxl_tpu/ops/flash_attention.py"
 F32_D64 = "sdxl_flash_attention_f32_d64"
 F32_D512 = "sdxl_flash_attention_f32_d512"
 # the kernels on TF32 tensor cores in three passes: K1 f32 d 64 and 512,
-# K2 f32 d 64
-TF32_KERNELS = (F32_D64, F32_D512, "sdxl_flash_attention_lse_f32_d64")
+# K2, K3a and K3b f32 d 64
+TF32_KERNELS = (F32_D64, F32_D512, *fa._TRAIN_ROUTES[torch.float32, 64])
 # kernel -> (source, the TPU kernel it replaces): K1's routes, then K2,
 # K3a and K3b's (the reference's kernel :102, :272, :302)
 KERNELS = {
@@ -215,10 +219,14 @@ HOPPER_SASS = {
     "flash_hopper_bwd.cu": ("flash_hopper_bwd_smem_bytes", [
         ("K3a bf16 d 64/128", r"flash_bwd_dq_wgmmaILi\d+E", 2, 0, WGMMA_TMA),
         ("K3b bf16 d 64/128", r"flash_bwd_dkv_wgmmaILi\d+E", 2, 1, WGMMA_TMA),
+        ("K3a f32 d 64 (3xTF32)", r"flash_bwd_dq_tf32", 1, 2, WGMMA_TMA),
+        ("K3b f32 d 64 (3xTF32)", r"flash_bwd_dkv_tf32", 1, 3, WGMMA_TMA),
     ]),
 }
 # K2 and K3's shapes on the training path (batch 1), bf16 and f32: UNet
-# levels 1 and 2 at 1024x1024 and at 832x1216, and one d=128 case.
+# levels 1 and 2 at 1024x1024 and at 832x1216, one d=128 case, and a
+# token count that is no multiple of 4 at B*H > 1 (the second head's rows
+# of lse and delta then start off a 16-byte boundary).
 # Tolerances (bench.py:53-66): K2's o as K1's (2e-2 / 1e-3 of min(1,
 # max|o|), relative L2 1e-2 / 1e-4), lse (f32, base-2 units) 1e-3
 # absolute, and the gradients 2e-2 / 1e-3 of max(1, their largest
@@ -229,6 +237,7 @@ TRAIN_CASES = [
     (1, 10, 3952, 64),
     (1, 20, 988, 64),
     (1, 2, 1000, 128),
+    (1, 3, 333, 64),
 ]
 BF16_TOL, LSE_TOL = 2e-2, 1e-3
 # dtype -> (o and gradient tolerance, relative L2 tolerance)
@@ -249,7 +258,9 @@ TIMED_SHAPE = {"sdxl_flash_attention_bf16": (2, 10, 4096, 64),
                "sdxl_flash_attention_lse_f32_d64": (1, 10, 4096, 64),
                "sdxl_flash_attention_lse_f32_d128": (1, 2, 1000, 128),
                "sdxl_flash_attention_bwd_dq_f32": (1, 10, 4096, 64),
-               "sdxl_flash_attention_bwd_dkv_f32": (1, 10, 4096, 64)}
+               "sdxl_flash_attention_bwd_dkv_f32": (1, 10, 4096, 64),
+               "sdxl_flash_attention_bwd_dq_f32_d128": (1, 2, 1000, 128),
+               "sdxl_flash_attention_bwd_dkv_f32_d128": (1, 2, 1000, 128)}
 EXP_SHAPES = [shape for _, shape in x1.SHAPES]
 # the H100 SXM's published dense peaks (NVIDIA H100 datasheet): bf16 and
 # f32 FMA, and TF32 for TF32_KERNELS, which run three TF32 passes of each
@@ -408,6 +419,21 @@ def record_case(results, name, shape, dtype, err, ms, plain_ms, sdpa_ms,
             r["graph_ms"], r["library_graph_ms"] = graph
 
 
+@contextlib.contextmanager
+def nan_filled_empty():
+    """Inside, torch.empty fills floating memory with NaN (deterministic
+    mode's fill_uninitialized_memory): an output element or a scratch
+    element that a kernel reads (the f32 routes' pre-pass copies, their
+    zero padding included) and nothing wrote shows as NaN."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.utils.deterministic.fill_uninitialized_memory = True
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
 def readings(got, want) -> tuple:
     """(max abs error, relative L2 error, max |want|), in f32."""
     diff = got.float() - want.float()
@@ -422,7 +448,8 @@ def check_k1(results) -> None:
                    .to(dtype) for _ in range(3))
         if not fa.use_flash(t, t, d, False):
             fail(f"use_flash does not route {(b, h, t, d)}")
-        out = fa.flash_attention_bhtd(q, k, v)
+        with nan_filled_empty():
+            out = fa.flash_attention_bhtd(q, k, v)
         ref = fa.flash_attention_plain(q, k, v)
         torch.cuda.synchronize()
         err, rel, ref_max = readings(out, ref)
@@ -460,9 +487,10 @@ def check_train_kernels(results) -> None:
         g = torch.Generator(device="cuda").manual_seed(43)
         q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
                        .to(dtype) for _ in range(4))
-        o, lse = fa.flash_attention_lse(q, k, v)
         ref_o, ref_lse = fa.flash_attention_lse_plain(q, k, v)
-        grads = fa.flash_attention_bwd(q, k, v, ref_o, ref_lse, do)
+        with nan_filled_empty():
+            o, lse = fa.flash_attention_lse(q, k, v)
+            grads = fa.flash_attention_bwd(q, k, v, ref_o, ref_lse, do)
         ref_grads = fa.flash_attention_bwd_plain(q, k, v, ref_o, ref_lse, do)
         torch.cuda.synchronize()
         err_o, rel_o, max_o = readings(o, ref_o)

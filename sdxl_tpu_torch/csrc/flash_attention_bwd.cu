@@ -1,10 +1,13 @@
-// Flash-attention backward in f32 on the FMA pipes (sm_90a), bound to
-// Python with ctypes.
+// Flash-attention backward in f32 on the FMA pipes (sm_90a), d = 128,
+// bound to Python with ctypes.
 //
 // Replaces the Pallas TPU kernels of sdxl_tpu/ops/flash_attention.py
 // `flash_attention_bwd_bhtd` (:342, the FlashAttention-2 backward) on
-// their f32 routes, d = 64 and 128 (the f32 trainer; the bf16 routes run
-// on wgmma and TMA in flash_hopper_bwd.cu):
+// their f32 d = 128 route, which no SDXL path takes (SDXL's heads are 64
+// wide; the f32 trainer's d = 64 route runs on TF32 tensor cores in three
+// passes in flash_hopper_bwd.cu, whose wgmma design does not fit d = 128's
+// resident operands in a block's shared memory with two consumer
+// warpgroups):
 //   K3a `_flash_bwd_dq_kernel` (:272)  -> flash_bwd_dq_f32
 //   K3b `_flash_bwd_dkv_kernel` (:302) -> flash_bwd_dkv_f32
 // With qf = q * d^-0.5 * log2(e) (the forward's pre-scaled q, formed by
@@ -31,18 +34,14 @@
 // flash_bwd_dkv_f32: a block owns (batch*head, 64 keys) and works in the
 // transposed frame (rows = keys): per 64-query tile it forms S^T = K qf^T
 // and dP^T = V dO^T, then dv += p^T dO and dk += dz^T qf.
-// A TF32 product would break the f32 bound; the tensor-core redesign of
-// the f32 pair is queued in ROADMAP. Bound: 6 (dq) and 8 (dk/dv) x
-// B*H*Tq*Tk*d operations at 67 TFLOP/s (0.96 / 1.28 ms at
-// [1,10,4096,64]). 256 threads in a 16 x 16 grid: thread (tr, tc) forms
-// the 4 x 4 logits of rows tr + 16 i and keys tc + 16 j (float4 dot
-// products along d; a warp's two row groups read broadcasts, its 16 key
-// rows, padded by 4 floats, hit distinct banks), writes p and dz to
-// shared memory with the rows it owns in the next product side by side,
-// then accumulates 4 rows x D / 16 columns of dq (or of dk and dv) as
-// outer products over the tile's 64 keys (queries). Shared memory: dq
-// 87 / 153 kB, dk/dv 105 / 170 kB at d 64 / 128, so two blocks an SM at
-// d = 64 (at most 128 registers a thread), one at 128.
+// Bound: 6 (dq) and 8 (dk/dv) x B*H*Tq*Tk*d operations at 67 TFLOP/s.
+// 256 threads in a 16 x 16 grid: thread (tr, tc) forms the 4 x 4 logits of
+// rows tr + 16 i and keys tc + 16 j (float4 dot products along d; a warp's
+// two row groups read broadcasts, its 16 key rows, padded by 4 floats, hit
+// distinct banks), writes p and dz to shared memory with the rows it owns
+// in the next product side by side, then accumulates 4 rows x D / 16
+// columns of dq (or of dk and dv) as outer products over the tile's 64
+// keys (queries). Shared memory: dq 153 kB, dk/dv 170 kB, one block an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -160,7 +159,7 @@ __device__ __forceinline__ void outer_acc(const float* z, const float* b,
 // tid % 16) forms logits of rows tr + 16 i and keys tc + 16 j, and
 // accumulates dq of rows tr + 16 i, columns 4 tc + 64 u (+ 0..3).
 template <int D>
-__global__ void __launch_bounds__(kF32Threads, D == 64 ? 2 : 1)
+__global__ void __launch_bounds__(kF32Threads, 1)
 flash_bwd_dq_f32(const float* __restrict__ qf, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
@@ -239,7 +238,7 @@ flash_bwd_dq_f32(const float* __restrict__ qf, const float* __restrict__ k,
 // tc) forms p^T and dz^T of keys tr + 16 i and query rows tc + 16 j, and
 // accumulates dk and dv of keys tr + 16 i, columns 4 tc + 64 u (+ 0..3).
 template <int D>
-__global__ void __launch_bounds__(kF32Threads, D == 64 ? 2 : 1)
+__global__ void __launch_bounds__(kF32Threads, 1)
 flash_bwd_dkv_f32(const float* __restrict__ qf, const float* __restrict__ k,
                   const float* __restrict__ v, const float* __restrict__ dout,
                   const float* __restrict__ lse,
@@ -361,34 +360,24 @@ cudaError_t launch_dkv_f32(const void* qf, const void* k, const void* v,
 
 }  // namespace
 
-// qf, dout, dq: contiguous [B*H, tq, D] f32 device buffers (qf the
-// pre-scaled q); k, v, dk, dv: [B*H, tk, D] f32; lse, delta: [B*H, tq]
+// qf, dout, dq: contiguous [B*H, tq, 128] f32 device buffers (qf the
+// pre-scaled q); k, v, dk, dv: [B*H, tk, 128] f32; lse, delta: [B*H, tq]
 // f32; nat_scale = d^-0.5. Each returns a cudaError_t; 0 means the kernel
 // was launched.
-extern "C" int sdxl_flash_attention_bwd_dq_f32(
+extern "C" int sdxl_flash_attention_bwd_dq_f32_d128(
     const void* qf, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int bh, int tq, int tk,
     int d, float nat_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_dq_f32<64>(qf, k, v, dout, lse, delta, dq, bh, tq, tk,
-                             nat_scale, s);
-  if (d == 128)
-    return launch_dq_f32<128>(qf, k, v, dout, lse, delta, dq, bh, tq, tk,
-                              nat_scale, s);
-  return cudaErrorInvalidValue;
+  if (d != 128) return cudaErrorInvalidValue;
+  return launch_dq_f32<128>(qf, k, v, dout, lse, delta, dq, bh, tq, tk,
+                            nat_scale, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int sdxl_flash_attention_bwd_dkv_f32(
+extern "C" int sdxl_flash_attention_bwd_dkv_f32_d128(
     const void* qf, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int bh, int tq,
     int tk, int d, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_dkv_f32<64>(qf, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
-                              s);
-  if (d == 128)
-    return launch_dkv_f32<128>(qf, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
-                               s);
-  return cudaErrorInvalidValue;
+  if (d != 128) return cudaErrorInvalidValue;
+  return launch_dkv_f32<128>(qf, k, v, dout, lse, delta, dk, dv, bh, tq, tk,
+                             static_cast<cudaStream_t>(stream));
 }

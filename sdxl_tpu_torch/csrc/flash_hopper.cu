@@ -100,19 +100,15 @@
 //   pipes (bound 1.28 ms) at 24% of that.
 //   wgmma takes 32-bit operands only K-major. Q and K ([T, 64], d
 //   contiguous) already are for S = Q K^T; for P V the operand is V^T with
-//   keys contiguous. A pre-pass (split_kv_tf32) writes K_hi, K_lo ([B*H,
-//   tk, 64]) and V^T_hi, V^T_lo ([B*H, 64, tp], tp = tk rounded up to 8)
+//   keys contiguous. The f32 routes' pre-pass (split_tf32_pass,
+//   hopper_common.cuh) writes K_hi, K_lo ([B*H, tk, 64]) and V^T_hi,
+//   V^T_lo ([B*H, 64, tp], tp = tk rounded up to 8, keys in perm8's order)
 //   to a scratch buffer the wrapper allocates: 4 x B*H*T*64 floats, 84 MB
 //   at [2,10,4096,64], about 0.04 ms of the call's bytes. Each consumer
 //   splits its own pre-scaled Q rows in shared memory after the TMA load
-//   (hi in place, lo beside it).
-//   P stays in registers: S's f32 accumulator fragment holds keys (2tg,
-//   2tg + 1) of each group of 8 for rows g and g + 8, while the TF32
-//   A-register fragment of a k8 step holds k-columns tg and tg + 4 (CUTLASS
-//   ALayout_64x8). So the pre-pass stores V^T's keys permuted within each
-//   group of 8 (position c holds key 2c for c < 4, key 2c - 7 after): the
-//   A fragment is then {s[4j], s[4j + 2], s[4j + 1], s[4j + 3]} with no
-//   shuffle, split into hi and lo in registers.
+//   (hi in place, lo beside it). P stays in registers: in perm8's order
+//   S's accumulator fragment is P V's A fragment (hopper_common.cuh), split
+//   into hi and lo in registers.
 //   Each 64-key tile's P V goes to a fresh accumulator that is added to O
 //   on the FMA pipes (O = alpha O + PV in one fmaf): with O itself
 //   accumulated in the tensor cores, T/8 x 3 products summed there drifted
@@ -308,20 +304,6 @@ __device__ __forceinline__ void store_lse(float* lse, int r, int tq, int tg,
 #pragma unroll
   for (int h = 0; h < 2; ++h)
     if (r + 8 * h < tq) lse[r + 8 * h] = m[h] + log2f(l[h]);
-}
-
-// x rounded to TF32 (10 mantissa bits; to nearest, ties away from zero),
-// as an f32 whose low 13 bits are zero.
-__device__ __forceinline__ float tf32_rna(float x) {
-  uint32_t y;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
-  return __uint_as_float(y & 0xffffe000u);
-}
-
-// x = hi + lo, both TF32: hi = rna(x), lo = rna(x - hi).
-__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - hi);
 }
 
 // ---------------------------------------------------------------------------
@@ -649,58 +631,7 @@ flash_fwd_d512(__grid_constant__ const CUtensorMap q_map,
 // f32, d = 64, on TF32 tensor cores in three passes
 // ---------------------------------------------------------------------------
 
-constexpr int kKeysTf32 = 64;      // keys a stage, and a pre-pass block's keys
-constexpr int kBoxF32 = 32;        // f32 columns in a 128-byte swizzle box
-
-// Position c of each group of 8 keys in V^T holds key perm8(c): keys 2c
-// and 2c + 1 of S's accumulator fragment become k-columns c and c + 4 of
-// P V's TF32 A fragment.
-__device__ __forceinline__ int perm8(int c) {
-  return c < 4 ? 2 * c : 2 * c - 7;
-}
-
-// The pre-pass: one block a (64-key tile, b*h). K_hi, K_lo [bh, tk, 64];
-// V^T_hi, V^T_lo [bh, 64, tp] with keys permuted by perm8, zero at keys >=
-// tk.
-__global__ void __launch_bounds__(256)
-split_kv_tf32(const float* __restrict__ k, const float* __restrict__ v,
-              float* __restrict__ k_hi, float* __restrict__ k_lo,
-              float* __restrict__ vt_hi, float* __restrict__ vt_lo, int tk,
-              int tp) {
-  __shared__ float tile[kKeysTf32][65];  // V rows [key][d], padded
-  const int k0 = blockIdx.x * kKeysTf32;
-  const size_t base = (size_t)blockIdx.y * tk * 64;
-  for (int i = threadIdx.x; i < kKeysTf32 * 16; i += 256) {
-    const int r = i / 16, c = (i % 16) * 4;
-    float4 vx = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (k0 + r < tk) {
-      const size_t off = base + (size_t)(k0 + r) * 64 + c;
-      const float4 kx = *reinterpret_cast<const float4*>(k + off);
-      vx = *reinterpret_cast<const float4*>(v + off);
-      float4 hi, lo;
-      split_tf32(kx.x, hi.x, lo.x);
-      split_tf32(kx.y, hi.y, lo.y);
-      split_tf32(kx.z, hi.z, lo.z);
-      split_tf32(kx.w, hi.w, lo.w);
-      *reinterpret_cast<float4*>(k_hi + off) = hi;
-      *reinterpret_cast<float4*>(k_lo + off) = lo;
-    }
-    tile[r][c] = vx.x;
-    tile[r][c + 1] = vx.y;
-    tile[r][c + 2] = vx.z;
-    tile[r][c + 3] = vx.w;
-  }
-  __syncthreads();
-  const size_t vt = (size_t)blockIdx.y * 64 * tp;
-  for (int i = threadIdx.x; i < 64 * kKeysTf32; i += 256) {
-    const int d = i / kKeysTf32, p = i % kKeysTf32;
-    if (k0 + p >= tp) continue;
-    float hi, lo;
-    split_tf32(tile[(p & ~7) + perm8(p & 7)][d], hi, lo);
-    vt_hi[vt + (size_t)d * tp + k0 + p] = hi;
-    vt_lo[vt + (size_t)d * tp + k0 + p] = lo;
-  }
-}
+constexpr int kKeysTf32 = 64;  // keys a stage
 
 struct Tf32Plan {
   static constexpr int kNC = 3;  // consumer warpgroups
@@ -856,7 +787,7 @@ flash_fwd_tf32(__grid_constant__ const CUtensorMap q_map,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float hi, lo;
-        split_tf32(sc[4 * j + (e >> 1) + 2 * (e & 1)], hi, lo);
+        split_tf32(sc[a_frag_index(j, e)], hi, lo);
         p_hi[j][e] = __float_as_uint(hi);
         p_lo[j][e] = __float_as_uint(lo);
       }
@@ -1257,10 +1188,10 @@ cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess)
     err = allow_smem_once(flash_fwd_tf32<LSE>, P::kSmemBytes, &smem_set);
   if (err != cudaSuccess) return err;
-  split_kv_tf32<<<dim3((tp + kKeysTf32 - 1) / kKeysTf32, bh), 256, 0, s>>>(
-      static_cast<const float*>(k), static_cast<const float*>(v), k_hi, k_lo,
-      vt_hi, vt_lo, tk, tp);
-  err = cudaGetLastError();
+  SplitJobs jobs{};
+  jobs.job[0] = {static_cast<const float*>(k), k_hi, nullptr, tk, tp};
+  jobs.job[1] = {static_cast<const float*>(v), nullptr, vt_hi, tk, tp};
+  err = launch_split_tf32(jobs, 2, bh, s);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + P::kRowsQ - 1) / P::kRowsQ, bh);
   flash_fwd_tf32<LSE><<<grid, P::kThreads, P::kSmemBytes, s>>>(

@@ -1,8 +1,9 @@
 // Hopper's own machinery for the hand-written attention kernels (sm_90a),
 // shared by flash_hopper.cu (the forwards) and flash_hopper_bwd.cu (the
 // backward): mbarriers, TMA loads into 128-byte-swizzled boxes, wgmma and
-// its shared-memory descriptors, setmaxnreg, the SFU's exp2, and on the
-// host the encoding of the tensor maps the TMA unit reads.
+// its shared-memory descriptors, setmaxnreg, the SFU's exp2, the f32
+// routes' TF32 split and its pre-pass, and on the host the encoding of the
+// tensor maps the TMA unit reads.
 //
 // The layout every kernel uses: a [rows, d] bf16 tile is a row of boxes of
 // 64 columns (128 bytes, one swizzle row) by `rows` rows, 128-byte
@@ -17,10 +18,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace hopper {
 
 constexpr int kBoxCols = 64;          // bf16 columns in a 128-byte swizzle box
 constexpr int kRowBytes = 128;        // one box row
+constexpr int kBoxF32 = 32;           // f32 columns in a box
 
 // ---------------------------------------------------------------------------
 // Hopper primitives (PTX)
@@ -74,16 +78,6 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// One box of a 1-D tensor map into shared memory, as tma_load.
-__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0) {
-  asm volatile(
-      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
 }
 
@@ -237,6 +231,18 @@ __device__ __forceinline__ void wgmma_ss_tf32_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// D[64x32] (+)= A[64x8] B[8x32] in TF32: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1;\n}\n"
+      : SDXL_F16(0)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // D[64x64] (+)= A[64x8] B[8x64] in TF32: A in registers, B K-major in
 // shared memory.
 __device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
@@ -270,6 +276,116 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// ---------------------------------------------------------------------------
+// The f32 routes' TF32 arithmetic (3xTF32)
+// ---------------------------------------------------------------------------
+//
+// One TF32 product keeps 10 mantissa bits of each operand. The f32 routes
+// split each operand x into x_hi = rna(x) and x_lo = rna(x - x_hi), both
+// TF32, and take a b as a_hi b_lo + a_lo b_hi + a_hi b_hi summed in f32:
+// about 2^-21 of each product is lost, near f32's own 2^-24
+// (tests/torch_tf32.py emulates this on the CPU).
+//
+// wgmma takes 32-bit operands only K-major, and a product whose A operand
+// is an accumulator fragment (P V in the forward, dz K, p^T dO and dz^T qf
+// in the backward) contracts over tokens: its B operand is a transposed
+// copy, tokens contiguous. S's f32 accumulator fragment holds tokens (2tg,
+// 2tg + 1) of each group of 8 for rows g and g + 8, while the TF32
+// A-register fragment of a k8 step holds k-columns tg and tg + 4 (CUTLASS
+// ALayout_64x8). So the transposed copy stores each group of 8 tokens
+// permuted: position c holds token perm8(c), and the A fragment of k-step
+// j is {s[4j], s[4j + 2], s[4j + 1], s[4j + 3]}, with no shuffle.
+
+// x rounded to TF32 (10 mantissa bits; to nearest, ties away from zero),
+// as an f32 whose low 13 bits are zero.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return __uint_as_float(y & 0xffffe000u);
+}
+
+// x = hi + lo, both TF32: hi = rna(x), lo = rna(x - hi).
+__device__ __forceinline__ void split_tf32(float x, float& hi, float& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - hi);
+}
+
+// Position c of each group of 8 tokens in a transposed copy holds token
+// perm8(c): tokens 2c and 2c + 1 of an accumulator fragment become
+// k-columns c and c + 4 of the TF32 A fragment.
+__device__ __forceinline__ int perm8(int c) {
+  return c < 4 ? 2 * c : 2 * c - 7;
+}
+
+// Element e of k-step j's TF32 A fragment, as an index into the f32
+// accumulator fragment it comes from (perm8's order).
+__device__ __forceinline__ constexpr int a_frag_index(int j, int e) {
+  return 4 * j + (e >> 1) + 2 * (e & 1);
+}
+
+// The pre-pass of the f32 routes: a job splits one tensor x [n, t, 64] f32
+// into hi and lo parts, written (hl set) as hl = [2, n, t, 64] (all of x_hi,
+// then all of x_lo) and (thl set) transposed as thl = [2, n, 64, tp] with
+// each group of 8 tokens in perm8's order and zeros at tokens t .. tp - 1
+// (tp = t rounded up to 8; the scratch it writes is never assumed zero).
+struct SplitJob {
+  const float* x;
+  float* hl;
+  float* thl;
+  int t, tp;
+};
+constexpr int kSplitJobs = 4;
+constexpr int kSplitTokens = 64;  // tokens a block
+struct SplitJobs {
+  SplitJob job[kSplitJobs];
+  int n;
+};
+
+// One block a (64-token tile, b*h, job).
+__global__ void __launch_bounds__(256)
+split_tf32_pass(const __grid_constant__ SplitJobs jobs) {
+  const SplitJob& j = jobs.job[blockIdx.z];
+  const int t0 = blockIdx.x * kSplitTokens;
+  if (t0 >= (j.thl ? j.tp : j.t)) return;
+  __shared__ float tile[kSplitTokens][65];  // x rows [token][d], padded
+  const size_t base = (size_t)blockIdx.y * j.t * 64;
+  const size_t half = (size_t)jobs.n * j.t * 64;
+  for (int i = threadIdx.x; i < kSplitTokens * 16; i += 256) {
+    const int r = i / 16, c = (i % 16) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t0 + r < j.t) {
+      const size_t off = base + (size_t)(t0 + r) * 64 + c;
+      x = *reinterpret_cast<const float4*>(j.x + off);
+      if (j.hl) {
+        float4 hi, lo;
+        split_tf32(x.x, hi.x, lo.x);
+        split_tf32(x.y, hi.y, lo.y);
+        split_tf32(x.z, hi.z, lo.z);
+        split_tf32(x.w, hi.w, lo.w);
+        *reinterpret_cast<float4*>(j.hl + off) = hi;
+        *reinterpret_cast<float4*>(j.hl + half + off) = lo;
+      }
+    }
+    tile[r][c] = x.x;
+    tile[r][c + 1] = x.y;
+    tile[r][c + 2] = x.z;
+    tile[r][c + 3] = x.w;
+  }
+  if (!j.thl) return;
+  __syncthreads();
+  const size_t tbase = (size_t)blockIdx.y * 64 * j.tp;
+  const size_t thalf = (size_t)jobs.n * 64 * j.tp;
+  for (int i = threadIdx.x; i < 64 * kSplitTokens; i += 256) {
+    const int d = i / kSplitTokens, p = i % kSplitTokens;
+    if (t0 + p >= j.tp) continue;
+    float hi, lo;
+    split_tf32(tile[(p & ~7) + perm8(p & 7)][d], hi, lo);
+    const size_t off = tbase + (size_t)d * j.tp + t0 + p;
+    j.thl[off] = hi;
+    j.thl[thalf + off] = lo;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -322,22 +438,16 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, bool f32,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// A 1-D map over n contiguous f32 values, boxes of `len` values, no
-// swizzle; reads past n are zeros.
-inline cudaError_t make_map_1d(CUtensorMap* map, const float* base, int n,
-                               int len) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[1] = {(cuuint64_t)n};
-  const cuuint64_t strides[1] = {(cuuint64_t)n * 4};  // none read at rank 1
-  const cuuint32_t box[1] = {(cuuint32_t)len};
-  const cuuint32_t unit[1] = {1};
-  const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<float*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+// The pre-pass over `count` jobs of n = b*h heads each, on stream s.
+inline cudaError_t launch_split_tf32(SplitJobs jobs, int count, int n,
+                              cudaStream_t s) {
+  int tokens = 0;
+  for (int i = 0; i < count; ++i)
+    tokens = std::max(tokens, jobs.job[i].thl ? jobs.job[i].tp : jobs.job[i].t);
+  jobs.n = n;
+  split_tf32_pass<<<dim3((tokens + kSplitTokens - 1) / kSplitTokens, n, count),
+                    256, 0, s>>>(jobs);
+  return cudaGetLastError();
 }
 
 }  // namespace hopper

@@ -12,9 +12,10 @@ Counterpart of sdxl_tpu/ops/flash_attention.py:
 The kernels live in ``csrc/`` (flash_hopper.cu: K1's bf16 routes and K2's
 bf16 route on wgmma and TMA, K1's and K2's f32 d=64 route and K1's f32
 d=512 route on TF32 tensor cores; flash_hopper_bwd.cu: K3a and K3b bf16
-on wgmma and TMA; hopper_common.cuh: the TMA, mbarrier and wgmma helpers
-both share; flash_attention.cu: K1's and K2's f32 d=128 route on the FMA
-pipes; flash_attention_bwd.cu: K3a and K3b f32 on the FMA pipes;
+and f32 d=64 on wgmma and TMA; hopper_common.cuh: the TMA, mbarrier and
+wgmma helpers and the f32 routes' TF32 split and pre-pass, which both
+share; flash_attention.cu: K1's and K2's f32 d=128 route on the FMA pipes;
+flash_attention_bwd.cu: K3a and K3b's f32 d=128 route on the FMA pipes;
 flash_experiments.cu and flash_pipelined.cu: the experiments X1-X3, whose
 wrappers live in ``sdxl_tpu_torch/scripts/``). Each source is compiled
 with nvcc for sm_90a into a shared library with a plain C interface, at
@@ -37,23 +38,25 @@ and K3b):
 - K1, bf16 with d in (64, 128) (the bf16 UNet's self-attention) and d =
   512 (the bf16 VAE decode's mid-block attention): bf16 tensor cores
   (wgmma), K, V by TMA through an mbarrier ring;
-- K1 and K2, f32 with d = 64 (the f32 UNet's self-attention, and its
-  training forward): TF32 tensor cores in three passes. One TF32 product
-  rounds each operand to 10 mantissa bits, about 4e-4 of relative L2 error
-  over an attention output, past the f32 bound of 1e-4; split into a high
-  and a low TF32 part, a b = a_hi b_hi + a_hi b_lo + a_lo b_hi keeps about
-  2^-21 of each product (tests/test_torch_flash_attention.py pins this on
-  the CPU). A pre-pass splits K and V into scratch the wrapper allocates
-  (``_tf32_scratch``);
+- K1, K2, K3a and K3b, f32 with d = 64 (the f32 UNet's self-attention,
+  and its training forward and backward): TF32 tensor cores in three
+  passes. One TF32 product rounds each operand to 10 mantissa bits, about
+  4e-4 of relative L2 error over an attention output, past the f32 bound
+  of 1e-4; split into a high and a low TF32 part, a b = a_hi b_hi + a_hi
+  b_lo + a_lo b_hi keeps about 2^-21 of each product
+  (tests/test_torch_flash_attention.py and
+  tests/test_torch_flash_backward.py pin this on the CPU). A pre-pass
+  splits (and for the backward transposes) the operands into scratch the
+  wrapper allocates (``_tf32_scratch``, ``_bwd_tf32_scratch``);
 - K1, f32 with d = 512 (the f32 VAE's mid-block attention, in every f32
   decode and in the training set's encode): TF32 tensor cores in three
   passes on mma.sync, the head dim split over eight warps;
-- K1 and K2, f32 with d = 128 (no SDXL path): full f32 on the FMA pipes;
+- K1, K2, K3a and K3b, f32 with d = 128 (no SDXL path): full f32 on the
+  FMA pipes;
 - K2, bf16 with d in (64, 128): K1's bf16 kernel with an lse store;
 - K3a and K3b, bf16 with d in (64, 128) (the bf16 trainer): bf16 tensor
   cores (wgmma), the resident rows and the streamed tiles by TMA through
-  an mbarrier ring; f32 with d in (64, 128) (the f32 trainer): the f32
-  FMA pipes.
+  an mbarrier ring.
 """
 
 from __future__ import annotations
@@ -100,8 +103,10 @@ _KERNELS = {
     "sdxl_flash_attention_lse_f32_d128": ("flash_attention.cu", 5, 1),
     "sdxl_flash_attention_bwd_dq_bf16": ("flash_hopper_bwd.cu", 7, 1),
     "sdxl_flash_attention_bwd_dkv_bf16": ("flash_hopper_bwd.cu", 8, 0),
-    "sdxl_flash_attention_bwd_dq_f32": ("flash_attention_bwd.cu", 7, 1),
-    "sdxl_flash_attention_bwd_dkv_f32": ("flash_attention_bwd.cu", 8, 0),
+    "sdxl_flash_attention_bwd_dq_f32": ("flash_hopper_bwd.cu", 8, 1),
+    "sdxl_flash_attention_bwd_dkv_f32": ("flash_hopper_bwd.cu", 9, 0),
+    "sdxl_flash_attention_bwd_dq_f32_d128": ("flash_attention_bwd.cu", 7, 1),
+    "sdxl_flash_attention_bwd_dkv_f32_d128": ("flash_attention_bwd.cu", 8, 0),
     **{f"sdxl_flash2_bf16_q{bq}_k{bk}": ("flash_experiments.cu", 4, 1)
        for bq in (64, 128) for bk in (64, 128)},
     **{f"sdxl_flash_floor_{mode}_bf16": ("flash_experiments.cu", 4, 1)
@@ -125,10 +130,12 @@ _TRAIN_ROUTES = {
                              "sdxl_flash_attention_bwd_dq_bf16",
                              "sdxl_flash_attention_bwd_dkv_bf16")
        for d in (64, 128)},
-    **{(torch.float32, d): (f"sdxl_flash_attention_lse_f32_d{d}",
-                            "sdxl_flash_attention_bwd_dq_f32",
-                            "sdxl_flash_attention_bwd_dkv_f32")
-       for d in (64, 128)},
+    (torch.float32, 64): ("sdxl_flash_attention_lse_f32_d64",
+                          "sdxl_flash_attention_bwd_dq_f32",
+                          "sdxl_flash_attention_bwd_dkv_f32"),
+    (torch.float32, 128): ("sdxl_flash_attention_lse_f32_d128",
+                           "sdxl_flash_attention_bwd_dq_f32_d128",
+                           "sdxl_flash_attention_bwd_dkv_f32_d128"),
 }
 
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
@@ -147,6 +154,17 @@ def _tf32_scratch(bh: int, tk: int, device) -> torch.Tensor:
     tp = -(-tk // 8) * 8
     return torch.empty(2 * bh * 64 * (tk + tp), dtype=torch.float32,
                        device=device)
+
+
+def _bwd_tf32_scratch(bh: int, tq: int, tk: int, dq: bool,
+                      device) -> torch.Tensor:
+    """K3a's (dq) or K3b's f32 d=64 scratch: qf, dO, K and V each split
+    into hi and lo, [2, bh, T, 64], then the transposed copies, [2, bh, 64,
+    tp] with tp = T rounded up to a multiple of 8: K^T for K3a, qf^T and
+    dO^T for K3b."""
+    tp = -(-(tk if dq else tq) // 8) * 8
+    n = 4 * bh * 64 * (tq + tk) + (2 if dq else 4) * bh * 64 * tp
+    return torch.empty(n, dtype=torch.float32, device=device)
 
 
 def use_flash(tq: int, tk: int, d: int, has_mask: bool) -> bool:
@@ -386,9 +404,11 @@ def launch_bwd_dq(qf, k, v, do, lse, delta) -> torch.Tensor:
     _check_cuda("flash attention backward", (qf, k, v, do, lse, delta),
                 _TRAIN_ROUTES)
     dq = torch.empty_like(qf)
-    _launch(_TRAIN_ROUTES[qf.dtype, d][1],
-            (qf, k, v, do, lse, delta, dq), (b * h, tq, tk, d),
-            (d ** -0.5,))
+    name = _TRAIN_ROUTES[qf.dtype, d][1]
+    tensors = (qf, k, v, do, lse, delta, dq)
+    if name == "sdxl_flash_attention_bwd_dq_f32":
+        tensors += (_bwd_tf32_scratch(b * h, tq, tk, True, qf.device),)
+    _launch(name, tensors, (b * h, tq, tk, d), (d ** -0.5,))
     return dq
 
 
@@ -400,8 +420,11 @@ def launch_bwd_dkv(qf, k, v, do, lse, delta
     _check_cuda("flash attention backward", (qf, k, v, do, lse, delta),
                 _TRAIN_ROUTES)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch(_TRAIN_ROUTES[qf.dtype, d][2],
-            (qf, k, v, do, lse, delta, dk, dv), (b * h, tq, tk, d), ())
+    name = _TRAIN_ROUTES[qf.dtype, d][2]
+    tensors = (qf, k, v, do, lse, delta, dk, dv)
+    if name == "sdxl_flash_attention_bwd_dkv_f32":
+        tensors += (_bwd_tf32_scratch(b * h, tq, tk, False, qf.device),)
+    _launch(name, tensors, (b * h, tq, tk, d), ())
     return dk, dv
 
 

@@ -46,17 +46,17 @@ VARIANTS = {
          "    wgmma_commit();",
          "product_kmajor<D, P>(sc, qf_addr, P::kResBox, k_addr);"),
         ("wgmma_wait<1>();\n    fence_regs(sc);\n#pragma unroll\n"
-         "    for (int i = 0;",
+         "    for (int i = 0; i < 32;",
          "wgmma_wait<0>();\n    fence_regs(sc);\n#pragma unroll\n"
-         "    for (int i = 0;")],
+         "    for (int i = 0; i < 32;")],
     "dkv_onegroup": [
         ("product_kmajor<D, P>(sc, k_addr, P::kResBox, qf_addr);\n"
          "    wgmma_commit();",
          "product_kmajor<D, P>(sc, k_addr, P::kResBox, qf_addr);"),
         ("wgmma_wait<1>();\n    fence_regs(sc);\n#pragma unroll\n"
-         "    for (int j = 0;",
+         "    for (int j = 0; j < 8;",
          "wgmma_wait<0>();\n    fence_regs(sc);\n#pragma unroll\n"
-         "    for (int j = 0;")],
+         "    for (int j = 0; j < 8;")],
 }
 SHAPES = [(1, 10, 4096, 64), (1, 20, 1024, 64)]
 GRAPH_CALLS = 20

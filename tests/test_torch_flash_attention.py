@@ -22,6 +22,7 @@ from sdxl_tpu.ops.flash_attention import flash_attention_bhtd as j_flash
 from sdxl_tpu.ops.flash_attention import use_flash as j_use_flash
 from sdxl_tpu_torch.ops import flash_attention as fa
 from sdxl_tpu_torch.ops.attention import causal_mask, qkv_attention
+from torch_tf32 import tf32_matmul
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.
@@ -151,12 +152,15 @@ def _exporters():
     ([(torch.float32, 64)],
      ["sdxl_flash_attention_f32_d64", "sdxl_flash_attention_lse_f32_d64"],
      "flash_hopper.cu"),
-    # K3a and K3b: f32 on the FMA pipes, bf16 on wgmma and TMA
-    ([(torch.float32, 64), (torch.float32, 128)],
-     ["sdxl_flash_attention_bwd_dq_f32", "sdxl_flash_attention_bwd_dkv_f32"],
+    # K3a and K3b: f32 d=128 on the FMA pipes; bf16 on wgmma and TMA, f32
+    # d=64 on 3xTF32 wgmma and TMA
+    ([(torch.float32, 128)],
+     ["sdxl_flash_attention_bwd_dq_f32_d128",
+      "sdxl_flash_attention_bwd_dkv_f32_d128"],
      "flash_attention_bwd.cu"),
-    ([(torch.bfloat16, 64), (torch.bfloat16, 128)],
-     ["sdxl_flash_attention_bwd_dq_bf16", "sdxl_flash_attention_bwd_dkv_bf16"],
+    ([(torch.bfloat16, 64), (torch.bfloat16, 128), (torch.float32, 64)],
+     ["sdxl_flash_attention_bwd_dq_bf16", "sdxl_flash_attention_bwd_dkv_bf16",
+      "sdxl_flash_attention_bwd_dq_f32", "sdxl_flash_attention_bwd_dkv_f32"],
      "flash_hopper_bwd.cu"),
 ])
 def test_routes_name_the_source_that_defines_them(routes, names, source):
@@ -172,24 +176,6 @@ def test_routes_name_the_source_that_defines_them(routes, names, source):
     for name in names:
         assert fa._KERNELS[name][0] == source
         assert exporters[name] == {source}
-
-
-def _tf32(x: torch.Tensor) -> torch.Tensor:
-    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: 10 mantissa bits, to
-    nearest, ties away from zero (on the sign-magnitude bits, adding half
-    an ulp and clearing the 13 low bits rounds the magnitude)."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & -0x2000).view(torch.float32)
-
-
-def _tf32_matmul(a: torch.Tensor, b: torch.Tensor, passes: int):
-    """a @ b with TF32 operands summed in f32: one pass a_tf32 b_tf32, or
-    three, a_hi b_hi + a_hi b_lo + a_lo b_hi with x_lo = tf32(x - x_hi)."""
-    a_hi, b_hi = _tf32(a), _tf32(b)
-    if passes == 1:
-        return a_hi @ b_hi
-    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
-    return a_hi @ b_lo + a_lo @ b_hi + a_hi @ b_hi
 
 
 def _trunc_split(x: torch.Tensor):
@@ -250,9 +236,9 @@ def test_3xtf32_attention_keeps_the_f32_bound(d):
     for passes in (1, 3):
         if d == 64:
             qs = qt * (64 ** -0.5 * fa._LOG2E)
-            s = _tf32_matmul(qs, kt.transpose(-1, -2), passes)
+            s = tf32_matmul(qs, kt.transpose(-1, -2), passes)
             p = torch.exp2(s - s.amax(-1, keepdim=True))
-            o = _tf32_matmul(p, vt, passes) / p.sum(-1, keepdim=True)
+            o = tf32_matmul(p, vt, passes) / p.sum(-1, keepdim=True)
         else:
             o = _f32_d512_route(qt, kt, vt, passes)
         diff = o.numpy() - want

@@ -12,6 +12,8 @@ on-device bound (bench.py:53-66), since the plain versions round the
 normalised p where the kernels round the unnormalised one.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +27,7 @@ from sdxl_tpu.ops.flash_attention import _LOG2E as J_LOG2E
 from sdxl_tpu.ops.flash_attention import flash_attention_bwd_bhtd as j_flash_bwd
 from sdxl_tpu_torch.ops import flash_attention as fa
 from sdxl_tpu_torch.ops.attention import FlashSDPA, qkv_attention
+from torch_tf32 import tf32_matmul
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.
@@ -58,14 +61,22 @@ def test_lse_plain_matches_jax_kernel_f32(shape, blocks):
     np.testing.assert_allclose(lse.numpy(), np.asarray(jl), atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("shape,blocks", CASES)
-def test_bwd_plain_matches_jax_kernels_f32(shape, blocks):
+@functools.lru_cache(maxsize=None)
+def jax_bwd_f32(shape, blocks):
+    """(q, k, v, do) from seed 1 and the reference's f32 kernels' (o, lse)
+    and (dq, dk, dv) on them, as numpy arrays."""
     q, k, v, do = arrays(shape, shape, shape, shape, seed=1)
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
     jo, jl = j_flash(jq, jk, jv, *blocks, return_lse=True)
     want = j_flash_bwd(jq, jk, jv, jo, jl, jnp.asarray(do), *blocks)
-    got = fa.flash_attention_bwd(t(q), t(k), t(v), t(np.asarray(jo)),
-                                 t(np.asarray(jl)), t(do))
+    return ((q, k, v, do), (np.asarray(jo), np.asarray(jl)),
+            tuple(np.asarray(w) for w in want))
+
+
+@pytest.mark.parametrize("shape,blocks", CASES)
+def test_bwd_plain_matches_jax_kernels_f32(shape, blocks):
+    (q, k, v, do), (jo, jl), want = jax_bwd_f32(shape, blocks)
+    got = fa.flash_attention_bwd(t(q), t(k), t(v), t(jo), t(jl), t(do))
     for g, w, name in zip(got, want, ("dq", "dk", "dv")):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=5e-4,
@@ -184,3 +195,44 @@ def test_no_fallback_off_the_cpu():
         fa.flash_attention_bwd(q, q, q, q, lse, q)
     with pytest.raises(ValueError, match="no kernel"):
         fa.flash_attention_bhtd(q, q, q)
+
+
+def _tiled_tf32(a, b, passes: int, tile: int = 32):
+    """a @ b over the contracted axis in tiles of 32 tokens, as K3's f32
+    kernels sum it: each tile's product (TF32, `passes` passes) into a
+    fresh accumulator, added to the sum in f32."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for t0 in range(0, a.shape[-1], tile):
+        acc = acc + tf32_matmul(a[..., t0:t0 + tile], b[..., t0:t0 + tile, :],
+                                passes)
+    return acc
+
+
+def test_3xtf32_backward_keeps_the_f32_bound():
+    """K3a and K3b's f32 d=64 route on TF32 tensor cores
+    (csrc/flash_hopper_bwd.cu flash_bwd_dq_tf32, flash_bwd_dkv_tf32): the
+    backward's five products on TF32 operands in three passes, split as
+    the kernels split them (hi = rna(x), lo = rna(x - hi)), the logits over
+    d in one sum, dq, dk and dv over tiles of 32 tokens with a fresh sum
+    each, stay within 1e-3 x max(1, max|g|) and a relative L2 error of
+    1e-4 of the reference's f32 kernels at a ragged T; one pass does
+    not."""
+    (q, k, v, do), (jo, jl), want = jax_bwd_f32(*CASES[0])
+    qt, kt, vt, dot, o = (t(a) for a in (q, k, v, do, jo))
+    qf = fa._prescale_q(qt)
+    lse = t(jl)[..., None]
+    delta = (dot * o).sum(-1, keepdim=True)
+    rel = {}
+    for passes in (1, 3):
+        p = torch.exp2(tf32_matmul(qf, kt.transpose(-1, -2), passes) - lse)
+        dz = p * (tf32_matmul(dot, vt.transpose(-1, -2), passes) - delta)
+        got = (_tiled_tf32(dz, kt, passes) * 64 ** -0.5,
+               _tiled_tf32(dz.transpose(-1, -2), qf, passes) / fa._LOG2E,
+               _tiled_tf32(p.transpose(-1, -2), dot, passes))
+        for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+            diff = g.numpy() - w
+            rel[passes, name] = np.linalg.norm(diff) / np.linalg.norm(w)
+            if passes == 3:
+                assert np.abs(diff).max() < 1e-3 * max(1.0, np.abs(w).max())
+    for name in ("dq", "dk", "dv"):
+        assert rel[3, name] < 1e-4 < rel[1, name], rel
