@@ -24,44 +24,24 @@
 // head's rows; keys >= tk still get a -inf logit (a zero key would give
 // logit 0), and query rows >= tq are never stored.
 //
-// flash_fwd_wgmma<D, LSE> (the UNet's bf16 self-attention, d = 64 or
-// 128: K1 without the lse, K2 with it).
-//   Bound: 4*B*H*T^2*D tensor-core operations against 8 bytes of q/k/v/o
-//   per element, far above the card's ~295 FLOP/byte ridge, so the bound
-//   is the bf16 tensor-core rate (989 TFLOP/s). The mma.sync kernel it
-//   replaces sat at 11% of it, its time in synchronous, transposing loads
-//   (PERF.md, X2 and X3). Here the loads cost the consumers nothing: one
-//   thread of the producer warpgroup keeps TMA copies of K and V tiles in
-//   flight in a two-stage ring, and the consumers wait on the stage's
-//   mbarrier. No operand is transposed or copied by a thread: S = Q K^T
-//   reads Q and K from shared memory (both K-major), and P V takes P from
-//   registers (the f32 accumulator fragment of S rounded to bf16 is the
-//   A-register fragment of the next product, as FlashAttention-3 uses it)
-//   and V from shared memory as an MN-major B operand (transpose-B).
-//   Each consumer warpgroup runs S, softmax and P V in turn; the other
-//   warpgroups' products fill the tensor cores meanwhile, so more
-//   consumers hide more of the softmax (exp2 is about a fifth of the time
-//   at d = 64). The rows' max and sum run as four partial chains each.
+// flash_fwd_wgmma<D, NC, BK, LSE, kPrescaleQ> (the UNet's bf16
+// self-attention, d = 64 or 128: K1 without the lse, K2 with it) is
+// flash_fwd_wgmma.cuh's kernel, which the experiments X1 and X2
+// (flash_experiments.cu) instantiate too; its design is described there.
+//   Bound: 4*B*H*T^2*D operations at the bf16 tensor-core rate (989
+//   TFLOP/s). The mma.sync kernel it replaces sat at 11% of it, its time
+//   in synchronous, transposing loads (PERF.md, X2 and X3).
 //   Tiles: three consumer warpgroups of 64 query rows at d = 64 (192 rows
-//   a tile), two at d = 128 (128 rows); 128 keys a stage. One block a
-//   (q-tile, b*h) tile: at T = 1024, 240 tiles of 192 rows on 132 SMs (a
-//   persistent grid walking the tiles measured no faster, PERF.md). Shared
-//   memory: Q 24 KB (d 64) or 32 KB (d 128), two K/V stages of 32 or 64
-//   KB, all in 128-byte-swizzled boxes of 64 columns, so a d=128 row spans
-//   two boxes and the descriptors step from one to the other: 88 KB or 160
-//   KB, one block per SM. Registers: the producer drops to 24 (d 64) or
-//   40, the consumers rise to 160 (d 64: S 64 f32, O 32 f32, P 32 packed
-//   bf16 pairs) or 232 (d 128: O 64 f32). The q pre-scale is an
-//   elementwise pass over the consumer's own Q rows in shared memory after
-//   the TMA load (the swizzle only permutes 16-byte chunks), followed by a
-//   proxy fence so that wgmma's async-proxy reads see it. With LSE (K2, the
-//   training forward) one lane of each quad stores m + log2(l) of its two
-//   rows after the last tile: the split max and sum chains are already
-//   combined across the quad inside each softmax step, as the final 1/l
-//   needs them. K2 runs at batch 1, where 192-row tiles leave more of the
-//   last wave idle; 128-row tiles (two consumers) were still slower there
-//   (0.132 against 0.109 ms at [1,10,4096,64], 0.030 against 0.021 at
-//   [1,20,1024,64]; PERF.md), so K2 keeps K1's tiles.
+//   a tile), two at d = 128 (128 rows); 128 keys a stage. X1 sweeps this
+//   kernel's tile (PERF.md): 128 keys beat 64 at every row count, and 64
+//   rows (one consumer, two blocks an SM) were 5.6% faster than 192 at
+//   T = 4096 and 7.2% slower at T = 1024. One block a (q-tile, b*h) tile: at
+//   T = 1024, 240 tiles of 192 rows on 132 SMs (a persistent grid walking
+//   the tiles measured no faster, PERF.md). Shared memory 88 KB (d 64) or
+//   160 KB, one block per SM. K2 runs at batch 1, where 192-row tiles
+//   leave more of the last wave idle; 128-row tiles (two consumers) were
+//   still slower there (0.132 against 0.109 ms at [1,10,4096,64], 0.030
+//   against 0.021 at [1,20,1024,64]; PERF.md), so K2 keeps K1's tiles.
 //
 // flash_fwd_d512 (the bf16 VAE decode's mid-block attention, [1,1,T,512]).
 //   Bound: the same operation count, 4*T^2*512; at T = 16384 the
@@ -172,112 +152,16 @@
 #include <atomic>
 
 #include "flash_common.cuh"
+#include "flash_fwd_wgmma.cuh"
 #include "hopper_common.cuh"
 
 namespace {
 
 using namespace hopper;
+using namespace flash_fwd;
 using flash::allow_smem_once;
 using flash::cp_async_commit;
 using flash::cp_async_wait;
-using flash::pack_bf16;
-
-// Multiply `bytes` of bf16 in shared memory by `scale` in f32 and round
-// back to bf16 (the reference's pre-scaled q), `threads` threads from
-// thread `t`; the swizzle only permutes 16-byte chunks, so any order does.
-__device__ __forceinline__ void prescale(unsigned char* p, int bytes,
-                                         float scale, int t, int threads) {
-  for (int i = t * 16; i < bytes; i += threads * 16) {
-    uint4 x = *reinterpret_cast<uint4*>(p + i);
-    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&x);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(e[j]);
-      e[j] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
-    }
-    *reinterpret_cast<uint4*>(p + i) = x;
-  }
-}
-
-// Online-softmax step on one warpgroup's S fragment (f32, base 2) of NK
-// keys: rows g and g + 8 of the warp's 16, s[4j + e] at key 8j + 2tg + (e &
-// 1). Masks keys >= tk, updates m and l, turns s into the unrounded p and
-// returns each row's rescale of the accumulator in alpha.
-template <int NK>
-__device__ __forceinline__ void softmax_step(float (&s)[NK / 2], int k0,
-                                             int tk, int tg, float (&m)[2],
-                                             float (&l)[2], float (&alpha)[2]) {
-  if (k0 + NK > tk) {
-#pragma unroll
-    for (int j = 0; j < NK / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (k0 + 8 * j + 2 * tg + (e & 1) >= tk) s[4 * j + e] = -INFINITY;
-  }
-  float mx[2][4];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) mx[r][u] = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < NK / 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-      mx[r][j & 3] = fmaxf(mx[r][j & 3],
-                           fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
-  float m_new[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float x = fmaxf(fmaxf(mx[r][0], mx[r][1]), fmaxf(mx[r][2], mx[r][3]));
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-    m_new[r] = fmaxf(m[r], x);
-    alpha[r] = exp2_ftz(m[r] - m_new[r]);
-    m[r] = m_new[r];
-  }
-  float rs[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-  for (int j = 0; j < NK / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[4 * j + e] = exp2_ftz(s[4 * j + e] - m_new[e >> 1]);
-      rs[e >> 1][j & 3] += s[4 * j + e];
-    }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float x = (rs[r][0] + rs[r][1]) + (rs[r][2] + rs[r][3]);
-    x += __shfl_xor_sync(0xffffffffu, x, 1);
-    x += __shfl_xor_sync(0xffffffffu, x, 2);
-    l[r] = alpha[r] * l[r] + x;
-  }
-}
-
-// The A-register fragment of 16 keys (k-step kk) of P from S's fragment.
-__device__ __forceinline__ void p_fragment(const float* s, int kk,
-                                           uint32_t a[4]) {
-  a[0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-  a[1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-  a[2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-  a[3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-}
-
-// Rows (r, r + 8) of an accumulator fragment, each divided by its l and
-// stored as bf16 at columns c0 + 8j + 2tg (rows >= tq skipped).
-template <int N>
-__device__ __forceinline__ void store_rows(const float (&acc)[N],
-                                           __nv_bfloat16* o, int d, int r,
-                                           int tq, int c0, int tg,
-                                           const float (&l)[2]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (r + 8 * h >= tq) continue;
-    __nv_bfloat16* row = o + (size_t)(r + 8 * h) * d + c0 + 2 * tg;
-#pragma unroll
-    for (int j = 0; j < N / 4; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) = __floats2bfloat162_rn(
-          acc[4 * j + 2 * h] / l[h], acc[4 * j + 2 * h + 1] / l[h]);
-  }
-}
 
 // The f32 counterpart of store_rows.
 template <int N>
@@ -295,173 +179,18 @@ __device__ __forceinline__ void store_rows_f32(const float (&acc)[N], float* o,
   }
 }
 
-// Rows (r, r + 8)'s base-2 log-sum-exp m + log2(l), stored by one lane of
-// the quad (m and l are already the whole row's there); rows >= tq skipped.
-__device__ __forceinline__ void store_lse(float* lse, int r, int tq, int tg,
-                                          const float (&m)[2],
-                                          const float (&l)[2]) {
-  if (tg != 0) return;
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    if (r + 8 * h < tq) lse[r + 8 * h] = m[h] + log2f(l[h]);
-}
-
-// ---------------------------------------------------------------------------
-// bf16, d in {64, 128}
-// ---------------------------------------------------------------------------
-
-constexpr int kTile = 128;  // keys a stage
-constexpr int kStages = 2;
-
+// K1's and K2's bf16 kernel (flash_fwd_wgmma.cuh) at their tiles: three
+// consumer warpgroups at d = 64, two at d = 128, 128 keys a stage.
 template <int D>
-struct WsPlan {
-  static constexpr int kNC = D == 64 ? 3 : 2;  // consumer warpgroups
-  static constexpr int kThreads = 128 * (kNC + 1);
-  static constexpr int kConsumers = 128 * kNC;
-  static constexpr int kRowsQ = 64 * kNC;      // query rows a tile
-  static constexpr int kBoxes = D / kBoxCols;  // 64-column boxes a row
-  static constexpr int kQBox = kRowsQ * kRowBytes;
-  static constexpr int kQBytes = kBoxes * kQBox;
-  static constexpr int kBoxBytes = kTile * kRowBytes;  // a K or V box, 16 KB
-  static constexpr int kTileBytes = kBoxes * kBoxBytes;
-  static constexpr int kKV = kQBytes;  // stage s: K, then V
-  static constexpr int kBars = kKV + 2 * kStages * kTileBytes;
-  // q_full, then k_full, v_full and kv_empty for each stage
-  static constexpr int kSmemBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
-};
+constexpr int kK1Consumers = D == 64 ? 3 : 2;
+constexpr int kK1Keys = 128;
 
-// One block a (b*h, q-tile) tile; with LSE also lse ([B*H, tq] f32).
 template <int D, bool LSE>
-__global__ void __launch_bounds__(WsPlan<D>::kThreads, 1)
-flash_fwd_wgmma(__grid_constant__ const CUtensorMap q_map,
-                __grid_constant__ const CUtensorMap k_map,
-                __grid_constant__ const CUtensorMap v_map,
-                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                int tq, int tk, float scale) {
-  using P = WsPlan<D>;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = aligned_smem(smem_raw);
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + P::kBars);
-  uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + kStages;
-  uint64_t* kv_empty = v_full + kStages;
-
-  const int wg = threadIdx.x / 128;
-  const int q0 = blockIdx.x * P::kRowsQ, h = blockIdx.y;
-  const int n_kt = (tk + kTile - 1) / kTile;
-
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&k_full[s], 1);
-      mbar_init(&v_full[s], 1);
-      mbar_init(&kv_empty[s], P::kConsumers);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (wg == 0) {  // producer: one thread starts every copy
-    if constexpr (P::kNC == 3) {
-      setmaxnreg_dec<24>();
-    } else {
-      setmaxnreg_dec<40>();
-    }
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, P::kQBytes);
-      for (int b = 0; b < P::kBoxes; ++b)
-        tma_load(smem + b * P::kQBox, &q_map, q_full, b * kBoxCols, q0, h);
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % kStages;
-        mbar_wait(&kv_empty[s], ((kt / kStages) & 1) ^ 1);
-        unsigned char* sk = smem + P::kKV + 2 * s * P::kTileBytes;
-        mbar_expect_tx(&k_full[s], P::kTileBytes);
-        for (int b = 0; b < P::kBoxes; ++b)
-          tma_load(sk + b * P::kBoxBytes, &k_map, &k_full[s], b * kBoxCols,
-                   kt * kTile, h);
-        mbar_expect_tx(&v_full[s], P::kTileBytes);
-        for (int b = 0; b < P::kBoxes; ++b)
-          tma_load(sk + P::kTileBytes + b * P::kBoxBytes, &v_map, &v_full[s],
-                   b * kBoxCols, kt * kTile, h);
-      }
-    }
-    return;
-  }
-
-  if constexpr (P::kNC == 3) {
-    setmaxnreg_inc<160>();
-  } else {
-    setmaxnreg_inc<232>();
-  }
-  const int c = wg - 1;  // this warpgroup's rows: 64c .. 64c + 63
-  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const uint32_t q_addr = smem_u32(smem) + c * 64 * kRowBytes;
-
-  mbar_wait(q_full, 0);
-  for (int b = 0; b < P::kBoxes; ++b)
-    prescale(smem + b * P::kQBox + c * 64 * kRowBytes, 64 * kRowBytes, scale,
-             t, 128);
-  fence_proxy_async();
-  bar_sync(1 + c, 128);
-
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
-
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int s = kt % kStages;
-    const uint32_t parity = (kt / kStages) & 1;
-    const uint32_t k_addr = smem_u32(smem + P::kKV + 2 * s * P::kTileBytes);
-    const uint32_t v_addr = k_addr + P::kTileBytes;
-
-    // S = Q K^T over 128 keys: D / 16 k-steps, four to a 64-column box.
-    float sc[kTile / 2];
-    mbar_wait(&k_full[s], parity);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;
-      wgmma_ss_n128(sc, desc128(q_addr + (kk / 4) * P::kQBox + off, 16),
-                    desc128(k_addr + (kk / 4) * P::kBoxBytes + off, 16),
-                    kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-
-    float alpha[2];
-    softmax_step<kTile>(sc, kt * kTile, tk, tg, m_run, l_run, alpha);
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-
-    // acc += P V: 8 k-steps of 16 keys, 2048 bytes apart in the V tile.
-    uint32_t pa[kTile / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) p_fragment(sc, kk, pa[kk]);
-    fence_regs(pa);
-    mbar_wait(&v_full[s], parity);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      const uint64_t vd = desc128(v_addr + kk * 16 * kRowBytes, P::kBoxBytes);
-      if constexpr (D == 64) {
-        wgmma_rs_n64(acc, pa[kk], vd);
-      } else {
-        wgmma_rs_n128(acc, pa[kk], vd);
-      }
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(acc);
-    fence_regs(pa);
-    mbar_arrive(&kv_empty[s]);
-  }
-
-  const int r = q0 + 64 * c + 16 * warp + g;
-  store_rows(acc, o + (size_t)h * tq * D, D, r, tq, 0, tg, l_run);
-  if constexpr (LSE) store_lse(lse + (size_t)h * tq, r, tq, tg, m_run, l_run);
+cudaError_t launch_k1(const void* q, const void* k, const void* v, void* o,
+                      float* lse, int bh, int tq, int tk, float scale,
+                      cudaStream_t s) {
+  return launch_fwd_wgmma<D, kK1Consumers<D>, kK1Keys, LSE, kPrescaleQ>(
+      q, k, v, o, lse, bh, tq, tk, scale, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1134,36 +863,6 @@ flash_fwd_f32_d512(const float* __restrict__ q, const float* __restrict__ k,
 // host side
 // ---------------------------------------------------------------------------
 
-struct Maps {
-  CUtensorMap q, k, v;
-};
-
-// Maps over bf16 [bh, t, d] q, k and v.
-cudaError_t make_maps(Maps* m, const void* q, const void* k, const void* v,
-                      int bh, int tq, int tk, int d, int q_rows, int kv_rows) {
-  cudaError_t err = make_map(&m->q, q, false, bh, tq, d, q_rows);
-  if (err == cudaSuccess) err = make_map(&m->k, k, false, bh, tk, d, kv_rows);
-  if (err == cudaSuccess) err = make_map(&m->v, v, false, bh, tk, d, kv_rows);
-  return err;
-}
-
-template <int D, bool LSE>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* o,
-                         float* lse, int bh, int tq, int tk, float scale,
-                         cudaStream_t s) {
-  using P = WsPlan<D>;
-  static std::atomic<unsigned long long> smem_set{0};
-  Maps m;
-  cudaError_t err = make_maps(&m, q, k, v, bh, tq, tk, D, P::kRowsQ, kTile);
-  if (err == cudaSuccess)
-    err = allow_smem_once(flash_fwd_wgmma<D, LSE>, P::kSmemBytes, &smem_set);
-  if (err != cudaSuccess) return err;
-  dim3 grid((tq + P::kRowsQ - 1) / P::kRowsQ, bh);
-  flash_fwd_wgmma<D, LSE><<<grid, P::kThreads, P::kSmemBytes, s>>>(
-      m.q, m.k, m.v, static_cast<__nv_bfloat16*>(o), lse, tq, tk, scale);
-  return cudaGetLastError();
-}
-
 template <bool LSE>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
                         float* lse, void* scratch, int bh, int tq, int tk,
@@ -1213,9 +912,9 @@ extern "C" int sdxl_flash_attention_bf16(const void* q, const void* k,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return launch_wgmma<64, false>(q, k, v, o, nullptr, bh, tq, tk, scale, s);
+    return launch_k1<64, false>(q, k, v, o, nullptr, bh, tq, tk, scale, s);
   if (d == 128)
-    return launch_wgmma<128, false>(q, k, v, o, nullptr, bh, tq, tk, scale, s);
+    return launch_k1<128, false>(q, k, v, o, nullptr, bh, tq, tk, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1228,9 +927,9 @@ extern "C" int sdxl_flash_attention_lse_bf16(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (d == 64)
-    return launch_wgmma<64, true>(q, k, v, o, l, bh, tq, tk, scale, s);
+    return launch_k1<64, true>(q, k, v, o, l, bh, tq, tk, scale, s);
   if (d == 128)
-    return launch_wgmma<128, true>(q, k, v, o, l, bh, tq, tk, scale, s);
+    return launch_k1<128, true>(q, k, v, o, l, bh, tq, tk, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -1297,11 +996,11 @@ extern "C" int sdxl_flash_attention_f32_d512(const void* q, const void* k,
 }
 
 // The dynamic shared memory a kernel of this file launches with (for the
-// build report): kernel 0 flash_fwd_wgmma<d>, 1 flash_fwd_d512, 2
+// build report), by its index and its leading int template arguments:
+// kernel 0 flash_fwd_wgmma<d, nc, bk, ...>, 1 flash_fwd_d512, 2
 // flash_fwd_tf32, 3 flash_fwd_f32_d512; 0 for any other.
-extern "C" int flash_hopper_smem_bytes(int kernel, int d) {
-  if (kernel == 0 && d == 64) return WsPlan<64>::kSmemBytes;
-  if (kernel == 0 && d == 128) return WsPlan<128>::kSmemBytes;
+extern "C" int flash_hopper_smem_bytes(int kernel, int d, int nc, int bk) {
+  if (kernel == 0) return fwd_smem_bytes(d, nc, bk);
   if (kernel == 1) return D512Plan::kSmemBytes;
   if (kernel == 2) return Tf32Plan::kSmemBytes;
   if (kernel == 3) return F512Plan::kSmemBytes;

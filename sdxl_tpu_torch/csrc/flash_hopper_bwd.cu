@@ -1248,9 +1248,11 @@ extern "C" int sdxl_flash_attention_bwd_dkv_f32(
 }
 
 // The dynamic shared memory a kernel of this file launches with (for the
-// build report): kernel 0 flash_bwd_dq_wgmma<d>, 1 flash_bwd_dkv_wgmma<d>,
-// 2 flash_bwd_dq_tf32, 3 flash_bwd_dkv_tf32; 0 for any other.
-extern "C" int flash_hopper_bwd_smem_bytes(int kernel, int d) {
+// build report), by its index and its leading int template arguments (the
+// last two unused): kernel 0 flash_bwd_dq_wgmma<d>, 1
+// flash_bwd_dkv_wgmma<d>, 2 flash_bwd_dq_tf32, 3 flash_bwd_dkv_tf32; 0 for
+// any other.
+extern "C" int flash_hopper_bwd_smem_bytes(int kernel, int d, int, int) {
   if (kernel == 2) return DqTf32Plan::kSmemBytes;
   if (kernel == 3) return DkvTf32Plan::kSmemBytes;
   if (kernel == 0 && d == 64) return DqPlan<64>::kSmemBytes;

@@ -1,5 +1,6 @@
 // Hopper's own machinery for the hand-written attention kernels (sm_90a),
-// shared by flash_hopper.cu (the forwards) and flash_hopper_bwd.cu (the
+// shared by flash_hopper.cu and flash_fwd_wgmma.cuh (the forwards, and
+// through the latter flash_experiments.cu) and flash_hopper_bwd.cu (the
 // backward): mbarriers, TMA loads into 128-byte-swizzled boxes, wgmma and
 // its shared-memory descriptors, setmaxnreg, the SFU's exp2, the f32
 // routes' TF32 split and its pre-pass, and on the host the encoding of the

@@ -11,13 +11,15 @@ Counterpart of sdxl_tpu/ops/flash_attention.py:
 
 The kernels live in ``csrc/`` (flash_hopper.cu: K1's bf16 routes and K2's
 bf16 route on wgmma and TMA, K1's and K2's f32 d=64 route and K1's f32
-d=512 route on TF32 tensor cores; flash_hopper_bwd.cu: K3a and K3b bf16
+d=512 route on TF32 tensor cores; flash_fwd_wgmma.cuh: the bf16 d 64/128
+forward kernel of K1 and K2, which flash_experiments.cu instantiates for
+the experiments X1 and X2 too; flash_hopper_bwd.cu: K3a and K3b bf16
 and f32 d=64 on wgmma and TMA; hopper_common.cuh: the TMA, mbarrier and
 wgmma helpers and the f32 routes' TF32 split and pre-pass, which both
 share; flash_attention.cu: K1's and K2's f32 d=128 route on the FMA pipes;
 flash_attention_bwd.cu: K3a and K3b's f32 d=128 route on the FMA pipes;
-flash_experiments.cu and flash_pipelined.cu: the experiments X1-X3, whose
-wrappers live in ``sdxl_tpu_torch/scripts/``). Each source is compiled
+flash_pipelined.cu: the experiment X3; the experiments' wrappers live in
+``sdxl_tpu_torch/scripts/``). Each source is compiled
 with nvcc for sm_90a into a shared library with a plain C interface, at
 first use, into ``build/kernels/`` at the repo root (keyed by a hash of
 the sources and the flags), and loaded with ctypes; ``build_kernels``
@@ -85,7 +87,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_hopper.cu", "flash_hopper_bwd.cu", "flash_attention.cu",
            "flash_attention_bwd.cu", "flash_experiments.cu",
            "flash_pipelined.cu")
-HEADERS = ("flash_common.cuh", "hopper_common.cuh")
+HEADERS = ("flash_common.cuh", "hopper_common.cuh", "flash_fwd_wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -108,7 +110,7 @@ _KERNELS = {
     "sdxl_flash_attention_bwd_dq_f32_d128": ("flash_attention_bwd.cu", 7, 1),
     "sdxl_flash_attention_bwd_dkv_f32_d128": ("flash_attention_bwd.cu", 8, 0),
     **{f"sdxl_flash2_bf16_q{bq}_k{bk}": ("flash_experiments.cu", 4, 1)
-       for bq in (64, 128) for bk in (64, 128)},
+       for bq in (64, 128, 192) for bk in (64, 128)},
     **{f"sdxl_flash_floor_{mode}_bf16": ("flash_experiments.cu", 4, 1)
        for mode in ("full", "qscaled", "noexp", "mxu_only")},
     **{f"sdxl_flash_pipelined_bf16_q{bq}_k{bk}": ("flash_pipelined.cu", 4, 1)

@@ -9,11 +9,20 @@ acc / l in bf16. It differs from K1 (``flash_attention_bhtd``), which
 folds the scale into q and rounds q to bf16 first, by that rounding:
 ``main()`` prints the error against K1, as the reference does.
 
-The kernel is ``csrc/flash_experiments.cu``, templated on the tile (BQ,
-BK); the reference's 512-4096 VMEM blocks become BQ in (64, 128) and BK in
-(64, 128) (``TILES``), which a 227 KB shared memory holds. The wrapper
-raises unless the tile divides T: at such a T the reference leaves the
-last query rows unwritten and drops the last keys.
+The kernel is K1's own, ``flash_fwd_wgmma`` in
+``csrc/flash_fwd_wgmma.cuh`` (TMA/mbarrier K/V ring, a producer
+warpgroup, wgmma consumers), with the scale moved onto the f32 logits;
+``csrc/flash_experiments.cu`` instantiates it at each tile (BQ, BK). The
+reference's 512-4096 VMEM blocks become BQ = 64 x (1, 2 or 3 consumer
+warpgroups) and BK in (64, 128) (``TILES``), which a 227 KB shared memory
+holds; (192, 128) is K1's tile. The wrapper raises unless the key tile
+divides T and Tq == Tk (the reference drops the last keys otherwise); a
+query tile may run past T (192 divides neither 1024 nor 4096): the kernel
+zero-fills those rows and never stores them, where the reference would
+leave the last rows unwritten.
+
+CPU tests: ``pytest tests/test_torch_flash_experiments.py`` (the plain
+version against the reference in interpret mode).
 
 Run on the card: python -m sdxl_tpu_torch.scripts.exp_flash_exp2
 """
@@ -35,8 +44,10 @@ from ..ops.flash_attention import (
 )
 from .timing import timeit
 
-# the kernel's tiles (BQ, BK): query rows and keys a block holds
-TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
+# the kernel's tiles (BQ, BK): query rows (64 a consumer warpgroup) and
+# keys a stage; K1_TILE is K1's own
+TILES = ((64, 64), (64, 128), (128, 64), (128, 128), (192, 64), (192, 128))
+K1_TILE = (192, 128)
 # the reference's two shapes: SDXL-base UNet levels 1 and 2 at 1024x1024,
 # pair-batched CFG
 SHAPES = (("T4096 h10", (2, 10, 4096, 64)), ("T1024 h20", (2, 20, 1024, 64)))
@@ -58,19 +69,22 @@ def require_card() -> None:
 
 def check_tile(what: str, q: torch.Tensor, k: torch.Tensor, block_q: int,
                block_k: int) -> None:
+    """Raise unless Tq == Tk and the key tile divides T (the reference
+    drops the last keys otherwise). A query tile may run past T: X1 and X2
+    run K1's kernel, which zero-fills those rows and never stores them."""
     tq, tk = q.shape[2], k.shape[2]
-    if tq != tk or tq % block_q or tk % block_k:
+    if tq != tk or tk % block_k:
         raise ValueError(
-            f"{what}: the tile ({block_q}, {block_k}) must divide T (and "
-            f"Tq == Tk), not Tq={tq} Tk={tk}: the reference leaves the last "
-            f"query rows unwritten and drops the last keys there")
+            f"{what}: the tile ({block_q}, {block_k})'s key tile must divide "
+            f"T (and Tq == Tk), not Tq={tq} Tk={tk}: the reference drops the "
+            f"last keys there")
 
 
 def launch_tiled(name: str, what: str, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor, block_q: int, block_k: int,
                  tiles: Sequence[Tuple[int, int]]) -> torch.Tensor:
     """Launch one of the experiments' kernels (bf16, d = 64, a built tile,
-    which the caller has checked divides T) on CUDA tensors; raise on
+    which the caller has checked against T) on CUDA tensors; raise on
     anything else."""
     b, h, tq, tk, d = _check_qkv(what, q, k, v)
     _check_cuda(what, (q, k, v), {(torch.bfloat16, 64)})
@@ -95,8 +109,9 @@ def flash2_plain(q: torch.Tensor, k: torch.Tensor,
 
 
 def flash2(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           block_q: int = 64, block_k: int = 64) -> torch.Tensor:
-    """X1 over [B, H, T, D]; the tile (block_q, block_k) must divide T."""
+           block_q: int = K1_TILE[0], block_k: int = K1_TILE[1]
+           ) -> torch.Tensor:
+    """X1 over [B, H, T, D]; block_k must divide T (see check_tile)."""
     check_tile("flash2", q, k, block_q, block_k)
     if q.device.type == "cpu":
         return flash2_plain(q, k, v)

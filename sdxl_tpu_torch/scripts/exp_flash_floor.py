@@ -12,8 +12,14 @@ the card (counterpart of scripts/exp_flash_floor.py).
             output is (sum p v) / 4096.
 
 full - noexp is the exp2 cost, full - mxu_only the softmax bookkeeping,
-full - qscaled the scale pass. The kernels are ``csrc/flash_experiments.cu``
-at K1's tile, 64 x 64. ``main()`` times each mode with ``chained_time``.
+full - qscaled the scale pass. The kernels are instances of K1's own,
+``flash_fwd_wgmma`` in ``csrc/flash_fwd_wgmma.cuh``, which holds each
+mode's arithmetic (``csrc/flash_experiments.cu`` exports them), at K1's
+tile, 192 x 128: qscaled against K1 is the cost of K1's in-kernel q
+pre-scale, and the split is that of the kernel the main path runs.
+``main()`` times each mode, and K1, with ``chained_time``.
+
+CPU tests: ``pytest tests/test_torch_flash_experiments.py``.
 
 Run on the card: python -m sdxl_tpu_torch.scripts.exp_flash_floor
 """
@@ -28,9 +34,11 @@ from ..ops.flash_attention import (
     _LOG2E,
     _acc,
     _prescale_q,
+    flash_attention_bhtd,
     flash_attention_plain,
 )
 from .exp_flash_exp2 import (
+    K1_TILE,
     SHAPES,
     check_tile,
     flash2_plain,
@@ -41,7 +49,7 @@ from .exp_flash_exp2 import (
 from .timing import chained_time
 
 MODES = ("full", "qscaled", "noexp", "mxu_only")
-TILE = (64, 64)
+TILE = K1_TILE
 
 
 def _noexp_plain(q, k, v, block_k):
@@ -82,7 +90,8 @@ def attn_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          mode: str = "full", bq: int = TILE[0], bk: int = TILE[1]
          ) -> torch.Tensor:
-    """X2 in ``mode`` over [B, H, T, D]; the tile must divide T."""
+    """X2 in ``mode`` over [B, H, T, D]; bk must divide T (see
+    check_tile)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; modes are {MODES}")
     check_tile(f"attn({mode})", q, k, bq, bk)
@@ -95,13 +104,17 @@ def attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def main() -> list:
-    """Time every mode with chained_time on the reference's two shapes;
-    returns the printed rows."""
+    """Time every mode, and K1, with chained_time on the reference's two
+    shapes; returns the printed rows."""
     require_card()
     rows = []
     for name, shape in SHAPES:
         q, k, v = random_qkv(shape)
         bq, bk = TILE
+        dt = chained_time(flash_attention_bhtd, q, k, v)
+        print(f"{name} K1        bq={bq} bk={bk}: {dt*1e6:7.0f}us/call",
+              flush=True)
+        rows.append({"shape": shape, "mode": "K1", "s": dt})
         for mode in MODES:
             dt = chained_time(functools.partial(attn, mode=mode), q, k, v)
             print(f"{name} {mode:9s} bq={bq} bk={bk}: {dt*1e6:7.0f}us/call",

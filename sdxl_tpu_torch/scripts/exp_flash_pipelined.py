@@ -8,7 +8,8 @@ logits between two VMEM buffers so the next block's QK product overlaps
 this block's softmax; ``csrc/flash_pipelined.cu`` keeps K and V in a
 two-stage cp.async ring in shared memory and issues the next tile's QK
 product into a second register fragment before this tile's softmax and
-P V. Tiles as X1's. ``main()`` times K1 and each tile with
+P V. Tiles (BQ, BK) in (64, 128)^2 (``TILES``); the query tile, too,
+must divide T. ``main()`` times K1 and each tile with
 ``chained_time`` and prints the error against K1.
 
 Run on the card: python -m sdxl_tpu_torch.scripts.exp_flash_pipelined
@@ -27,7 +28,6 @@ from ..ops.flash_attention import (
 )
 from .exp_flash_exp2 import (
     SHAPES,
-    TILES,
     check_tile,
     launch_tiled,
     random_qkv,
@@ -35,11 +35,19 @@ from .exp_flash_exp2 import (
 )
 from .timing import chained_time
 
+# the kernel's tiles (BQ, BK): query rows (16 a warp) and keys a stage
+TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
+
 
 def flash_pipelined(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     bq: int = 64, bk: int = 64) -> torch.Tensor:
     """X3 over [B, H, T, D]; the tile (bq, bk) must divide T."""
     check_tile("flash_pipelined", q, k, bq, bk)
+    if q.shape[2] % bq:
+        raise ValueError(
+            f"flash_pipelined: the query tile {bq} must divide T, not "
+            f"T={q.shape[2]}: the reference leaves the last query rows "
+            f"unwritten there")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
     return launch_tiled(f"sdxl_flash_pipelined_bf16_q{bq}_k{bk}",

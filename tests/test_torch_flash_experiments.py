@@ -143,6 +143,65 @@ def test_tiles_must_divide_t():
             call()
 
 
+def test_query_tile_may_run_past_t():
+    """X1 and X2 run K1's kernel, which takes a query tile that runs past T
+    (192 rows at T = 4096); a key tile that does not divide T, or Tq != Tk,
+    still raises, and X3's kernel still needs both tiles to divide T."""
+    t4096 = torch.empty((1, 1, 4096, 64), device="meta")
+    x1.check_tile("flash2", t4096, t4096, *x1.K1_TILE)
+    for call in (lambda: x1.check_tile("flash2", t4096, t4096, 192, 96),
+                 lambda: x1.check_tile("flash2", t4096[:, :, :4032], t4096,
+                                       192, 64),
+                 lambda: x3.flash_pipelined(t4096, t4096, t4096, 192, 128)):
+        with pytest.raises(ValueError, match="must divide T"):
+            call()
+    (q, k, v) = (torch.from_numpy(x) for x in arrays((1, 1, 256, 64), 5))
+    got = x1.flash2(q, k, v, 192, 128)
+    assert got.shape == q.shape
+    close(got, x1.flash2_plain(q, k, v), 0)
+
+
+def test_experiment_tiles():
+    """X1's sweep holds K1's tile, where X2 runs; X3 has its own tiles."""
+    assert x1.K1_TILE == (192, 128) and x1.K1_TILE in x1.TILES
+    assert x2.TILE == x1.K1_TILE
+    assert sorted(x1.TILES) == [(64 * nc, bk) for nc in (1, 2, 3)
+                                for bk in (64, 128)]
+    assert x3.TILES == ((64, 64), (64, 128), (128, 64), (128, 128))
+    assert set(x3.TILES) < set(x1.TILES)
+
+
+def test_x1_x2_instantiate_k1s_kernel():
+    """The X1 and X2 exports and K1's and K2's launcher instantiate one
+    kernel template, flash_fwd_wgmma.cuh's, at the tiles and modes their
+    wrappers name; the experiments' source defines no kernel of its own."""
+    header = (fa.CSRC / "flash_fwd_wgmma.cuh").read_text()
+    hopper = (fa.CSRC / "flash_hopper.cu").read_text()
+    exp = (fa.CSRC / "flash_experiments.cu").read_text()
+    assert "flash_fwd_wgmma.cuh" in fa.HEADERS
+    assert re.search(r"__global__[^;{]*\bflash_fwd_wgmma\(", header)
+    for text in (hopper, exp):
+        assert '#include "flash_fwd_wgmma.cuh"' in text
+        assert not re.search(r"\bflash_fwd_wgmma\(", text)
+    assert "__global__" not in exp
+    assert re.search(r"launch_fwd_wgmma<D, kK1Consumers<D>, kK1Keys, LSE, "
+                     r"kPrescaleQ>", hopper)
+    nc = int(re.search(r"kK1Consumers = D == 64 \? (\d) :", hopper)[1])
+    keys = int(re.search(r"kK1Keys = (\d+);", hopper)[1])
+    assert (64 * nc, keys) == x1.K1_TILE
+    assert re.search(r"return launch_fwd_wgmma<64, NC, BK, false, MODE>\(",
+                     exp)
+    exports = {m[0]: (64 * int(m[1]), int(m[2]), m[3]) for m in re.findall(
+        r"SDXL_EXP_EXPORT\((sdxl_\w+), (\d), (\d+), (k\w+)\)", exp)}
+    modes = {"full": "kFull", "qscaled": "kQScaled", "noexp": "kNoExp",
+             "mxu_only": "kMxuOnly"}
+    want = {f"sdxl_flash2_bf16_q{bq}_k{bk}": (bq, bk, "kFull")
+            for bq, bk in x1.TILES}
+    want.update({f"sdxl_flash_floor_{m}_bf16": (*x2.TILE, modes[m])
+                 for m in x2.MODES})
+    assert exports == want
+
+
 def test_no_fallback_off_the_cpu():
     """Only CPU tensors take the plain versions; on any other device the
     wrappers launch a kernel or raise (here `meta`, which has none), and
@@ -164,7 +223,7 @@ def test_every_wrapper_names_an_exported_kernel():
     exported by the source they are registered under."""
     names = {f"sdxl_flash2_bf16_q{bq}_k{bk}" for bq, bk in x1.TILES}
     names |= {f"sdxl_flash_floor_{m}_bf16" for m in x2.MODES}
-    names |= {f"sdxl_flash_pipelined_bf16_q{bq}_k{bk}" for bq, bk in x1.TILES}
+    names |= {f"sdxl_flash_pipelined_bf16_q{bq}_k{bk}" for bq, bk in x3.TILES}
     names |= set(fa._ROUTES.values())
     assert names <= set(fa._KERNELS) == set(fa.launch_counts)
     exported = {}
