@@ -6,16 +6,19 @@ Phases (any failure exits non-zero before the result line):
   1. the device, and `nvidia-smi` name and power limit;
   2. build the hand-written kernels from sdxl_tpu_torch/csrc, one nvcc per
      source, all started together (with the -Xptxas -v report); then
-     `cuobjdump -sass` of flash_hopper.cu's, flash_hopper_bwd.cu's and
-     flash_experiments.cu's libraries: K1's bf16 d 64/128 kernel and K2
-     (its lse instances) must hold HGMMA (wgmma) and UTMALDG (TMA)
-     instructions, K1's bf16 d=512 kernel HGMMA or HMMA, K1's and K2's f32
-     d=64 kernel (3xTF32) HGMMA and UTMALDG, K1's f32 d=512 kernel (3xTF32
-     on mma.sync) HMMA, K3a's and K3b's bf16 kernels (dq and dk/dv, d 64
-     and 128) and their f32 d=64 kernels (3xTF32) HGMMA and UTMALDG, every
-     X1 and X2 instance of K1's kernel HGMMA and UTMALDG, and ptxas must
-     report no spills for any of them (counts, registers and shared memory
-     printed);
+     `cuobjdump -sass` of flash_hopper.cu's, flash_hopper_bwd.cu's,
+     flash_experiments.cu's and flash_pipelined.cu's libraries: K1's bf16
+     d 64/128 kernel and K2 (its lse instances) must hold HGMMA (wgmma)
+     and UTMALDG (TMA) instructions, K1's bf16 d=512 kernel HGMMA or HMMA,
+     K1's and K2's f32 d=64 kernel (3xTF32) HGMMA and UTMALDG, K1's f32
+     d=512 kernel (3xTF32 on mma.sync) HMMA, K3a's and K3b's bf16 kernels
+     (dq and dk/dv, d 64 and 128) and their f32 d=64 kernels (3xTF32)
+     HGMMA and UTMALDG, every X1, X2 and X3 instance of K1's kernel HGMMA
+     and UTMALDG, and ptxas must report no spills for any of them (counts,
+     registers and shared memory printed, and X3's blocks an SM); ptxas'
+     "wgmma.mma_async instructions are serialized" message fails the run
+     for an X3 instance (whose point is wgmma in flight under the softmax)
+     and is printed for any other;
   3. each kernel against its plain PyTorch version on the card at the
      main paths' shapes (and K2/K3 at a token count no multiple of 4) —
      K1 on every route (bf16 d 64/128 and 512, f32 d
@@ -36,9 +39,11 @@ Phases (any failure exits non-zero before the result line):
   3b. the experiments X1 (every tile), X2 (every mode) and X3 (every
      tile) against their plain versions at [2,10,4096,64] and
      [2,20,1024,64] bf16, timed by `timeit`, `chained_time` and inside one
-     CUDA graph, with SDPA where the function is attention, and X2's split
-     of the time at K1's tile beside K1's own chained time, each as a
-     share of the bound;
+     CUDA graph, with SDPA where the function is attention, X2's split
+     of the time at K1's tile beside K1's own chained time, and each X3
+     tile's chained time (and its kernel's alone, without the wrapper's
+     torch pre-scale of q) beside X1's at the same tile and K1's, each as
+     a share of the bound;
   4. the experiment path: the four `sdxl_tpu_torch.scripts` mains
      (exp_flash_exp2, exp_flash_floor, exp_flash_pipelined,
      bench_flash_ragged, whose seven cases must agree with the plain
@@ -208,10 +213,11 @@ K1_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # first three int template arguments of its symbol, 0 where it has fewer),
 # and for each kernel a pattern its symbols must match, how many instances
 # it has, its kernel index in that export, and the SASS instructions it
-# must contain (one of each tuple). flash_fwd_wgmma<D, NC, BK, LSE, MODE>
-# (MODE 0 is K1's q pre-scale, 1-4 X2's full, qscaled, noexp and mxu_only)
-# is K1's and K2's kernel and every X1 and X2 instance; flash_fwd_tf32's
-# bool is LSE
+# must contain (one of each tuple). flash_fwd_wgmma<D, NC, BK, LSE, MODE,
+# PIPE> (MODE 0 is K1's q pre-scale, 1-4 X2's full, qscaled, noexp and
+# mxu_only; PIPE 0 K1's schedule, n >= 2 X3's pipelined one on an n-stage
+# ring) is K1's and K2's kernel and every X1, X2 and X3 instance;
+# flash_fwd_tf32's bool is LSE
 WGMMA_TMA = (("HGMMA",), ("UTMALDG",))
 FWD = r"flash_fwd_wgmmaILi\d+ELi\d+ELi\d+E"
 HOPPER_SASS = {
@@ -235,7 +241,16 @@ HOPPER_SASS = {
         *((f"X2 {mode}", FWD + f"Lb0ELi{i}E", 1, 0, WGMMA_TMA)
           for i, mode in enumerate(("qscaled", "noexp", "mxu_only"), 2)),
     ]),
+    "flash_pipelined.cu": ("flash_pipelined_smem_bytes", [
+        ("X3 (four tiles, pipelined)", FWD + r"Lb0ELi2ELi[2-9]E", 4, 0,
+         WGMMA_TMA),
+    ]),
 }
+# the sources whose every instance keeps its wgmma in flight under the
+# softmax: ptxas' serialisation message fails them
+UNSERIALIZED = ("flash_pipelined.cu",)
+# source -> its export of an instance's blocks an SM (from NC and BK)
+OCCUPANCY = {"flash_pipelined.cu": "flash_pipelined_blocks_per_sm"}
 # K2 and K3's shapes on the training path (batch 1), bf16 and f32: UNet
 # levels 1 and 2 at 1024x1024 and at 832x1216, one d=128 case, and a
 # token count that is no multiple of 4 at B*H > 1 (the second head's rows
@@ -592,7 +607,7 @@ def check_experiments(results) -> None:
     within 2e-2 of max|ref|, both with a relative L2 error under K1's
     bf16 limit; noexp NaN everywhere in both. Then timed by timeit,
     chained_time and inside one CUDA graph, and X2's split beside K1's
-    chained time."""
+    chained time and X3 at each tile beside X1 at that tile and K1."""
     for shape in EXP_SHAPES:
         q, k, v = x1.random_qkv(shape, seed=44)
         sdpa_ms = timeit(F.scaled_dot_product_attention, q, k, v,
@@ -607,6 +622,7 @@ def check_experiments(results) -> None:
         split = {"K1": chained_time(fa.flash_attention_bhtd, q, k, v) * 1e6,
                  "qscaled kernel": chained_time(
                      qscaled_kernel, fa._prescale_q(q), k, v) * 1e6}
+        chained_us = {}
         for name, f, plain, mode in experiment_kernels():
             with nan_filled_empty():
                 out = f(q, k, v)
@@ -637,6 +653,7 @@ def check_experiments(results) -> None:
             record_case(results, name, shape, torch.bfloat16, err, ms,
                         plain_ms, sdpa_ms if attention else None,
                         chained_ms, timed_shape=EXP_SHAPES[0], graph=graph)
+            chained_us[name] = chained_ms * 1e3
             if mode != "attention":
                 split[mode] = chained_ms * 1e3
         full = split["full"]
@@ -653,6 +670,30 @@ def check_experiments(results) -> None:
               f"{split['K1'] - split['qscaled kernel']:.1f}, qscaled's torch "
               f"pre-scale {split['qscaled'] - split['qscaled kernel']:.1f}",
               flush=True)
+        compare_x3(chained_us, split["K1"], bound_us, q, k, v)
+
+
+def compare_x3(chained_us, k1_us, bound_us, q, k, v) -> None:
+    """Each X3 tile's chained time, and its kernel's alone (on q
+    pre-scaled once: the wrapper's torch pre-scale left out, as K1 scales
+    q inside its kernel), beside X1's at the same tile (K1's schedule, one
+    FMUL an element more) and K1's, each as a share of the bound."""
+    qf = fa._prescale_q(q)
+
+    def us(t):
+        return f"{t:.1f} ({bound_us / t:.1%})"
+
+    for bq, bk in x3.TILES:
+        name = f"sdxl_flash_pipelined_bf16_q{bq}_k{bk}"
+        alone = chained_time(functools.partial(
+            x1.launch_tiled, name, "flash_pipelined", block_q=bq,
+            block_k=bk, tiles=x3.TILES), qf, k, v) * 1e6
+        x1_us = chained_us[f"sdxl_flash2_bf16_q{bq}_k{bk}"]
+        print(f"X3 {tuple(q.shape)} {bq}x{bk} (chained, us/call; bound "
+              f"{bound_us:.1f}): X3 {us(chained_us[name])}, its kernel "
+              f"alone {us(alone)}, X1 at {bq}x{bk} {us(x1_us)}, K1 "
+              f"{us(k1_us)}; X3's kernel / X1 {alone / x1_us:.3f}, / K1 "
+              f"{alone / k1_us:.3f}", flush=True)
 
 
 def find_cuobjdump() -> str:
@@ -678,6 +719,18 @@ def check_hopper_build() -> None:
         check_sass(source, smem_export, kernels)
 
 
+def serialized(log: str) -> dict:
+    """{function: ptxas' message} for each "wgmma.mma_async instructions
+    are serialized" line of a build log; None for a line that names no
+    function."""
+    found = {}
+    for line in log.splitlines():
+        if "wgmma.mma_async instructions are serialized" in line:
+            m = re.search(r"function '(\S+?)'", line)
+            found[m[1] if m else None] = line.strip()
+    return found
+
+
 def check_sass(source: str, smem_export: str, kernels) -> None:
     sass = subprocess.run(
         [find_cuobjdump(), "-sass", str(fa._lib_path(source))],
@@ -690,13 +743,24 @@ def check_sass(source: str, smem_export: str, kernels) -> None:
             ops[fn] = Counter()
         elif fn is not None:
             ops[fn].update(re.findall(r"\b(HGMMA|UTMALDG|HMMA)\b", line))
+    log = fa.build_log(source)
     ptxas = {m[1]: (int(m[2]), int(m[3]), int(m[4])) for m in re.finditer(
         r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores, "
-        r"(\d+) bytes spill loads.*?Used (\d+) registers",
-        fa.build_log(source), re.S)}
-    smem = getattr(fa.load_library(source), smem_export)
+        r"(\d+) bytes spill loads.*?Used (\d+) registers", log, re.S)}
+    serial = serialized(log)
+    if None in serial:
+        print(f"{source}: ptxas: {serial[None]}", flush=True)
+        if source in UNSERIALIZED:
+            fail(f"{source}: ptxas serialises wgmma: {serial[None]}")
+    lib = fa.load_library(source)
+    smem = getattr(lib, smem_export)
     smem.restype = ctypes.c_int
     smem.argtypes = [ctypes.c_int] * 4
+    occupancy = None
+    if source in OCCUPANCY:
+        occupancy = getattr(lib, OCCUPANCY[source])
+        occupancy.restype = ctypes.c_int
+        occupancy.argtypes = [ctypes.c_int] * 2
     for label, pattern, count, kernel, required in kernels:
         found = [f for f in ops if re.search(pattern, f)]
         if len(found) != count:
@@ -705,11 +769,17 @@ def check_sass(source: str, smem_export: str, kernels) -> None:
         for f in found:
             targs = [int(x) for x in re.findall(r"Li(\d+)E", f)] + [0] * 3
             stores, loads, regs = ptxas.get(f, (None, None, None))
+            blocks = ("" if occupancy is None else
+                      f"; {occupancy(*targs[1:3])} blocks an SM")
             print(f"{label} {f}: SASS {dict(ops[f])}; ptxas {regs} registers "
                   f"a thread at launch (setmaxnreg then moves them from the "
                   f"producer to the consumers), spill stores {stores}, spill "
                   f"loads {loads}; dynamic shared memory "
-                  f"{smem(kernel, *targs[:3])} bytes", flush=True)
+                  f"{smem(kernel, *targs[:3])} bytes{blocks}", flush=True)
+            if f in serial:
+                print(f"  ptxas: {serial[f]}", flush=True)
+                if source in UNSERIALIZED:
+                    fail(f"{label} ({f}): ptxas serialises its wgmma")
             for names in required:
                 if not any(ops[f][n] for n in names):
                     fail(f"{label} ({f}) has no {' or '.join(names)} "

@@ -1,8 +1,9 @@
 // The bf16 flash forward on Hopper's own machinery (sm_90a), shared by K1
 // and K2 (flash_hopper.cu) and by the experiments X1 and X2
-// (flash_experiments.cu), so that the experiments time K1's own code:
-// `flash_fwd_wgmma<D, NC, BK, LSE, MODE>` and its launcher, with the
-// online-softmax helpers the f32 forwards of flash_hopper.cu use too.
+// (flash_experiments.cu) and X3 (flash_pipelined.cu), so that the
+// experiments time K1's own code: `flash_fwd_wgmma<D, NC, BK, LSE, MODE,
+// PIPE>` and its launcher, with the online-softmax helpers the f32
+// forwards of flash_hopper.cu use too.
 //
 // Unmasked softmax(q k^T / sqrt(d)) v over bf16 [B*H, T, D], D = 64 or 128,
 // with the reference's numerics (sdxl_tpu/ops/flash_attention.py):
@@ -50,6 +51,27 @@
 // scale of the logits, which kPrescaleQ moves onto q) costs 12%. So the
 // softmax's FP32 instructions, not the SFU or the TMA ring, are what the
 // tensor cores wait for.
+//
+// PIPE picks the key loop's schedule. 0 (K1, K2, X1, X2): S, softmax and
+// P V of a tile in turn, each product waited for at once, a two-stage
+// ring whose stage is freed by one arrival after P V. n >= 2 (X3): the
+// schedule of scripts/exp_flash_pipelined.py, where the QK product of the
+// next key tile overlaps this tile's softmax; in a consumer warpgroup
+// (FlashAttention-3's intra-warpgroup overlap), for tile j:
+//   1. issue S_{j+1} = Q K_{j+1}^T into a second S fragment, commit;
+//   2. the softmax of S_j, while S_{j+1} and P_{j-1} V_{j-1} run;
+//   3. wait<1> (groups retire in order: P_{j-1} V_{j-1} is done, S_{j+1}
+//      may run), free V_{j-1}'s stage, rescale acc, form P_j;
+//   4. issue acc += P_j V_j, commit; wait<1>: S_{j+1} is done, free
+//      K_{j+1}'s stage, while P_j V_j runs on into the next softmax.
+// So the tensor cores have both products of a tile queued under each
+// softmax, where K1's consumer leaves them to the other warpgroups. The
+// ring has n stages, and K and V are freed apart (K of tile j when S_j
+// is done, V after P_j V_j), each refilled by its own producer thread: K
+// is read a tile ahead of V, and a joint release would hold K_{j+2} until
+// P_j V_j is done, after S_{j+2} is wanted. The two S fragments cost BK/2
+// registers more a thread, so the one-consumer tile hands registers
+// over too (24 / 232, two blocks an SM, as X1's 64-row tile runs).
 //
 // Tiles: NC consumer warpgroups of 64 query rows (64 NC rows a block) and
 // BK keys a stage (64 or 128). One block a (q-tile, b*h) tile. Shared
@@ -215,13 +237,16 @@ __device__ __forceinline__ void store_lse(float* lse, int r, int tq, int tg,
     if (r + 8 * h < tq) lse[r + 8 * h] = m[h] + log2f(l[h]);
 }
 
-constexpr int kStages = 2;  // K/V stages in the ring
+constexpr int kStages = 2;  // K/V stages in K1's ring
 
-template <int D, int NC, int BK>
+template <int D, int NC, int BK, int PIPE = 0>
 struct FwdPlan {
   static_assert(D == 64 || D == 128, "head dim 64 or 128");
   static_assert(NC >= 1 && NC <= 3, "one to three consumer warpgroups");
   static_assert(BK == 64 || BK == 128, "64 or 128 keys a stage");
+  static_assert(PIPE == 0 || PIPE >= 2, "a pipelined ring of 2+ stages");
+  static constexpr bool kPipelined = PIPE > 0;
+  static constexpr int kRing = kPipelined ? PIPE : kStages;  // K/V stages
   static constexpr int kThreads = 128 * (NC + 1);
   static constexpr int kConsumers = 128 * NC;
   static constexpr int kRowsQ = 64 * NC;       // query rows a tile
@@ -231,49 +256,143 @@ struct FwdPlan {
   static constexpr int kBoxBytes = BK * kRowBytes;  // a K or V box
   static constexpr int kTileBytes = kBoxes * kBoxBytes;
   static constexpr int kKV = kQBytes;  // stage s: K, then V
-  static constexpr int kBars = kKV + 2 * kStages * kTileBytes;
-  // q_full, then k_full, v_full and kv_empty for each stage
-  static constexpr int kSmemBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
-  // registers a thread after the hand-over (NC = 1: none)
-  static constexpr int kProducerRegs = NC == 3 ? 24 : 40;
+  static constexpr int kBars = kKV + 2 * kRing * kTileBytes;
+  // q_full, then k_full, v_full and kv_empty for each stage (pipelined:
+  // kv_empty frees K only, and v_empty follows)
+  static constexpr int kSmemBytes =
+      kBars + 8 * (1 + (kPipelined ? 4 : 3) * kRing) + 1024;
+  // blocks an SM the registers are planned for: two for the pipelined
+  // one-consumer tile, whose two S fragments pass 128 registers a thread
+  static constexpr int kMinBlocks = kPipelined && NC == 1 ? 2 : 1;
+  // registers a thread after the hand-over (K1's NC = 1: none)
+  static constexpr bool kHandOver = NC > 1 || kMinBlocks > 1;
+  static constexpr int kProducerRegs = NC == 3 || kMinBlocks > 1 ? 24 : 40;
   static constexpr int kConsumerRegs = NC == 3 ? 160 : 232;
-  static_assert(NC == 1 || 128 * (kProducerRegs + NC * kConsumerRegs) <= 65536,
+  static_assert(!kHandOver || 128 * (kProducerRegs + NC * kConsumerRegs) *
+                                      kMinBlocks <= 65536,
                 "the hand-over passes an SM's registers");
 };
 
-// FwdPlan<D, NC, BK>::kSmemBytes at run time (for the build report); 0
-// for a D, NC or BK the kernel does not take.
-template <int D, int NC>
+// FwdPlan<D, NC, BK, PIPE>::kSmemBytes at run time (for the build
+// report); 0 for a D, NC or BK the kernel does not take.
+template <int D, int NC, int PIPE>
 inline int fwd_smem_bytes(int bk) {
-  return bk == 64 ? FwdPlan<D, NC, 64>::kSmemBytes
-       : bk == 128 ? FwdPlan<D, NC, 128>::kSmemBytes : 0;
+  return bk == 64 ? FwdPlan<D, NC, 64, PIPE>::kSmemBytes
+       : bk == 128 ? FwdPlan<D, NC, 128, PIPE>::kSmemBytes : 0;
 }
-template <int D>
+template <int D, int PIPE>
 inline int fwd_smem_bytes(int nc, int bk) {
-  return nc == 1 ? fwd_smem_bytes<D, 1>(bk)
-       : nc == 2 ? fwd_smem_bytes<D, 2>(bk)
-       : nc == 3 ? fwd_smem_bytes<D, 3>(bk) : 0;
+  return nc == 1 ? fwd_smem_bytes<D, 1, PIPE>(bk)
+       : nc == 2 ? fwd_smem_bytes<D, 2, PIPE>(bk)
+       : nc == 3 ? fwd_smem_bytes<D, 3, PIPE>(bk) : 0;
 }
+template <int PIPE = 0>
 inline int fwd_smem_bytes(int d, int nc, int bk) {
-  return d == 64 ? fwd_smem_bytes<64>(nc, bk)
-       : d == 128 ? fwd_smem_bytes<128>(nc, bk) : 0;
+  return d == 64 ? fwd_smem_bytes<64, PIPE>(nc, bk)
+       : d == 128 ? fwd_smem_bytes<128, PIPE>(nc, bk) : 0;
+}
+
+// S = Q K^T of key tile kt (D / 16 k-steps, four to a 64-column box) into
+// s, issued on the tile's stage once it has landed and committed as one
+// group; not waited for.
+template <int D, int BK, class P>
+__device__ __forceinline__ void issue_s(float (&s)[BK / 2], uint32_t q_addr,
+                                        unsigned char* kv, uint64_t* k_full,
+                                        int kt) {
+  const int st = kt % P::kRing;
+  const uint32_t k_addr = smem_u32(kv + 2 * st * P::kTileBytes);
+  mbar_wait(&k_full[st], (kt / P::kRing) & 1);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    const uint64_t qd = desc128(q_addr + (kk / 4) * P::kQBox + off, 16);
+    const uint64_t kd = desc128(k_addr + (kk / 4) * P::kBoxBytes + off, 16);
+    if constexpr (BK == 128) {
+      wgmma_ss_n128(s, qd, kd, kk > 0);
+    } else {
+      wgmma_ss_n64(s, qd, kd, kk > 0);
+    }
+  }
+  wgmma_commit();
+}
+
+// acc += P V of key tile kt (BK / 16 k-steps of 16 keys, 2048 bytes apart
+// in the V tile), issued once the tile's V has landed and committed as
+// one group; not waited for.
+template <int D, int BK, class P>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         uint32_t (&pa)[BK / 16][4],
+                                         unsigned char* kv, uint64_t* v_full,
+                                         int kt) {
+  const int st = kt % P::kRing;
+  const uint32_t v_addr = smem_u32(kv + (2 * st + 1) * P::kTileBytes);
+  mbar_wait(&v_full[st], (kt / P::kRing) & 1);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t vd = desc128(v_addr + kk * 16 * kRowBytes, P::kBoxBytes);
+    if constexpr (D == 64) {
+      wgmma_rs_n64(acc, pa[kk], vd);
+    } else {
+      wgmma_rs_n128(acc, pa[kk], vd);
+    }
+  }
+  wgmma_commit();
+}
+
+// One key tile kt of the pipelined schedule (PIPE >= 2; steps 1-4 at the
+// top). On entry S_kt is done and in `cur`, and P V of tile kt - 1 may be
+// in flight; NEXT: tile kt + 1 exists, and its S goes into `nxt`.
+template <int D, int BK, class P, bool NEXT>
+__device__ __forceinline__ void pipelined_step(
+    float (&cur)[BK / 2], float (&nxt)[BK / 2], float (&acc)[D / 2],
+    uint32_t (&pa)[BK / 16][4], float (&m)[2], float (&l)[2],
+    uint32_t q_addr, unsigned char* kv, uint64_t* k_full, uint64_t* v_full,
+    uint64_t* k_empty, uint64_t* v_empty, int kt, int tk, int tg) {
+  if constexpr (NEXT) issue_s<D, BK, P>(nxt, q_addr, kv, k_full, kt + 1);
+  float alpha[2];
+  softmax_step<BK>(cur, kt * BK, tk, tg, m, l, alpha);
+  if constexpr (NEXT) {
+    wgmma_wait<1>();
+  } else {
+    wgmma_wait<0>();
+  }
+  fence_regs(acc);
+  fence_regs(pa);
+  if (kt > 0) mbar_arrive(&v_empty[(kt - 1) % P::kRing]);
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) p_fragment(cur, kk, pa[kk]);
+  fence_regs(pa);
+  issue_pv<D, BK, P>(acc, pa, kv, v_full, kt);
+  if constexpr (NEXT) {
+    wgmma_wait<1>();  // S_{kt+1} is done; P_kt V_kt runs on
+    fence_regs(nxt);
+    mbar_arrive(&k_empty[(kt + 1) % P::kRing]);
+  }
 }
 
 // One block a (b*h, q-tile) tile; with LSE also lse ([B*H, tq] f32).
-template <int D, int NC, int BK, bool LSE, int MODE>
-__global__ void __launch_bounds__(FwdPlan<D, NC, BK>::kThreads, 1)
+template <int D, int NC, int BK, bool LSE, int MODE, int PIPE = 0>
+__global__ void __launch_bounds__(FwdPlan<D, NC, BK, PIPE>::kThreads,
+                                  FwdPlan<D, NC, BK, PIPE>::kMinBlocks)
 flash_fwd_wgmma(__grid_constant__ const CUtensorMap q_map,
                 __grid_constant__ const CUtensorMap k_map,
                 __grid_constant__ const CUtensorMap v_map,
                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                 int tq, int tk, float scale) {
-  using P = FwdPlan<D, NC, BK>;
+  using P = FwdPlan<D, NC, BK, PIPE>;
+  static_assert(!P::kPipelined || MODE == kPrescaleQ || MODE == kQScaled,
+                "the pipelined schedule computes K1's function");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + P::kBars);
   uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + kStages;
-  uint64_t* kv_empty = v_full + kStages;
+  uint64_t* v_full = k_full + P::kRing;
+  uint64_t* kv_empty = v_full + P::kRing;
+  uint64_t* v_empty = kv_empty + P::kRing;  // pipelined only
 
   const int wg = threadIdx.x / 128;
   const int q0 = blockIdx.x * P::kRowsQ, h = blockIdx.y;
@@ -281,18 +400,44 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap q_map,
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < P::kRing; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
       mbar_init(&kv_empty[s], P::kConsumers);
+      if constexpr (P::kPipelined) mbar_init(&v_empty[s], P::kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == 0) {  // producer: one thread starts every copy
-    if constexpr (NC > 1) setmaxnreg_dec<P::kProducerRegs>();
-    if (threadIdx.x == 0) {
+  if (wg == 0) {  // producer: one thread starts every copy (pipelined: two)
+    if constexpr (P::kHandOver) setmaxnreg_dec<P::kProducerRegs>();
+    if constexpr (P::kPipelined) {
+      // Q and each K tile from thread 0, each V tile from thread 32 (the
+      // next warp), each waiting only for its own half of the stage
+      const bool is_v = threadIdx.x == 32;
+      if (threadIdx.x == 0 || is_v) {
+        if (!is_v) {
+          mbar_expect_tx(q_full, P::kQBytes);
+          for (int b = 0; b < P::kBoxes; ++b)
+            tma_load(smem + b * P::kQBox, &q_map, q_full, b * kBoxCols, q0,
+                     h);
+        }
+        const CUtensorMap* map = is_v ? &v_map : &k_map;
+        uint64_t* full = is_v ? v_full : k_full;
+        uint64_t* empty = is_v ? v_empty : kv_empty;
+        for (int kt = 0; kt < n_kt; ++kt) {
+          const int s = kt % P::kRing;
+          mbar_wait(&empty[s], ((kt / P::kRing) & 1) ^ 1);
+          unsigned char* dst =
+              smem + P::kKV + (2 * s + (is_v ? 1 : 0)) * P::kTileBytes;
+          mbar_expect_tx(&full[s], P::kTileBytes);
+          for (int b = 0; b < P::kBoxes; ++b)
+            tma_load(dst + b * P::kBoxBytes, map, &full[s], b * kBoxCols,
+                     kt * BK, h);
+        }
+      }
+    } else if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, P::kQBytes);
       for (int b = 0; b < P::kBoxes; ++b)
         tma_load(smem + b * P::kQBox, &q_map, q_full, b * kBoxCols, q0, h);
@@ -313,7 +458,7 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap q_map,
     return;
   }
 
-  if constexpr (NC > 1) setmaxnreg_inc<P::kConsumerRegs>();
+  if constexpr (P::kHandOver) setmaxnreg_inc<P::kConsumerRegs>();
   const int c = wg - 1;  // this warpgroup's rows: 64c .. 64c + 63
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int g = lane / 4, tg = lane % 4;
@@ -334,65 +479,68 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap q_map,
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
   if constexpr (MODE == kMxuOnly) l_run[0] = l_run[1] = 4096.f;
 
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int s = kt % kStages;
-    const uint32_t parity = (kt / kStages) & 1;
-    const uint32_t k_addr = smem_u32(smem + P::kKV + 2 * s * P::kTileBytes);
-    const uint32_t v_addr = k_addr + P::kTileBytes;
-
-    // S = Q K^T over BK keys: D / 16 k-steps, four to a 64-column box.
-    float sc[BK / 2];
-    mbar_wait(&k_full[s], parity);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;
-      const uint64_t qd = desc128(q_addr + (kk / 4) * P::kQBox + off, 16);
-      const uint64_t kd = desc128(k_addr + (kk / 4) * P::kBoxBytes + off, 16);
-      if constexpr (BK == 128) {
-        wgmma_ss_n128(sc, qd, kd, kk > 0);
-      } else {
-        wgmma_ss_n64(sc, qd, kd, kk > 0);
-      }
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
-    if constexpr (MODE == kFull || MODE == kNoExp || MODE == kMxuOnly) {
-#pragma unroll
-      for (int i = 0; i < BK / 2; ++i) sc[i] *= scale;  // base-2 logits, f32
-    }
-
-    if constexpr (MODE != kMxuOnly) {
-      float alpha[2];
-      softmax_step<BK, MODE != kNoExp>(sc, kt * BK, tk, tg, m_run, l_run,
-                                        alpha);
-#pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
-    }
-
-    // acc += P V: BK / 16 k-steps of 16 keys, 2048 bytes apart in the V
-    // tile.
+  unsigned char* kv = smem + P::kKV;  // the K/V ring
+  if constexpr (P::kPipelined) {
+    // S fragments s0 and s1 take turns, the loop unrolled by two so that
+    // they stay in their registers
+    float s0[BK / 2], s1[BK / 2];
     uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) p_fragment(sc, kk, pa[kk]);
-    fence_regs(pa);
-    mbar_wait(&v_full[s], parity);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t vd = desc128(v_addr + kk * 16 * kRowBytes, P::kBoxBytes);
-      if constexpr (D == 64) {
-        wgmma_rs_n64(acc, pa[kk], vd);
-      } else {
-        wgmma_rs_n128(acc, pa[kk], vd);
-      }
-    }
-    wgmma_commit();
+    issue_s<D, BK, P>(s0, q_addr, kv, k_full, 0);
     wgmma_wait<0>();
+    fence_regs(s0);
+    mbar_arrive(&kv_empty[0]);
+    int kt = 0;
+    for (; kt + 2 < n_kt; kt += 2) {
+      pipelined_step<D, BK, P, true>(s0, s1, acc, pa, m_run, l_run, q_addr,
+                                     kv, k_full, v_full, kv_empty, v_empty,
+                                     kt, tk, tg);
+      pipelined_step<D, BK, P, true>(s1, s0, acc, pa, m_run, l_run, q_addr,
+                                     kv, k_full, v_full, kv_empty, v_empty,
+                                     kt + 1, tk, tg);
+    }
+    if (kt + 1 < n_kt) {
+      pipelined_step<D, BK, P, true>(s0, s1, acc, pa, m_run, l_run, q_addr,
+                                     kv, k_full, v_full, kv_empty, v_empty,
+                                     kt, tk, tg);
+      pipelined_step<D, BK, P, false>(s1, s0, acc, pa, m_run, l_run, q_addr,
+                                      kv, k_full, v_full, kv_empty, v_empty,
+                                      kt + 1, tk, tg);
+    } else {
+      pipelined_step<D, BK, P, false>(s0, s1, acc, pa, m_run, l_run, q_addr,
+                                      kv, k_full, v_full, kv_empty, v_empty,
+                                      kt, tk, tg);
+    }
+    wgmma_wait<0>();  // the last P V
     fence_regs(acc);
-    fence_regs(pa);
-    mbar_arrive(&kv_empty[s]);
+  } else {
+    for (int kt = 0; kt < n_kt; ++kt) {
+      float sc[BK / 2];
+      issue_s<D, BK, P>(sc, q_addr, kv, k_full, kt);
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if constexpr (MODE == kFull || MODE == kNoExp || MODE == kMxuOnly) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) sc[i] *= scale;  // base-2 logits, f32
+      }
+
+      if constexpr (MODE != kMxuOnly) {
+        float alpha[2];
+        softmax_step<BK, MODE != kNoExp>(sc, kt * BK, tk, tg, m_run, l_run,
+                                          alpha);
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      }
+
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) p_fragment(sc, kk, pa[kk]);
+      fence_regs(pa);
+      issue_pv<D, BK, P>(acc, pa, kv, v_full, kt);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pa);
+      mbar_arrive(&kv_empty[kt % P::kRing]);
+    }
   }
 
   const int r = q0 + 64 * c + 16 * warp + g;
@@ -416,21 +564,21 @@ inline cudaError_t make_maps(Maps* m, const void* q, const void* k,
 
 // Launch flash_fwd_wgmma over contiguous bf16 [bh, t, D] q, k, v, o (and
 // with LSE lse [bh, tq] f32) on stream s; scale = d^-0.5 * log2(e).
-template <int D, int NC, int BK, bool LSE, int MODE>
+template <int D, int NC, int BK, bool LSE, int MODE, int PIPE = 0>
 cudaError_t launch_fwd_wgmma(const void* q, const void* k, const void* v,
                              void* o, float* lse, int bh, int tq, int tk,
                              float scale, cudaStream_t s) {
-  using P = FwdPlan<D, NC, BK>;
+  using P = FwdPlan<D, NC, BK, PIPE>;
   static std::atomic<unsigned long long> smem_set{0};
   Maps m;
   cudaError_t err = make_maps(&m, q, k, v, bh, tq, tk, D, P::kRowsQ, BK);
   if (err == cudaSuccess)
-    err = allow_smem_once(flash_fwd_wgmma<D, NC, BK, LSE, MODE>,
+    err = allow_smem_once(flash_fwd_wgmma<D, NC, BK, LSE, MODE, PIPE>,
                           P::kSmemBytes, &smem_set);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + P::kRowsQ - 1) / P::kRowsQ, bh);
-  flash_fwd_wgmma<D, NC, BK, LSE, MODE><<<grid, P::kThreads, P::kSmemBytes,
-                                          s>>>(
+  flash_fwd_wgmma<D, NC, BK, LSE, MODE, PIPE><<<grid, P::kThreads,
+                                                P::kSmemBytes, s>>>(
       m.q, m.k, m.v, static_cast<__nv_bfloat16*>(o), lse, tq, tk, scale);
   return cudaGetLastError();
 }

@@ -13,13 +13,13 @@ The kernels live in ``csrc/`` (flash_hopper.cu: K1's bf16 routes and K2's
 bf16 route on wgmma and TMA, K1's and K2's f32 d=64 route and K1's f32
 d=512 route on TF32 tensor cores; flash_fwd_wgmma.cuh: the bf16 d 64/128
 forward kernel of K1 and K2, which flash_experiments.cu instantiates for
-the experiments X1 and X2 too; flash_hopper_bwd.cu: K3a and K3b bf16
+the experiments X1 and X2 too, and flash_pipelined.cu for X3 with its
+pipelined schedule; flash_hopper_bwd.cu: K3a and K3b bf16
 and f32 d=64 on wgmma and TMA; hopper_common.cuh: the TMA, mbarrier and
 wgmma helpers and the f32 routes' TF32 split and pre-pass, which both
 share; flash_attention.cu: K1's and K2's f32 d=128 route on the FMA pipes;
 flash_attention_bwd.cu: K3a and K3b's f32 d=128 route on the FMA pipes;
-flash_pipelined.cu: the experiment X3; the experiments' wrappers live in
-``sdxl_tpu_torch/scripts/``). Each source is compiled
+the experiments' wrappers live in ``sdxl_tpu_torch/scripts/``). Each source is compiled
 with nvcc for sm_90a into a shared library with a plain C interface, at
 first use, into ``build/kernels/`` at the repo root (keyed by a hash of
 the sources and the flags), and loaded with ctypes; ``build_kernels``

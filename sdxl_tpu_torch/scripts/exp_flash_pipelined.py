@@ -4,13 +4,21 @@ scripts/exp_flash_pipelined.py).
 K1's function on T that the tile divides (q pre-scaled in f32 and rounded
 to bf16 before the kernel, as the reference does), so its plain version
 is K1's, ``flash_attention_plain``. The TPU kernel ping-pongs the f32
-logits between two VMEM buffers so the next block's QK product overlaps
-this block's softmax; ``csrc/flash_pipelined.cu`` keeps K and V in a
-two-stage cp.async ring in shared memory and issues the next tile's QK
-product into a second register fragment before this tile's softmax and
-P V. Tiles (BQ, BK) in (64, 128)^2 (``TILES``); the query tile, too,
-must divide T. ``main()`` times K1 and each tile with
-``chained_time`` and prints the error against K1.
+logits between two VMEM buffers so that the next block's QK product
+overlaps this block's softmax. The kernel is K1's own, ``flash_fwd_wgmma``
+in ``csrc/flash_fwd_wgmma.cuh`` (TMA/mbarrier K/V ring, a producer
+warpgroup, wgmma consumers), with the pipelined schedule
+(``csrc/flash_pipelined.cu`` instantiates it at each tile): a consumer
+warpgroup issues the next key tile's QK product into a second S fragment
+before this tile's softmax and P V, so both products run under the
+softmax (FlashAttention-3's intra-warpgroup overlap), and K and V stages
+are freed apart. Tiles (BQ, BK) in (64, 128)^2 (``TILES``, BQ = 64 a
+consumer warpgroup); the query tile, too, must divide T. ``main()`` times
+K1 and each tile with ``chained_time`` and prints the error against K1.
+
+CPU tests: ``pytest tests/test_torch_flash_experiments.py`` (the plain
+version against the reference in interpret mode, and the exports against
+the tiles).
 
 Run on the card: python -m sdxl_tpu_torch.scripts.exp_flash_pipelined
 """
@@ -35,7 +43,8 @@ from .exp_flash_exp2 import (
 )
 from .timing import chained_time
 
-# the kernel's tiles (BQ, BK): query rows (16 a warp) and keys a stage
+# the kernel's tiles (BQ, BK): query rows (64 a consumer warpgroup) and
+# keys a stage
 TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
 
 

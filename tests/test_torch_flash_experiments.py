@@ -31,7 +31,12 @@ from sdxl_tpu_torch.scripts import bench_flash_ragged
 from sdxl_tpu_torch.scripts import exp_flash_exp2 as x1
 from sdxl_tpu_torch.scripts import exp_flash_floor as x2
 from sdxl_tpu_torch.scripts import exp_flash_pipelined as x3
-from sdxl_tpu_torch.scripts import probe_bwd_kernels, probe_f32_kernels, timing
+from sdxl_tpu_torch.scripts import (
+    probe_bwd_kernels,
+    probe_f32_kernels,
+    probe_pipelined_kernels,
+    timing,
+)
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.
@@ -200,6 +205,37 @@ def test_x1_x2_instantiate_k1s_kernel():
     want.update({f"sdxl_flash_floor_{m}_bf16": (*x2.TILE, modes[m])
                  for m in x2.MODES})
     assert exports == want
+
+
+def test_x3_instantiates_k1s_kernel_pipelined():
+    """X3's exports instantiate the header's one kernel at kQScaled with the
+    pipelined schedule (PIPE, a ring of two stages or more), at the tiles
+    x3.TILES names; its source defines no kernel and no mma.sync code of
+    its own, and K1, K2, X1 and X2 keep K1's schedule (PIPE defaults to 0
+    and none of them names it)."""
+    header = (fa.CSRC / "flash_fwd_wgmma.cuh").read_text()
+    pipe = (fa.CSRC / "flash_pipelined.cu").read_text()
+    assert re.search(r"template <int D, int NC, int BK, bool LSE, int MODE, "
+                     r"int PIPE = 0>\s*__global__", header)
+    assert '#include "flash_fwd_wgmma.cuh"' in pipe
+    assert not re.search(r"__global__|mma\.sync|cp_async|\bflash_fwd_wgmma\(",
+                         pipe)
+    stages = int(re.search(r"constexpr int kX3Stages = (\d+);", pipe)[1])
+    assert stages >= 2
+    assert re.search(r"return launch_fwd_wgmma<64, NC, BK, false, kQScaled, "
+                     r"kX3Stages>\(", pipe)
+    exports = {m[0]: (64 * int(m[1]), int(m[2])) for m in re.findall(
+        r"SDXL_PIPELINED_EXPORT\((sdxl_\w+), (\d), (\d+)\)", pipe)}
+    assert exports == {f"sdxl_flash_pipelined_bf16_q{bq}_k{bk}": (bq, bk)
+                       for bq, bk in x3.TILES}
+    for src in ("flash_hopper.cu", "flash_experiments.cu"):
+        assert not re.search(r"launch_fwd_wgmma<[^>]*,[^>]*,[^>]*,[^>]*,"
+                             r"[^>]*,[^>]*>", (fa.CSRC / src).read_text())
+    # scripts/probe_pipelined_kernels.py's variants edit the ring's stages
+    sources = probe_f32_kernels.variant_sources(
+        probe_pipelined_kernels.SOURCE, probe_pipelined_kernels.VARIANTS)
+    assert set(sources) == {"k1_schedule", "stages3"}
+    assert all(text != pipe for text in sources.values())
 
 
 def test_no_fallback_off_the_cpu():
