@@ -12,15 +12,16 @@ Phases (any failure exits non-zero before the result line):
      and UTMALDG (TMA) instructions, K1's bf16 d=512 kernel HGMMA or HMMA,
      K1's and K2's f32 d=64 kernel (3xTF32) HGMMA and UTMALDG, K1's f32
      d=512 kernel (3xTF32 on mma.sync) HMMA, K3a's and K3b's bf16 kernels
-     (dq and dk/dv, d 64 and 128) and their f32 d=64 kernels (3xTF32)
-     HGMMA and UTMALDG, every X1, X2 and X3 instance of K1's kernel HGMMA
+     (dq and dk/dv, d 64 and 128) and their f32 kernels (3xTF32, d 64 and
+     128) HGMMA and UTMALDG, every X1, X2 and X3 instance of K1's kernel HGMMA
      and UTMALDG, and ptxas must report no spills for any of them (counts,
      registers and shared memory printed, and X3's blocks an SM); ptxas'
      "wgmma.mma_async instructions are serialized" message fails the run
      for an X3 instance (whose point is wgmma in flight under the softmax)
      and is printed for any other;
   3. each kernel against its plain PyTorch version on the card at the
-     main paths' shapes (and K2/K3 at a token count no multiple of 4) —
+     main paths' shapes (and K2/K3 at a token count no multiple of 4, and
+     at Flux-dev's joint attention, [1,24,4608,128]) —
      K1 on every route (bf16 d 64/128 and 512, f32 d
      64/128 and 512), K2, K3a, K3b in bf16 and in f32: K1 and K2's output
      within the tolerance times min(1, max|plain output|) and a relative
@@ -151,8 +152,9 @@ REF = "sdxl_tpu/ops/flash_attention.py"
 F32_D64 = "sdxl_flash_attention_f32_d64"
 F32_D512 = "sdxl_flash_attention_f32_d512"
 # the kernels on TF32 tensor cores in three passes: K1 f32 d 64 and 512,
-# K2, K3a and K3b f32 d 64
-TF32_KERNELS = (F32_D64, F32_D512, *fa._TRAIN_ROUTES[torch.float32, 64])
+# K2, K3a and K3b f32 d 64, and K3a and K3b f32 d 128
+TF32_KERNELS = (F32_D64, F32_D512, *fa._TRAIN_ROUTES[torch.float32, 64],
+                *fa._TRAIN_ROUTES[torch.float32, 128][1:])
 # kernel -> (source, the TPU kernel it replaces): K1's routes, then K2,
 # K3a and K3b's (the reference's kernel :102, :272, :302)
 KERNELS = {
@@ -233,8 +235,10 @@ HOPPER_SASS = {
     "flash_hopper_bwd.cu": ("flash_hopper_bwd_smem_bytes", [
         ("K3a bf16 d 64/128", r"flash_bwd_dq_wgmmaILi\d+E", 2, 0, WGMMA_TMA),
         ("K3b bf16 d 64/128", r"flash_bwd_dkv_wgmmaILi\d+E", 2, 1, WGMMA_TMA),
-        ("K3a f32 d 64 (3xTF32)", r"flash_bwd_dq_tf32", 1, 2, WGMMA_TMA),
-        ("K3b f32 d 64 (3xTF32)", r"flash_bwd_dkv_tf32", 1, 3, WGMMA_TMA),
+        ("K3a f32 d 64/128 (3xTF32)", r"flash_bwd_dq_tf32ILi\d+E", 2, 2,
+         WGMMA_TMA),
+        ("K3b f32 d 64/128 (3xTF32)", r"flash_bwd_dkv_tf32ILi\d+E", 2, 3,
+         WGMMA_TMA),
     ]),
     "flash_experiments.cu": ("flash_experiments_smem_bytes", [
         ("X1 (six tiles) and X2 full", FWD + "Lb0ELi1E", 6, 0, WGMMA_TMA),
@@ -252,9 +256,12 @@ UNSERIALIZED = ("flash_pipelined.cu",)
 # source -> its export of an instance's blocks an SM (from NC and BK)
 OCCUPANCY = {"flash_pipelined.cu": "flash_pipelined_blocks_per_sm"}
 # K2 and K3's shapes on the training path (batch 1), bf16 and f32: UNet
-# levels 1 and 2 at 1024x1024 and at 832x1216, one d=128 case, and a
-# token count that is no multiple of 4 at B*H > 1 (the second head's rows
-# of lse and delta then start off a 16-byte boundary).
+# levels 1 and 2 at 1024x1024 and at 832x1216, one d=128 case, a token
+# count that is no multiple of 4 at B*H > 1 (the second head's rows of lse
+# and delta then start off a 16-byte boundary) at d 64 and 128, and
+# Flux-dev's joint attention at 1024x1024 (4096 image and 512 T5 tokens,
+# 24 heads of 128: the reference's f32 trainer, train --f32, also trains
+# Flux).
 # Tolerances (bench.py:53-66): K2's o as K1's (2e-2 / 1e-3 of min(1,
 # max|o|), relative L2 1e-2 / 1e-4), lse (f32, base-2 units) 1e-3
 # absolute, and the gradients 2e-2 / 1e-3 of max(1, their largest
@@ -266,6 +273,8 @@ TRAIN_CASES = [
     (1, 20, 988, 64),
     (1, 2, 1000, 128),
     (1, 3, 333, 64),
+    (1, 24, 4608, 128),
+    (1, 3, 333, 128),
 ]
 BF16_TOL, LSE_TOL = 2e-2, 1e-3
 # dtype -> (o and gradient tolerance, relative L2 tolerance)
@@ -287,8 +296,8 @@ TIMED_SHAPE = {"sdxl_flash_attention_bf16": (2, 10, 4096, 64),
                "sdxl_flash_attention_lse_f32_d128": (1, 2, 1000, 128),
                "sdxl_flash_attention_bwd_dq_f32": (1, 10, 4096, 64),
                "sdxl_flash_attention_bwd_dkv_f32": (1, 10, 4096, 64),
-               "sdxl_flash_attention_bwd_dq_f32_d128": (1, 2, 1000, 128),
-               "sdxl_flash_attention_bwd_dkv_f32_d128": (1, 2, 1000, 128)}
+               "sdxl_flash_attention_bwd_dq_f32_d128": (1, 24, 4608, 128),
+               "sdxl_flash_attention_bwd_dkv_f32_d128": (1, 24, 4608, 128)}
 EXP_SHAPES = [shape for _, shape in x1.SHAPES]
 # the H100 SXM's published dense peaks (NVIDIA H100 datasheet): bf16 and
 # f32 FMA, and TF32 for TF32_KERNELS, which run three TF32 passes of each

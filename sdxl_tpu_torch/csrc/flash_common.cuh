@@ -1,7 +1,6 @@
 // Helpers shared by the flash-attention kernels (flash_hopper.cu,
-// flash_hopper_bwd.cu, flash_attention.cu, flash_attention_bwd.cu, and
-// through flash_fwd_wgmma.cuh flash_experiments.cu and
-// flash_pipelined.cu): bf16 packing, the cp.async groups, and the
+// flash_hopper_bwd.cu, flash_attention.cu, and through flash_fwd_wgmma.cuh
+// flash_experiments.cu and flash_pipelined.cu): bf16 packing, the cp.async groups, and the
 // one-time opt-in to more than 48 KB of dynamic shared memory.
 
 #pragma once

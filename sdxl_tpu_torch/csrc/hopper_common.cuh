@@ -112,6 +112,15 @@ __device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
 }
 
+// The same for a 64-byte-swizzled K-major operand (rows of 64 bytes, the
+// f32 d = 128 backward's transposed copies of 16 tokens): 8-row groups
+// 512 bytes apart, layout 64B.
+__device__ __forceinline__ uint64_t desc64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(16 >> 4) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -244,6 +253,18 @@ __device__ __forceinline__ void wgmma_ss_tf32_n32(float (&d)[16], uint64_t a,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// D[64x16] (+)= A[64x8] B[8x16] in TF32: A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_tf32_n16(float (&d)[8], uint64_t a,
+                                                  uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " %8, %9, p, 1, 1;\n}\n"
+      : SDXL_F4(0), SDXL_F4(4)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // D[64x64] (+)= A[64x8] B[8x64] in TF32: A in registers, B K-major in
 // shared memory.
 __device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
@@ -257,6 +278,24 @@ __device__ __forceinline__ void wgmma_rs_tf32_n64(float (&d)[32],
       " %30, %31},"
       " {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
       : SDXL_F16(0), SDXL_F16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D[64x128] (+)= A[64x8] B[8x128] in TF32: A in registers, B K-major in
+// shared memory.
+__device__ __forceinline__ void wgmma_rs_tf32_n128(float (&d)[64],
+                                                   const uint32_t a[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29,"
+      " %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43,"
+      " %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"
+      " %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : SDXL_F16(0), SDXL_F16(16), SDXL_F16(32), SDXL_F16(48)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
@@ -326,11 +365,12 @@ __device__ __forceinline__ constexpr int a_frag_index(int j, int e) {
   return 4 * j + (e >> 1) + 2 * (e & 1);
 }
 
-// The pre-pass of the f32 routes: a job splits one tensor x [n, t, 64] f32
-// into hi and lo parts, written (hl set) as hl = [2, n, t, 64] (all of x_hi,
-// then all of x_lo) and (thl set) transposed as thl = [2, n, 64, tp] with
-// each group of 8 tokens in perm8's order and zeros at tokens t .. tp - 1
-// (tp = t rounded up to 8; the scratch it writes is never assumed zero).
+// The pre-pass of the f32 routes: a job splits one tensor x [n, t, D] f32
+// (D = 64, or 128 for the f32 d = 128 backward) into hi and lo parts,
+// written (hl set) as hl = [2, n, t, D] (all of x_hi, then all of x_lo)
+// and (thl set) transposed as thl = [2, n, D, tp] with each group of 8
+// tokens in perm8's order and zeros at tokens t .. tp - 1 (tp = t rounded
+// up to 8; the scratch it writes is never assumed zero).
 struct SplitJob {
   const float* x;
   float* hl;
@@ -345,19 +385,20 @@ struct SplitJobs {
 };
 
 // One block a (64-token tile, b*h, job).
+template <int D = 64>
 __global__ void __launch_bounds__(256)
 split_tf32_pass(const __grid_constant__ SplitJobs jobs) {
   const SplitJob& j = jobs.job[blockIdx.z];
   const int t0 = blockIdx.x * kSplitTokens;
   if (t0 >= (j.thl ? j.tp : j.t)) return;
-  __shared__ float tile[kSplitTokens][65];  // x rows [token][d], padded
-  const size_t base = (size_t)blockIdx.y * j.t * 64;
-  const size_t half = (size_t)jobs.n * j.t * 64;
-  for (int i = threadIdx.x; i < kSplitTokens * 16; i += 256) {
-    const int r = i / 16, c = (i % 16) * 4;
+  __shared__ float tile[kSplitTokens][D + 1];  // x rows [token][d], padded
+  const size_t base = (size_t)blockIdx.y * j.t * D;
+  const size_t half = (size_t)jobs.n * j.t * D;
+  for (int i = threadIdx.x; i < kSplitTokens * (D / 4); i += 256) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (t0 + r < j.t) {
-      const size_t off = base + (size_t)(t0 + r) * 64 + c;
+      const size_t off = base + (size_t)(t0 + r) * D + c;
       x = *reinterpret_cast<const float4*>(j.x + off);
       if (j.hl) {
         float4 hi, lo;
@@ -376,9 +417,9 @@ split_tf32_pass(const __grid_constant__ SplitJobs jobs) {
   }
   if (!j.thl) return;
   __syncthreads();
-  const size_t tbase = (size_t)blockIdx.y * 64 * j.tp;
-  const size_t thalf = (size_t)jobs.n * 64 * j.tp;
-  for (int i = threadIdx.x; i < 64 * kSplitTokens; i += 256) {
+  const size_t tbase = (size_t)blockIdx.y * D * j.tp;
+  const size_t thalf = (size_t)jobs.n * D * j.tp;
+  for (int i = threadIdx.x; i < D * kSplitTokens; i += 256) {
     const int d = i / kSplitTokens, p = i % kSplitTokens;
     if (t0 + p >= j.tp) continue;
     float hi, lo;
@@ -417,37 +458,41 @@ inline EncodeTiled encode_tiled() {
 }
 
 // A 3-D map over a contiguous [n2, n1, n0] bf16 or f32 tensor (n0
-// innermost), boxes of one 128-byte row segment (64 bf16 or 32 f32) by
-// `rows` rows of one [n1, n0] slice, 128-byte swizzled; reads past n1 or n0
-// are zeros.
+// innermost), boxes of one row segment of `row_bytes` (128: 64 bf16 or 32
+// f32, 128-byte swizzled; 64: 16 f32, 64-byte swizzled) by `rows` rows of
+// one [n1, n0] slice; reads past n1 or n0 are zeros.
 inline cudaError_t make_map(CUtensorMap* map, const void* base, bool f32,
-                            int n2, int n1, int n0, int rows) {
+                            int n2, int n1, int n0, int rows,
+                            int row_bytes = kRowBytes) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   const cuuint64_t elem = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
   const cuuint64_t strides[2] = {n0 * elem, (cuuint64_t)n1 * n0 * elem};
-  const cuuint32_t box[3] = {(cuuint32_t)(kRowBytes / elem), (cuuint32_t)rows,
+  const cuuint32_t box[3] = {(cuuint32_t)(row_bytes / elem), (cuuint32_t)rows,
                              1};
   const cuuint32_t unit[3] = {1, 1, 1};
   const CUresult r = encode(
       map,
       f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       3, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 // The pre-pass over `count` jobs of n = b*h heads each, on stream s.
+template <int D = 64>
 inline cudaError_t launch_split_tf32(SplitJobs jobs, int count, int n,
                               cudaStream_t s) {
   int tokens = 0;
   for (int i = 0; i < count; ++i)
     tokens = std::max(tokens, jobs.job[i].thl ? jobs.job[i].tp : jobs.job[i].t);
   jobs.n = n;
-  split_tf32_pass<<<dim3((tokens + kSplitTokens - 1) / kSplitTokens, n, count),
-                    256, 0, s>>>(jobs);
+  split_tf32_pass<D><<<dim3((tokens + kSplitTokens - 1) / kSplitTokens, n,
+                            count),
+                       256, 0, s>>>(jobs);
   return cudaGetLastError();
 }
 

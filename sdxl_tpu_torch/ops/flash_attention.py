@@ -15,11 +15,11 @@ d=512 route on TF32 tensor cores; flash_fwd_wgmma.cuh: the bf16 d 64/128
 forward kernel of K1 and K2, which flash_experiments.cu instantiates for
 the experiments X1 and X2 too, and flash_pipelined.cu for X3 with its
 pipelined schedule; flash_hopper_bwd.cu: K3a and K3b bf16
-and f32 d=64 on wgmma and TMA; hopper_common.cuh: the TMA, mbarrier and
-wgmma helpers and the f32 routes' TF32 split and pre-pass, which both
-share; flash_attention.cu: K1's and K2's f32 d=128 route on the FMA pipes;
-flash_attention_bwd.cu: K3a and K3b's f32 d=128 route on the FMA pipes;
-the experiments' wrappers live in ``sdxl_tpu_torch/scripts/``). Each source is compiled
+and f32 (d 64 and 128) on wgmma and TMA; hopper_common.cuh: the TMA,
+mbarrier and wgmma helpers and the f32 routes' TF32 split and pre-pass,
+which both share; flash_attention.cu: K1's and K2's f32 d=128 route on the
+FMA pipes; the experiments' wrappers live in
+``sdxl_tpu_torch/scripts/``). Each source is compiled
 with nvcc for sm_90a into a shared library with a plain C interface, at
 first use, into ``build/kernels/`` at the repo root (keyed by a hash of
 the sources and the flags), and loaded with ctypes; ``build_kernels``
@@ -41,11 +41,12 @@ and K3b):
   512 (the bf16 VAE decode's mid-block attention): bf16 tensor cores
   (wgmma), K, V by TMA through an mbarrier ring;
 - K1, K2, K3a and K3b, f32 with d = 64 (the f32 UNet's self-attention,
-  and its training forward and backward): TF32 tensor cores in three
-  passes. One TF32 product rounds each operand to 10 mantissa bits, about
-  4e-4 of relative L2 error over an attention output, past the f32 bound
-  of 1e-4; split into a high and a low TF32 part, a b = a_hi b_hi + a_hi
-  b_lo + a_lo b_hi keeps about 2^-21 of each product
+  and its training forward and backward), and K3a and K3b with d = 128
+  (the f32 trainer's backward at Flux's head width): TF32 tensor cores in
+  three passes. One TF32 product rounds each operand to 10 mantissa bits,
+  about 4e-4 of relative L2 error over an attention output, past the f32
+  bound of 1e-4; split into a high and a low TF32 part, a b = a_hi b_hi +
+  a_hi b_lo + a_lo b_hi keeps about 2^-21 of each product
   (tests/test_torch_flash_attention.py and
   tests/test_torch_flash_backward.py pin this on the CPU). A pre-pass
   splits (and for the backward transposes) the operands into scratch the
@@ -53,8 +54,7 @@ and K3b):
 - K1, f32 with d = 512 (the f32 VAE's mid-block attention, in every f32
   decode and in the training set's encode): TF32 tensor cores in three
   passes on mma.sync, the head dim split over eight warps;
-- K1, K2, K3a and K3b, f32 with d = 128 (no SDXL path): full f32 on the
-  FMA pipes;
+- K1 and K2, f32 with d = 128 (no SDXL path): full f32 on the FMA pipes;
 - K2, bf16 with d in (64, 128): K1's bf16 kernel with an lse store;
 - K3a and K3b, bf16 with d in (64, 128) (the bf16 trainer): bf16 tensor
   cores (wgmma), the resident rows and the streamed tiles by TMA through
@@ -85,8 +85,7 @@ FLASH_MIN_T = 924
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_hopper.cu", "flash_hopper_bwd.cu", "flash_attention.cu",
-           "flash_attention_bwd.cu", "flash_experiments.cu",
-           "flash_pipelined.cu")
+           "flash_experiments.cu", "flash_pipelined.cu")
 HEADERS = ("flash_common.cuh", "hopper_common.cuh", "flash_fwd_wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -107,8 +106,8 @@ _KERNELS = {
     "sdxl_flash_attention_bwd_dkv_bf16": ("flash_hopper_bwd.cu", 8, 0),
     "sdxl_flash_attention_bwd_dq_f32": ("flash_hopper_bwd.cu", 8, 1),
     "sdxl_flash_attention_bwd_dkv_f32": ("flash_hopper_bwd.cu", 9, 0),
-    "sdxl_flash_attention_bwd_dq_f32_d128": ("flash_attention_bwd.cu", 7, 1),
-    "sdxl_flash_attention_bwd_dkv_f32_d128": ("flash_attention_bwd.cu", 8, 0),
+    "sdxl_flash_attention_bwd_dq_f32_d128": ("flash_hopper_bwd.cu", 8, 1),
+    "sdxl_flash_attention_bwd_dkv_f32_d128": ("flash_hopper_bwd.cu", 9, 0),
     **{f"sdxl_flash2_bf16_q{bq}_k{bk}": ("flash_experiments.cu", 4, 1)
        for bq in (64, 128, 192) for bk in (64, 128)},
     **{f"sdxl_flash_floor_{mode}_bf16": ("flash_experiments.cu", 4, 1)
@@ -158,14 +157,14 @@ def _tf32_scratch(bh: int, tk: int, device) -> torch.Tensor:
                        device=device)
 
 
-def _bwd_tf32_scratch(bh: int, tq: int, tk: int, dq: bool,
+def _bwd_tf32_scratch(bh: int, tq: int, tk: int, d: int, dq: bool,
                       device) -> torch.Tensor:
-    """K3a's (dq) or K3b's f32 d=64 scratch: qf, dO, K and V each split
-    into hi and lo, [2, bh, T, 64], then the transposed copies, [2, bh, 64,
-    tp] with tp = T rounded up to a multiple of 8: K^T for K3a, qf^T and
-    dO^T for K3b."""
+    """K3a's (dq) or K3b's f32 scratch at head dim d (64 or 128): qf, dO, K
+    and V each split into hi and lo, [2, bh, T, d], then the transposed
+    copies, [2, bh, d, tp] with tp = T rounded up to a multiple of 8: K^T
+    for K3a, qf^T and dO^T for K3b."""
     tp = -(-(tk if dq else tq) // 8) * 8
-    n = 4 * bh * 64 * (tq + tk) + (2 if dq else 4) * bh * 64 * tp
+    n = 4 * bh * d * (tq + tk) + (2 if dq else 4) * bh * d * tp
     return torch.empty(n, dtype=torch.float32, device=device)
 
 
@@ -408,8 +407,8 @@ def launch_bwd_dq(qf, k, v, do, lse, delta) -> torch.Tensor:
     dq = torch.empty_like(qf)
     name = _TRAIN_ROUTES[qf.dtype, d][1]
     tensors = (qf, k, v, do, lse, delta, dq)
-    if name == "sdxl_flash_attention_bwd_dq_f32":
-        tensors += (_bwd_tf32_scratch(b * h, tq, tk, True, qf.device),)
+    if qf.dtype == torch.float32:
+        tensors += (_bwd_tf32_scratch(b * h, tq, tk, d, True, qf.device),)
     _launch(name, tensors, (b * h, tq, tk, d), (d ** -0.5,))
     return dq
 
@@ -424,8 +423,8 @@ def launch_bwd_dkv(qf, k, v, do, lse, delta
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     name = _TRAIN_ROUTES[qf.dtype, d][2]
     tensors = (qf, k, v, do, lse, delta, dk, dv)
-    if name == "sdxl_flash_attention_bwd_dkv_f32":
-        tensors += (_bwd_tf32_scratch(b * h, tq, tk, False, qf.device),)
+    if qf.dtype == torch.float32:
+        tensors += (_bwd_tf32_scratch(b * h, tq, tk, d, False, qf.device),)
     _launch(name, tensors, (b * h, tq, tk, d), ())
     return dk, dv
 

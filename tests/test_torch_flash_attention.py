@@ -152,12 +152,12 @@ def _exporters():
     ([(torch.float32, 64)],
      ["sdxl_flash_attention_f32_d64", "sdxl_flash_attention_lse_f32_d64"],
      "flash_hopper.cu"),
-    # K3a and K3b: f32 d=128 on the FMA pipes; bf16 on wgmma and TMA, f32
-    # d=64 on 3xTF32 wgmma and TMA
+    # K3a and K3b: f32 d=128 on 3xTF32 wgmma and TMA (the d=64 kernels'
+    # template); bf16 on wgmma and TMA, f32 d=64 on 3xTF32 wgmma and TMA
     ([(torch.float32, 128)],
      ["sdxl_flash_attention_bwd_dq_f32_d128",
       "sdxl_flash_attention_bwd_dkv_f32_d128"],
-     "flash_attention_bwd.cu"),
+     "flash_hopper_bwd.cu"),
     ([(torch.bfloat16, 64), (torch.bfloat16, 128), (torch.float32, 64)],
      ["sdxl_flash_attention_bwd_dq_bf16", "sdxl_flash_attention_bwd_dkv_bf16",
       "sdxl_flash_attention_bwd_dq_f32", "sdxl_flash_attention_bwd_dkv_f32"],

@@ -197,27 +197,41 @@ def test_no_fallback_off_the_cpu():
         fa.flash_attention_bhtd(q, q, q)
 
 
-def _tiled_tf32(a, b, passes: int, tile: int = 32):
-    """a @ b over the contracted axis in tiles of 32 tokens, as K3's f32
+def _tiled_tf32(a, b, passes: int, tile: int = 32, turns: int = 1):
+    """a @ b over the contracted axis in tiles of `tile` tokens, as K3's f32
     kernels sum it: each tile's product (TF32, `passes` passes) into a
-    fresh accumulator, added to the sum in f32."""
-    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
-    for t0 in range(0, a.shape[-1], tile):
-        acc = acc + tf32_matmul(a[..., t0:t0 + tile], b[..., t0:t0 + tile, :],
-                                passes)
+    fresh accumulator, added in f32 to the sum of its turn (the tile's
+    index mod `turns`: the consumer warpgroup that took it), and the turns'
+    sums added in their order."""
+    sums = [torch.zeros(a.shape[:-1] + b.shape[-1:]) for _ in range(turns)]
+    for i, t0 in enumerate(range(0, a.shape[-1], tile)):
+        sums[i % turns] = sums[i % turns] + tf32_matmul(
+            a[..., t0:t0 + tile], b[..., t0:t0 + tile, :], passes)
+    acc = sums[0]
+    for other in sums[1:]:
+        acc = acc + other
     return acc
 
 
-def test_3xtf32_backward_keeps_the_f32_bound():
-    """K3a and K3b's f32 d=64 route on TF32 tensor cores
-    (csrc/flash_hopper_bwd.cu flash_bwd_dq_tf32, flash_bwd_dkv_tf32): the
-    backward's five products on TF32 operands in three passes, split as
+# head dim -> (case, tokens a stage of K3a and of K3b, consumer warpgroups
+# taking turns at the stages) of K3's f32 kernels (csrc/flash_hopper_bwd.cu
+# Tf32BwdPlan)
+TF32_BWD = {64: (CASES[0], 32, 32, 1), 128: (CASES[1], 32, 16, 2)}
+
+
+@pytest.mark.parametrize("d", sorted(TF32_BWD))
+def test_3xtf32_backward_keeps_the_f32_bound(d):
+    """K3a and K3b's f32 routes on TF32 tensor cores
+    (csrc/flash_hopper_bwd.cu flash_bwd_dq_tf32<d>, flash_bwd_dkv_tf32<d>):
+    the backward's five products on TF32 operands in three passes, split as
     the kernels split them (hi = rna(x), lo = rna(x - hi)), the logits over
-    d in one sum, dq, dk and dv over tiles of 32 tokens with a fresh sum
-    each, stay within 1e-3 x max(1, max|g|) and a relative L2 error of
-    1e-4 of the reference's f32 kernels at a ragged T; one pass does
-    not."""
-    (q, k, v, do), (jo, jl), want = jax_bwd_f32(*CASES[0])
+    d in one sum, dq, dk and dv over the kernels' stages (32 tokens at
+    d=64; at d=128 32 keys for dq and 16 query rows for dk and dv, taken
+    in turns by two consumers whose sums are added at the end) with a fresh
+    sum each, stay within 1e-3 x max(1, max|g|) and a relative L2 error of
+    1e-4 of the reference's f32 kernels at a ragged T; one pass does not."""
+    case, dq_tile, dkv_tile, turns = TF32_BWD[d]
+    (q, k, v, do), (jo, jl), want = jax_bwd_f32(*case)
     qt, kt, vt, dot, o = (t(a) for a in (q, k, v, do, jo))
     qf = fa._prescale_q(qt)
     lse = t(jl)[..., None]
@@ -226,9 +240,11 @@ def test_3xtf32_backward_keeps_the_f32_bound():
     for passes in (1, 3):
         p = torch.exp2(tf32_matmul(qf, kt.transpose(-1, -2), passes) - lse)
         dz = p * (tf32_matmul(dot, vt.transpose(-1, -2), passes) - delta)
-        got = (_tiled_tf32(dz, kt, passes) * 64 ** -0.5,
-               _tiled_tf32(dz.transpose(-1, -2), qf, passes) / fa._LOG2E,
-               _tiled_tf32(p.transpose(-1, -2), dot, passes))
+        got = (_tiled_tf32(dz, kt, passes, dq_tile, turns) * d ** -0.5,
+               _tiled_tf32(dz.transpose(-1, -2), qf, passes, dkv_tile, turns)
+               / fa._LOG2E,
+               _tiled_tf32(p.transpose(-1, -2), dot, passes, dkv_tile,
+                           turns))
         for g, w, name in zip(got, want, ("dq", "dk", "dv")):
             diff = g.numpy() - w
             rel[passes, name] = np.linalg.norm(diff) / np.linalg.norm(w)
