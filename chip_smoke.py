@@ -10,8 +10,9 @@ Phases (any failure exits non-zero before the result line):
      flash_experiments.cu's and flash_pipelined.cu's libraries: K1's bf16
      d 64/128 kernel and K2 (its lse instances) must hold HGMMA (wgmma)
      and UTMALDG (TMA) instructions, K1's bf16 d=512 kernel HGMMA or HMMA,
-     K1's and K2's f32 d=64 kernel (3xTF32) HGMMA and UTMALDG, K1's f32
-     d=512 kernel (3xTF32 on mma.sync) HMMA, K3a's and K3b's bf16 kernels
+     K1's and K2's f32 d 64/128 kernel (3xTF32; its four instances) HGMMA
+     and UTMALDG, K1's f32 d=512 kernel (3xTF32 on mma.sync) HMMA, K3a's
+     and K3b's bf16 kernels
      (dq and dk/dv, d 64 and 128) and their f32 kernels (3xTF32, d 64 and
      128) HGMMA and UTMALDG, every X1, X2 and X3 instance of K1's kernel HGMMA
      and UTMALDG, and ptxas must report no spills for any of them (counts,
@@ -20,8 +21,8 @@ Phases (any failure exits non-zero before the result line):
      for an X3 instance (whose point is wgmma in flight under the softmax)
      and is printed for any other;
   3. each kernel against its plain PyTorch version on the card at the
-     main paths' shapes (and K2/K3 at a token count no multiple of 4, and
-     at Flux-dev's joint attention, [1,24,4608,128]) —
+     main paths' shapes (and K1/K2/K3 at a token count no multiple of 4,
+     and at Flux-dev's joint attention, [1,24,4608,128]) —
      K1 on every route (bf16 d 64/128 and 512, f32 d
      64/128 and 512), K2, K3a, K3b in bf16 and in f32: K1 and K2's output
      within the tolerance times min(1, max|plain output|) and a relative
@@ -34,9 +35,9 @@ Phases (any failure exits non-zero before the result line):
      version and torch's scaled_dot_product_attention (forward, and
      backward for K3; a yardstick, never on the path) timed with CUDA
      events after a warm-up, beside the kernel's bound; K2, K3a, K3b (in
-     both dtypes) and the f32 d=64 route (and SDPA's forward beside the
-     forwards) also inside one CUDA graph of 20 calls, SDPA's backward as
-     its kernels' device time (torch.profiler);
+     both dtypes) and the f32 d 64 and 128 routes (and SDPA's forward
+     beside the forwards) also inside one CUDA graph of 20 calls, SDPA's
+     backward as its kernels' device time (torch.profiler);
   3b. the experiments X1 (every tile), X2 (every mode) and X3 (every
      tile) against their plain versions at [2,10,4096,64] and
      [2,20,1024,64] bf16, timed by `timeit`, `chained_time` and inside one
@@ -150,11 +151,13 @@ from sdxl_tpu_torch.train.step import (
 CSRC = "sdxl_tpu_torch/csrc"
 REF = "sdxl_tpu/ops/flash_attention.py"
 F32_D64 = "sdxl_flash_attention_f32_d64"
+F32_D128 = "sdxl_flash_attention_f32_d128"
 F32_D512 = "sdxl_flash_attention_f32_d512"
-# the kernels on TF32 tensor cores in three passes: K1 f32 d 64 and 512,
-# K2, K3a and K3b f32 d 64, and K3a and K3b f32 d 128
-TF32_KERNELS = (F32_D64, F32_D512, *fa._TRAIN_ROUTES[torch.float32, 64],
-                *fa._TRAIN_ROUTES[torch.float32, 128][1:])
+# the kernels on TF32 tensor cores in three passes: K1 f32 d 64, 128 and
+# 512, and K2, K3a and K3b f32 d 64 and 128
+TF32_KERNELS = (F32_D64, F32_D128, F32_D512,
+                *fa._TRAIN_ROUTES[torch.float32, 64],
+                *fa._TRAIN_ROUTES[torch.float32, 128])
 # kernel -> (source, the TPU kernel it replaces): K1's routes, then K2,
 # K3a and K3b's (the reference's kernel :102, :272, :302)
 KERNELS = {
@@ -180,8 +183,9 @@ KERNELS = {
 # 1024x1024 and 832x1216 (ragged 64-key tiles) and the bf16 VAE decode at
 # 1024x1024, 832x1216 and the
 # smallest VAE bucket (14336 tokens), the f32 VAE's likewise — plus one
-# d=128 case of each dtype,
-# routes the SDXL-base paths do not take. The max abs error's limit is the
+# d=128 case of each dtype and f32 d=128 at Flux-dev's joint attention at
+# 1024x1024 (4096 image and 512 T5 tokens, 24 heads of 128), routes the
+# SDXL-base paths do not take. The max abs error's limit is the
 # tolerance times min(1, max|plain output|): with random inputs each output
 # is an average over about a thousand keys or more, 0.01-0.5 in size, so a
 # bare 2e-2 would pass an error of several percent of the output. The
@@ -205,9 +209,16 @@ KERNEL_CASES = [
     (2, 10, 3952, 64, torch.float32, 1e-3),
     (2, 20, 988, 64, torch.float32, 1e-3),
     (1, 2, 1000, 128, torch.float32, 1e-3),
+    (1, 24, 4608, 128, torch.float32, 1e-3),
     (1, 1, 16384, 512, torch.bfloat16, 2e-2),
     (1, 1, 15808, 512, torch.bfloat16, 2e-2),
     (1, 1, 14336, 512, torch.bfloat16, 2e-2),
+]
+# K1 at a ragged edge no path takes (use_flash routes none of them, so they
+# are not held to its gate): a token count that is no multiple of 8 at
+# B*H > 1, held to the same limits
+K1_EDGE_CASES = [
+    (1, 3, 333, 128, torch.float32, 1e-3),
 ]
 K1_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # The kernels of the Hopper sources: for each source, its export that
@@ -219,7 +230,7 @@ K1_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # PIPE> (MODE 0 is K1's q pre-scale, 1-4 X2's full, qscaled, noexp and
 # mxu_only; PIPE 0 K1's schedule, n >= 2 X3's pipelined one on an n-stage
 # ring) is K1's and K2's kernel and every X1, X2 and X3 instance;
-# flash_fwd_tf32's bool is LSE
+# flash_fwd_tf32<D, LSE>'s bool is LSE
 WGMMA_TMA = (("HGMMA",), ("UTMALDG",))
 FWD = r"flash_fwd_wgmmaILi\d+ELi\d+ELi\d+E"
 HOPPER_SASS = {
@@ -227,8 +238,10 @@ HOPPER_SASS = {
         ("K1 bf16 d 64/128", FWD + "Lb0ELi0E", 2, 0, WGMMA_TMA),
         ("K2 bf16 d 64/128", FWD + "Lb1ELi0E", 2, 0, WGMMA_TMA),
         ("K1 bf16 d 512", r"flash_fwd_d512", 1, 1, (("HGMMA", "HMMA"),)),
-        ("K1 f32 d 64 (3xTF32)", r"flash_fwd_tf32ILb0E", 1, 2, WGMMA_TMA),
-        ("K2 f32 d 64 (3xTF32)", r"flash_fwd_tf32ILb1E", 1, 2, WGMMA_TMA),
+        ("K1 f32 d 64/128 (3xTF32)", r"flash_fwd_tf32ILi\d+ELb0E", 2, 2,
+         WGMMA_TMA),
+        ("K2 f32 d 64/128 (3xTF32)", r"flash_fwd_tf32ILi\d+ELb1E", 2, 2,
+         WGMMA_TMA),
         ("K1 f32 d 512 (3xTF32, mma.sync)", r"flash_fwd_f32_d512", 1, 3,
          (("HMMA",),)),
     ]),
@@ -279,21 +292,22 @@ TRAIN_CASES = [
 BF16_TOL, LSE_TOL = 2e-2, 1e-3
 # dtype -> (o and gradient tolerance, relative L2 tolerance)
 TRAIN_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-3, 1e-4)}
-# K2's and the f32 d=64 route's calls are also timed as one CUDA graph of
-# GRAPH_CALLS calls (no host launch between them), as is SDPA's forward
+# K2's and the f32 d 64 and 128 routes' calls are also timed as one CUDA
+# graph of GRAPH_CALLS calls (no host launch between them), as is SDPA's
+# forward
 GRAPH_CALLS = 20
 # the shape each kernel's reported time is taken at (the experiments':
 # EXP_SHAPES[0])
 TIMED_SHAPE = {"sdxl_flash_attention_bf16": (2, 10, 4096, 64),
                "sdxl_flash_attention_f32_d512": (1, 1, 16384, 512),
                "sdxl_flash_attention_f32_d64": (2, 10, 4096, 64),
-               "sdxl_flash_attention_f32_d128": (1, 2, 1000, 128),
+               "sdxl_flash_attention_f32_d128": (1, 24, 4608, 128),
                "sdxl_flash_attention_bf16_d512": (1, 1, 16384, 512),
                "sdxl_flash_attention_lse_bf16": (1, 10, 4096, 64),
                "sdxl_flash_attention_bwd_dq_bf16": (1, 10, 4096, 64),
                "sdxl_flash_attention_bwd_dkv_bf16": (1, 10, 4096, 64),
                "sdxl_flash_attention_lse_f32_d64": (1, 10, 4096, 64),
-               "sdxl_flash_attention_lse_f32_d128": (1, 2, 1000, 128),
+               "sdxl_flash_attention_lse_f32_d128": (1, 24, 4608, 128),
                "sdxl_flash_attention_bwd_dq_f32": (1, 10, 4096, 64),
                "sdxl_flash_attention_bwd_dkv_f32": (1, 10, 4096, 64),
                "sdxl_flash_attention_bwd_dq_f32_d128": (1, 24, 4608, 128),
@@ -479,11 +493,12 @@ def readings(got, want) -> tuple:
 
 
 def check_k1(results) -> None:
-    for b, h, t, d, dtype, tol in KERNEL_CASES:
+    for case in KERNEL_CASES + K1_EDGE_CASES:
+        b, h, t, d, dtype, tol = case
         g = torch.Generator(device="cuda").manual_seed(42)
         q, k, v = (torch.randn((b, h, t, d), generator=g, device="cuda")
                    .to(dtype) for _ in range(3))
-        if not fa.use_flash(t, t, d, False):
+        if case in KERNEL_CASES and not fa.use_flash(t, t, d, False):
             fail(f"use_flash does not route {(b, h, t, d)}")
         with nan_filled_empty():
             out = fa.flash_attention_bhtd(q, k, v)
@@ -503,7 +518,7 @@ def check_k1(results) -> None:
                  f"finite {finite}")
         iters = 5 if d == 512 or dtype == torch.float32 else 20
         graph = None
-        if name == F32_D64:
+        if name in (F32_D64, F32_D128):
             graph = (graph_ms(lambda: fa.flash_attention_bhtd(q, k, v)),
                      graph_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
         record_case(

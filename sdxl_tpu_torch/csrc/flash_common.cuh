@@ -1,6 +1,8 @@
-// Helpers shared by the flash-attention kernels (flash_hopper.cu,
-// flash_hopper_bwd.cu, flash_attention.cu, and through flash_fwd_wgmma.cuh
-// flash_experiments.cu and flash_pipelined.cu): bf16 packing, the cp.async groups, and the
+// Helpers shared by the flash-attention kernels (flash_hopper.cu, whose f32
+// d 64 and 128 forwards run on 3xTF32 wgmma and TMA, flash_hopper_bwd.cu,
+// and through flash_fwd_wgmma.cuh flash_experiments.cu and
+// flash_pipelined.cu; no kernel of the port runs on the FMA pipes, and
+// flash_attention.cu is gone): bf16 packing, the cp.async groups, and the
 // one-time opt-in to more than 48 KB of dynamic shared memory.
 
 #pragma once

@@ -5,9 +5,9 @@
 //
 // Replaces the Pallas TPU kernels of sdxl_tpu/ops/flash_attention.py
 // `flash_attention_bhtd` (:140; pallas_call :207): K1 (return_lse=False,
-// `_flash_kernel` :92, `_flash_kernel_core` :40) on its bf16 routes and
-// its f32 d 64 and 512 routes, and K2 (return_lse=True, bf16 and f32 d =
-// 64; `_flash_kernel_lse` :102,
+// `_flash_kernel` :92, `_flash_kernel_core` :40) on every route (bf16 d
+// 64, 128 and 512, f32 d 64, 128 and 512), and K2 (return_lse=True, bf16
+// and f32 d 64 and 128; `_flash_kernel_lse` :102,
 // which also stores the row's base-2 log-sum-exp m + log2(l) for the
 // backward; here one f32 per row, [B*H, tq], without the TPU's lane
 // replication). Unmasked softmax(q k^T / sqrt(d)) v over [B,H,T,D] with
@@ -63,43 +63,43 @@
 //   KB (double-buffered by tile parity, so one barrier a tile suffices):
 //   224 KB, one block per SM; 256 blocks at T = 16384.
 //
-// flash_fwd_tf32<LSE> (the f32 UNet's self-attention, f32 d = 64:
-// K1 without the lse, K2 of the f32 trainer with it) on the
-// TF32 tensor cores in three passes (3xTF32, CUTLASS's
-// OpMultiplyAddFastF32). One TF32 product keeps 10 mantissa bits of each
-// operand: its relative error, about 2^-11, puts f32 attention about 4e-4
-// (relative L2) off the f32 result, four times the route's 1e-4 bound. So
-// each f32 operand x is split into x_hi = rna(x) and x_lo = rna(x - x_hi),
-// both TF32 (`cvt.rna.tf32.f32`, rounded to nearest, ties away from zero),
-// and a b is taken as a_hi b_hi + a_hi b_lo + a_lo b_hi summed in f32: the
-// dropped a_lo b_lo and the rounding of x_lo leave about 2^-21 of each
-// product, near f32's own 2^-24 (tests/test_torch_flash_attention.py pins
-// this arithmetic on the CPU).
-//   Bound: three TF32 passes of 4*B*H*T^2*64 operations at 495 TFLOP/s,
+// flash_fwd_tf32<D, LSE> (f32 d = 64: the f32 UNet's self-attention, K1
+// without the lse, K2 of the f32 trainer with it; f32 d = 128: Flux's head
+// width, which no SDXL path takes) on the TF32 tensor cores in three
+// passes (3xTF32, CUTLASS's OpMultiplyAddFastF32). One TF32 product keeps
+// 10 mantissa bits of each operand: its relative error, about 2^-11, puts
+// f32 attention about 4e-4 (relative L2) off the f32 result, four times
+// the route's 1e-4 bound. So each f32 operand x is split into x_hi =
+// rna(x) and x_lo = rna(x - x_hi), both TF32 (`cvt.rna.tf32.f32`, rounded
+// to nearest, ties away from zero), and a b is taken as a_hi b_hi + a_hi
+// b_lo + a_lo b_hi summed in f32: the dropped a_lo b_lo and the rounding
+// of x_lo leave about 2^-21 of each product, near f32's own 2^-24
+// (tests/test_torch_flash_attention.py pins this arithmetic on the CPU).
+//   Bound: three TF32 passes of 4*B*H*T^2*D operations at 495 TFLOP/s,
 //   0.521 ms at [2,10,4096,64]; the FMA route it replaces ran on the f32
 //   pipes (bound 1.28 ms) at 24% of that.
-//   wgmma takes 32-bit operands only K-major. Q and K ([T, 64], d
+//   wgmma takes 32-bit operands only K-major. Q and K ([T, D], d
 //   contiguous) already are for S = Q K^T; for P V the operand is V^T with
 //   keys contiguous. The f32 routes' pre-pass (split_tf32_pass,
-//   hopper_common.cuh) writes K_hi, K_lo ([B*H, tk, 64]) and V^T_hi,
-//   V^T_lo ([B*H, 64, tp], tp = tk rounded up to 8, keys in perm8's order)
-//   to a scratch buffer the wrapper allocates: 4 x B*H*T*64 floats, 84 MB
-//   at [2,10,4096,64], about 0.04 ms of the call's bytes. Each consumer
-//   splits its own pre-scaled Q rows in shared memory after the TMA load
-//   (hi in place, lo beside it). P stays in registers: in perm8's order
-//   S's accumulator fragment is P V's A fragment (hopper_common.cuh), split
-//   into hi and lo in registers.
-//   Each 64-key tile's P V goes to a fresh accumulator that is added to O
+//   hopper_common.cuh) writes K_hi, K_lo ([B*H, tk, D]) and V^T_hi,
+//   V^T_lo ([B*H, D, tp], tp = tk rounded up to 8, keys in perm8's order)
+//   to a scratch buffer the wrapper allocates: 4 x B*H*T*D floats, 84 MB
+//   at [2,10,4096,64] and 226 MB at [1,24,4608,128], about 0.04 and 0.1
+//   ms of the call's bytes. The consumers split their pre-scaled Q rows
+//   in shared memory after the TMA load (hi in place, lo beside it). P
+//   stays in registers: in perm8's order S's accumulator fragment is P V's
+//   A fragment (hopper_common.cuh), split into hi and lo in registers.
+//   Each key tile's P V goes to a fresh accumulator that is added to O
 //   on the FMA pipes (O = alpha O + PV in one fmaf): with O itself
 //   accumulated in the tensor cores, T/8 x 3 products summed there drifted
 //   linearly in T (relative L2 2.9e-5 at T = 4096 against 1.3e-6 this
 //   way; PERF.md).
-//   Tiles: three consumer warpgroups of 64 query rows (192 rows a tile),
-//   64 keys a stage (P hi and lo take 64 registers beside S's 32, O's 32
-//   and the tile's P V 32; the consumers rise to 160). Two consumers were
-//   2% faster at T = 4096 and 10% slower at T = 1024, where 60 of the f32
-//   UNet's 70 calls run. Shared memory: Q hi and lo, 32 KB a consumer; two
-//   stages of K_hi, K_lo, V^T_hi, V^T_lo, 16 KB each, all in
+//   Tiles at d = 64: three consumer warpgroups of 64 query rows (192 rows
+//   a tile), 64 keys a stage (P hi and lo take 64 registers beside S's 32,
+//   O's 32 and the tile's P V 32; the consumers rise to 160). Two
+//   consumers were 2% faster at T = 4096 and 10% slower at T = 1024, where
+//   60 of the f32 UNet's 70 calls run. Shared memory: Q hi and lo, 32 KB a
+//   consumer; two stages of K_hi, K_lo, V^T_hi, V^T_lo, 16 KB each, all in
 //   128-byte-swizzled boxes of 32 floats: 225 KB, one block per SM. With
 //   LSE one lane of each quad stores m + log2(l) of its rows, as K2's bf16
 //   kernel does. K2 runs at batch 1 (at T = 1024, 6 tiles x 20 heads = 120
@@ -107,6 +107,22 @@
 //   there than three (0.103 against 0.077 ms at [1,20,1024,64], 0.503
 //   against 0.448-0.456 at [1,10,4096,64]; scripts/probe_f32_kernels.py,
 //   PERF.md), so K2 keeps K1's tiles.
+//   Tiles at d = 128 (bound: 1.581 ms at [1,24,4608,128], an f32 Flux-dev
+//   forward's joint attention at 1024x1024; the FMA kernel it replaces
+//   took 12.7 ms there): 64 query rows hold 64 KB of Q hi and lo, so a
+//   block keeps one 64-row group and one consumer warpgroup (O and the
+//   tile's fresh P V 64 registers each, S 32, P hi and lo 64), and one
+//   64-key stage (128 KB: K_hi, K_lo, V^T_hi, V^T_lo) beside it: 192 KB,
+//   one block per SM. The stage's K is freed as soon as the logits have
+//   read it and V is loaded by a second producer thread, so that the next
+//   tile's K lands under this tile's softmax and P V, and its V under the
+//   next logits. Two consumers taking turns at two 32-key stages over the
+//   same rows (FlashAttention-3's ping-pong between warpgroups, each with
+//   its own m, l and O, merged at the end in a fixed order), one consumer
+//   at two 32-key stages, and K freed with V were each slower (PERF.md). The m64n64 logits read their
+//   Q operand from shared memory anew for each of their 48 k8 steps a tile
+//   (192 KB, against 96 KB of K), and each block streams all of K and V,
+//   hi and lo (9.4 MB at T = 4608), for its 64 rows.
 //
 // flash_fwd_f32_d512 (the f32 VAE's mid-block attention, f32 d = 512, in
 // every f32 decode and in the training set's encode) on the TF32 tensor
@@ -357,24 +373,44 @@ flash_fwd_d512(__grid_constant__ const CUtensorMap q_map,
 }
 
 // ---------------------------------------------------------------------------
-// f32, d = 64, on TF32 tensor cores in three passes
+// f32, d = 64 and 128, on TF32 tensor cores in three passes
 // ---------------------------------------------------------------------------
 
-constexpr int kKeysTf32 = 64;  // keys a stage
-
+// flash_fwd_tf32<D, LSE>'s tiles and shared memory. Every array, hi and lo,
+// is boxes of 32 f32 columns, 128-byte swizzled: Q hi, then Q lo (the
+// block's rows), then kRing stages of K_hi, K_lo ([kKeys, D]), V^T_hi and
+// V^T_lo ([D, kKeys]).
+template <int D>
 struct Tf32Plan {
-  static constexpr int kNC = 3;  // consumer warpgroups
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  // consumer warpgroups, each owning 64 query rows: three at d = 64, one
+  // at d = 128
+  static constexpr int kNC = D == 64 ? 3 : 1;
+  static constexpr int kKeys = 64;               // keys a stage
+  static constexpr int kRing = D == 64 ? 2 : 1;  // stages
   static constexpr int kThreads = 128 * (kNC + 1);
   static constexpr int kConsumers = 128 * kNC;
   static constexpr int kRowsQ = 64 * kNC;
-  static constexpr int kQBox = kRowsQ * kRowBytes;   // 32 columns of Q
-  static constexpr int kQBytes = 2 * kQBox;          // Q hi (or lo)
-  static constexpr int kBox = kKeysTf32 * kRowBytes; // 8 KB
-  static constexpr int kPart = 2 * kBox;  // K_hi, K_lo, V^T_hi or V^T_lo
-  // stage s: K_hi, K_lo, V^T_hi, V^T_lo
+  static constexpr int kBoxes = D / kBoxF32;
+  static constexpr int kQBox = kRowsQ * kRowBytes;  // 32 columns of Q
+  static constexpr int kQBytes = kBoxes * kQBox;    // Q hi (or lo)
+  static constexpr int kKBox = kKeys * kRowBytes;   // 32 columns of K
+  static constexpr int kVBox = D * kRowBytes;       // 32 keys of V^T
+  static constexpr int kPart = kKeys * D * 4;  // K_hi, K_lo, V^T_hi or V^T_lo
   static constexpr int kKV = 2 * kQBytes;
-  static constexpr int kBars = kKV + kStages * 4 * kPart;
-  static constexpr int kSmemBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
+  static constexpr int kBars = kKV + kRing * 4 * kPart;
+  // a stage's K freed once the logits have read it, and V loaded by a
+  // second producer thread (one empty barrier a stage for each): at d =
+  // 128's one stage the next tile's K then loads under this tile's softmax
+  // and P V, and its V under the next logits
+  static constexpr bool kFreeKApart = D == 128;
+  // q_full, then k_full, v_full, the K (and V) empty barriers of each stage
+  static constexpr int kSmemBytes =
+      kBars + 8 * (1 + (kFreeKApart ? 4 : 3) * kRing) + 1024;
+  // registers a consumer thread after the hand-over (one consumer: none)
+  static constexpr bool kHandOver = kNC > 1;
+  static constexpr int kConsumerRegs = 160;
+  static_assert(kSmemBytes <= 232448, "over a block's shared memory");
 };
 
 // Pre-scale `bytes` of f32 Q in shared memory and split each value: hi in
@@ -396,8 +432,8 @@ __device__ __forceinline__ void prescale_split(unsigned char* hi,
 }
 
 // One block a (b*h, q-tile) tile; with LSE also lse ([B*H, tq] f32).
-template <bool LSE>
-__global__ void __launch_bounds__(Tf32Plan::kThreads, 1)
+template <int D, bool LSE>
+__global__ void __launch_bounds__(Tf32Plan<D>::kThreads, 1)
 flash_fwd_tf32(__grid_constant__ const CUtensorMap q_map,
                __grid_constant__ const CUtensorMap khi_map,
                __grid_constant__ const CUtensorMap klo_map,
@@ -405,87 +441,103 @@ flash_fwd_tf32(__grid_constant__ const CUtensorMap q_map,
                __grid_constant__ const CUtensorMap vtlo_map,
                float* __restrict__ o, float* __restrict__ lse, int tq, int tk,
                float scale) {
-  using P = Tf32Plan;
+  using P = Tf32Plan<D>;
+  constexpr int kSteps = P::kKeys / 8;  // k8 steps of P V
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = aligned_smem(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + P::kBars);
   uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + kStages;
-  uint64_t* kv_empty = v_full + kStages;
+  uint64_t* v_full = k_full + P::kRing;
+  uint64_t* kv_empty = v_full + P::kRing;   // K's alone with kFreeKApart
+  uint64_t* v_empty = kv_empty + P::kRing;  // kFreeKApart only
 
   const int wg = threadIdx.x / 128;
   const int q0 = blockIdx.x * P::kRowsQ, h = blockIdx.y;
-  const int n_kt = (tk + kKeysTf32 - 1) / kKeysTf32;
+  const int n_kt = (tk + P::kKeys - 1) / P::kKeys;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < P::kRing; ++s) {
       mbar_init(&k_full[s], 1);
       mbar_init(&v_full[s], 1);
       mbar_init(&kv_empty[s], P::kConsumers);
+      if constexpr (P::kFreeKApart) mbar_init(&v_empty[s], P::kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == 0) {  // producer: one thread starts every copy
-    setmaxnreg_dec<24>();
+  if (wg == 0) {  // producer: one thread starts every copy (kFreeKApart:
+    // thread 0 Q and K, thread 32 V)
+    if constexpr (P::kHandOver) setmaxnreg_dec<24>();
+    auto load_v = [&](int kt) {
+      const int s = kt % P::kRing, k0 = kt * P::kKeys;
+      unsigned char* st = smem + P::kKV + s * 4 * P::kPart;
+      mbar_expect_tx(&v_full[s], 2 * P::kPart);
+      for (int b = 0; b < P::kKeys / kBoxF32; ++b) {
+        tma_load(st + 2 * P::kPart + b * P::kVBox, &vthi_map, &v_full[s],
+                 k0 + b * kBoxF32, 0, h);
+        tma_load(st + 3 * P::kPart + b * P::kVBox, &vtlo_map, &v_full[s],
+                 k0 + b * kBoxF32, 0, h);
+      }
+    };
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, P::kQBytes);
-      for (int b = 0; b < 2; ++b)
+      for (int b = 0; b < P::kBoxes; ++b)
         tma_load(smem + b * P::kQBox, &q_map, q_full, b * kBoxF32, q0, h);
       for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt % kStages, k0 = kt * kKeysTf32;
-        mbar_wait(&kv_empty[s], ((kt / kStages) & 1) ^ 1);
+        const int s = kt % P::kRing, k0 = kt * P::kKeys;
+        mbar_wait(&kv_empty[s], ((kt / P::kRing) & 1) ^ 1);
         unsigned char* st = smem + P::kKV + s * 4 * P::kPart;
         mbar_expect_tx(&k_full[s], 2 * P::kPart);
-        for (int b = 0; b < 2; ++b) {
-          tma_load(st + b * P::kBox, &khi_map, &k_full[s], b * kBoxF32, k0, h);
-          tma_load(st + P::kPart + b * P::kBox, &klo_map, &k_full[s],
+        for (int b = 0; b < P::kBoxes; ++b) {
+          tma_load(st + b * P::kKBox, &khi_map, &k_full[s], b * kBoxF32, k0,
+                   h);
+          tma_load(st + P::kPart + b * P::kKBox, &klo_map, &k_full[s],
                    b * kBoxF32, k0, h);
         }
-        mbar_expect_tx(&v_full[s], 2 * P::kPart);
-        for (int b = 0; b < 2; ++b) {
-          tma_load(st + 2 * P::kPart + b * P::kBox, &vthi_map, &v_full[s],
-                   k0 + b * kBoxF32, 0, h);
-          tma_load(st + 3 * P::kPart + b * P::kBox, &vtlo_map, &v_full[s],
-                   k0 + b * kBoxF32, 0, h);
-        }
+        if constexpr (!P::kFreeKApart) load_v(kt);
+      }
+    } else if (P::kFreeKApart && threadIdx.x == 32) {
+      for (int kt = 0; kt < n_kt; ++kt) {
+        mbar_wait(&v_empty[kt % P::kRing], ((kt / P::kRing) & 1) ^ 1);
+        load_v(kt);
       }
     }
     return;
   }
 
-  setmaxnreg_inc<160>();
-  const int c = wg - 1;  // this warpgroup's rows: 64c .. 64c + 63
+  if constexpr (P::kHandOver) setmaxnreg_inc<P::kConsumerRegs>();
+  const int c = wg - 1;  // this warpgroup's rows: q0 + 64c .. + 63
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int g = lane / 4, tg = lane % 4;
   const uint32_t qhi_addr = smem_u32(smem) + c * 64 * kRowBytes;
   const uint32_t qlo_addr = qhi_addr + P::kQBytes;
 
+  // each consumer pre-scales and splits its own Q rows
   mbar_wait(q_full, 0);
-  for (int b = 0; b < 2; ++b) {
+  for (int b = 0; b < P::kBoxes; ++b) {
     unsigned char* rows = smem + b * P::kQBox + c * 64 * kRowBytes;
     prescale_split(rows, rows + P::kQBytes, 64 * kRowBytes, scale, t, 128);
   }
   fence_proxy_async();
   bar_sync(1 + c, 128);
 
-  float acc[32];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    const int s = kt % kStages;
-    const uint32_t parity = (kt / kStages) & 1;
+    const int s = kt % P::kRing;
+    const uint32_t parity = (kt / P::kRing) & 1;
     const uint32_t khi = smem_u32(smem + P::kKV + s * 4 * P::kPart);
     const uint32_t klo = khi + P::kPart;
     const uint32_t vthi = khi + 2 * P::kPart, vtlo = khi + 3 * P::kPart;
 
-    // S = Q_hi K_lo + Q_lo K_hi + Q_hi K_hi over 64 keys, the small terms
-    // first: eight k8 steps each, four to a 32-column box.
-    float sc[kKeysTf32 / 2];
+    // S = Q_hi K_lo + Q_lo K_hi + Q_hi K_hi over kKeys keys, the small
+    // terms first: D / 8 k8 steps each, four to a 32-column box.
+    float sc[P::kKeys / 2];
     mbar_wait(&k_full[s], parity);
     wgmma_fence();
 #pragma unroll
@@ -493,26 +545,27 @@ flash_fwd_tf32(__grid_constant__ const CUtensorMap q_map,
       const uint32_t qa = pass == 1 ? qlo_addr : qhi_addr;
       const uint32_t kb = pass == 0 ? klo : khi;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < D / 8; ++kk) {
         const uint32_t off = (kk % 4) * 32;
-        wgmma_ss_tf32_n64(sc, desc128(qa + (kk / 4) * P::kQBox + off, 16),
-                          desc128(kb + (kk / 4) * P::kBox + off, 16),
-                          pass > 0 || kk > 0);
+        const uint64_t qd = desc128(qa + (kk / 4) * P::kQBox + off, 16);
+        const uint64_t kd = desc128(kb + (kk / 4) * P::kKBox + off, 16);
+        wgmma_ss_tf32_n64(sc, qd, kd, pass > 0 || kk > 0);
       }
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
+    if constexpr (P::kFreeKApart) mbar_arrive(&kv_empty[s]);
 
     float alpha[2];
-    softmax_step<kKeysTf32>(sc, kt * kKeysTf32, tk, tg, m_run, l_run, alpha);
+    softmax_step<P::kKeys>(sc, kt * P::kKeys, tk, tg, m_run, l_run, alpha);
 
-    // pv = P_lo V_hi + P_hi V_lo + P_hi V_hi: eight k8 steps of 8 keys
+    // pv = P_lo V_hi + P_hi V_lo + P_hi V_hi: kKeys / 8 k8 steps of 8 keys
     // each, the A fragment in V^T's permuted key order; a fresh
     // accumulator, added to O on the FMA pipes below.
-    uint32_t p_hi[kKeysTf32 / 8][4], p_lo[kKeysTf32 / 8][4];
+    uint32_t p_hi[kSteps][4], p_lo[kSteps][4];
 #pragma unroll
-    for (int j = 0; j < kKeysTf32 / 8; ++j)
+    for (int j = 0; j < kSteps; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float hi, lo;
@@ -522,31 +575,38 @@ flash_fwd_tf32(__grid_constant__ const CUtensorMap q_map,
       }
     fence_regs(p_hi);
     fence_regs(p_lo);
-    float pv[32];
+    float pv[D / 2];
     mbar_wait(&v_full[s], parity);
     wgmma_fence();
 #pragma unroll
     for (int pass = 0; pass < 3; ++pass) {
       const uint32_t vb = pass == 1 ? vtlo : vthi;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_rs_tf32_n64(pv, pass == 0 ? p_lo[kk] : p_hi[kk],
-                          desc128(vb + (kk / 4) * P::kBox + (kk % 4) * 32, 16),
-                          pass > 0 || kk > 0);
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const uint64_t vd =
+            desc128(vb + (kk / 4) * P::kVBox + (kk % 4) * 32, 16);
+        if constexpr (D == 64) {
+          wgmma_rs_tf32_n64(pv, pass == 0 ? p_lo[kk] : p_hi[kk], vd,
+                            pass > 0 || kk > 0);
+        } else {
+          wgmma_rs_tf32_n128(pv, pass == 0 ? p_lo[kk] : p_hi[kk], vd,
+                             pass > 0 || kk > 0);
+        }
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(pv);
     fence_regs(p_hi);
     fence_regs(p_lo);
-    mbar_arrive(&kv_empty[s]);
+    mbar_arrive(P::kFreeKApart ? &v_empty[s] : &kv_empty[s]);
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
+    for (int i = 0; i < D / 2; ++i)
       acc[i] = fmaf(acc[i], alpha[(i >> 1) & 1], pv[i]);
   }
 
   const int r = q0 + 64 * c + 16 * warp + g;
-  store_rows_f32(acc, o + (size_t)h * tq * 64, 64, r, tq, tg, l_run);
+  store_rows_f32(acc, o + (size_t)h * tq * D, D, r, tq, tg, l_run);
   if constexpr (LSE) store_lse(lse + (size_t)h * tq, r, tq, tg, m_run, l_run);
 }
 
@@ -863,37 +923,39 @@ flash_fwd_f32_d512(const float* __restrict__ q, const float* __restrict__ k,
 // host side
 // ---------------------------------------------------------------------------
 
-template <bool LSE>
+// Launch flash_fwd_tf32<D, LSE> and its pre-pass; scratch holds K_hi,
+// K_lo ([B*H, tk, D]), V^T_hi and V^T_lo ([B*H, D, tp]).
+template <int D, bool LSE>
 cudaError_t launch_tf32(const void* q, const void* k, const void* v, void* o,
                         float* lse, void* scratch, int bh, int tq, int tk,
                         float scale, cudaStream_t s) {
-  using P = Tf32Plan;
+  using P = Tf32Plan<D>;
   static std::atomic<unsigned long long> smem_set{0};
   const int tp = (tk + 7) / 8 * 8;
   float* k_hi = static_cast<float*>(scratch);
-  float* k_lo = k_hi + (size_t)bh * tk * 64;
-  float* vt_hi = k_lo + (size_t)bh * tk * 64;
-  float* vt_lo = vt_hi + (size_t)bh * 64 * tp;
+  float* k_lo = k_hi + (size_t)bh * tk * D;
+  float* vt_hi = k_lo + (size_t)bh * tk * D;
+  float* vt_lo = vt_hi + (size_t)bh * D * tp;
   CUtensorMap q_map, khi_map, klo_map, vthi_map, vtlo_map;
-  cudaError_t err = make_map(&q_map, q, true, bh, tq, 64, P::kRowsQ);
+  cudaError_t err = make_map(&q_map, q, true, bh, tq, D, P::kRowsQ);
   if (err == cudaSuccess)
-    err = make_map(&khi_map, k_hi, true, bh, tk, 64, kKeysTf32);
+    err = make_map(&khi_map, k_hi, true, bh, tk, D, P::kKeys);
   if (err == cudaSuccess)
-    err = make_map(&klo_map, k_lo, true, bh, tk, 64, kKeysTf32);
+    err = make_map(&klo_map, k_lo, true, bh, tk, D, P::kKeys);
   if (err == cudaSuccess)
-    err = make_map(&vthi_map, vt_hi, true, bh, 64, tp, 64);
+    err = make_map(&vthi_map, vt_hi, true, bh, D, tp, D);
   if (err == cudaSuccess)
-    err = make_map(&vtlo_map, vt_lo, true, bh, 64, tp, 64);
+    err = make_map(&vtlo_map, vt_lo, true, bh, D, tp, D);
   if (err == cudaSuccess)
-    err = allow_smem_once(flash_fwd_tf32<LSE>, P::kSmemBytes, &smem_set);
+    err = allow_smem_once(flash_fwd_tf32<D, LSE>, P::kSmemBytes, &smem_set);
   if (err != cudaSuccess) return err;
   SplitJobs jobs{};
   jobs.job[0] = {static_cast<const float*>(k), k_hi, nullptr, tk, tp};
   jobs.job[1] = {static_cast<const float*>(v), nullptr, vt_hi, tk, tp};
-  err = launch_split_tf32(jobs, 2, bh, s);
+  err = launch_split_tf32<D>(jobs, 2, bh, s);
   if (err != cudaSuccess) return err;
   dim3 grid((tq + P::kRowsQ - 1) / P::kRowsQ, bh);
-  flash_fwd_tf32<LSE><<<grid, P::kThreads, P::kSmemBytes, s>>>(
+  flash_fwd_tf32<D, LSE><<<grid, P::kThreads, P::kSmemBytes, s>>>(
       q_map, khi_map, klo_map, vthi_map, vtlo_map, static_cast<float*>(o), lse,
       tq, tk, scale);
   return cudaGetLastError();
@@ -952,7 +1014,7 @@ extern "C" int sdxl_flash_attention_bf16_d512(const void* q, const void* k,
   return cudaGetLastError();
 }
 
-// K1, f32 d 64 (3xTF32). scratch: a device buffer of 2 * B*H * 64 * (tk +
+// K1, f32 d 64 (3xTF32). scratch: a device buffer of 2 * B*H * d * (tk +
 // tp) floats, tp = tk rounded up to a multiple of 8, for the pre-pass's
 // K_hi, K_lo, V^T_hi and V^T_lo.
 extern "C" int sdxl_flash_attention_f32_d64(const void* q, const void* k,
@@ -961,8 +1023,8 @@ extern "C" int sdxl_flash_attention_f32_d64(const void* q, const void* k,
                                             int tk, int d, float scale,
                                             void* stream) {
   if (d != 64) return cudaErrorInvalidValue;
-  return launch_tf32<false>(q, k, v, o, nullptr, scratch, bh, tq, tk, scale,
-                            static_cast<cudaStream_t>(stream));
+  return launch_tf32<64, false>(q, k, v, o, nullptr, scratch, bh, tq, tk,
+                                scale, static_cast<cudaStream_t>(stream));
 }
 
 // K2, f32 d 64: K1's f32 d=64 output and lse ([B*H, tq] f32), scratch as
@@ -973,8 +1035,33 @@ extern "C" int sdxl_flash_attention_lse_f32_d64(const void* q, const void* k,
                                                 int bh, int tq, int tk, int d,
                                                 float scale, void* stream) {
   if (d != 64) return cudaErrorInvalidValue;
-  return launch_tf32<true>(q, k, v, o, static_cast<float*>(lse), scratch, bh,
-                           tq, tk, scale, static_cast<cudaStream_t>(stream));
+  return launch_tf32<64, true>(q, k, v, o, static_cast<float*>(lse), scratch,
+                               bh, tq, tk, scale,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// K1, f32 d 128 (3xTF32), scratch as above.
+extern "C" int sdxl_flash_attention_f32_d128(const void* q, const void* k,
+                                             const void* v, void* o,
+                                             void* scratch, int bh, int tq,
+                                             int tk, int d, float scale,
+                                             void* stream) {
+  if (d != 128) return cudaErrorInvalidValue;
+  return launch_tf32<128, false>(q, k, v, o, nullptr, scratch, bh, tq, tk,
+                                 scale, static_cast<cudaStream_t>(stream));
+}
+
+// K2, f32 d 128: K1's f32 d=128 output and lse, scratch as above.
+extern "C" int sdxl_flash_attention_lse_f32_d128(const void* q, const void* k,
+                                                 const void* v, void* o,
+                                                 void* lse, void* scratch,
+                                                 int bh, int tq, int tk,
+                                                 int d, float scale,
+                                                 void* stream) {
+  if (d != 128) return cudaErrorInvalidValue;
+  return launch_tf32<128, true>(q, k, v, o, static_cast<float*>(lse), scratch,
+                                bh, tq, tk, scale,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // K1, f32 d 512 (3xTF32 on mma.sync).
@@ -998,11 +1085,12 @@ extern "C" int sdxl_flash_attention_f32_d512(const void* q, const void* k,
 // The dynamic shared memory a kernel of this file launches with (for the
 // build report), by its index and its leading int template arguments:
 // kernel 0 flash_fwd_wgmma<d, nc, bk, ...>, 1 flash_fwd_d512, 2
-// flash_fwd_tf32, 3 flash_fwd_f32_d512; 0 for any other.
+// flash_fwd_tf32<d, ...>, 3 flash_fwd_f32_d512; 0 for any other.
 extern "C" int flash_hopper_smem_bytes(int kernel, int d, int nc, int bk) {
   if (kernel == 0) return fwd_smem_bytes(d, nc, bk);
   if (kernel == 1) return D512Plan::kSmemBytes;
-  if (kernel == 2) return Tf32Plan::kSmemBytes;
+  if (kernel == 2 && d == 64) return Tf32Plan<64>::kSmemBytes;
+  if (kernel == 2 && d == 128) return Tf32Plan<128>::kSmemBytes;
   if (kernel == 3) return F512Plan::kSmemBytes;
   return 0;
 }

@@ -10,15 +10,14 @@ Counterpart of sdxl_tpu/ops/flash_attention.py:
 - ``use_flash``, the reference's routing rule.
 
 The kernels live in ``csrc/`` (flash_hopper.cu: K1's bf16 routes and K2's
-bf16 route on wgmma and TMA, K1's and K2's f32 d=64 route and K1's f32
-d=512 route on TF32 tensor cores; flash_fwd_wgmma.cuh: the bf16 d 64/128
-forward kernel of K1 and K2, which flash_experiments.cu instantiates for
-the experiments X1 and X2 too, and flash_pipelined.cu for X3 with its
+bf16 route on wgmma and TMA, K1's and K2's f32 d 64 and 128 routes and K1's
+f32 d=512 route on TF32 tensor cores; flash_fwd_wgmma.cuh: the bf16 d
+64/128 forward kernel of K1 and K2, which flash_experiments.cu instantiates
+for the experiments X1 and X2 too, and flash_pipelined.cu for X3 with its
 pipelined schedule; flash_hopper_bwd.cu: K3a and K3b bf16
 and f32 (d 64 and 128) on wgmma and TMA; hopper_common.cuh: the TMA,
 mbarrier and wgmma helpers and the f32 routes' TF32 split and pre-pass,
-which both share; flash_attention.cu: K1's and K2's f32 d=128 route on the
-FMA pipes; the experiments' wrappers live in
+which both share; the experiments' wrappers live in
 ``sdxl_tpu_torch/scripts/``). Each source is compiled
 with nvcc for sm_90a into a shared library with a plain C interface, at
 first use, into ``build/kernels/`` at the repo root (keyed by a hash of
@@ -40,13 +39,14 @@ and K3b):
 - K1, bf16 with d in (64, 128) (the bf16 UNet's self-attention) and d =
   512 (the bf16 VAE decode's mid-block attention): bf16 tensor cores
   (wgmma), K, V by TMA through an mbarrier ring;
-- K1, K2, K3a and K3b, f32 with d = 64 (the f32 UNet's self-attention,
-  and its training forward and backward), and K3a and K3b with d = 128
-  (the f32 trainer's backward at Flux's head width): TF32 tensor cores in
-  three passes. One TF32 product rounds each operand to 10 mantissa bits,
-  about 4e-4 of relative L2 error over an attention output, past the f32
-  bound of 1e-4; split into a high and a low TF32 part, a b = a_hi b_hi +
-  a_hi b_lo + a_lo b_hi keeps about 2^-21 of each product
+- K1, K2, K3a and K3b, f32 with d in (64, 128) (the f32 UNet's
+  self-attention and its training forward and backward at d = 64; Flux's
+  head width, an f32 Flux forward's and the f32 trainer's, at d = 128):
+  TF32 tensor cores (wgmma, operands by TMA) in three passes. One TF32
+  product rounds each operand to 10 mantissa bits, about 4e-4 of relative
+  L2 error over an attention output, past the f32 bound of 1e-4; split
+  into a high and a low TF32 part, a b = a_hi b_hi + a_hi b_lo + a_lo b_hi
+  keeps about 2^-21 of each product
   (tests/test_torch_flash_attention.py and
   tests/test_torch_flash_backward.py pin this on the CPU). A pre-pass
   splits (and for the backward transposes) the operands into scratch the
@@ -54,7 +54,6 @@ and K3b):
 - K1, f32 with d = 512 (the f32 VAE's mid-block attention, in every f32
   decode and in the training set's encode): TF32 tensor cores in three
   passes on mma.sync, the head dim split over eight warps;
-- K1 and K2, f32 with d = 128 (no SDXL path): full f32 on the FMA pipes;
 - K2, bf16 with d in (64, 128): K1's bf16 kernel with an lse store;
 - K3a and K3b, bf16 with d in (64, 128) (the bf16 trainer): bf16 tensor
   cores (wgmma), the resident rows and the streamed tiles by TMA through
@@ -84,8 +83,8 @@ _LOG2E = math.log2(math.e)
 FLASH_MIN_T = 924
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("flash_hopper.cu", "flash_hopper_bwd.cu", "flash_attention.cu",
-           "flash_experiments.cu", "flash_pipelined.cu")
+SOURCES = ("flash_hopper.cu", "flash_hopper_bwd.cu", "flash_experiments.cu",
+           "flash_pipelined.cu")
 HEADERS = ("flash_common.cuh", "hopper_common.cuh", "flash_fwd_wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -97,11 +96,11 @@ _KERNELS = {
     "sdxl_flash_attention_bf16": ("flash_hopper.cu", 4, 1),
     "sdxl_flash_attention_bf16_d512": ("flash_hopper.cu", 4, 1),
     "sdxl_flash_attention_f32_d64": ("flash_hopper.cu", 5, 1),
-    "sdxl_flash_attention_f32_d128": ("flash_attention.cu", 4, 1),
+    "sdxl_flash_attention_f32_d128": ("flash_hopper.cu", 5, 1),
     "sdxl_flash_attention_f32_d512": ("flash_hopper.cu", 4, 1),
     "sdxl_flash_attention_lse_bf16": ("flash_hopper.cu", 5, 1),
     "sdxl_flash_attention_lse_f32_d64": ("flash_hopper.cu", 6, 1),
-    "sdxl_flash_attention_lse_f32_d128": ("flash_attention.cu", 5, 1),
+    "sdxl_flash_attention_lse_f32_d128": ("flash_hopper.cu", 6, 1),
     "sdxl_flash_attention_bwd_dq_bf16": ("flash_hopper_bwd.cu", 7, 1),
     "sdxl_flash_attention_bwd_dkv_bf16": ("flash_hopper_bwd.cu", 8, 0),
     "sdxl_flash_attention_bwd_dq_f32": ("flash_hopper_bwd.cu", 8, 1),
@@ -149,12 +148,23 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
-def _tf32_scratch(bh: int, tk: int, device) -> torch.Tensor:
-    """K1's and K2's f32 d=64 scratch: K_hi, K_lo [bh, tk, 64] and V^T_hi,
-    V^T_lo [bh, 64, tp] f32, tp = tk rounded up to a multiple of 8."""
+def _tf32_scratch(bh: int, tk: int, d: int, device) -> torch.Tensor:
+    """K1's and K2's f32 scratch at head dim d (64 or 128): K_hi, K_lo
+    [bh, tk, d] and V^T_hi, V^T_lo [bh, d, tp] f32, tp = tk rounded up to a
+    multiple of 8."""
     tp = -(-tk // 8) * 8
-    return torch.empty(2 * bh * 64 * (tk + tp), dtype=torch.float32,
+    return torch.empty(2 * bh * d * (tk + tp), dtype=torch.float32,
                        device=device)
+
+
+def _with_tf32_scratch(name: str, tensors: tuple, tk: int) -> tuple:
+    """`tensors`, and K1's or K2's f32 scratch where the export `name`
+    takes one pointer more than them (its pre-pass's; ``_KERNELS``)."""
+    if _KERNELS[name][1] == len(tensors):
+        return tensors
+    q = tensors[0]
+    b, h, _, d = q.shape
+    return tensors + (_tf32_scratch(b * h, tk, d, q.device),)
 
 
 def _bwd_tf32_scratch(bh: int, tq: int, tk: int, d: int, dq: bool,
@@ -372,9 +382,7 @@ def flash_attention_bhtd(q: torch.Tensor, k: torch.Tensor,
     _check_cuda("flash attention", (q, k, v), _ROUTES)
     out = torch.empty_like(q)
     name = _ROUTES[q.dtype, d]
-    tensors = (q, k, v, out)
-    if name == "sdxl_flash_attention_f32_d64":
-        tensors += (_tf32_scratch(b * h, tk, q.device),)
+    tensors = _with_tf32_scratch(name, (q, k, v, out), tk)
     _launch(name, tensors, (b * h, tq, tk, d), (d ** -0.5 * _LOG2E,))
     return out
 
@@ -390,9 +398,7 @@ def flash_attention_lse(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     name = _TRAIN_ROUTES[q.dtype, d][0]
-    tensors = (q, k, v, out, lse)
-    if name == "sdxl_flash_attention_lse_f32_d64":
-        tensors += (_tf32_scratch(b * h, tk, q.device),)
+    tensors = _with_tf32_scratch(name, (q, k, v, out, lse), tk)
     _launch(name, tensors, (b * h, tq, tk, d), (d ** -0.5 * _LOG2E,))
     return out, lse
 

@@ -10,12 +10,12 @@ backward's first kernels has (``flash_attention_bhtd``,
 ``flash_attention_lse``, ``launch_bwd_dq``, ``launch_bwd_dkv``,
 ``_prescale_q``) are called. Cases: K1 bf16 and f32 d=64 at
 [2,10,4096,64]; K2 and K3a, K3b bf16 and f32 d=64 at [1,10,4096,64] (the
-bf16 and f32 LoRA steps' level 1); K2, K3a and K3b f32 d=128 at
-[1,24,4608,128] (an f32 Flux-dev LoRA step's joint attention at 1024x1024)
-and [1,2,1000,128]. Each is timed as ms per call inside one CUDA graph of
-20 calls (the device's time, no host launch between calls), random normal
-inputs from seed 43. Prints one line per case, the card's name and power
-limit, and last a JSON object {case: ms}.
+bf16 and f32 LoRA steps' level 1); K1, K2, K3a and K3b f32 d=128 at
+[1,24,4608,128] (an f32 Flux-dev forward's and LoRA step's joint attention
+at 1024x1024) and [1,2,1000,128]. Each is timed as ms per call inside one
+CUDA graph of 20 calls (the device's time, no host launch between calls),
+random normal inputs from seed 43. Prints one line per case, the card's
+name and power limit, and last a JSON object {case: ms}.
 """
 
 from __future__ import annotations
@@ -37,9 +37,12 @@ CASES = [
     ("K2", torch.float32, (1, 10, 4096, 64)),
     ("K3a", torch.float32, (1, 10, 4096, 64)),
     ("K3b", torch.float32, (1, 10, 4096, 64)),
+    ("K1", torch.float32, (1, 24, 4608, 128)),
     ("K2", torch.float32, (1, 24, 4608, 128)),
     ("K3a", torch.float32, (1, 24, 4608, 128)),
     ("K3b", torch.float32, (1, 24, 4608, 128)),
+    ("K1", torch.float32, (1, 2, 1000, 128)),
+    ("K2", torch.float32, (1, 2, 1000, 128)),
     ("K3a", torch.float32, (1, 2, 1000, 128)),
     ("K3b", torch.float32, (1, 2, 1000, 128)),
 ]

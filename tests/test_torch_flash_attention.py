@@ -141,10 +141,11 @@ def _exporters():
      ["sdxl_flash_attention_bf16_d512", "sdxl_flash_attention_f32_d64",
       "sdxl_flash_attention_lse_f32_d64"],
      "flash_hopper.cu"),
-    # K1 and K2's f32 d=128 FMA route
+    # K1 and K2's f32 d=128 route: the f32 d=64 kernel's template (3xTF32
+    # on wgmma and TMA) at d=128
     ([(torch.float32, 128)],
      ["sdxl_flash_attention_f32_d128", "sdxl_flash_attention_lse_f32_d128"],
-     "flash_attention.cu"),
+     "flash_hopper.cu"),
     # K1 f32 d 512: 3xTF32 on mma.sync
     ([(torch.float32, 512)], ["sdxl_flash_attention_f32_d512"],
      "flash_hopper.cu"),
@@ -219,18 +220,40 @@ def _f32_d512_route(q, k, v, passes: int) -> torch.Tensor:
     return o / l
 
 
-@pytest.mark.parametrize("d", [64, 512])
+def _f32_d128_route(q, k, v, passes: int) -> torch.Tensor:
+    """The f32 d=128 route's arithmetic (csrc/flash_hopper.cu
+    flash_fwd_tf32<128>): per 64-key tile, S on TF32 operands (rounded to
+    nearest), the base-2 online softmax, and the tile's P V into a fresh
+    accumulator added to O as O alpha + PV."""
+    qs = q * (128 ** -0.5 * fa._LOG2E)
+    o = torch.zeros_like(q)
+    m = torch.full(q.shape[:-1] + (1,), float("-inf"))
+    l = torch.zeros_like(m)
+    for k0 in range(0, k.shape[-2], 64):
+        kt, vt = k[..., k0:k0 + 64, :], v[..., k0:k0 + 64, :]
+        s = tf32_matmul(qs, kt.transpose(-1, -2), passes)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - m_new), torch.exp2(s - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        o = o * alpha + tf32_matmul(p, vt, passes)
+        m = m_new
+    return o / l
+
+
+@pytest.mark.parametrize("d", [64, 128, 512])
 def test_3xtf32_attention_keeps_the_f32_bound(d):
-    """The f32 routes on TF32 tensor cores: d=64 (flash_fwd_tf32, operands
-    rounded to nearest) and d=512 (flash_fwd_f32_d512, operands truncated,
-    its head-dim split and key tiles emulated). Both products of the
-    attention on TF32 operands in three passes stay within 1e-3 x min(1,
-    max|o|) and a relative L2 error of 1e-4 of the reference's f32 kernel;
-    one pass does not."""
-    shape = (1, 2, 256, 64) if d == 64 else (1, 1, 512, 512)
+    """The f32 routes on TF32 tensor cores: d=64 (flash_fwd_tf32<64>,
+    operands rounded to nearest), d=128 (flash_fwd_tf32<128>, its key tiles
+    and fresh P V sums emulated, at a ragged token count) and d=512
+    (flash_fwd_f32_d512, operands truncated, its head-dim split and key
+    tiles emulated). Both products of the attention on TF32 operands in
+    three passes stay within 1e-3 x min(1, max|o|) and a relative L2 error
+    of 1e-4 of the reference's f32 kernel; one pass does not."""
+    shape = {64: (1, 2, 256, 64), 128: (1, 2, 200, 128),
+             512: (1, 1, 512, 512)}[d]
     q, k, v = inputs(shape, shape, seed=5)
     want = np.asarray(j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                              64 if d == 64 else 128, 128))
+                              64 if d < 512 else 128, 128))
     qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
     rel = {}
     for passes in (1, 3):
@@ -239,6 +262,8 @@ def test_3xtf32_attention_keeps_the_f32_bound(d):
             s = tf32_matmul(qs, kt.transpose(-1, -2), passes)
             p = torch.exp2(s - s.amax(-1, keepdim=True))
             o = tf32_matmul(p, vt, passes) / p.sum(-1, keepdim=True)
+        elif d == 128:
+            o = _f32_d128_route(qt, kt, vt, passes)
         else:
             o = _f32_d512_route(qt, kt, vt, passes)
         diff = o.numpy() - want
