@@ -85,6 +85,21 @@ Phases (any failure exits non-zero before the result line):
      under torch.profiler — device time by the op that launched each
      kernel, and the device's idle share against the unfenced latency;
      the same for the f32 UNet's 4-step request after phase 5;
+  9b. checkpoint loading and the sample CLI: the same full-width
+     pipeline written with save_native_pipeline (UNet bf16, the rest
+     f32) into build/checkpoint (free space checked first, removed at
+     the end); the kernel asked to drop its pages (posix_fadvise); then
+     `sdxl_tpu_torch.cli.sample.main` with --model-dir on it, one
+     prompt, 1024x1024, 30 steps, CFG 7.5, seed 0: the pipeline the CLI
+     loaded must be bitwise equal to the in-memory one (CLIP towers,
+     UNet, VAE decoder and encoder, alphas_cumprod), K1 launched
+     UNET_LAUNCHES_1024 times on its d 64/128 route and once on its f32
+     d=512 route in that request, and the PNG it wrote (decoded here
+     with zlib) within 1 u8 level of the in-memory pipeline's
+     txt2img (the count of differing pixels printed); bytes written,
+     seconds to write, and seconds for both loads of load_pipeline
+     printed, the first called cold only if the page cache fell by the
+     files' size;
   10. the LoRA training path on the same pipeline: encode two random
      1024x1024 images with captions (the VAE encoder launches K1's f32
      d=512 route), then five LoRA steps (rank 16, attn targets, lr 1e-4,
@@ -96,7 +111,7 @@ Phases (any failure exits non-zero before the result line):
      (forward and backward) in place of the kernels: they must agree;
   12. with --profile only: three timed LoRA steps, then one under
      torch.profiler, reported as in phase 9.
-Each path (phases 4, 5, 5b, 6, 8, 10) runs with the launch counts set to
+Each path (phases 4, 5, 5b, 6, 8, 9b, 10) runs with the launch counts set to
 0 just before it and read just after; the JSON record's launches are their
 sum. Each phase's seconds are printed. The last two lines are the kernels'
 JSON record and {"ok": true, ...}.
@@ -112,9 +127,11 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
+import zlib
 from collections import Counter, defaultdict
 
 import numpy as np
@@ -122,9 +139,12 @@ import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
+from sdxl_tpu_torch.cli import sample as sample_cli
+from sdxl_tpu_torch.io.checkpoint import save_native_pipeline
 from sdxl_tpu_torch.models.unet import unet_forward
 from sdxl_tpu_torch.ops import attention as attention_mod
 from sdxl_tpu_torch.ops import flash_attention as fa
+from sdxl_tpu_torch.pipeline import loader as loader_mod
 from sdxl_tpu_torch.pipeline.latent import decode_latent_to_images
 from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
 from sdxl_tpu_torch.pipeline.sampler import _cfg_contexts
@@ -355,6 +375,12 @@ F32_TRAIN_STEPS = 3
 # the UNet's self-attentions at 1024x1024 (10 at level 1, 60 at level 2):
 # each step runs one backward of each, one launch of K3a and one of K3b
 TRAIN_ATTENTIONS = 70
+# phase 9b: where the native checkpoint is written (build/ is
+# git-ignored), and the free space it needs beyond the weights' bytes
+CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "checkpoint")
+CKPT_SLACK = 2 << 30
+CLI_LEVEL_TOL = 1
 ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
               torch.profiler.ProfilerActivity.CUDA]
 
@@ -987,6 +1013,193 @@ def check_path_against_plain(pipe) -> None:
         fail("the kernel path disagrees with the plain attention path")
 
 
+def read_png(path: str):
+    """(pixels [H, W, 3] uint8, text chunks) of an 8-bit RGB PNG whose
+    rows all use filter 0, as io/images.py writes them."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        fail(f"{path} is not a PNG")
+    pos, idat, text, size = 8, [], {}, None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            size = struct.unpack(">IIBB", body[:10])
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"tEXt":
+            key, value = body.split(b"\0", 1)
+            text[key.decode("latin-1")] = value.decode("latin-1")
+    w, h, depth, color = size
+    if (depth, color) != (8, 2):
+        fail(f"{path}: bit depth {depth}, colour type {color}")
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)),
+                         np.uint8).reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        fail(f"{path}: a row filter other than 0")
+    return rows[:, 1:].reshape(h, w, 3), text
+
+
+def drop_page_cache(paths) -> None:
+    """Ask the kernel to evict the files' pages (clean after fsync), so the
+    next read comes from the disk."""
+    for path in paths:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+
+
+def page_cache_bytes() -> int:
+    """The kernel's page cache (/proc/meminfo Cached)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("Cached:"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+def mount_of(path: str) -> str:
+    """'<filesystem type> <device>' of the mount that holds path."""
+    best = ("", "?", "?")
+    with open("/proc/mounts") as f:
+        for line in f:
+            dev, point, fstype = line.split()[:3]
+            if path.startswith(point) and len(point) > len(best[0]):
+                best = (point, fstype, dev)
+    return f"{best[1]} {best[2]} at {best[0]}"
+
+
+def check_loaded_state(pipe, loaded) -> None:
+    """Every tensor of the loaded pipeline bitwise equal to the in-memory
+    one's."""
+    pairs = [("embedder", pipe.embedder, loaded.embedder),
+             ("unet", pipe.unet, loaded.unet), ("vae", pipe.vae, loaded.vae),
+             ("vae_encoder", pipe.vae_encoder, loaded.vae_encoder)]
+    n = 0
+    for what, a, b in pairs:
+        sa, sb = a.state_dict(), b.state_dict()
+        if sorted(sa) != sorted(sb):
+            fail(f"loaded {what}: keys differ "
+                 f"{sorted(set(sa) ^ set(sb))[:5]}")
+        for k in sa:
+            if sa[k].dtype != sb[k].dtype or not torch.equal(sa[k], sb[k]):
+                fail(f"loaded {what}.{k} differs from the in-memory tensor")
+            n += sa[k].numel()
+    if not torch.equal(pipe.alphas_cumprod, loaded.alphas_cumprod):
+        fail("loaded alphas_cumprod differs")
+    print(f"loaded pipeline: {n} parameters bitwise equal to the in-memory "
+          f"pipeline's", flush=True)
+
+
+def checkpoint_cli_phase(pipe, total) -> None:
+    """Phase 9b: write the pipeline as a native checkpoint, answer one
+    request through the sample CLI from it, and hold the CLI's load and
+    image against the in-memory pipeline."""
+    modules = [pipe.embedder, pipe.unet, pipe.vae, pipe.vae_encoder]
+    need = sum(p.numel() * p.element_size() for m in modules
+               for p in m.parameters())
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    free = shutil.disk_usage(CKPT_DIR).free
+    print(f"checkpoint dir {CKPT_DIR} ({mount_of(CKPT_DIR)}): {free} bytes "
+          f"free, the weights need {need}", flush=True)
+    if free < need + CKPT_SLACK:
+        fail(f"{free} bytes free under {CKPT_DIR}, need {need} + "
+             f"{CKPT_SLACK}")
+    loads = []
+    real_load = loader_mod.load_pipeline
+
+    def timed_load(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_load(*args, **kw)
+        torch.cuda.synchronize()
+        loads.append((time.perf_counter() - t0, out))
+        return out
+
+    try:
+        ckpt = os.path.join(CKPT_DIR, "sdxl")
+        t0 = time.perf_counter()
+        save_native_pipeline(ckpt, pipe)
+        files = [os.path.join(ckpt, f) for f in sorted(os.listdir(ckpt))]
+        for f in files:  # on the disk, not only in the page cache
+            fd = os.open(f, os.O_RDONLY)
+            os.fsync(fd)
+            os.close(fd)
+        write_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(f) for f in files)
+        print(f"checkpoint written: {written} bytes in {write_s:.3f}s "
+              f"({written / write_s / 1e9:.3f} GB/s): " + ", ".join(
+                  f"{os.path.basename(f)} {os.path.getsize(f)}"
+                  for f in files), flush=True)
+
+        before = page_cache_bytes()
+        drop_page_cache(files)
+        after = page_cache_bytes()
+        # the first load reads from the disk only if the kernel let the
+        # files' pages go; some filesystems ignore the advice
+        evicted = before - after
+        first = ("cold: the page cache fell by " if evicted >= 0.9 * written
+                 else "not evicted: the page cache fell by only ") + \
+            f"{evicted} of the files' {written} bytes"
+        print(f"page cache: {before} bytes before posix_fadvise(DONTNEED) "
+              f"on the files, {after} after ({first})", flush=True)
+        out = os.path.join(CKPT_DIR, "out", "img")
+        argv = ["--model-dir", ckpt, "--prompt", PROMPT, "--height", "1024",
+                "--width", "1024", "-steps", "30", "-gs", "7.5", "--seed",
+                "0", "--output-dir", out]
+        print(f"-- python -m sdxl_tpu_torch.cli.sample {' '.join(argv)}",
+              flush=True)
+        loader_mod.load_pipeline = timed_load
+        try:
+            rc = run_path("the sample CLI request",
+                          lambda: sample_cli.main(argv),
+                          ["sdxl_flash_attention_bf16", F32_D512], total)
+        finally:
+            loader_mod.load_pipeline = real_load
+        n_unet = fa.launch_counts["sdxl_flash_attention_bf16"]
+        n_vae = fa.launch_counts[F32_D512]
+        if rc != 0:
+            fail(f"the sample CLI returned {rc}")
+        if (n_unet, n_vae) != (UNET_LAUNCHES_1024, 1):
+            fail(f"the CLI's request launched K1 {n_unet} (bf16 d 64/128) "
+                 f"and {n_vae} (f32 d=512) times, not "
+                 f"{UNET_LAUNCHES_1024} and 1")
+        (first_s, loaded), = loads
+        check_loaded_state(pipe, loaded)
+        del loaded
+        loads.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        timed_load(ckpt)
+        warm_s = loads.pop()[0]
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"load_pipeline (disk -> card, {written} bytes): "
+              f"{first_s:.3f}s on the first load ({first}), "
+              f"{warm_s:.3f}s on the second, with the files in the page "
+              f"cache", flush=True)
+
+        got, text = read_png(out + "0.png")
+        want = pipe.txt2img(PROMPT, resolution=(1024, 1024), n_steps=30,
+                            guidance_scale=7.5, seed=0)[0]
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        print(f"CLI image vs in-memory txt2img: {int((diff > 0).any(-1).sum())}"
+              f" of {diff.shape[0] * diff.shape[1]} pixels differ, max "
+              f"{int(diff.max())} levels (tol {CLI_LEVEL_TOL}); parameters: "
+              f"{text.get('parameters', '')!r}", flush=True)
+        if got.shape != (1024, 1024, 3) or diff.max() > CLI_LEVEL_TOL:
+            fail("the CLI's image disagrees with the in-memory pipeline's")
+        if "Backend: sdxl_tpu_torch" not in text.get("parameters", ""):
+            fail("the PNG lacks the parameters text chunk")
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+
 def device_time_by_op(events) -> dict:
     """{row: [device us, kernels]} over a profile's events. A kernel counts
     under the innermost op that launched it; one launched outside any op
@@ -1240,6 +1453,8 @@ def main() -> None:
     if args.profile:
         profile_request(pipe)
     phase_done("8-9 (bf16 decode, profile)")
+    checkpoint_cli_phase(pipe, path)
+    phase_done("9b (checkpoint, sample CLI)")
 
     data, cfg, factors, train_launches = run_training(
         pipe, TRAIN_STEPS, [F32_D512, *fa._TRAIN_ROUTES[torch.bfloat16, 64]])

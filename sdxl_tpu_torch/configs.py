@@ -2,12 +2,15 @@
 
 Frozen dataclasses with the reference's field names and defaults, and the
 SDXL 1.0 presets, so a config describes the same model in both packages
-(a CPU test holds ``dataclasses.asdict`` of each against the reference's).
-The SD1/SD2, SD3, T5 and Flux configs wait for their slices.
+(a CPU test holds ``dataclasses.asdict`` of each against the reference's),
+and ``load_cfg`` / ``save_cfg`` for the ``.cfg`` JSON files of a checkpoint
+directory. The SD1/SD2, SD3, T5 and Flux configs wait for their slices.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -177,3 +180,47 @@ SDXL_REFINER_DIFFUSER = DiffuserConfig(
 
 SDXL_EMBEDDER = EmbedderConfig(
     clip_config=CLIP_VIT_L_CONFIG, open_clip_config=OPEN_CLIP_BIGG_CONFIG)
+
+
+# ---------------------------------------------------------------------------
+# burn .cfg JSON interop
+# ---------------------------------------------------------------------------
+
+def _from_dict(cls, data):
+    if dataclasses.is_dataclass(cls) and isinstance(data, dict):
+        names = {f.name for f in dataclasses.fields(cls)}
+        kwargs = {}
+        for k, v in data.items():
+            if k not in names:
+                continue  # tolerate extra keys (burn serializes all fields)
+            if k.endswith("_config"):
+                kwargs[k] = _from_dict(CLIPConfig, v)
+            else:
+                kwargs[k] = _deep_tuple(v) if isinstance(v, list) else v
+        return cls(**kwargs)
+    return data
+
+
+def _deep_tuple(v):
+    """Lists -> tuples recursively: nested channel plans (e.g.
+    AutoencoderConfig's tuple-of-pairs) load back hashable."""
+    return tuple(_deep_tuple(x) if isinstance(x, list) else x for x in v)
+
+
+def load_cfg(path: str, cls):
+    """Load a burn-format .cfg JSON file into a config dataclass."""
+    with open(path, "r", encoding="utf-8") as f:
+        return _from_dict(cls, json.load(f))
+
+
+def save_cfg(path: str, cfg) -> None:
+    def encode(obj):
+        if dataclasses.is_dataclass(obj):
+            return {f.name: encode(getattr(obj, f.name))
+                    for f in dataclasses.fields(obj)}
+        if isinstance(obj, tuple):
+            return list(obj)
+        return obj
+
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(encode(cfg), f, indent=2)

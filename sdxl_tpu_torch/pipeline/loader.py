@@ -1,0 +1,253 @@
+"""Assemble an SDXLPipeline from a checkpoint on disk (counterpart of
+sdxl_tpu/pipeline/loader.py).
+
+Accepted layouts (auto-detected by ``detect_format``):
+  1. reference model dir:  {dir}/{embedder,diffuser,latent_decoder}.{mpk,cfg}
+     (sample/main.rs:28-51)
+  2. reference npy dump:   {dir}/{embedder,diffuser,latent_decoder}/... tree
+     (convert/main.rs:72-121)
+  3. native:               {dir}/{embedder,diffuser,latent_decoder}.safetensors
+     + .cfg JSON (io/checkpoint.py save_native_pipeline)
+  4. diffusers:            {dir}/{unet,vae,text_encoder,text_encoder_2}/...
+  5. sgm single file:      sd_xl_*.safetensors / .ckpt, or a path to one
+
+Every reader yields the port's state_dicts on the pipeline's device (the
+card unless the caller asks for the CPU). Each module is built on the meta
+device and takes its tensors with ``load_state_dict(strict=True,
+assign=True)``: a missing or extra key is an error naming it, and no
+weight is held twice on the device. LoRA files merge into the loaded
+modules afterwards (io/lora.py). The refiner (module 9) and quantized
+storage (module 14) raise NotImplementedError; the reference's
+transformer stacking and HBM placement are XLA devices the port does not
+need.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..configs import (
+    SDXL_BASE_DIFFUSER,
+    SDXL_EMBEDDER,
+    AutoencoderConfig,
+    DiffuserConfig,
+    EmbedderConfig,
+    LatentDecoderConfig,
+    load_cfg,
+)
+from ..io import checkpoint as ckpt
+from ..io.bridge import fuse_qkv
+from ..models.clip import CLIPTextModel
+from ..models.unet import UNet
+from ..models.vae import VAEDecoder, VAEEncoder
+from ..tokenizer import ClipTokenizer, OpenClipTokenizer
+from ..utils import log
+from .pipeline import SDXLPipeline
+from .sampler import scaled_linear_alphas_cumprod
+
+# the layouts without config files (npy, sgm, and the mpk VAE) hold SDXL
+# 1.0 at its published widths
+SDXL_VAE = AutoencoderConfig()
+_DECODER = ("decoder.", "post_quant_conv.")
+_ENCODER = ("encoder.", "quant_conv.")
+
+
+def detect_format(model_dir: str) -> str:
+    if os.path.isfile(model_dir) and model_dir.endswith(
+            (".safetensors", ".sft", ".ckpt", ".pt", ".pth")):
+        # single-file checkpoint: sgm safetensors or the legacy torch
+        # pickle (.ckpt) the A1111 era shipped
+        return "sgm_single_file"
+    if os.path.isfile(os.path.join(model_dir, "embedder.safetensors")):
+        return "native"
+    if os.path.isfile(os.path.join(model_dir, "embedder.mpk")):
+        return "mpk"
+    if os.path.isdir(os.path.join(model_dir, "embedder")):
+        return "npy"
+    if os.path.isdir(os.path.join(model_dir, "unet")) and (
+        os.path.isfile(os.path.join(model_dir, "model_index.json"))
+        or os.path.isdir(os.path.join(model_dir, "vae"))
+    ):
+        return "diffusers"
+    single = (glob.glob(os.path.join(model_dir, "sd_xl_*.safetensors"))
+              + glob.glob(os.path.join(model_dir, "sd_xl_*.ckpt")))
+    if single:
+        return "sgm_single_file"
+    raise FileNotFoundError(f"no known checkpoint layout in {model_dir}")
+
+
+def _load_module(module: nn.Module, sd: Dict[str, torch.Tensor], what: str,
+                 device) -> nn.Module:
+    """Give a meta-device module the tensors of ``sd``, moved to ``device``
+    and cast there to each parameter's dtype, strictly: a missing, extra
+    or misshapen key is a ValueError naming it."""
+    params = dict(module.named_parameters())
+    sd = {k: v.to(device).to(params[k].dtype) if k in params else v
+          for k, v in sd.items()}
+    try:
+        module.load_state_dict(sd, strict=True, assign=True)
+    except RuntimeError as e:
+        raise ValueError(f"{what}: {e}") from None
+    return module.eval().requires_grad_(False)
+
+
+def _embedder(cfg: EmbedderConfig, sds, device) -> nn.ModuleDict:
+    towers = {}
+    for name, tcfg in (("clip", cfg.clip_config),
+                       ("open_clip", cfg.open_clip_config)):
+        model = CLIPTextModel(tcfg, "meta")
+        if "text_projection" not in sds[name]:
+            # the ViT-L tower's projection is optional (hidden states only)
+            model.text_projection = None
+        towers[name] = _load_module(model, sds[name], f"embedder.{name}",
+                                    device)
+    return nn.ModuleDict(towers)
+
+
+def _autoencoder(cfg: AutoencoderConfig, sd: Dict[str, torch.Tensor],
+                 device):
+    """(VAEDecoder, VAEEncoder or None) from an autoencoder state_dict."""
+    extra = [k for k in sd if not k.startswith(_DECODER + _ENCODER)]
+    if extra:
+        raise ValueError(f"latent decoder: unexpected key(s) {extra[:5]}")
+    dec = _load_module(VAEDecoder(cfg, "meta"),
+                       {k: v for k, v in sd.items() if k.startswith(_DECODER)},
+                       "latent decoder", device)
+    enc_sd = {k: v for k, v in sd.items() if k.startswith(_ENCODER)}
+    enc = (_load_module(VAEEncoder(cfg, "meta"), enc_sd, "latent encoder",
+                        device) if enc_sd else None)
+    return dec, enc
+
+
+def load_pipeline(
+    model_dir: str,
+    use_refiner: bool = False,
+    compute_dtype=torch.bfloat16,
+    tokenizer_dir: Optional[str] = None,
+    loras=None,
+    quantize: Optional[str] = None,
+    device="cuda",
+) -> SDXLPipeline:
+    """Load any layout ``detect_format`` knows onto ``device``: the UNet
+    in ``compute_dtype``, the towers and the VAE in f32. loras is a list
+    of (path, scale) LoRA safetensors files merged into the UNet and the
+    text towers at load time (io/lora.py)."""
+    if use_refiner:
+        raise NotImplementedError("refiner loading is not ported yet "
+                                  "(module 9)")
+    if quantize is not None:
+        raise NotImplementedError("quantized UNet storage is not ported yet "
+                                  "(module 14)")
+    device = torch.device(device)
+    fmt = detect_format(model_dir)
+    log(f"loading checkpoint ({fmt}) from {model_dir}")
+    v_cfg = SDXL_VAE
+    alphas = scale = None
+
+    if fmt == "diffusers":
+        from ..io.diffusers_sdxl import (
+            infer_sdxl_configs_from_diffusers_dir,
+            load_sdxl_diffusers_dir,
+        )
+
+        # hyperparameters come from the dir's own config.json files
+        e_cfg, d_cfg, v_cfg = infer_sdxl_configs_from_diffusers_dir(model_dir)
+        e_sds, unet_sd, vae_sd, alphas, scale, d_cfg = \
+            load_sdxl_diffusers_dir(model_dir, d_cfg, e_cfg, compute_dtype,
+                                    vae_cfg=v_cfg, device=device)
+        if e_sds is None:
+            raise FileNotFoundError(f"text encoders missing under {model_dir}")
+    elif fmt == "sgm_single_file":
+        from ..io.hf_sdxl import load_sdxl_safetensors
+
+        if os.path.isfile(model_dir):
+            base_path = model_dir
+        else:
+            paths = sorted(
+                glob.glob(os.path.join(model_dir, "sd_xl_*.safetensors"))
+                + glob.glob(os.path.join(model_dir, "sd_xl_*.ckpt")))
+            base_path = next((p for p in paths if "refiner" not in p),
+                             paths[0])
+        e_cfg, d_cfg = SDXL_EMBEDDER, SDXL_BASE_DIFFUSER
+        e_sds, unet_sd, vae_sd = load_sdxl_safetensors(
+            base_path, d_cfg, e_cfg, compute_dtype, device=device)
+        if e_sds is None:
+            raise FileNotFoundError(
+                f"conditioner weights missing in {base_path}")
+    elif fmt == "mpk":
+        e_cfg, e_sds = ckpt.load_embedder_mpk(model_dir)
+        d_cfg, unet_sd, alphas = ckpt.load_diffuser_mpk(model_dir)
+        l_cfg, vae_sd = ckpt.load_latent_decoder_mpk(model_dir)
+        scale = l_cfg.scale_factor
+    elif fmt == "npy":
+        e_cfg, d_cfg = SDXL_EMBEDDER, SDXL_BASE_DIFFUSER
+        e_sds = ckpt.load_embedder_npy(model_dir, e_cfg)
+        unet_sd, alphas = ckpt.load_diffuser_npy(model_dir, d_cfg)
+        vae_sd, scale = ckpt.load_latent_decoder_npy(model_dir)
+    else:  # native
+        def path(name):
+            return os.path.join(model_dir, name)
+
+        e_cfg = load_cfg(path("embedder.cfg"), EmbedderConfig)
+        d_cfg = load_cfg(path("diffuser.cfg"), DiffuserConfig)
+        l_cfg = load_cfg(path("latent_decoder.cfg"), LatentDecoderConfig)
+        if os.path.isfile(path("autoencoder.cfg")):
+            v_cfg = load_cfg(path("autoencoder.cfg"), AutoencoderConfig)
+        e_sds = {k: ckpt.native_state_dict(path("embedder.safetensors"),
+                                           device=device, prefix=k + ".")
+                 for k in ("clip", "open_clip")}
+        unet_sd = fuse_qkv(ckpt.native_state_dict(
+            path("diffuser.safetensors"), compute_dtype, device))
+        if os.path.isfile(path("alphas_cumprod.safetensors")):
+            alphas = ckpt.load_native(
+                path("alphas_cumprod.safetensors"))["alphas_cumprod"]
+        vae_sd = ckpt.native_state_dict(path("latent_decoder.safetensors"),
+                                        device=device)
+        scale = l_cfg.scale_factor
+
+    if fmt in ("mpk", "npy"):
+        # the reference's f32 numpy trees, flattened and streamed to the
+        # device a leaf at a time (each name rebound, so that a host leaf
+        # is freed once its tensor is made)
+        e_sds = {k: ckpt.flatten_pytree(v) for k, v in e_sds.items()}
+        e_sds = {k: ckpt.stream_state_dict(v, device=device)
+                 for k, v in e_sds.items()}
+        unet_sd = ckpt.flatten_pytree(unet_sd)
+        unet_sd = fuse_qkv(ckpt.stream_state_dict(unet_sd, compute_dtype,
+                                                  device))
+        vae_sd = ckpt.flatten_pytree(vae_sd)
+        vae_sd = ckpt.stream_state_dict(vae_sd, device=device)
+    if d_cfg.prediction_type != "eps":
+        raise NotImplementedError("v-prediction UNets are not ported yet "
+                                  "(module 12)")
+    embedder = _embedder(e_cfg, e_sds, device)
+    unet = _load_module(UNet(d_cfg.unet_config(), "meta", compute_dtype),
+                        unet_sd, "diffuser", device)
+    vae, encoder = _autoencoder(v_cfg, vae_sd, device)
+    del e_sds, unet_sd, vae_sd
+    if loras:
+        from ..io.lora import apply_lora_files
+
+        apply_lora_files(loras, unet=unet, te1=embedder["clip"],
+                         te2=embedder["open_clip"])
+    if alphas is None:
+        alphas = scaled_linear_alphas_cumprod()
+    return SDXLPipeline(
+        embedder_cfg=e_cfg,
+        embedder=embedder,
+        diffuser_cfg=d_cfg,
+        unet=unet,
+        alphas_cumprod=torch.as_tensor(alphas, dtype=torch.float32,
+                                       device=device),
+        vae_cfg=v_cfg,
+        vae=vae,
+        clip_tokenizer=ClipTokenizer(tokenizer_dir),
+        open_clip_tokenizer=OpenClipTokenizer(tokenizer_dir),
+        vae_encoder=encoder,
+        scale_factor=float(scale or 0.13025),
+    )

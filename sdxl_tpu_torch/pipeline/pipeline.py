@@ -96,6 +96,24 @@ class SDXLPipeline:
                 fence(cond.context_full)
         return cond
 
+    def add_textual_inversions(self, specs) -> None:
+        """Merge textual-inversion embedding files ('PATH[:word]', in order)
+        into both tokenizers and both CLIP embedding tables
+        (io/textual_inversion.py)."""
+        from ..io.textual_inversion import apply_textual_inversions
+
+        apply_textual_inversions(
+            list(specs),
+            tokenizers=[self.clip_tokenizer, self.open_clip_tokenizer],
+            embedder=self.embedder,
+            tower_keys=["clip", "open_clip"],
+            tower_widths=[
+                self.embedder_cfg.clip_config.n_state,
+                self.embedder_cfg.open_clip_config.n_state,
+            ],
+        )
+        self._uncond_cache.clear()  # embedding tables changed
+
     @torch.inference_mode()
     def txt2img(self, prompts, resolution: Tuple[int, int] = (1024, 1024),
                 n_steps: int = 30, guidance_scale: float = 7.5, seed: int = 0,
@@ -156,13 +174,15 @@ def random_pipeline(
     vae_cfg: AutoencoderConfig = AutoencoderConfig(),
     unet_dtype: torch.dtype = torch.bfloat16,
     with_encoder: bool = False,
+    tokenizer_dir: Optional[str] = None,
 ) -> SDXLPipeline:
     """Pipeline with random weights drawn on ``device`` (the card unless
     the caller asks for the CPU) from one seeded torch.Generator, with the
     reference's init distributions (weights N(0, 0.02^2), VAE convs
     N(0, 0.05^2), zero biases, unit norm gains) so activations stay in the
     same range as the JAX bring-up pipeline.
-    with_encoder adds the VAE encoder, drawn last, for training."""
+    with_encoder adds the VAE encoder, drawn last, for training;
+    tokenizer_dir is an external tokenizer data directory (tokenizer/bpe.py)."""
     device = torch.device(device)
     g = torch.Generator(device=device).manual_seed(seed)
     log("initializing random weights (no checkpoint)")
@@ -189,7 +209,7 @@ def random_pipeline(
                                        device=device),
         vae_cfg=vae_cfg,
         vae=vae,
-        clip_tokenizer=ClipTokenizer(),
-        open_clip_tokenizer=OpenClipTokenizer(),
+        clip_tokenizer=ClipTokenizer(tokenizer_dir),
+        open_clip_tokenizer=OpenClipTokenizer(tokenizer_dir),
         vae_encoder=encoder,
     )

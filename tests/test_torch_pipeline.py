@@ -141,11 +141,14 @@ def test_unported_options_raise(pipes):
 def test_port_never_imports_jax():
     """Every module of the port imports, and a tiny pipeline runs, with
     `import jax` and `import sdxl_tpu` made to fail: the port keeps its own
-    configs and tokenizer."""
+    configs and tokenizer. Nor does it import the packages the card lacks
+    (safetensors, msgpack, PIL, ml_dtypes): it has its own readers."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
-        sys.modules["jax"] = None
-        sys.modules["sdxl_tpu"] = None
+        BLOCKED = ("jax", "sdxl_tpu", "safetensors", "msgpack", "PIL",
+                   "ml_dtypes")
+        for name in BLOCKED:
+            sys.modules[name] = None
         import torch
         import sdxl_tpu_torch
         for m in pkgutil.walk_packages(sdxl_tpu_torch.__path__,
@@ -168,7 +171,7 @@ def test_port_never_imports_jax():
             unet_dtype=torch.float32)
         img = pipe.txt2img("a cat", (64, 64), n_steps=1)
         assert img.shape == (1, 64, 64, 3), img.shape
-        assert not any(k.split(".")[0] in ("jax", "sdxl_tpu")
+        assert not any(k.split(".")[0] in BLOCKED
                        for k, v in sys.modules.items() if v is not None)
         print("NO_JAX_OK")
     """)
