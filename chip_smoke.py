@@ -21,8 +21,10 @@ Phases (any failure exits non-zero before the result line):
      for an X3 instance (whose point is wgmma in flight under the softmax)
      and is printed for any other;
   3. each kernel against its plain PyTorch version on the card at the
-     main paths' shapes (and K1/K2/K3 at a token count no multiple of 4,
-     and at Flux-dev's joint attention, [1,24,4608,128]) —
+     main paths' shapes (the refiner's [1,12,4096,64] and [1,24,1024,64]
+     bf16 among K1's, those two also inside one CUDA graph; K1/K2/K3 at a
+     token count no multiple of 4, and at Flux-dev's joint attention,
+     [1,24,4608,128]) —
      K1 on every route (bf16 d 64/128 and 512, f32 d
      64/128 and 512), K2, K3a, K3b in bf16 and in f32: K1 and K2's output
      within the tolerance times min(1, max|plain output|) and a relative
@@ -66,8 +68,10 @@ Phases (any failure exits non-zero before the result line):
      max|g| within 2e-3 (the reference's f32 UNet bound); with --profile
      three timed steps and one under torch.profiler, as phase 12; the f32
      pipeline is freed;
-  6. the txt2img path: random_pipeline(device="cuda") at SDXL-base widths
-     answers three requests (two at 1024x1024, one at 832x1216 for the
+  6. the txt2img path: random_pipeline(device="cuda", with_encoder=True,
+     refiner_cfg=SDXL_REFINER_DIFFUSER) at SDXL widths (the refiner drawn
+     last, so the base's weights are those without it) answers three
+     requests (two at 1024x1024, one at 832x1216 for the
      ragged token counts), 30 DDIM steps, CFG 7.5 — latency, stage split
      and peak memory per request; the final latents must be finite, the
      images [B, H, W, 3] uint8, and K1 must have been launched from the
@@ -85,21 +89,32 @@ Phases (any failure exits non-zero before the result line):
      under torch.profiler — device time by the op that launched each
      kernel, and the device's idle share against the unfenced latency;
      the same for the f32 UNet's 4-step request after phase 5;
+  8b. module 9 on the same pipeline, each request 1024x1024, 30 steps,
+     CFG 7.5, with latency, stage split, peak memory and K1's launches
+     asserted: base + refiner (2170 + 280), denoising_end=0.8 (25 base
+     and 6 refiner calls: 1990), img2img at strength 0.3 (700, and 2 at
+     d=512: encode and decode), a crop-window inpaint, an outpaint of the
+     first image cropped to 1024x832 and padded 96 left and right, and an
+     inpaint through a random 9-channel base UNet sharing the towers and
+     the VAE (2170 + 2 each; the 9-channel UNet freed after); then one
+     refiner UNet call through K1 (40 launches) and through the plain
+     attention: eps within 2e-2 relative;
   9b. checkpoint loading and the sample CLI: the same full-width
-     pipeline written with save_native_pipeline (UNet bf16, the rest
-     f32) into build/checkpoint (free space checked first, removed at
-     the end); the kernel asked to drop its pages (posix_fadvise); then
-     `sdxl_tpu_torch.cli.sample.main` with --model-dir on it, one
-     prompt, 1024x1024, 30 steps, CFG 7.5, seed 0: the pipeline the CLI
-     loaded must be bitwise equal to the in-memory one (CLIP towers,
-     UNet, VAE decoder and encoder, alphas_cumprod), K1 launched
-     UNET_LAUNCHES_1024 times on its d 64/128 route and once on its f32
-     d=512 route in that request, and the PNG it wrote (decoded here
-     with zlib) within 1 u8 level of the in-memory pipeline's
-     txt2img (the count of differing pixels printed); bytes written,
-     seconds to write, and seconds for both loads of load_pipeline
-     printed, the first called cold only if the page cache fell by the
-     files' size;
+     pipeline, refiner included, written with save_native_pipeline
+     (UNets bf16, the rest f32) into build/checkpoint (free space checked
+     first, removed at the end); the kernel asked to drop its pages
+     (posix_fadvise); then `sdxl_tpu_torch.cli.sample.main` with
+     --model-dir on it, one prompt, 1024x1024, 30 steps, CFG 7.5, seed 0,
+     three times: txt2img, --use-refiner, and --reference-img (the first
+     request's PNG) with --mask-img (a PNG written by save_images). Each
+     time the pipeline the CLI loaded must be bitwise equal to the
+     in-memory one (CLIP towers, UNet, VAE decoder and encoder,
+     alphas_cumprod, and the refiner with --use-refiner), K1 launched as
+     counted (2170 + 1, 2450 + 1, 2170 + 2), and the PNG it wrote (decoded
+     with io/images.py read_png) within 1 u8 level of the in-memory
+     pipeline's image (the count of differing pixels printed); bytes
+     written, seconds to write, and seconds for the loads printed, the
+     first called cold only if the page cache fell by the files' size;
   10. the LoRA training path on the same pipeline: encode two random
      1024x1024 images with captions (the VAE encoder launches K1's f32
      d=512 route), then five LoRA steps (rank 16, attn targets, lr 1e-4,
@@ -111,7 +126,7 @@ Phases (any failure exits non-zero before the result line):
      (forward and backward) in place of the kernels: they must agree;
   12. with --profile only: three timed LoRA steps, then one under
      torch.profiler, reported as in phase 9.
-Each path (phases 4, 5, 5b, 6, 8, 9b, 10) runs with the launch counts set to
+Each path (phases 4, 5, 5b, 6, 8, 8b, 9b, 10) runs with the launch counts set to
 0 just before it and read just after; the JSON record's launches are their
 sum. Each phase's seconds are printed. The last two lines are the kernels'
 JSON record and {"ok": true, ...}.
@@ -120,6 +135,7 @@ JSON record and {"ok": true, ...}.
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import gc
 import json
@@ -127,11 +143,9 @@ import os
 import re
 import shutil
 import statistics
-import struct
 import subprocess
 import sys
 import time
-import zlib
 from collections import Counter, defaultdict
 
 import numpy as np
@@ -140,8 +154,11 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from sdxl_tpu_torch.cli import sample as sample_cli
+from sdxl_tpu_torch.configs import SDXL_BASE_DIFFUSER, SDXL_REFINER_DIFFUSER
 from sdxl_tpu_torch.io.checkpoint import save_native_pipeline
-from sdxl_tpu_torch.models.unet import unet_forward
+from sdxl_tpu_torch.io.images import read_png, save_images
+from sdxl_tpu_torch.models.layers import init_reference_
+from sdxl_tpu_torch.models.unet import UNet, unet_forward
 from sdxl_tpu_torch.ops import attention as attention_mod
 from sdxl_tpu_torch.ops import flash_attention as fa
 from sdxl_tpu_torch.pipeline import loader as loader_mod
@@ -199,7 +216,8 @@ KERNELS = {
 # (B, H, T, D, dtype, tolerance): K1's shapes on the paths — the bf16 UNet
 # (bench.py:53-66) at levels 2 and 1 at 1024x1024, 832x1216 and the
 # smallest buckets (924 and 3696 tokens, where 128-row tiles are most
-# ragged), the f32 VAE mid-block attention at 1024x1024, the f32 UNet at
+# ragged), the bf16 refiner's (batch 1, unguided) at levels 1 and 2 at
+# 1024x1024, the f32 VAE mid-block attention at 1024x1024, the f32 UNet at
 # 1024x1024 and 832x1216 (ragged 64-key tiles) and the bf16 VAE decode at
 # 1024x1024, 832x1216 and the
 # smallest VAE bucket (14336 tokens), the f32 VAE's likewise — plus one
@@ -220,6 +238,8 @@ KERNEL_CASES = [
     (2, 20, 988, 64, torch.bfloat16, 2e-2),
     (2, 20, 924, 64, torch.bfloat16, 2e-2),
     (2, 10, 3696, 64, torch.bfloat16, 2e-2),
+    (1, 12, 4096, 64, torch.bfloat16, 2e-2),
+    (1, 24, 1024, 64, torch.bfloat16, 2e-2),
     (1, 1, 16384, 512, torch.float32, 1e-3),
     (1, 1, 15808, 512, torch.float32, 1e-3),
     (1, 1, 14336, 512, torch.float32, 1e-3),
@@ -241,6 +261,9 @@ K1_EDGE_CASES = [
     (1, 3, 333, 128, torch.float32, 1e-3),
 ]
 K1_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# K1 cases also timed inside one CUDA graph: the refiner's shapes (at
+# [1,24,1024,64] 192-row tiles give 6 x 24 = 144 blocks for 132 SMs)
+K1_GRAPHED = {(1, 12, 4096, 64), (1, 24, 1024, 64)}
 # The kernels of the Hopper sources: for each source, its export that
 # gives a kernel's dynamic shared memory (from the kernel's index and the
 # first three int template arguments of its symbol, 0 where it has fewer),
@@ -343,6 +366,17 @@ REQUESTS = [((1024, 1024), 1), ((1024, 1024), 2), ((832, 1216), 3)]
 # K1 d 64/128 launches in one bf16 1024x1024 request of 30 DDIM steps: 31
 # UNet calls (the reference's 31-entry timestep grid) x 70 self-attentions
 UNET_LAUNCHES_1024 = 31 * 70
+# the refiner's K1 d 64/128 launches a call at 1024x1024: 40
+# self-attentions at levels 1 and 2 (12 heads at 4096 tokens, 24 at 1024;
+# the middle block's 256 tokens are under the kernel's gate); its grid from
+# refiner_step_start 800 has 7 entries (t = 199, 166, ..., 1)
+REFINER_ATTENTIONS = 40
+REFINER_LAUNCHES = 7 * REFINER_ATTENTIONS
+# phase 8b: the crop window (pixels) of the inpainting requests, and the
+# outpaint request's crop of the first image's width and its pads
+CROP_WINDOW = dict(crop_left=256, crop_right=768, crop_top=256,
+                   crop_bottom=768)
+OUTPAINT_PAD = 96
 # the f32 pipeline's request: 4 DDIM steps (4 UNet calls) keep its cost
 # near one bf16 request's
 F32_STEPS = 4
@@ -544,7 +578,7 @@ def check_k1(results) -> None:
                  f"finite {finite}")
         iters = 5 if d == 512 or dtype == torch.float32 else 20
         graph = None
-        if name in (F32_D64, F32_D128):
+        if name in (F32_D64, F32_D128) or (b, h, t, d) in K1_GRAPHED:
             graph = (graph_ms(lambda: fa.flash_attention_bhtd(q, k, v)),
                      graph_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
         record_case(
@@ -849,7 +883,7 @@ def run_path(label: str, drive, must, total) -> object:
     print(f"launches during {label}: {launches}", flush=True)
     for name in must:
         if not launches.get(name):
-            fail(f"{name} was not launched on the {label} path")
+            fail(f"{name} was not launched on {label}")
     for name, n in launches.items():
         total[name] += n
     return out
@@ -1013,33 +1047,103 @@ def check_path_against_plain(pipe) -> None:
         fail("the kernel path disagrees with the plain attention path")
 
 
-def read_png(path: str):
-    """(pixels [H, W, 3] uint8, text chunks) of an 8-bit RGB PNG whose
-    rows all use filter 0, as io/images.py writes them."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        fail(f"{path} is not a PNG")
-    pos, idat, text, size = 8, [], {}, None
-    while pos < len(data):
-        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        pos += 12 + n
-        if kind == b"IHDR":
-            size = struct.unpack(">IIBB", body[:10])
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"tEXt":
-            key, value = body.split(b"\0", 1)
-            text[key.decode("latin-1")] = value.decode("latin-1")
-    w, h, depth, color = size
-    if (depth, color) != (8, 2):
-        fail(f"{path}: bit depth {depth}, colour type {color}")
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)),
-                         np.uint8).reshape(h, 1 + 3 * w)
-    if rows[:, 0].any():
-        fail(f"{path}: a row filter other than 0")
-    return rows[:, 1:].reshape(h, w, 3), text
+def module9_request(pipe, label: str, fn, want_unet: int, want_vae: int):
+    """One module-9 request: latency, stage split, peak memory and K1
+    launches printed; fail unless K1's d 64/128 and f32 d=512 routes were
+    launched want_unet and want_vae times and the image is sound."""
+    pipe.timer.stages.clear()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(fa.launch_counts)
+    t0 = time.perf_counter()
+    images = fn()
+    latency = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    stages = " ".join(f"{k}={v:.3f}s" for k, v in pipe.timer.stages.items())
+    launches = {k: n - before[k] for k, n in fa.launch_counts.items()
+                if n != before[k]}
+    print(f"request {label}: latency={latency:.3f}s {stages} "
+          f"peak_mem={peak_gib:.2f}GiB launches={launches}", flush=True)
+    got = (launches.get("sdxl_flash_attention_bf16", 0),
+           launches.get(F32_D512, 0))
+    if got != (want_unet, want_vae):
+        fail(f"{label} launched K1 {got[0]} (bf16 d 64/128) and {got[1]} "
+             f"(f32 d=512) times, not {want_unet} and {want_vae}")
+    if not bool(torch.isfinite(pipe.last_latent).all()):
+        fail(f"non-finite latent in {label}")
+    if (images.shape != (1, 1024, 1024, 3) or images.dtype.name != "uint8"
+            or images.std() == 0):
+        fail(f"{label}: images {images.shape} {images.dtype}")
+    return images
+
+
+def module9_requests(pipe) -> None:
+    """Phase 8b: the refiner, the ensemble-of-experts split, img2img,
+    crop-window inpainting, outpaint and a 9-channel inpainting UNet, each
+    1024x1024, 30 steps, CFG 7.5, on the bf16 pipeline."""
+    kw = dict(n_steps=30, guidance_scale=7.5)
+    per_call = UNET_LAUNCHES_1024 // 31
+    first = module9_request(
+        pipe, "base + refiner", lambda: pipe.txt2img(
+            PROMPT, (1024, 1024), seed=5, use_refiner=True, **kw),
+        UNET_LAUNCHES_1024 + REFINER_LAUNCHES, 1)
+    module9_request(
+        pipe, "denoising_end=0.8", lambda: pipe.txt2img(
+            PROMPT, (1024, 1024), seed=6, use_refiner=True,
+            denoising_end=0.8, **kw),
+        25 * per_call + 6 * REFINER_ATTENTIONS, 1)
+    module9_request(
+        pipe, "img2img strength 0.3", lambda: pipe.img2img(
+            PROMPT, first, strength=0.3, seed=7, **kw), 10 * per_call, 2)
+    module9_request(
+        pipe, "crop-window inpaint", lambda: pipe.inpaint(
+            PROMPT, first, seed=8, **CROP_WINDOW, **kw), UNET_LAUNCHES_1024, 2)
+    narrow = first[:, :, OUTPAINT_PAD:1024 - OUTPAINT_PAD]
+    module9_request(
+        pipe, f"outpaint of {narrow.shape[1]}x{narrow.shape[2]}",
+        lambda: pipe.outpaint(PROMPT, narrow, pad=(OUTPAINT_PAD,
+                                                   OUTPAINT_PAD, 0, 0),
+                              seed=9, **kw), UNET_LAUNCHES_1024, 2)
+    t0 = time.perf_counter()
+    cfg9 = dataclasses.replace(SDXL_BASE_DIFFUSER, in_channels=9)
+    g = torch.Generator(device=pipe.device).manual_seed(9)
+    unet9 = init_reference_(UNet(cfg9.unet_config(), pipe.device,
+                                 pipe.compute_dtype), g)
+    unet9.eval().requires_grad_(False)
+    pipe9 = dataclasses.replace(pipe, diffuser_cfg=cfg9, unet=unet9)
+    torch.cuda.synchronize()
+    print(f"9-channel UNet drawn: {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    module9_request(
+        pipe9, "9-channel inpaint", lambda: pipe9.inpaint(
+            PROMPT, first, seed=10, **CROP_WINDOW, **kw),
+        UNET_LAUNCHES_1024, 2)
+    del pipe9, unet9
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@torch.inference_mode()
+def check_refiner_against_plain(pipe) -> None:
+    """One refiner UNet call at 1024x1024 (t = 199, the last latent)
+    through K1 (40 launches) and through the plain attention."""
+    cond = pipe.conditioning(PROMPT, (1024, 1024)).astype(pipe.compute_dtype)
+    ctx, ch = _cfg_contexts(pipe.refiner_cfg, cond, pipe.compute_dtype)
+    x = pipe.last_latent.to(pipe.compute_dtype)
+    t = torch.full((1,), 199, device=pipe.device)
+    fa.reset_launch_counts()
+    eps_k = unet_forward(pipe.refiner, x, t, ctx, ch).float()
+    torch.cuda.synchronize()
+    n = fa.launch_counts["sdxl_flash_attention_bf16"]
+    eps_p = with_attention(
+        lambda: unet_forward(pipe.refiner, x, t, ctx, ch)).float()
+    rel = ((eps_k - eps_p).abs().max() / eps_p.abs().max()).item()
+    print(f"refiner UNet call 1024x1024 B=1: bf16 d 64/128 launches {n}; "
+          f"eps rel_err={rel:.3e} (tol {UNET_REL_TOL:g})", flush=True)
+    if n != REFINER_ATTENTIONS:
+        fail(f"the refiner call launched K1 {n} times, not "
+             f"{REFINER_ATTENTIONS}")
+    if not (bool(torch.isfinite(eps_k).all()) and rel < UNET_REL_TOL):
+        fail("the refiner through K1 disagrees with the plain attention")
 
 
 def drop_page_cache(paths) -> None:
@@ -1074,12 +1178,19 @@ def mount_of(path: str) -> str:
     return f"{best[1]} {best[2]} at {best[0]}"
 
 
-def check_loaded_state(pipe, loaded) -> None:
+def check_loaded_state(pipe, loaded, refiner: bool = False) -> None:
     """Every tensor of the loaded pipeline bitwise equal to the in-memory
-    one's."""
+    one's, the refiner's too when it was asked for (and none loaded when
+    not)."""
     pairs = [("embedder", pipe.embedder, loaded.embedder),
              ("unet", pipe.unet, loaded.unet), ("vae", pipe.vae, loaded.vae),
              ("vae_encoder", pipe.vae_encoder, loaded.vae_encoder)]
+    if (loaded.refiner is not None) != refiner:
+        fail(f"the CLI loaded {'no ' if refiner else 'a '}refiner")
+    if refiner:
+        pairs.append(("refiner", pipe.refiner, loaded.refiner))
+        if not torch.equal(pipe.refiner_alphas, loaded.refiner_alphas):
+            fail("loaded refiner_alphas differs")
     n = 0
     for what, a, b in pairs:
         sa, sb = a.state_dict(), b.state_dict()
@@ -1093,14 +1204,36 @@ def check_loaded_state(pipe, loaded) -> None:
     if not torch.equal(pipe.alphas_cumprod, loaded.alphas_cumprod):
         fail("loaded alphas_cumprod differs")
     print(f"loaded pipeline: {n} parameters bitwise equal to the in-memory "
-          f"pipeline's", flush=True)
+          f"pipeline's ({', '.join(w for w, _, _ in pairs)})", flush=True)
+
+
+def check_png(label: str, path: str, want: np.ndarray) -> None:
+    """The PNG the CLI wrote (decoded by the port's reader) within
+    CLI_LEVEL_TOL of the in-memory pipeline's image, with its parameters
+    text chunk."""
+    got, text = read_png(path)
+    if got.shape != want.shape:
+        fail(f"{label}: PNG {got.shape}, in-memory image {want.shape}")
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    print(f"{label} vs the in-memory pipeline: "
+          f"{int((diff > 0).any(-1).sum())} of {diff.shape[0] * diff.shape[1]}"
+          f" pixels differ, max {int(diff.max())} levels (tol "
+          f"{CLI_LEVEL_TOL}); parameters: {text.get('parameters', '')!r}",
+          flush=True)
+    if diff.max() > CLI_LEVEL_TOL:
+        fail(f"{label} disagrees with the in-memory pipeline's image")
+    if "Backend: sdxl_tpu_torch" not in text.get("parameters", ""):
+        fail(f"{label}: the PNG lacks the parameters text chunk")
 
 
 def checkpoint_cli_phase(pipe, total) -> None:
-    """Phase 9b: write the pipeline as a native checkpoint, answer one
-    request through the sample CLI from it, and hold the CLI's load and
-    image against the in-memory pipeline."""
-    modules = [pipe.embedder, pipe.unet, pipe.vae, pipe.vae_encoder]
+    """Phase 9b: write the pipeline, refiner included, as a native
+    checkpoint; answer three requests through the sample CLI from it (a
+    txt2img, one with --use-refiner, and an inpaint of the first one's PNG
+    with a mask PNG), and hold each load and image against the in-memory
+    pipeline."""
+    modules = [pipe.embedder, pipe.unet, pipe.vae, pipe.vae_encoder,
+               pipe.refiner]
     need = sum(p.numel() * p.element_size() for m in modules
                for p in m.parameters())
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -1121,6 +1254,33 @@ def checkpoint_cli_phase(pipe, total) -> None:
         loads.append((time.perf_counter() - t0, out))
         return out
 
+    def cli_request(label, argv, want_unet, want_vae, refiner=False):
+        """Run the CLI on argv; fail unless it returned 0, launched K1's
+        routes want_unet and want_vae times and loaded the in-memory
+        state. Returns the load's seconds."""
+        print(f"-- python -m sdxl_tpu_torch.cli.sample {' '.join(argv)}",
+              flush=True)
+        loader_mod.load_pipeline = timed_load
+        try:
+            rc = run_path(label, lambda: sample_cli.main(argv),
+                          ["sdxl_flash_attention_bf16", F32_D512], total)
+        finally:
+            loader_mod.load_pipeline = real_load
+        got = (fa.launch_counts["sdxl_flash_attention_bf16"],
+               fa.launch_counts[F32_D512])
+        if rc != 0:
+            fail(f"the sample CLI returned {rc} in {label}")
+        if got != (want_unet, want_vae):
+            fail(f"{label} launched K1 {got[0]} (bf16 d 64/128) and {got[1]}"
+                 f" (f32 d=512) times, not {want_unet} and {want_vae}")
+        (load_s, loaded), = loads
+        loads.clear()
+        check_loaded_state(pipe, loaded, refiner)
+        del loaded
+        gc.collect()
+        torch.cuda.empty_cache()
+        return load_s
+
     try:
         ckpt = os.path.join(CKPT_DIR, "sdxl")
         t0 = time.perf_counter()
@@ -1132,6 +1292,9 @@ def checkpoint_cli_phase(pipe, total) -> None:
             os.close(fd)
         write_s = time.perf_counter() - t0
         written = sum(os.path.getsize(f) for f in files)
+        # what a load without the refiner reads
+        base_bytes = written - sum(os.path.getsize(f) for f in files
+                                   if "refiner" in os.path.basename(f))
         print(f"checkpoint written: {written} bytes in {write_s:.3f}s "
               f"({written / write_s / 1e9:.3f} GB/s): " + ", ".join(
                   f"{os.path.basename(f)} {os.path.getsize(f)}"
@@ -1152,50 +1315,46 @@ def checkpoint_cli_phase(pipe, total) -> None:
         argv = ["--model-dir", ckpt, "--prompt", PROMPT, "--height", "1024",
                 "--width", "1024", "-steps", "30", "-gs", "7.5", "--seed",
                 "0", "--output-dir", out]
-        print(f"-- python -m sdxl_tpu_torch.cli.sample {' '.join(argv)}",
-              flush=True)
-        loader_mod.load_pipeline = timed_load
-        try:
-            rc = run_path("the sample CLI request",
-                          lambda: sample_cli.main(argv),
-                          ["sdxl_flash_attention_bf16", F32_D512], total)
-        finally:
-            loader_mod.load_pipeline = real_load
-        n_unet = fa.launch_counts["sdxl_flash_attention_bf16"]
-        n_vae = fa.launch_counts[F32_D512]
-        if rc != 0:
-            fail(f"the sample CLI returned {rc}")
-        if (n_unet, n_vae) != (UNET_LAUNCHES_1024, 1):
-            fail(f"the CLI's request launched K1 {n_unet} (bf16 d 64/128) "
-                 f"and {n_vae} (f32 d=512) times, not "
-                 f"{UNET_LAUNCHES_1024} and 1")
-        (first_s, loaded), = loads
-        check_loaded_state(pipe, loaded)
-        del loaded
-        loads.clear()
-        gc.collect()
-        torch.cuda.empty_cache()
+        first_s = cli_request("the sample CLI request", argv,
+                              UNET_LAUNCHES_1024, 1)
         timed_load(ckpt)
         warm_s = loads.pop()[0]
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"load_pipeline (disk -> card, {written} bytes): "
+        print(f"load_pipeline (disk -> card, {base_bytes} bytes): "
               f"{first_s:.3f}s on the first load ({first}), "
               f"{warm_s:.3f}s on the second, with the files in the page "
               f"cache", flush=True)
+        check_png("the CLI's image", out + "0.png",
+                  pipe.txt2img(PROMPT, resolution=(1024, 1024), n_steps=30,
+                               guidance_scale=7.5, seed=0)[0])
 
-        got, text = read_png(out + "0.png")
-        want = pipe.txt2img(PROMPT, resolution=(1024, 1024), n_steps=30,
-                            guidance_scale=7.5, seed=0)[0]
-        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
-        print(f"CLI image vs in-memory txt2img: {int((diff > 0).any(-1).sum())}"
-              f" of {diff.shape[0] * diff.shape[1]} pixels differ, max "
-              f"{int(diff.max())} levels (tol {CLI_LEVEL_TOL}); parameters: "
-              f"{text.get('parameters', '')!r}", flush=True)
-        if got.shape != (1024, 1024, 3) or diff.max() > CLI_LEVEL_TOL:
-            fail("the CLI's image disagrees with the in-memory pipeline's")
-        if "Backend: sdxl_tpu_torch" not in text.get("parameters", ""):
-            fail("the PNG lacks the parameters text chunk")
+        out_r = os.path.join(CKPT_DIR, "out", "refined")
+        refiner_s = cli_request(
+            "the sample CLI --use-refiner request",
+            argv[:-1] + [out_r, "--use-refiner"],
+            UNET_LAUNCHES_1024 + REFINER_LAUNCHES, 1, refiner=True)
+        print(f"load_pipeline(use_refiner=True) (disk -> card, {written} "
+              f"bytes): {refiner_s:.3f}s", flush=True)
+        check_png("the CLI's --use-refiner image", out_r + "0.png",
+                  pipe.txt2img(PROMPT, resolution=(1024, 1024), n_steps=30,
+                               guidance_scale=7.5, seed=0,
+                               use_refiner=True)[0])
+
+        mask = np.zeros((1, 1024, 1024, 3), np.uint8)
+        mask[:, 256:768, 384:896] = 255
+        mask_png, = save_images(mask, os.path.join(CKPT_DIR, "out", "mask"))
+        out_i = os.path.join(CKPT_DIR, "out", "inpainted")
+        cli_request(
+            "the sample CLI --reference-img --mask-img request",
+            ["--model-dir", ckpt, "--prompt", PROMPT, "-steps", "30", "-gs",
+             "7.5", "--seed", "0", "--reference-img", out + "0.png",
+             "--mask-img", mask_png, "--output-dir", out_i],
+            UNET_LAUNCHES_1024, 2)
+        check_png("the CLI's inpainted image", out_i + "0.png",
+                  pipe.inpaint(PROMPT, read_png(out + "0.png")[0][None],
+                               mask_image=mask[0], n_steps=30,
+                               guidance_scale=7.5, seed=0)[0])
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
@@ -1439,9 +1598,13 @@ def main() -> None:
     phase_done("5b (f32 LoRA training)")
 
     t0 = time.perf_counter()
-    pipe = random_pipeline(device="cuda", with_encoder=True)
+    # the refiner is drawn last: every other weight is as without it
+    pipe = random_pipeline(device="cuda", with_encoder=True,
+                           refiner_cfg=SDXL_REFINER_DIFFUSER)
     torch.cuda.synchronize()
-    print(f"random_pipeline: {time.perf_counter() - t0:.1f}s", flush=True)
+    print(f"random_pipeline(with_encoder=True, refiner_cfg="
+          f"SDXL_REFINER_DIFFUSER): {time.perf_counter() - t0:.1f}s",
+          flush=True)
     run_path("the txt2img requests", lambda: run_requests(pipe),
              ["sdxl_flash_attention_bf16", F32_D512], path)
     check_path_against_plain(pipe)
@@ -1453,6 +1616,10 @@ def main() -> None:
     if args.profile:
         profile_request(pipe)
     phase_done("8-9 (bf16 decode, profile)")
+    run_path("the module-9 requests", lambda: module9_requests(pipe),
+             ["sdxl_flash_attention_bf16", F32_D512], path)
+    check_refiner_against_plain(pipe)
+    phase_done("8b (refiner, inpainting, img2img, outpaint)")
     checkpoint_cli_phase(pipe, path)
     phase_done("9b (checkpoint, sample CLI)")
 

@@ -1,14 +1,18 @@
-"""`sample` CLI: text-to-image from a checkpoint on disk (counterpart of
+"""`sample` CLI: SDXL images from a checkpoint on disk (counterpart of
 sdxl_tpu/cli/sample.py).
 
 ``build_parser`` is the reference's in full, so every flag of the
-reference parses. ``main`` runs ``--family sdxl`` txt2img: load (any
-layout pipeline/loader.py detects, or ``--random-weights``), merge
-``--lora`` and ``--embedding`` files, sample with DDIM, write
-{output_dir}{i}.png with the reference's generation metadata. Any other
-flag set away from its default, and any other family, is an error naming
-the module that ports it. Runs on the GPU; the tests pass
-``device="cpu"`` to ``main``.
+reference parses. ``main`` runs ``--family sdxl`` with DDIM: load (any
+layout pipeline/loader.py detects, or ``--random-weights``; the refiner
+too with ``--use-refiner``), merge ``--lora`` and ``--embedding`` files,
+then txt2img (with the refiner, or the ``--denoising-end`` split),
+img2img (``--reference-img`` with ``--img2img-strength``), outpaint
+(``--outpaint``), or inpainting of ``--reference-img`` (a crop window, a
+``--mask-img``, ``--mask-blur``), and write {output_dir}{i}.png with the
+reference's generation metadata. The bad combinations of these flags exit
+1 with the reference's messages. Any other flag set away from its
+default, and any other family, is an error naming the module that ports
+it. Runs on the GPU; the tests pass ``device="cpu"`` to ``main``.
 
 Usage:
   python -m sdxl_tpu_torch.cli.sample --model-dir ./weights \
@@ -24,20 +28,19 @@ import numpy as np
 import torch
 
 # the flags main() runs (--family is checked on its own;
-# --no-strict-resolution relaxes only the inpainting references' bucket
-# check, module 9: txt2img warns off-bucket either way, as the reference)
+# --no-strict-resolution relaxes the inpainting references' bucket check:
+# txt2img warns off-bucket either way, as the reference)
 _PORTED = {
     "model_dir", "random_weights", "prompt", "batch", "height", "width",
     "unconditional_guidance_scale", "n_diffusion_steps", "seed",
     "negative_prompt", "f32", "vae_bf16", "lora", "embedding",
     "tokenizer_dir", "no_strict_resolution", "output_dir", "family", "help",
+    "use_refiner", "denoising_end", "reference_img", "crop_left",
+    "crop_right", "crop_top", "crop_bottom", "crop_out", "mask_img",
+    "mask_blur", "img2img_strength", "outpaint", "outpaint_fill",
 }
 # every other flag -> the module of ROADMAP Queue 1 that ports it
 _WAITS = {
-    **dict.fromkeys(
-        ["use_refiner", "denoising_end", "reference_img", "crop_left",
-         "crop_right", "crop_top", "crop_bottom", "crop_out", "mask_img",
-         "mask_blur", "img2img_strength", "outpaint", "outpaint_fill"], 9),
     **dict.fromkeys(
         ["sampler", "schedule", "zsnr", "ddim_eta", "guidance_rescale",
          "no_cfg", "preview_every", "invert_img", "invert_prompt"], 10),
@@ -356,6 +359,15 @@ def _unported(parser: argparse.ArgumentParser, args) -> str | None:
     return None
 
 
+def _load_mask(args):
+    """--mask-img PNG -> [H, W, 3] u8 array (None when not given)."""
+    if args.mask_img is None:
+        return None
+    from ..io.images import load_images
+
+    return load_images([args.mask_img])[0]
+
+
 def main(argv=None, device="cuda") -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -364,8 +376,9 @@ def main(argv=None, device="cuda") -> int:
         print(f"error: {bad}", file=sys.stderr)
         return 1
 
+    from ..configs import SDXL_REFINER_DIFFUSER
     from ..io.burn_mpk import MpkParseError
-    from ..io.images import save_images
+    from ..io.images import load_images, save_images
     from ..io.lora import parse_lora_specs
     from ..pipeline.loader import load_pipeline
     from ..pipeline.pipeline import random_pipeline
@@ -383,8 +396,26 @@ def main(argv=None, device="cuda") -> int:
         print("error: --lora requires a real checkpoint (--model-dir)",
               file=sys.stderr)
         return 1
+    if args.denoising_end is not None and (
+            not args.use_refiner or args.reference_img is not None):
+        print("error: --denoising-end is the SDXL ensemble-of-experts "
+              "txt2img split; it requires --family sdxl with "
+              "--use-refiner and no --reference-img",
+              file=sys.stderr)
+        return 1
     if len(args.prompt) > 1 and args.batch != 1:
         print("error: use either repeated --prompt or --batch, not both",
+              file=sys.stderr)
+        return 1
+    if args.outpaint is not None and (
+            args.reference_img is None or args.img2img_strength is not None):
+        print("error: --outpaint extends --reference-img (and is not an "
+              "--img2img-strength mode)", file=sys.stderr)
+        return 1
+    if (args.mask_img is not None or args.mask_blur > 0) and (
+            args.reference_img is None or args.img2img_strength is not None):
+        print("error: --mask-img/--mask-blur are inpainting flags (need "
+              "--reference-img, not an --img2img-strength mode)",
               file=sys.stderr)
         return 1
 
@@ -393,11 +424,14 @@ def main(argv=None, device="cuda") -> int:
             print("error: --model-dir is required (or pass --random-weights)",
                   file=sys.stderr)
             return 1
-        pipe = random_pipeline(device=device, unet_dtype=dtype,
-                               tokenizer_dir=args.tokenizer_dir)
+        pipe = random_pipeline(
+            device=device, unet_dtype=dtype, with_encoder=True,
+            refiner_cfg=SDXL_REFINER_DIFFUSER if args.use_refiner else None,
+            tokenizer_dir=args.tokenizer_dir)
     else:
         try:
-            pipe = load_pipeline(args.model_dir, compute_dtype=dtype,
+            pipe = load_pipeline(args.model_dir, args.use_refiner,
+                                 compute_dtype=dtype,
                                  tokenizer_dir=args.tokenizer_dir,
                                  loras=loras, device=device)
         except (MpkParseError, KeyError, FileNotFoundError, ValueError,
@@ -409,6 +443,8 @@ def main(argv=None, device="cuda") -> int:
             return 1
     if args.vae_bf16:
         pipe.vae_dtype = torch.bfloat16
+    if args.no_strict_resolution:
+        pipe.strict_resolutions = False
     if args.embedding:
         try:
             pipe.add_textual_inversions(args.embedding)
@@ -419,14 +455,45 @@ def main(argv=None, device="cuda") -> int:
 
     prompts = (args.prompt if len(args.prompt) > 1
                else [args.prompt[0]] * args.batch)
-    images = pipe.txt2img(
-        prompts,
-        resolution=(args.height, args.width),
-        n_steps=args.n_diffusion_steps,
-        guidance_scale=args.unconditional_guidance_scale,
-        seed=args.seed,
-        negative_prompt=args.negative_prompt,
-    )
+    common = dict(n_steps=args.n_diffusion_steps,
+                  guidance_scale=args.unconditional_guidance_scale,
+                  seed=args.seed, negative_prompt=args.negative_prompt)
+    if args.reference_img is not None and args.img2img_strength is not None:
+        ref = load_images([args.reference_img])
+        if len(prompts) > 1:
+            # one variation per prompt off the same reference
+            ref = np.repeat(ref, len(prompts), axis=0)
+        images = pipe.img2img(prompts, ref, strength=args.img2img_strength,
+                              **common)
+    elif args.reference_img is not None and args.outpaint is not None:
+        try:
+            pad = tuple(int(v) for v in args.outpaint.split(","))
+            if len(pad) != 4:
+                raise ValueError
+        except ValueError:
+            print("error: --outpaint takes L,R,T,B pixel counts",
+                  file=sys.stderr)
+            return 1
+        ref = load_images([args.reference_img])
+        try:
+            images = pipe.outpaint(prompts, ref, pad=pad,
+                                   fill=args.outpaint_fill, **common)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    elif args.reference_img is not None:
+        ref = load_images([args.reference_img])
+        images = pipe.inpaint(
+            prompts, ref, crop_left=args.crop_left,
+            crop_right=args.crop_right, crop_top=args.crop_top,
+            crop_bottom=args.crop_bottom, crop_out=args.crop_out,
+            mask_image=_load_mask(args), mask_blur=args.mask_blur,
+            use_refiner=args.use_refiner, **common)
+    else:
+        images = pipe.txt2img(
+            prompts, resolution=(args.height, args.width),
+            use_refiner=args.use_refiner, denoising_end=args.denoising_end,
+            **common)
 
     meta = {
         "parameters": (

@@ -62,9 +62,11 @@ def load_embedder_mpk(model_dir: str):
     return cfg, params
 
 
-def load_diffuser_mpk(model_dir: str):
-    cfg = load_cfg(os.path.join(model_dir, "diffuser.cfg"), DiffuserConfig)
-    src = parse_mpk_file(os.path.join(model_dir, "diffuser.mpk"))
+def load_diffuser_mpk(model_dir: str, name: str = "diffuser"):
+    """(config, UNet tree, alphas) of {name}.mpk + {name}.cfg: the base
+    ("diffuser") or the refiner ("refiner")."""
+    cfg = load_cfg(os.path.join(model_dir, f"{name}.cfg"), DiffuserConfig)
+    src = parse_mpk_file(os.path.join(model_dir, f"{name}.mpk"))
     unet = build_unet(src.child("diffusion"), cfg.unet_config())
     alphas = np.asarray(src.tensor("alpha_cumulative_products", 1),
                         np.float32)
@@ -88,9 +90,11 @@ def load_embedder_npy(dump_dir: str, cfg: EmbedderConfig):
     }
 
 
-def load_diffuser_npy(dump_dir: str, cfg: DiffuserConfig):
+def load_diffuser_npy(dump_dir: str, cfg: DiffuserConfig,
+                      is_refiner: bool = False):
     root = NpyTreeSource(os.path.join(dump_dir, "diffuser"))
-    unet = build_unet(root.child("diffuser_base"), cfg.unet_config())
+    name = "diffuser_refiner" if is_refiner else "diffuser_base"
+    unet = build_unet(root.child(name), cfg.unet_config())
     alphas = np.asarray(root.tensor("alphas_cumprod", 1), np.float32)
     return unet, alphas
 
@@ -195,10 +199,10 @@ def native_state_dict(path: str, dtype=None, device="cpu",
 def save_native_pipeline(out_dir: str, pipe) -> str:
     """Write a port SDXLPipeline as a native checkpoint dir: the same
     {embedder,diffuser,latent_decoder}.safetensors + .cfg +
-    alphas_cumprod.safetensors (+ autoencoder.cfg) layout that
-    load_pipeline() detects, in the reference's flat tree keys and
-    layouts (unfused q/k/v, 3x3 upsample kernels), each tensor in its
-    module's dtype."""
+    alphas_cumprod.safetensors (+ autoencoder.cfg, + refiner.safetensors
+    and refiner.cfg when it has a refiner) layout that load_pipeline()
+    detects, in the reference's flat tree keys and layouts (unfused
+    q/k/v, 3x3 upsample kernels), each tensor in its module's dtype."""
     os.makedirs(out_dir, exist_ok=True)
 
     def write(name, *modules):
@@ -220,4 +224,7 @@ def save_native_pipeline(out_dir: str, pipe) -> str:
     # the reference's .cfg set has no autoencoder config (its VAE is
     # always full-size); persist it so non-default channel plans reload
     save_cfg(os.path.join(out_dir, "autoencoder.cfg"), pipe.vae_cfg)
+    if pipe.refiner is not None:
+        write("refiner.safetensors", pipe.refiner)
+        save_cfg(os.path.join(out_dir, "refiner.cfg"), pipe.refiner_cfg)
     return out_dir

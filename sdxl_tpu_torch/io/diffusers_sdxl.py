@@ -16,9 +16,11 @@ diffusers block indices map onto the reference/ldm block order:
 
 As in io/hf_sdxl.py, the files are in torch's layouts already: the
 builders return the port's state_dicts of zero-copy views moved to the
-device one tensor at a time. A UNet the port cannot run yet raises
-NotImplementedError naming the module it waits for; the ControlNet (module
-11) and SD1 (module 12) loaders wait for theirs.
+device one tensor at a time. An inpainting UNet (conv_in of 9 channels)
+loads with its config's in_channels set to 9. An LCM UNet the port cannot
+run yet raises NotImplementedError naming the module it waits for
+(module 10); the ControlNet (module 11) and SD1 (module 12) loaders wait
+for theirs.
 """
 
 from __future__ import annotations
@@ -291,18 +293,15 @@ def load_sdxl_diffusers_dir(
 
     Returns (embedder state_dicts | None, unet state_dict, autoencoder
     state_dict, alphas_cumprod | None, vae_scale_factor | None,
-    diffuser_cfg), tensors on ``device``. An inpainting UNet (conv_in of 9
-    channels) or an LCM-distilled one (time_embedding.cond_proj) raises
-    NotImplementedError: the port's UNet runs neither yet.
+    diffuser_cfg), tensors on ``device``. The cfg comes back with
+    in_channels corrected from the checkpoint's conv_in width (9 for
+    inpainting UNets). An LCM-distilled UNet (time_embedding.cond_proj)
+    raises NotImplementedError: the port's UNet does not run it yet.
     """
     unet_tensors = _load_safetensors_dir(os.path.join(model_dir, "unet"))
     cin = int(unet_tensors["conv_in.weight"].shape[1])
     if cin != diffuser_cfg.in_channels:
         diffuser_cfg = dataclasses.replace(diffuser_cfg, in_channels=cin)
-    if diffuser_cfg.in_channels != 4:
-        raise NotImplementedError(
-            f"{model_dir}: a {diffuser_cfg.in_channels}-channel (inpainting) "
-            f"UNet is not ported yet (module 9)")
     if ("time_embedding.cond_proj.weight" in unet_tensors
             or diffuser_cfg.time_cond_proj_dim):
         raise NotImplementedError(

@@ -1,11 +1,18 @@
-"""PNG output (counterpart of sdxl_tpu/io/images.py's save_images), on a
-writer of the port's own: ``zlib`` and ``struct``, no PIL.
+"""PNG input and output (counterpart of sdxl_tpu/io/images.py), on a
+reader and a writer of the port's own: ``zlib`` and ``struct``, no PIL.
 
 Images are written as {basepath}{i}.png (sample/main.rs:341-348): 8-bit
 RGB, every row with filter type 0, one IDAT chunk. Metadata travels as
 one text chunk per key, before the image data: tEXt when key and value are
-Latin-1 (PIL's rule), iTXt (UTF-8, uncompressed) otherwise. Reading images
-(``load_images``) waits for module 9, the first to need it.
+Latin-1 (PIL's rule), iTXt (UTF-8, uncompressed) otherwise.
+
+``read_png`` decodes a non-interlaced 8-bit PNG of colour type 0 (gray), 2
+(RGB), 3 (palette), 4 (gray + alpha) or 6 (RGBA), and gray or palette at
+1, 2 or 4 bits (as PIL writes small palettes), every row filter (0-4,
+Paeth included), to RGB as PIL's ``convert("RGB")`` gives it: alpha
+dropped, the palette expanded, gray replicated. Any other file (16-bit,
+interlaced, not a PNG) is a ValueError naming it.
+``load_images`` stacks such files into one batch.
 """
 
 from __future__ import annotations
@@ -13,11 +20,13 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import List
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> samples a pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -69,3 +78,133 @@ def save_images(images: np.ndarray, basepath: str,
             f.write(encode_png(img, metadata))
         out.append(path)
     return out
+
+
+def _paeth(a: int, b: int, c: int) -> int:
+    p = a + b - c
+    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
+    if pa <= pb and pa <= pc:
+        return a
+    return b if pb <= pc else c
+
+
+def _unfilter(data: bytes, h: int, stride: int, bpp: int,
+              path: str) -> np.ndarray:
+    """The [h, stride] samples of filtered scanlines (one filter byte
+    each). Filters 0 and 2 are vectorised, 1 a running sum; 3 and 4 run a
+    byte at a time, each byte depending on its left neighbour."""
+    if len(data) < h * (stride + 1):
+        raise ValueError(f"{path}: image data is truncated")
+    raw = np.frombuffer(data, np.uint8)[: h * (stride + 1)].reshape(
+        h, stride + 1)
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        f, line = raw[y, 0], raw[y, 1:]
+        if f == 0:
+            row = line.copy()
+        elif f == 1:
+            row = (np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint64)
+                   % 256).astype(np.uint8).reshape(-1)
+        elif f == 2:
+            row = line + prior  # uint8 arithmetic wraps mod 256
+        elif f in (3, 4):
+            row = bytearray(line.tobytes())
+            up = prior.tolist()
+            for i in range(stride):
+                left = row[i - bpp] if i >= bpp else 0
+                if f == 3:
+                    pred = (left + up[i]) >> 1
+                else:
+                    pred = _paeth(left, up[i], up[i - bpp] if i >= bpp else 0)
+                row[i] = (row[i] + pred) & 0xFF
+            row = np.frombuffer(bytes(row), np.uint8)
+        else:
+            raise ValueError(f"{path}: row {y} has an unknown filter {f}")
+        out[y] = row
+        prior = out[y]
+    return out
+
+
+def _text(kind: bytes, body: bytes) -> Tuple[str, str]:
+    key, rest = body.split(b"\0", 1)
+    if kind == b"tEXt":
+        return key.decode("latin-1"), rest.decode("latin-1")
+    if kind == b"zTXt":
+        return key.decode("latin-1"), zlib.decompress(rest[1:]).decode(
+            "latin-1")
+    # iTXt: compression flag and method, language tag, translated keyword
+    flag = rest[0]
+    _, _, rest = rest[2:].split(b"\0", 2)
+    return key.decode("latin-1"), (zlib.decompress(rest) if flag
+                                   else rest).decode("utf-8")
+
+
+def read_png(path: str) -> Tuple[np.ndarray, Dict[str, str]]:
+    """(pixels [H, W, 3] uint8 RGB, {key: text} of its text chunks) of a
+    PNG file; see the module docstring for the files it takes."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != _SIGNATURE:
+        raise ValueError(f"{path} is not a PNG file")
+    pos, idat, text, header, palette = 8, [], {}, None, None
+    while pos + 8 <= len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body[:13])
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind in (b"tEXt", b"zTXt", b"iTXt"):
+            key, value = _text(kind, body)
+            text[key] = value
+        elif kind == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if color not in _CHANNELS or not (
+            depth == 8 or (depth in (1, 2, 4) and color in (0, 3))):
+        raise ValueError(f"{path}: bit depth {depth}, colour type {color}: "
+                         f"only 8-bit gray, RGB, palette, gray+alpha and "
+                         f"RGBA PNGs, and gray or palette at 1, 2 or 4 "
+                         f"bits, are read")
+    if interlace:
+        raise ValueError(f"{path}: an interlaced PNG is not read")
+    ch = _CHANNELS[color]
+    data = zlib.decompress(b"".join(idat))
+    if depth == 8:
+        px = _unfilter(data, h, w * ch, ch, path).reshape(h, w, ch)
+    else:  # packed samples, most significant bits first
+        rows = _unfilter(data, h, (w * depth + 7) // 8, 1, path)
+        bits = np.unpackbits(rows, axis=1)[:, : w * depth].reshape(
+            h, w, depth)
+        px = (bits << np.arange(depth - 1, -1, -1, dtype=np.uint8)).sum(
+            axis=-1, dtype=np.uint8)[..., None]
+        if color == 0:  # gray scaled to 8 bits
+            px = px * np.uint8(255 // (2 ** depth - 1))
+    if color == 3:
+        if palette is None:
+            raise ValueError(f"{path}: a palette image without PLTE")
+        if px.max(initial=0) >= len(palette):
+            # PIL pads a short palette with black entries
+            palette = np.concatenate(
+                [palette, np.zeros((256 - len(palette), 3), np.uint8)])
+        return palette[px[..., 0]], text
+    if ch <= 2:  # gray (+ alpha): replicate the gray sample
+        return np.repeat(px[..., :1], 3, axis=-1), text
+    return np.ascontiguousarray(px[..., :3]), text
+
+
+def load_images(paths: Sequence[str]) -> np.ndarray:
+    """Load PNGs as one [N, H, W, 3] uint8 batch; dims must match."""
+    imgs = [read_png(p)[0] for p in paths]
+    if not imgs:
+        raise ValueError("no images given")
+    shape = imgs[0].shape
+    if any(im.shape != shape for im in imgs):
+        raise ValueError("images have different dimensions")
+    return np.stack(imgs)

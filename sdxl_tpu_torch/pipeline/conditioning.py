@@ -4,13 +4,15 @@
   penultimate layer plus its pooled embedding;
 - context_full = cat(clip 768, openclip 1280) = 2048;
 - channel context = pooled ++ sinusoid(size, crop, aspect) = 2816;
+- the refiner's channel context replaces the aspect with the aesthetic
+  score 6: pooled ++ sinusoid(size, crop, 6) = 2560;
 - the unconditional branch runs the same towers on the negative prompt,
   memoised across requests in ``uncond_cache``.
 
 Tokenisation is host-side (the reference's BPE tokenizers); the towers
 run in f32 on the embedder's device. The reference's defaults are fixed
 here: crop (0, 0), attention-weight parsing on, at most 4 chunks of 77
-tokens, no clip skip. The refiner's channel contexts wait for the refiner.
+tokens, no clip skip.
 """
 
 from __future__ import annotations
@@ -27,9 +29,12 @@ from ..models.clip import clip_hidden, clip_hidden_pooled
 from ..ops.embeddings import conditioning_embedding
 from .prompt import apply_prompt_weights, batch_weighted_tokens, pad_chunks
 
+AESTHETIC_SCORE = 6  # the refiner's micro-conditioning
+
+
 @dataclass
 class Conditioning:
-    """The 6 conditioning tensors and the target resolution. Unconditional
+    """The 8 conditioning tensors and the target resolution. Unconditional
     tensors carry batch 1 and are broadcast at CFG time."""
 
     unconditional_context_full: torch.Tensor          # [1, 77k, 2048]
@@ -37,7 +42,9 @@ class Conditioning:
     context_full: torch.Tensor                        # [B, 77k, 2048]
     context_open_clip: torch.Tensor                   # [B, 77k, 1280]
     unconditional_channel_context: torch.Tensor       # [1, 2816]
+    unconditional_channel_context_refiner: torch.Tensor  # [1, 2560]
     channel_context: torch.Tensor                     # [B, 2816]
+    channel_context_refiner: torch.Tensor             # [B, 2560]
     resolution: Tuple[int, int]                       # (height, width)
 
     @property
@@ -71,7 +78,11 @@ def _conditioning_half(embedder: nn.ModuleDict, cfg: EmbedderConfig,
     context_full = torch.cat([clip_ctx, open_ctx], dim=-1)
     # the aspect input of the base model's micro-conditioning is the size
     channel = conditioning_embedding(pooled, 256, size, crop, size)
-    return context_full, open_ctx, channel
+    aesthetic = torch.full((b, 1), AESTHETIC_SCORE, dtype=size.dtype,
+                           device=size.device)
+    channel_refiner = conditioning_embedding(pooled, 256, size, crop,
+                                             aesthetic)
+    return context_full, open_ctx, channel, channel_refiner
 
 
 @torch.no_grad()
@@ -136,15 +147,17 @@ def text_to_conditioning(
         if uncond_cache is not None:
             uncond_cache[cache_key] = uncond
 
-    u_full, u_oc, u_ch = uncond
-    ctx_full, ctx_oc, ch = cond
+    u_full, u_oc, u_ch, u_ch_ref = uncond
+    ctx_full, ctx_oc, ch, ch_ref = cond
     return Conditioning(
         unconditional_context_full=u_full,
         unconditional_context_open_clip=u_oc,
         context_full=ctx_full,
         context_open_clip=ctx_oc,
         unconditional_channel_context=u_ch,
+        unconditional_channel_context_refiner=u_ch_ref,
         channel_context=ch,
+        channel_context_refiner=ch_ref,
         resolution=(h, w),
     )
 

@@ -16,10 +16,13 @@ card unless the caller asks for the CPU). Each module is built on the meta
 device and takes its tensors with ``load_state_dict(strict=True,
 assign=True)``: a missing or extra key is an error naming it, and no
 weight is held twice on the device. LoRA files merge into the loaded
-modules afterwards (io/lora.py). The refiner (module 9) and quantized
-storage (module 14) raise NotImplementedError; the reference's
-transformer stacking and HBM placement are XLA devices the port does not
-need.
+base modules afterwards (io/lora.py). ``use_refiner`` also loads the
+refiner UNet: refiner.{safetensors,cfg} (native), refiner.{mpk,cfg},
+diffuser/diffuser_refiner (npy), or the sd_xl_refiner_* file beside the
+base (sgm); a diffusers dir holds no refiner and raises, as in the
+reference. Quantized storage (module 14) raises NotImplementedError; the
+reference's transformer stacking and HBM placement are XLA devices the
+port does not need: base and refiner stay resident.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from torch import nn
 from ..configs import (
     SDXL_BASE_DIFFUSER,
     SDXL_EMBEDDER,
+    SDXL_REFINER_DIFFUSER,
     AutoencoderConfig,
     DiffuserConfig,
     EmbedderConfig,
@@ -133,21 +137,25 @@ def load_pipeline(
     quantize: Optional[str] = None,
     device="cuda",
 ) -> SDXLPipeline:
-    """Load any layout ``detect_format`` knows onto ``device``: the UNet
-    in ``compute_dtype``, the towers and the VAE in f32. loras is a list
-    of (path, scale) LoRA safetensors files merged into the UNet and the
-    text towers at load time (io/lora.py)."""
-    if use_refiner:
-        raise NotImplementedError("refiner loading is not ported yet "
-                                  "(module 9)")
+    """Load any layout ``detect_format`` knows onto ``device``: the UNets
+    (base, and the refiner with use_refiner) in ``compute_dtype``, the
+    towers and the VAE in f32. loras is a list of (path, scale) LoRA
+    safetensors files merged into the base UNet and the text towers at
+    load time (io/lora.py)."""
     if quantize is not None:
         raise NotImplementedError("quantized UNet storage is not ported yet "
                                   "(module 14)")
     device = torch.device(device)
     fmt = detect_format(model_dir)
     log(f"loading checkpoint ({fmt}) from {model_dir}")
+    if fmt == "diffusers" and use_refiner:
+        raise ValueError(
+            "refiner weights live in a separate diffusers repo; load them "
+            "via a second pipeline or the single-file sgm checkpoint")
     v_cfg = SDXL_VAE
     alphas = scale = None
+    # the refiner: its config, state_dict (or reference tree) and alphas
+    r_cfg = r_sd = r_alphas = None
 
     if fmt == "diffusers":
         from ..io.diffusers_sdxl import (
@@ -179,15 +187,31 @@ def load_pipeline(
         if e_sds is None:
             raise FileNotFoundError(
                 f"conditioner weights missing in {base_path}")
+        if use_refiner:
+            refiner_path = None if os.path.isfile(model_dir) else next(
+                (p for p in paths if "refiner" in p), None)
+            if refiner_path is None:
+                raise FileNotFoundError("no sd_xl_refiner_*.safetensors found")
+            # a refiner file carries only the bigG tower: no embedder
+            r_cfg = SDXL_REFINER_DIFFUSER
+            _, r_sd, _ = load_sdxl_safetensors(
+                refiner_path, r_cfg, None, compute_dtype, device=device)
     elif fmt == "mpk":
         e_cfg, e_sds = ckpt.load_embedder_mpk(model_dir)
         d_cfg, unet_sd, alphas = ckpt.load_diffuser_mpk(model_dir)
+        if use_refiner:
+            r_cfg, r_sd, r_alphas = ckpt.load_diffuser_mpk(model_dir,
+                                                           "refiner")
         l_cfg, vae_sd = ckpt.load_latent_decoder_mpk(model_dir)
         scale = l_cfg.scale_factor
     elif fmt == "npy":
         e_cfg, d_cfg = SDXL_EMBEDDER, SDXL_BASE_DIFFUSER
         e_sds = ckpt.load_embedder_npy(model_dir, e_cfg)
         unet_sd, alphas = ckpt.load_diffuser_npy(model_dir, d_cfg)
+        if use_refiner:
+            r_cfg = SDXL_REFINER_DIFFUSER
+            r_sd, r_alphas = ckpt.load_diffuser_npy(model_dir, r_cfg,
+                                                    is_refiner=True)
         vae_sd, scale = ckpt.load_latent_decoder_npy(model_dir)
     else:  # native
         def path(name):
@@ -206,6 +230,10 @@ def load_pipeline(
         if os.path.isfile(path("alphas_cumprod.safetensors")):
             alphas = ckpt.load_native(
                 path("alphas_cumprod.safetensors"))["alphas_cumprod"]
+        if use_refiner:
+            r_cfg = load_cfg(path("refiner.cfg"), DiffuserConfig)
+            r_sd = fuse_qkv(ckpt.native_state_dict(
+                path("refiner.safetensors"), compute_dtype, device))
         vae_sd = ckpt.native_state_dict(path("latent_decoder.safetensors"),
                                         device=device)
         scale = l_cfg.scale_factor
@@ -222,6 +250,10 @@ def load_pipeline(
                                                   device))
         vae_sd = ckpt.flatten_pytree(vae_sd)
         vae_sd = ckpt.stream_state_dict(vae_sd, device=device)
+        if r_sd is not None:
+            r_sd = ckpt.flatten_pytree(r_sd)
+            r_sd = fuse_qkv(ckpt.stream_state_dict(r_sd, compute_dtype,
+                                                   device))
     if d_cfg.prediction_type != "eps":
         raise NotImplementedError("v-prediction UNets are not ported yet "
                                   "(module 12)")
@@ -229,7 +261,11 @@ def load_pipeline(
     unet = _load_module(UNet(d_cfg.unet_config(), "meta", compute_dtype),
                         unet_sd, "diffuser", device)
     vae, encoder = _autoencoder(v_cfg, vae_sd, device)
-    del e_sds, unet_sd, vae_sd
+    refiner = None
+    if r_sd is not None:
+        refiner = _load_module(UNet(r_cfg.unet_config(), "meta",
+                                    compute_dtype), r_sd, "refiner", device)
+    del e_sds, unet_sd, vae_sd, r_sd
     if loras:
         from ..io.lora import apply_lora_files
 
@@ -237,17 +273,24 @@ def load_pipeline(
                          te2=embedder["open_clip"])
     if alphas is None:
         alphas = scaled_linear_alphas_cumprod()
+    alphas = torch.as_tensor(alphas, dtype=torch.float32, device=device)
+    if refiner is not None:
+        # the native and sgm layouts share the base's table
+        r_alphas = alphas if r_alphas is None else torch.as_tensor(
+            r_alphas, dtype=torch.float32, device=device)
     return SDXLPipeline(
         embedder_cfg=e_cfg,
         embedder=embedder,
         diffuser_cfg=d_cfg,
         unet=unet,
-        alphas_cumprod=torch.as_tensor(alphas, dtype=torch.float32,
-                                       device=device),
+        alphas_cumprod=alphas,
         vae_cfg=v_cfg,
         vae=vae,
         clip_tokenizer=ClipTokenizer(tokenizer_dir),
         open_clip_tokenizer=OpenClipTokenizer(tokenizer_dir),
         vae_encoder=encoder,
         scale_factor=float(scale or 0.13025),
+        refiner_cfg=r_cfg,
+        refiner=refiner,
+        refiner_alphas=r_alphas,
     )

@@ -374,9 +374,13 @@ def test_diffusers_configs_are_inferred(layouts):
     assert pipe.vae_cfg.n_group == 4
 
 
-def test_checkpoint_errors_name_the_key(layouts, tmp_path):
-    """A native file with a missing tensor fails with the key's name; a
-    9-channel (inpainting) or LCM UNet names the module it waits for."""
+def test_checkpoint_errors_name_the_key(layouts, tmp_path,
+                                       reference_host_casts):
+    """A native file with a missing tensor fails with the key's name; an
+    LCM UNet names the module it waits for; a 9-channel (inpainting) UNet
+    loads, its config's in_channels 9, bitwise as the reference's reader
+    gives it; a refiner asked of a dir without one is the reference's
+    FileNotFoundError."""
     src = layouts["native"]
     bad = tmp_path / "bad"
     bad.mkdir()
@@ -393,23 +397,34 @@ def test_checkpoint_errors_name_the_key(layouts, tmp_path):
     unet = st_load(os.path.join(dif, "unet",
                                 "diffusion_pytorch_model.safetensors"))
     w = unet["conv_in.weight"]
-    for name, edit, module in (
+    for name, edit in (
             ("inpaint", {"conv_in.weight": np.concatenate([w, w[:, :1]] * 3,
-                                                          axis=1)[:, :9]},
-             "module 9"),
+                                                          axis=1)[:, :9]}),
             ("lcm", {"time_embedding.cond_proj.weight":
-                     np.zeros((128, 256), w.dtype)}, "module 10")):
+                     np.zeros((128, 256), w.dtype)})):
         lay = tmp_path / name
         lay.mkdir()
         for sub in os.listdir(dif):
             if sub != "unet":
                 os.symlink(os.path.join(dif, sub), lay / sub)
         (lay / "unet").mkdir()
+        os.symlink(os.path.join(dif, "unet", "config.json"),
+                   lay / "unet" / "config.json")
         st_save(dict(unet, **edit),
                 str(lay / "unet" / "diffusion_pytorch_model.safetensors"))
-        with pytest.raises(NotImplementedError, match=module):
-            load_pipeline(str(lay), device="cpu")
-    with pytest.raises(NotImplementedError, match="module 9"):
+        if name == "lcm":
+            with pytest.raises(NotImplementedError, match="module 10"):
+                load_pipeline(str(lay), device="cpu")
+            continue
+        pipe = load_pipeline(str(lay), device="cpu")
+        e_cfg, d_cfg, v_cfg = j_infer(str(lay))
+        _, j_unet, _, _, _, d_cfg = j_load_dif(str(lay), d_cfg, e_cfg,
+                                               jnp.float32, vae_cfg=v_cfg)
+        assert pipe.diffuser_cfg.in_channels == d_cfg.in_channels == 9
+        assert dataclasses.asdict(pipe.diffuser_cfg) == dataclasses.asdict(
+            d_cfg)
+        assert_state_equal(pipe.unet, unet_state_dict(_bf16(j_unet)))
+    with pytest.raises(FileNotFoundError):
         load_pipeline(src, use_refiner=True, device="cpu")
     with pytest.raises(NotImplementedError, match="module 14"):
         load_pipeline(src, quantize="int8", device="cpu")
@@ -770,7 +785,7 @@ def test_cli_parser_is_the_references():
 
 @pytest.mark.parametrize("extra,module", [
     (["--sampler", "euler"], 10),
-    (["--use-refiner"], 9),
+    (["--trace", "t"], 7),
     (["--quantize", "int8"], 14),
     (["--family", "sd3"], 13),
     (["--controlnet", "cn", "--control-image", "c.png"], 11),

@@ -133,18 +133,22 @@ def test_vae_dtype_bf16_decodes_through_the_bf16_copy(pipes):
 def test_unported_options_raise(pipes):
     _, tpipe = pipes
     with pytest.raises(NotImplementedError):
-        tpipe.txt2img("a cat", RES, n_steps=2, use_refiner=True)
+        tpipe.txt2img("a cat", RES, n_steps=2,
+                      control_image=np.zeros((*RES, 3), np.uint8))
     with pytest.raises(NotImplementedError):
         tpipe.txt2img("a cat", RES, n_steps=2, sampler="euler")
 
 
 def test_port_never_imports_jax():
-    """Every module of the port imports, and a tiny pipeline runs, with
-    `import jax` and `import sdxl_tpu` made to fail: the port keeps its own
-    configs and tokenizer. Nor does it import the packages the card lacks
-    (safetensors, msgpack, PIL, ml_dtypes): it has its own readers."""
+    """Every module of the port imports, and a tiny pipeline runs txt2img,
+    txt2img with the refiner and a mask-image inpaint request (the VAE
+    encoder, masks.py, the pin), with `import jax` and `import sdxl_tpu`
+    made to fail: the port keeps its own configs and tokenizer. Nor does
+    it import the packages the card lacks (safetensors, msgpack, PIL,
+    ml_dtypes): it has its own readers."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
+        import numpy as np
         BLOCKED = ("jax", "sdxl_tpu", "safetensors", "msgpack", "PIL",
                    "ml_dtypes")
         for name in BLOCKED:
@@ -166,10 +170,23 @@ def test_port_never_imports_jax():
                 num_head_channels=8, transformer_depths=(1, 1, 1),
                 context_dim=64),
             vae_cfg=AutoencoderConfig(
+                encoder_channels=((8, 8), (8, 8), (8, 8), (8, 8)),
                 decoder_channels=((16, 16), (16, 16), (16, 8), (8, 8)),
                 n_group=4),
-            unet_dtype=torch.float32)
+            unet_dtype=torch.float32, with_encoder=True,
+            refiner_cfg=DiffuserConfig(
+                adm_in_channels=32 + 5 * 256, model_channels=32,
+                channel_mults=(1, 2, 4, 4), num_head_channels=8,
+                transformer_depths=(1, 1, 1, 1), context_dim=32,
+                is_refiner=True))
         img = pipe.txt2img("a cat", (64, 64), n_steps=1)
+        assert img.shape == (1, 64, 64, 3), img.shape
+        img = pipe.txt2img("a cat", (64, 64), n_steps=2, use_refiner=True)
+        assert img.shape == (1, 64, 64, 3), img.shape
+        pipe.strict_resolutions = False
+        mask = np.zeros((64, 64, 3), np.uint8)
+        mask[8:40, 16:48] = 255
+        img = pipe.inpaint("a cat", img, mask_image=mask, n_steps=2)
         assert img.shape == (1, 64, 64, 3), img.shape
         assert not any(k.split(".")[0] in BLOCKED
                        for k, v in sys.modules.items() if v is not None)
