@@ -22,7 +22,8 @@ Phases (any failure exits non-zero before the result line):
      and is printed for any other;
   3. each kernel against its plain PyTorch version on the card at the
      main paths' shapes (the refiner's [1,12,4096,64] and [1,24,1024,64]
-     bf16 among K1's, those two also inside one CUDA graph; K1/K2/K3 at a
+     bf16 and the no-CFG base's [1,10,4096,64] and [1,20,1024,64] among
+     K1's, those four also inside one CUDA graph; K1/K2/K3 at a
      token count no multiple of 4, and at Flux-dev's joint attention,
      [1,24,4608,128]) —
      K1 on every route (bf16 d 64/128 and 512, f32 d
@@ -88,7 +89,8 @@ Phases (any failure exits non-zero before the result line):
   9. with --profile only: three unfenced 1024x1024 requests, then one
      under torch.profiler — device time by the op that launched each
      kernel, and the device's idle share against the unfenced latency;
-     the same for the f32 UNet's 4-step request after phase 5;
+     the same for the f32 UNet's 4-step request after phase 5, and for
+     the dpmpp + karras request with and without CFG after phase 8c;
   8b. module 9 on the same pipeline, each request 1024x1024, 30 steps,
      CFG 7.5, with latency, stage split, peak memory and K1's launches
      asserted: base + refiner (2170 + 280), denoising_end=0.8 (25 base
@@ -99,18 +101,37 @@ Phases (any failure exits non-zero before the result line):
      the VAE (2170 + 2 each; the 9-channel UNet freed after); then one
      refiner UNet call through K1 (40 launches) and through the plain
      attention: eps within 2e-2 relative;
+  8c. module 10a on the same pipeline, each request 1024x1024, CFG 7.5,
+     with latency, stage split, UNet evaluations (counted at the
+     samplers' UNet call), K1's launches and peak memory printed, and the
+     evaluations and launches asserted against the counts the code's
+     schedules give (70 launches a base evaluation, 40 a refiner's, one
+     d=512 launch a decode or encode; heun and the mid methods evaluate
+     twice a step but once on the last): dpmpp + karras, 30 steps, three
+     times (30 evaluations); each other k-sampler at 10 steps (10, or 19
+     for heun, dpm2, dpm2_a, dpmpp_2s_a); euler_a with the refiner (30 + 6);
+     dpmpp + karras split at denoising_end=0.8 (19 + 11); img2img at 0.3
+     with dpmpp_sde (9); a crop-window inpaint with euler_a (30); euler on
+     the zero-terminal-SNR table, trailing, guidance_rescale 0.7 (30, the
+     table restored after); dpmpp + ays at 10 steps; dpmpp + karras with
+     no_cfg (batch-1 UNet calls); DDIM with eta 1 (31); every latent
+     finite; then one pair-batched base UNet call at a karras fractional
+     timestep and one at zsnr's first sigma (about 4096) through K1 and
+     through the plain attention: eps within 2e-2 relative;
   9b. checkpoint loading and the sample CLI: the same full-width
      pipeline, refiner included, written with save_native_pipeline
      (UNets bf16, the rest f32) into build/checkpoint (free space checked
      first, removed at the end); the kernel asked to drop its pages
      (posix_fadvise); then `sdxl_tpu_torch.cli.sample.main` with
      --model-dir on it, one prompt, 1024x1024, 30 steps, CFG 7.5, seed 0,
-     three times: txt2img, --use-refiner, and --reference-img (the first
-     request's PNG) with --mask-img (a PNG written by save_images). Each
+     five times: txt2img, --use-refiner, --reference-img (the first
+     request's PNG) with --mask-img (a PNG written by save_images),
+     --sampler dpmpp --schedule karras, and --sampler euler_a. Each
      time the pipeline the CLI loaded must be bitwise equal to the
      in-memory one (CLIP towers, UNet, VAE decoder and encoder,
      alphas_cumprod, and the refiner with --use-refiner), K1 launched as
-     counted (2170 + 1, 2450 + 1, 2170 + 2), and the PNG it wrote (decoded
+     counted (2170 + 1, 2450 + 1, 2170 + 2, 2100 + 1, 2100 + 1), and the
+     PNG it wrote (decoded
      with io/images.py read_png) within 1 u8 level of the in-memory
      pipeline's image (the count of differing pixels printed); bytes
      written, seconds to write, and seconds for the loads printed, the
@@ -126,7 +147,7 @@ Phases (any failure exits non-zero before the result line):
      (forward and backward) in place of the kernels: they must agree;
   12. with --profile only: three timed LoRA steps, then one under
      torch.profiler, reported as in phase 9.
-Each path (phases 4, 5, 5b, 6, 8, 8b, 9b, 10) runs with the launch counts set to
+Each path (phases 4, 5, 5b, 6, 8, 8b, 8c, 9b, 10) runs with the launch counts set to
 0 just before it and read just after; the JSON record's launches are their
 sum. Each phase's seconds are printed. The last two lines are the kernels'
 JSON record and {"ok": true, ...}.
@@ -163,8 +184,19 @@ from sdxl_tpu_torch.ops import attention as attention_mod
 from sdxl_tpu_torch.ops import flash_attention as fa
 from sdxl_tpu_torch.pipeline import loader as loader_mod
 from sdxl_tpu_torch.pipeline.latent import decode_latent_to_images
+from sdxl_tpu_torch.pipeline import sampler as sampler_mod
+from sdxl_tpu_torch.pipeline.k_samplers import (
+    K_SAMPLERS,
+    k_schedule,
+    model_evaluations,
+    rescale_zero_terminal_snr,
+)
 from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
-from sdxl_tpu_torch.pipeline.sampler import _cfg_contexts
+from sdxl_tpu_torch.pipeline.sampler import (
+    _cfg_contexts,
+    ddim_timesteps,
+    expert_head_steps,
+)
 from sdxl_tpu_torch.scripts import bench_flash_ragged
 from sdxl_tpu_torch.scripts import exp_flash_exp2 as x1
 from sdxl_tpu_torch.scripts import exp_flash_floor as x2
@@ -217,7 +249,8 @@ KERNELS = {
 # (bench.py:53-66) at levels 2 and 1 at 1024x1024, 832x1216 and the
 # smallest buckets (924 and 3696 tokens, where 128-row tiles are most
 # ragged), the bf16 refiner's (batch 1, unguided) at levels 1 and 2 at
-# 1024x1024, the f32 VAE mid-block attention at 1024x1024, the f32 UNet at
+# 1024x1024, the bf16 UNet's without CFG (batch 1: no_cfg or guidance
+# 1) at 1024x1024, the f32 VAE mid-block attention at 1024x1024, the f32 UNet at
 # 1024x1024 and 832x1216 (ragged 64-key tiles) and the bf16 VAE decode at
 # 1024x1024, 832x1216 and the
 # smallest VAE bucket (14336 tokens), the f32 VAE's likewise — plus one
@@ -240,6 +273,8 @@ KERNEL_CASES = [
     (2, 10, 3696, 64, torch.bfloat16, 2e-2),
     (1, 12, 4096, 64, torch.bfloat16, 2e-2),
     (1, 24, 1024, 64, torch.bfloat16, 2e-2),
+    (1, 10, 4096, 64, torch.bfloat16, 2e-2),
+    (1, 20, 1024, 64, torch.bfloat16, 2e-2),
     (1, 1, 16384, 512, torch.float32, 1e-3),
     (1, 1, 15808, 512, torch.float32, 1e-3),
     (1, 1, 14336, 512, torch.float32, 1e-3),
@@ -262,8 +297,11 @@ K1_EDGE_CASES = [
 ]
 K1_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # K1 cases also timed inside one CUDA graph: the refiner's shapes (at
-# [1,24,1024,64] 192-row tiles give 6 x 24 = 144 blocks for 132 SMs)
-K1_GRAPHED = {(1, 12, 4096, 64), (1, 24, 1024, 64)}
+# [1,24,1024,64] 192-row tiles give 6 x 24 = 144 blocks for 132 SMs) and
+# the base's without CFG (no_cfg or guidance 1: batch 1, 220 and 120
+# blocks)
+K1_GRAPHED = {(1, 12, 4096, 64), (1, 24, 1024, 64), (1, 10, 4096, 64),
+              (1, 20, 1024, 64)}
 # The kernels of the Hopper sources: for each source, its export that
 # gives a kernel's dynamic shared memory (from the kernel's index and the
 # first three int template arguments of its symbol, 0 where it has fewer),
@@ -377,6 +415,15 @@ REFINER_LAUNCHES = 7 * REFINER_ATTENTIONS
 CROP_WINDOW = dict(crop_left=256, crop_right=768, crop_top=256,
                    crop_bottom=768)
 OUTPAINT_PAD = 96
+# phase 8c: the k-sampler requests' steps (the headline dpmpp + karras
+# request, timed HEADLINE_RUNS times, and the refiner, split, img2img,
+# inpaint, zsnr, no-CFG and DDIM eta requests: K_STEPS; each other method,
+# and ays: K_METHOD_STEPS), zsnr's guidance rescale, and the karras step
+# whose fractional timestep the path check takes
+K_RES = (1024, 1024)
+K_STEPS, K_METHOD_STEPS, HEADLINE_RUNS = 30, 10, 3
+ZSNR_RESCALE = 0.7
+KARRAS_STEP = 5
 # the f32 pipeline's request: 4 DDIM steps (4 UNet calls) keep its cost
 # near one bf16 request's
 F32_STEPS = 4
@@ -1146,6 +1193,202 @@ def check_refiner_against_plain(pipe) -> None:
         fail("the refiner through K1 disagrees with the plain attention")
 
 
+@contextlib.contextmanager
+def counting_unet_calls():
+    """Inside, the samplers' UNet evaluations are counted: calls[0]."""
+    calls = [0]
+    real = sampler_mod.unet_forward
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return real(*args, **kw)
+
+    sampler_mod.unet_forward = counted
+    try:
+        yield calls
+    finally:
+        sampler_mod.unet_forward = real
+
+
+def unet_calls(pipe, sampler: str, n_steps: int, schedule: str = "linear",
+               step_start: int = 0, tail_from: int = 0,
+               alphas=None) -> int:
+    """The UNet evaluations a sampler makes, from the schedule the code
+    builds (DDIM's grid; k_schedule's with heun's and the mid methods'
+    second evaluations, none on the last step)."""
+    alphas = pipe.alphas_cumprod if alphas is None else alphas
+    if sampler == "ddim":
+        return len(ddim_timesteps(step_start, n_steps,
+                                  alphas.shape[0])) - tail_from
+    sigmas = k_schedule(alphas, step_start, n_steps, schedule)[1]
+    return model_evaluations(sampler, sigmas[tail_from:])
+
+
+def module10_request(pipe, label: str, fn, want_base: int,
+                     want_refiner: int, want_vae: int):
+    """One module-10 request: latency, stage split, UNet evaluations, K1
+    launches and peak memory printed; fail unless the evaluations are
+    want_base + want_refiner, K1's d 64/128 route was launched 70 a base
+    and REFINER_ATTENTIONS a refiner evaluation and its f32 d=512 route
+    want_vae times, and the latent is finite."""
+    pipe.timer.stages.clear()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(fa.launch_counts)
+    with counting_unet_calls() as calls:
+        t0 = time.perf_counter()
+        images = fn()
+        latency = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    stages = " ".join(f"{k}={v:.3f}s" for k, v in pipe.timer.stages.items())
+    launches = {k: n - before[k] for k, n in fa.launch_counts.items()
+                if n != before[k]}
+    latent = pipe.last_latent
+    print(f"request {label}: latency={latency:.3f}s {stages} "
+          f"unet_evaluations={calls[0]} (predicted {want_base} base + "
+          f"{want_refiner} refiner) peak_mem={peak_gib:.2f}GiB "
+          f"launches={launches} max|latent|="
+          f"{latent.abs().max().item():.4g}", flush=True)
+    per_call = UNET_LAUNCHES_1024 // 31
+    want = (per_call * want_base + REFINER_ATTENTIONS * want_refiner,
+            want_vae)
+    got = (launches.get("sdxl_flash_attention_bf16", 0),
+           launches.get(F32_D512, 0))
+    if calls[0] != want_base + want_refiner or got != want:
+        fail(f"{label}: {calls[0]} UNet evaluations and K1 launched {got[0]}"
+             f" (bf16 d 64/128) and {got[1]} (f32 d=512) times, not "
+             f"{want_base + want_refiner}, {want[0]} and {want[1]}")
+    if not bool(torch.isfinite(latent).all()):
+        fail(f"non-finite latent in {label}")
+    if (images.shape != (1, *K_RES, 3) or images.dtype.name != "uint8"
+            or images.std() == 0):
+        fail(f"{label}: images {images.shape} {images.dtype}")
+    return images
+
+
+def module10_requests(pipe) -> None:
+    """Phase 8c: the k-samplers at 1024x1024, CFG 7.5, on the bf16
+    pipeline: the headline dpmpp + karras request HEADLINE_RUNS times,
+    each other method at K_METHOD_STEPS, euler_a with the refiner, dpmpp
+    + karras split at denoising_end=0.8, img2img with dpmpp_sde, a
+    crop-window inpaint with euler_a, euler on the zero-terminal-SNR table
+    with trailing and guidance_rescale (the table restored after), ays,
+    no CFG, and DDIM with eta 1."""
+    res, kw = K_RES, dict(guidance_scale=7.5)
+    headline = unet_calls(pipe, "dpmpp", K_STEPS, "karras")
+    first = None
+    for run in range(HEADLINE_RUNS):
+        images = module10_request(
+            pipe, f"dpmpp + karras {K_STEPS} steps (run {run + 1})",
+            lambda run=run: pipe.txt2img(
+                PROMPT, res, n_steps=K_STEPS, seed=20 + run,
+                sampler="dpmpp", schedule="karras", **kw), headline, 0, 1)
+        first = images if first is None else first
+    for method in K_SAMPLERS:
+        if method == "dpmpp":
+            continue
+        module10_request(
+            pipe, f"{method} {K_METHOD_STEPS} steps",
+            lambda method=method: pipe.txt2img(
+                PROMPT, res, n_steps=K_METHOD_STEPS, seed=23,
+                sampler=method, **kw),
+            unet_calls(pipe, method, K_METHOD_STEPS), 0, 1)
+    module10_request(
+        pipe, "euler_a + refiner", lambda: pipe.txt2img(
+            PROMPT, res, n_steps=K_STEPS, seed=24, sampler="euler_a",
+            use_refiner=True, **kw),
+        unet_calls(pipe, "euler_a", K_STEPS),
+        unet_calls(pipe, "euler_a", K_STEPS, step_start=800), 1)
+    head, _ = expert_head_steps(pipe.alphas_cumprod, K_STEPS, 0.8, "dpmpp",
+                                "karras")
+    module10_request(
+        pipe, f"dpmpp + karras denoising_end=0.8 ({head} base steps)",
+        lambda: pipe.txt2img(PROMPT, res, n_steps=K_STEPS, seed=25,
+                             sampler="dpmpp", schedule="karras",
+                             use_refiner=True, denoising_end=0.8, **kw),
+        head, unet_calls(pipe, "dpmpp", K_STEPS, "karras", tail_from=head),
+        1)
+    module10_request(
+        pipe, "img2img strength 0.3 dpmpp_sde", lambda: pipe.img2img(
+            PROMPT, first, strength=0.3, n_steps=K_STEPS, seed=26,
+            sampler="dpmpp_sde", **kw),
+        unet_calls(pipe, "dpmpp_sde", K_STEPS, step_start=700), 0, 2)
+    module10_request(
+        pipe, "crop-window inpaint euler_a", lambda: pipe.inpaint(
+            PROMPT, first, seed=27, n_steps=K_STEPS, sampler="euler_a",
+            **CROP_WINDOW, **kw),
+        unet_calls(pipe, "euler_a", K_STEPS), 0, 2)
+    alphas = pipe.alphas_cumprod
+    try:
+        pipe.rescale_zsnr()
+        module10_request(
+            pipe, f"euler + zsnr + trailing + guidance_rescale "
+            f"{ZSNR_RESCALE}", lambda: pipe.txt2img(
+                PROMPT, res, n_steps=K_STEPS, seed=28, sampler="euler",
+                schedule="trailing", guidance_rescale=ZSNR_RESCALE, **kw),
+            unet_calls(pipe, "euler", K_STEPS, "trailing"), 0, 1)
+    finally:
+        pipe.alphas_cumprod = alphas
+    module10_request(
+        pipe, f"dpmpp + ays {K_METHOD_STEPS} steps", lambda: pipe.txt2img(
+            PROMPT, res, n_steps=K_METHOD_STEPS, seed=29, sampler="dpmpp",
+            schedule="ays", **kw),
+        unet_calls(pipe, "dpmpp", K_METHOD_STEPS, "ays"), 0, 1)
+    module10_request(
+        pipe, "dpmpp + karras no_cfg (batch-1 UNet)", lambda: pipe.txt2img(
+            PROMPT, res, n_steps=K_STEPS, seed=30, sampler="dpmpp",
+            schedule="karras", no_cfg=True, **kw), headline, 0, 1)
+    module10_request(
+        pipe, "ddim eta 1.0", lambda: pipe.txt2img(
+            PROMPT, res, n_steps=K_STEPS, seed=31, ddim_eta=1.0, **kw),
+        unet_calls(pipe, "ddim", K_STEPS), 0, 1)
+
+
+@torch.inference_mode()
+def check_k_calls_against_plain(pipe) -> None:
+    """One pair-batched base UNet call at K_RES through K1 (70 launches)
+    and through the plain attention at a karras fractional timestep and
+    at zsnr's first sigma (about 4096: the latent scaled by 1/sqrt(sigma^2
+    + 1) in f32 before the bf16 cast): its eps within UNET_REL_TOL, as
+    phase 7 holds the DDIM path's (the guided eps would scale the
+    difference by the guidance)."""
+    dtype = pipe.compute_dtype
+    cond = pipe.conditioning(PROMPT, K_RES).astype(dtype)
+    ctx2, ch2 = _cfg_contexts(pipe.diffuser_cfg, cond, dtype)
+    g = torch.Generator(device=pipe.device).manual_seed(12)
+    noise = torch.randn((1, K_RES[0] // 8, K_RES[1] // 8, 4), generator=g,
+                        device=pipe.device)
+    ts, sig = k_schedule(pipe.alphas_cumprod, 0, K_STEPS, "karras")
+    zsnr = rescale_zero_terminal_snr(pipe.alphas_cumprod.cpu().numpy())
+    ts_z, sig_z = k_schedule(zsnr, 0, K_STEPS, "trailing")
+    for label, t, sigma in (
+            (f"karras step {KARRAS_STEP}", ts[KARRAS_STEP], sig[KARRAS_STEP]),
+            ("zsnr trailing step 0", ts_z[0], sig_z[0])):
+        s_dev = torch.tensor(float(sigma), device=pipe.device)
+        scaled = noise * s_dev / torch.sqrt(s_dev ** 2 + 1.0)
+        x2 = torch.cat([scaled, scaled]).to(dtype)
+        t2 = torch.full((2,), float(t), device=pipe.device)
+
+        def eps():
+            return unet_forward(pipe.unet, x2, t2, ctx2, ch2).float()
+
+        fa.reset_launch_counts()
+        eps_k = eps()
+        torch.cuda.synchronize()
+        n = fa.launch_counts["sdxl_flash_attention_bf16"]
+        eps_p = with_attention(eps)
+        rel = ((eps_k - eps_p).abs().max() / eps_p.abs().max()).item()
+        print(f"base UNet call {K_RES[0]}x{K_RES[1]} B=2 at {label}: "
+              f"t={float(t)!r} "
+              f"sigma={float(sigma)!r}; bf16 d 64/128 launches {n}; "
+              f"eps rel_err={rel:.3e} (tol {UNET_REL_TOL:g}), max|eps| "
+              f"{eps_p.abs().max().item():.4g}", flush=True)
+        if n != UNET_LAUNCHES_1024 // 31:
+            fail(f"the UNet call at {label} launched K1 {n} times")
+        if not (bool(torch.isfinite(eps_k).all()) and rel < UNET_REL_TOL):
+            fail(f"the UNet at {label} through K1 disagrees with the plain "
+                 f"attention")
+
+
 def drop_page_cache(paths) -> None:
     """Ask the kernel to evict the files' pages (clean after fsync), so the
     next read comes from the disk."""
@@ -1355,6 +1598,18 @@ def checkpoint_cli_phase(pipe, total) -> None:
                   pipe.inpaint(PROMPT, read_png(out + "0.png")[0][None],
                                mask_image=mask[0], n_steps=30,
                                guidance_scale=7.5, seed=0)[0])
+
+        for sampler, schedule in (("dpmpp", "karras"), ("euler_a", "linear")):
+            flags = ["--sampler", sampler, "--schedule", schedule]
+            out_k = os.path.join(CKPT_DIR, "out", sampler)
+            cli_request(f"the sample CLI {' '.join(flags)} request",
+                        argv[:-1] + [out_k] + flags,
+                        UNET_LAUNCHES_1024 // 31
+                        * unet_calls(pipe, sampler, 30, schedule), 1)
+            check_png(f"the CLI's {sampler} {schedule} image", out_k + "0.png",
+                      pipe.txt2img(PROMPT, resolution=(1024, 1024),
+                                   n_steps=30, guidance_scale=7.5, seed=0,
+                                   sampler=sampler, schedule=schedule)[0])
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
@@ -1398,21 +1653,24 @@ def print_profile(what: str, prof, wall: float, latencies) -> None:
 
 
 @torch.inference_mode()
-def profile_request(pipe, n_steps: int = 30) -> None:
+def profile_request(pipe, n_steps: int = 30, **options) -> None:
+    """Three unfenced requests, then one under torch.profiler; options
+    (a sampler, no_cfg, ...) go to txt2img."""
     resolution = REQUESTS[0][0]
     latencies = []
     for seed in (10, 11, 12):
         t0 = time.perf_counter()
         pipe.txt2img(PROMPT, resolution, n_steps=n_steps, seed=seed,
-                     profile_stages=False)
+                     profile_stages=False, **options)
         latencies.append(time.perf_counter() - t0)
     with torch.profiler.profile(activities=ACTIVITIES) as prof:
         t0 = time.perf_counter()
         pipe.txt2img(PROMPT, resolution, n_steps=n_steps, seed=13,
-                     profile_stages=False)
+                     profile_stages=False, **options)
         wall = time.perf_counter() - t0
     print_profile(f"{resolution[0]}x{resolution[1]} {pipe.compute_dtype} "
-                  f"request, {n_steps} steps", prof, wall, latencies)
+                  f"request, {n_steps} steps {options or ''}", prof, wall,
+                  latencies)
 
 
 def profile_training_step(pipe, data, cfg, factors) -> None:
@@ -1620,6 +1878,14 @@ def main() -> None:
              ["sdxl_flash_attention_bf16", F32_D512], path)
     check_refiner_against_plain(pipe)
     phase_done("8b (refiner, inpainting, img2img, outpaint)")
+    run_path("the module-10 requests", lambda: module10_requests(pipe),
+             ["sdxl_flash_attention_bf16", F32_D512], path)
+    check_k_calls_against_plain(pipe)
+    if args.profile:
+        for no_cfg in (False, True):
+            profile_request(pipe, K_STEPS, sampler="dpmpp",
+                            schedule="karras", no_cfg=no_cfg)
+    phase_done("8c (k-samplers, schedules, zsnr, DDIM eta, no CFG)")
     checkpoint_cli_phase(pipe, path)
     phase_done("9b (checkpoint, sample CLI)")
 

@@ -2,17 +2,21 @@
 sdxl_tpu/cli/sample.py).
 
 ``build_parser`` is the reference's in full, so every flag of the
-reference parses. ``main`` runs ``--family sdxl`` with DDIM: load (any
-layout pipeline/loader.py detects, or ``--random-weights``; the refiner
-too with ``--use-refiner``), merge ``--lora`` and ``--embedding`` files,
-then txt2img (with the refiner, or the ``--denoising-end`` split),
-img2img (``--reference-img`` with ``--img2img-strength``), outpaint
-(``--outpaint``), or inpainting of ``--reference-img`` (a crop window, a
-``--mask-img``, ``--mask-blur``), and write {output_dir}{i}.png with the
-reference's generation metadata. The bad combinations of these flags exit
-1 with the reference's messages. Any other flag set away from its
-default, and any other family, is an error naming the module that ports
-it. Runs on the GPU; the tests pass ``device="cpu"`` to ``main``.
+reference parses. ``main`` runs ``--family sdxl``: load (any layout
+pipeline/loader.py detects, or ``--random-weights``; the refiner too with
+``--use-refiner``), merge ``--lora`` and ``--embedding`` files,
+``--zsnr``, then txt2img (with the refiner, or the ``--denoising-end``
+split), img2img (``--reference-img`` with ``--img2img-strength``),
+outpaint (``--outpaint``), or inpainting of ``--reference-img`` (a crop
+window, a ``--mask-img``, ``--mask-blur``), each with ``--sampler`` (DDIM
+or a k-sampler), ``--schedule``, ``--ddim-eta``, ``--guidance-rescale``
+and ``--no-cfg``, and write {output_dir}{i}.png with the reference's
+generation metadata. The bad combinations of these flags fail with the
+reference's messages: an exit 1 where the reference's CLI checks them,
+the pipeline's ValueError where the reference's pipeline does. Any other
+flag set away from its default (and ``--sampler lcm``), and any other
+family, is an error naming the module that ports it. Runs on the GPU;
+the tests pass ``device="cpu"`` to ``main``.
 
 Usage:
   python -m sdxl_tpu_torch.cli.sample --model-dir ./weights \
@@ -38,12 +42,12 @@ _PORTED = {
     "use_refiner", "denoising_end", "reference_img", "crop_left",
     "crop_right", "crop_top", "crop_bottom", "crop_out", "mask_img",
     "mask_blur", "img2img_strength", "outpaint", "outpaint_fill",
+    "sampler", "schedule", "zsnr", "ddim_eta", "guidance_rescale", "no_cfg",
 }
 # every other flag -> the module of ROADMAP Queue 1 that ports it
 _WAITS = {
     **dict.fromkeys(
-        ["sampler", "schedule", "zsnr", "ddim_eta", "guidance_rescale",
-         "no_cfg", "preview_every", "invert_img", "invert_prompt"], 10),
+        ["preview_every", "invert_img", "invert_prompt"], 10),
     **dict.fromkeys(
         ["pag_scale", "freeu", "controlnet", "control_image",
          "control_scale", "control_start", "control_end", "ip_adapter",
@@ -350,6 +354,8 @@ def _unported(parser: argparse.ArgumentParser, args) -> str | None:
     if args.family != "sdxl":
         return (f"--family {args.family} is not ported yet (module "
                 f"{_FAMILY_MODULE[args.family]})")
+    if args.sampler == "lcm":
+        return "--sampler lcm is not ported yet (module 10)"
     for action in parser._actions:
         if action.dest in _PORTED:
             continue
@@ -445,6 +451,10 @@ def main(argv=None, device="cuda") -> int:
         pipe.vae_dtype = torch.bfloat16
     if args.no_strict_resolution:
         pipe.strict_resolutions = False
+    if args.zsnr:
+        pipe.rescale_zsnr()
+        log("zsnr: alpha-bar table rescaled to zero terminal SNR "
+            "(arXiv:2305.08891)")
     if args.embedding:
         try:
             pipe.add_textual_inversions(args.embedding)
@@ -457,7 +467,10 @@ def main(argv=None, device="cuda") -> int:
                else [args.prompt[0]] * args.batch)
     common = dict(n_steps=args.n_diffusion_steps,
                   guidance_scale=args.unconditional_guidance_scale,
-                  seed=args.seed, negative_prompt=args.negative_prompt)
+                  seed=args.seed, negative_prompt=args.negative_prompt,
+                  sampler=args.sampler, schedule=args.schedule,
+                  guidance_rescale=args.guidance_rescale,
+                  no_cfg=args.no_cfg, ddim_eta=args.ddim_eta)
     if args.reference_img is not None and args.img2img_strength is not None:
         ref = load_images([args.reference_img])
         if len(prompts) > 1:

@@ -51,8 +51,8 @@ from ..models.unet import UNet
 from ..models.vae import VAEDecoder, VAEEncoder
 from ..tokenizer import ClipTokenizer, OpenClipTokenizer
 from ..utils import log
+from .k_samplers import scaled_linear_alphas_cumprod
 from .pipeline import SDXLPipeline
-from .sampler import scaled_linear_alphas_cumprod
 
 # the layouts without config files (npy, sgm, and the mpk VAE) hold SDXL
 # 1.0 at its published widths

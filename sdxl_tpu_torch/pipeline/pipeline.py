@@ -1,9 +1,11 @@
 """SDXL pipeline: prompt (and reference image) -> uint8 images
-(the DDIM paths of sdxl_tpu/pipeline/pipeline.py).
+(sdxl_tpu/pipeline/pipeline.py's SDXL paths without LCM, previews,
+inversion and the UNet extensions).
 
 Stages, as in the reference: dual-CLIP conditioning (f32) -> pair-batched
-CFG DDIM over the base UNet (bf16, or f32) -> optional refiner (re-noise at
-t = 1000 - refiner_step_start, or the ensemble-of-experts tail after
+CFG DDIM or one of the twelve k-samplers over the base UNet (bf16, or
+f32) -> optional refiner with the same sampler (re-noise at t = 1000 -
+refiner_step_start, or the ensemble-of-experts tail after
 ``denoising_end``) -> VAE decode (f32, or bf16 with ``vae_dtype``) ->
 uint8 RGB. Inpainting, img2img and outpaint first encode their reference
 images with the VAE encoder (f32).
@@ -17,16 +19,20 @@ otherwise run f32 convolutions in TF32.
 Ported options of ``txt2img``: prompts, resolution, n_steps,
 guidance_scale, seed (one int), negative_prompt, profile_stages,
 initial_latent, use_refiner, refiner_step_start, denoising_end,
-inpaint_reference and inpaint_mask; ``img2img``, ``inpaint`` and
-``outpaint`` take the same keywords. Every other option of the reference
-(the k-samplers, ControlNet, IP-Adapter, per-image seed lists, ...)
-raises NotImplementedError. The base and the refiner stay resident on the
-device: the reference's HBM planner has no work on an 80 GB card.
+inpaint_reference, inpaint_mask, sampler (ddim or any of K_SAMPLERS),
+schedule, guidance_rescale, no_cfg and ddim_eta; ``img2img``, ``inpaint``
+and ``outpaint`` take the same keywords. Every other option of the
+reference (the LCM sampler, step previews, ControlNet, IP-Adapter,
+per-image seed lists, ...) raises NotImplementedError. The base and the
+refiner stay resident on the device: the reference's HBM planner has no
+work on an 80 GB card.
 
 Noise: one torch.Generator seeded with ``seed`` gives, in this order, the
-initial latent noise, the inpainting pin noise of every step, and the
-refiner's re-noise (img2img: its re-noise). JAX and torch draws differ, so
-the same seed gives another image than the reference.
+initial latent noise, the inpainting pin noise of every step, the base's
+step noise (stochastic k-samplers, DDIM eta > 0), and the refiner's
+re-noise and step noise (img2img: its re-noise and step noise). JAX and
+torch draws differ, so the same seed gives another image than the
+reference.
 """
 
 from __future__ import annotations
@@ -53,14 +59,53 @@ from ..tokenizer import ClipTokenizer, OpenClipTokenizer
 from ..utils import StageTimer, fence, log
 from .conditioning import Conditioning, text_to_conditioning
 from .latent import decode_latent_to_images, encode_images_to_latent
+from .k_samplers import (
+    K_SAMPLERS,
+    host_table,
+    rescale_zero_terminal_snr,
+    scaled_linear_alphas_cumprod,
+)
 from .masks import build_latent_mask
 from .resolutions import RESOLUTIONS, validate_resolution
 from .sampler import (
+    euler_sample_latent,
     expert_head_steps,
+    k_refine_latent,
     refine_latent,
     sample_latent,
-    scaled_linear_alphas_cumprod,
 )
+
+SAMPLERS = ("ddim",) + K_SAMPLERS + ("lcm",)
+# what module 10b brings (LCM, step previews, inversion)
+_MODULE_10B = ("preview_every", "preview_callback")
+
+
+def _unported(options: dict, sampler: str, what: str) -> None:
+    """NotImplementedError for a reference option the port lacks."""
+    if sampler == "lcm":
+        raise NotImplementedError(
+            "sampler 'lcm' is not ported yet (module 10)")
+    late = sorted(set(options) & set(_MODULE_10B))
+    if late:
+        raise NotImplementedError(
+            f"{', '.join(late)} is not ported yet (module 10)")
+    if options:
+        raise NotImplementedError(
+            f"{what} options not ported yet: {', '.join(sorted(options))}")
+
+
+def _check_sampler(sampler: str, schedule: str, ddim_eta: float) -> None:
+    """The reference's checks of a request's sampler keywords."""
+    if sampler not in SAMPLERS:
+        raise ValueError(
+            f"unknown sampler {sampler!r} ({'|'.join(SAMPLERS)})")
+    if ddim_eta and sampler != "ddim":
+        raise ValueError("ddim_eta applies to sampler='ddim' only (the "
+                         "k-samplers have their own ancestral variants)")
+    if schedule != "linear" and sampler in ("ddim", "lcm"):
+        raise ValueError(
+            "--schedule applies to the euler/dpmpp samplers; the DDIM "
+            "and LCM schedules are fixed by their reference semantics")
 
 
 @dataclass
@@ -95,9 +140,31 @@ class SDXLPipeline:
     # (see text_to_conditioning); clear it when the embedder changes
     _uncond_cache: dict = field(default_factory=dict)
 
+    # the Align-Your-Steps table of this family (arXiv:2404.14507)
+    _ays_variant = "ays"
+
     def __post_init__(self):
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+
+    def _resolve_schedule(self, schedule: str) -> str:
+        return self._ays_variant if schedule == "ays" else schedule
+
+    def rescale_zsnr(self):
+        """Rescale the base's ᾱ table to zero terminal SNR in place
+        (k_samplers.rescale_zero_terminal_snr), for checkpoints finetuned
+        with the Lin et al. 2023 fix; pair it with schedule="trailing" and
+        guidance_rescale > 0. The refiner's table stays as it is (the
+        refiner is no ZSNR finetune). Returns self."""
+        self.alphas_cumprod = torch.as_tensor(
+            rescale_zero_terminal_snr(host_table(self.alphas_cumprod)),
+            device=self.device)
+        if self.refiner_alphas is not None:
+            log("warning: --zsnr leaves the refiner's alpha-bar table "
+                "unrescaled (the refiner is not a ZSNR finetune); "
+                "combining --zsnr with a refiner is not a published recipe")
+        self._uncond_cache.clear()
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -172,12 +239,21 @@ class SDXLPipeline:
                 negative_prompt: str = "",
                 inpaint_reference: Optional[np.ndarray] = None,
                 inpaint_mask=None, profile_stages: bool = True,
+                sampler: str = "ddim", schedule: str = "linear",
+                guidance_rescale: float = 0.0, no_cfg: bool = False,
                 initial_latent: Optional[torch.Tensor] = None,
-                **options) -> np.ndarray:
+                ddim_eta: float = 0.0, **options) -> np.ndarray:
         """Prompt(s) -> [B, H, W, 3] uint8 images (numpy, on the host).
 
-        initial_latent ([B, h, w, 4], VP space at the first grid timestep)
-        replaces the seeded starting noise.
+        sampler: "ddim" (the reference's), or a k-sampler (K_SAMPLERS) in
+        sigma space, on the base and on the refiner stage; schedule (the
+        k-samplers'): linear, karras, ays (this family's table),
+        trailing, leading. ddim_eta > 0 (DDIM only): stochastic DDIM.
+        guidance_rescale > 0: the Lin et al. 2023 std rescale of the
+        guided eps. no_cfg, or guidance_scale == 1: the conditional rows
+        alone, batch B, half the UNet work.
+        initial_latent ([B, h, w, 4], VP space at the first grid timestep;
+        DDIM only) replaces the seeded starting noise.
         use_refiner: after the base, the refiner re-noises the latent at
         t = 1000 - refiner_step_start and runs the grid's tail.
         denoising_end (with use_refiner): the ensemble-of-experts split —
@@ -185,13 +261,11 @@ class SDXLPipeline:
         denoising_end)) and the refiner the rest, with no re-noise.
         inpaint_reference [1, H, W, 3] uint8 with inpaint_mask [1, h, w, 4]
         (bool, or float in [0, 1]; 1 = generate): on a 4-channel UNet the
-        known region is pinned to the re-noised reference latent every
-        step; a 9-channel inpainting UNet takes [mask, latent of the
-        reference with the masked pixels set to 127] as extra input
-        channels instead."""
-        if options:
-            raise NotImplementedError(
-                f"txt2img options not ported yet: {', '.join(sorted(options))}")
+        known region is pinned to the re-noised reference every step; a
+        9-channel inpainting UNet takes [mask, latent of the reference
+        with the masked pixels set to 127] as extra input channels
+        instead."""
+        _unported(options, sampler, "txt2img")
         if not isinstance(seed, (int, np.integer)):
             raise NotImplementedError("per-image seed lists are not ported yet")
         h, w = resolution
@@ -199,12 +273,19 @@ class SDXLPipeline:
             raise ValueError(f"resolution {h}x{w} must be a multiple of 8")
         if not validate_resolution(h, w):
             log(f"warning: {h}x{w} is not an SDXL-trained resolution bucket")
-        if initial_latent is not None and (inpaint_reference is not None
-                                           or use_refiner):
-            raise ValueError("initial_latent is not combinable with "
-                             "inpainting or the refiner")
+        if initial_latent is not None:
+            if sampler != "ddim":
+                raise ValueError(
+                    "initial_latent starts the DDIM chain (ddim_invert's "
+                    "output is defined on it) — use sampler='ddim'")
+            if inpaint_reference is not None or use_refiner:
+                raise ValueError("initial_latent is not combinable with "
+                                 "inpainting or the refiner")
         if inpaint_reference is not None and inpaint_mask is None:
             raise ValueError("inpaint_reference needs an inpaint_mask")
+        _check_sampler(sampler, schedule, ddim_eta)
+        schedule = self._resolve_schedule(schedule)
+        use_cfg = not (no_cfg or guidance_scale == 1.0)
         head_steps = 0
         if denoising_end is not None:
             if not use_refiner:
@@ -216,7 +297,8 @@ class SDXLPipeline:
                                  "inpainting (the refiner tail has no pin "
                                  "path)")
             head_steps, grid_total = expert_head_steps(
-                self.alphas_cumprod, n_steps, denoising_end)
+                self.alphas_cumprod, n_steps, denoising_end, sampler,
+                schedule)
             log(f"expert split: base {head_steps} steps, refiner "
                 f"{grid_total - head_steps} steps (denoising_end="
                 f"{denoising_end})")
@@ -250,13 +332,23 @@ class SDXLPipeline:
                 if profile_stages:
                     fence(out)
 
+        common = dict(initial_noise=noise, reference=reference_latent,
+                      mask=mask, concat_channels=concat,
+                      head_steps=head_steps, use_cfg=use_cfg,
+                      guidance_rescale=guidance_rescale)
         with self.timer.stage("diffuser"):
-            latent = sample_latent(
-                self.unet, self.diffuser_cfg, self.alphas_cumprod,
-                cond.astype(self.compute_dtype), generator, guidance_scale,
-                n_steps, self.compute_dtype, initial_noise=noise,
-                reference=reference_latent, mask=mask,
-                concat_channels=concat, head_steps=head_steps)
+            if sampler in K_SAMPLERS:
+                latent = euler_sample_latent(
+                    self.unet, self.diffuser_cfg, self.alphas_cumprod,
+                    cond.astype(self.compute_dtype), generator,
+                    guidance_scale, n_steps, self.compute_dtype,
+                    method=sampler, schedule=schedule, **common)
+            else:
+                latent = sample_latent(
+                    self.unet, self.diffuser_cfg, self.alphas_cumprod,
+                    cond.astype(self.compute_dtype), generator,
+                    guidance_scale, n_steps, self.compute_dtype,
+                    ddim_eta=ddim_eta, **common)
             if profile_stages:
                 fence(latent)
 
@@ -272,13 +364,25 @@ class SDXLPipeline:
                     "tables to share one schedule (lengths "
                     f"{self.alphas_cumprod.shape[0]} vs "
                     f"{refiner_alphas.shape[0]})")
+            # the expert tail continues the full grid's suffix from the
+            # still-noisy handoff: no re-noise, step_start 0
+            stage = dict(renoise=not expert,
+                         tail_from=head_steps if expert else 0)
             with self.timer.stage("refiner"):
-                latent = refine_latent(
-                    self.refiner, self.refiner_cfg, refiner_alphas, latent,
-                    cond.astype(self.compute_dtype), generator,
-                    guidance_scale, 0 if expert else refiner_step_start,
-                    n_steps, self.compute_dtype, renoise=not expert,
-                    tail_from=head_steps if expert else 0)
+                if sampler in K_SAMPLERS:
+                    latent = k_refine_latent(
+                        self.refiner, self.refiner_cfg, refiner_alphas,
+                        latent, cond.astype(self.compute_dtype), generator,
+                        guidance_scale, 0 if expert else refiner_step_start,
+                        n_steps, self.compute_dtype, method=sampler,
+                        schedule=schedule, **stage)
+                else:
+                    latent = refine_latent(
+                        self.refiner, self.refiner_cfg, refiner_alphas,
+                        latent, cond.astype(self.compute_dtype), generator,
+                        guidance_scale, 0 if expert else refiner_step_start,
+                        n_steps, self.compute_dtype, ddim_eta=ddim_eta,
+                        **stage)
                 if profile_stages:
                     fence(latent)
         return self._decode(latent)
@@ -301,15 +405,20 @@ class SDXLPipeline:
     def img2img(self, prompts, reference_images: np.ndarray,
                 strength: float = 0.3, n_steps: int = 30,
                 guidance_scale: float = 7.5, seed: int = 0,
-                negative_prompt: str = "", **options) -> np.ndarray:
+                negative_prompt: str = "", sampler: str = "ddim",
+                schedule: str = "linear", guidance_rescale: float = 0.0,
+                no_cfg: bool = False, ddim_eta: float = 0.0,
+                **options) -> np.ndarray:
         """Strength-based image-to-image: encode the [B, H, W, 3] uint8
-        references, re-noise at t = strength * 1000 and run the rest of the
-        DDIM grid with CFG on the base UNet (refine_latent)."""
-        if options:
-            raise NotImplementedError(
-                f"img2img options not ported yet: {', '.join(sorted(options))}")
+        references, re-noise at t = strength * 1000 (a k-sampler: to its
+        schedule's first sigma there) and run the rest of the grid with
+        CFG on the base UNet (refine_latent, k_refine_latent). The
+        sampler keywords are txt2img's."""
+        _unported(options, sampler, "img2img")
         if not 0.0 < strength <= 1.0:
             raise ValueError("strength must be in (0, 1]")
+        _check_sampler(sampler, schedule, ddim_eta)
+        schedule = self._resolve_schedule(schedule)
         _, height, width, _ = reference_images.shape
         cond = self.conditioning(
             [prompts] if isinstance(prompts, str) else prompts,
@@ -320,12 +429,21 @@ class SDXLPipeline:
             fence(latent)
         # skip the first (1 - strength) of the schedule
         step_start = int(round((1.0 - strength) * 1000))
+        use_cfg = not (no_cfg or guidance_scale == 1.0)
         generator = torch.Generator(device=self.device).manual_seed(int(seed))
         with self.timer.stage("diffuser"):
-            latent = refine_latent(
-                self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
-                cond, generator, guidance_scale, step_start, n_steps,
-                self.compute_dtype)
+            if sampler in K_SAMPLERS:
+                latent = k_refine_latent(
+                    self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
+                    cond, generator, guidance_scale, step_start, n_steps,
+                    self.compute_dtype, method=sampler, schedule=schedule,
+                    use_cfg=use_cfg, guidance_rescale=guidance_rescale)
+            else:
+                latent = refine_latent(
+                    self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
+                    cond, generator, guidance_scale, step_start, n_steps,
+                    self.compute_dtype, use_cfg=use_cfg,
+                    guidance_rescale=guidance_rescale, ddim_eta=ddim_eta)
         return self._decode(latent)
 
     def outpaint(self, prompts, reference_images: np.ndarray,

@@ -784,7 +784,7 @@ def test_cli_parser_is_the_references():
 
 
 @pytest.mark.parametrize("extra,module", [
-    (["--sampler", "euler"], 10),
+    (["--sampler", "lcm"], 10),
     (["--trace", "t"], 7),
     (["--quantize", "int8"], 14),
     (["--family", "sd3"], 13),

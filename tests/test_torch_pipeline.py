@@ -136,13 +136,14 @@ def test_unported_options_raise(pipes):
         tpipe.txt2img("a cat", RES, n_steps=2,
                       control_image=np.zeros((*RES, 3), np.uint8))
     with pytest.raises(NotImplementedError):
-        tpipe.txt2img("a cat", RES, n_steps=2, sampler="euler")
+        tpipe.txt2img("a cat", RES, n_steps=2, sampler="lcm")
 
 
 def test_port_never_imports_jax():
     """Every module of the port imports, and a tiny pipeline runs txt2img,
-    txt2img with the refiner and a mask-image inpaint request (the VAE
-    encoder, masks.py, the pin), with `import jax` and `import sdxl_tpu`
+    txt2img with the refiner (DDIM, and a k-sampler on the karras
+    schedule) and a mask-image inpaint request (the VAE encoder, masks.py,
+    the pin), with `import jax` and `import sdxl_tpu`
     made to fail: the port keeps its own configs and tokenizer. Nor does
     it import the packages the card lacks (safetensors, msgpack, PIL,
     ml_dtypes): it has its own readers."""
@@ -182,6 +183,9 @@ def test_port_never_imports_jax():
         img = pipe.txt2img("a cat", (64, 64), n_steps=1)
         assert img.shape == (1, 64, 64, 3), img.shape
         img = pipe.txt2img("a cat", (64, 64), n_steps=2, use_refiner=True)
+        assert img.shape == (1, 64, 64, 3), img.shape
+        img = pipe.txt2img("a cat", (64, 64), n_steps=2, sampler="dpm2_a",
+                           schedule="karras", use_refiner=True)
         assert img.shape == (1, 64, 64, 3), img.shape
         pipe.strict_resolutions = False
         mask = np.zeros((64, 64, 3), np.uint8)
