@@ -118,6 +118,29 @@ Phases (any failure exits non-zero before the result line):
      finite; then one pair-batched base UNet call at a karras fractional
      timestep and one at zsnr's first sigma (about 4096) through K1 and
      through the plain attention: eps within 2e-2 relative;
+  8d. module 10b and module 11's weight-free extensions on the same
+     pipeline, 1024x1024, CFG 7.5 unless stated, each request with
+     latency, stage split, UNet evaluations counted by kind at the
+     sampler's UNet calls (full, PAG's perturbed, DeepCache's cached and
+     shallow), K1's launches and peak memory printed, and the evaluations
+     and launches asserted against the code's counts (70 a full or cached
+     call, 60 a PAG call, unet_block_plan's count for a shallow call: 0
+     at branch 3; one d=512 launch a decode or encode): a random
+     LCM-distilled base (time_cond_proj_dim 256, sharing the towers and
+     the VAE) answers LCM txt2img at 4 steps and guidance 8 (batch-1
+     calls) three times, img2img at strength 0.5 and a crop-window
+     inpaint; LCM at CFG 1.5 on the standard base; dpmpp + karras and
+     DDIM at 30 steps with preview_every=10, each callback's previews
+     [1, 128, 128, 3] uint8 at the code's steps, and the final latent
+     against the same request without previews (the max difference
+     printed); ddim_invert of phase 6's first image at 30 steps, gs 1,
+     then DDIM from the inverted latent (the round trip's mean u8 error
+     printed); FreeU at SDXL's settings with dpmpp + karras; PAG 3.0
+     through DDIM with CFG and through euler without; DeepCache (3, 3)
+     through DDIM and dpmpp; every latent finite; then a PAG perturbed
+     call (60 launches), a FreeU pair-batched call and the distilled
+     UNet's call with its t_add (70 each) through K1 and through the
+     plain attention: eps within 2e-2 relative;
   9b. checkpoint loading and the sample CLI: the same full-width
      pipeline, refiner included, written with save_native_pipeline
      (UNets bf16, the rest f32) into build/checkpoint (free space checked
@@ -126,11 +149,15 @@ Phases (any failure exits non-zero before the result line):
      --model-dir on it, one prompt, 1024x1024, 30 steps, CFG 7.5, seed 0,
      five times: txt2img, --use-refiner, --reference-img (the first
      request's PNG) with --mask-img (a PNG written by save_images),
-     --sampler dpmpp --schedule karras, and --sampler euler_a. Each
+     --sampler dpmpp --schedule karras, --sampler euler_a, --freeu,
+     --pag-scale 3, --deepcache 3 and --invert-img (the first PNG); then
+     the distilled pipeline of phase 8d written in the base's place and
+     --sampler lcm -steps 4 -gs 8 from it. Each
      time the pipeline the CLI loaded must be bitwise equal to the
      in-memory one (CLIP towers, UNet, VAE decoder and encoder,
      alphas_cumprod, and the refiner with --use-refiner), K1 launched as
-     counted (2170 + 1, 2450 + 1, 2170 + 2, 2100 + 1, 2100 + 1), and the
+     counted (2170 + 1, 2450 + 1, 2170 + 2, 2100 + 1, 2100 + 1, 2170 + 1,
+     4030 + 1, 770 + 1, 4340 + 2, 280 + 1), and the
      PNG it wrote (decoded
      with io/images.py read_png) within 1 u8 level of the in-memory
      pipeline's image (the count of differing pixels printed); bytes
@@ -147,7 +174,7 @@ Phases (any failure exits non-zero before the result line):
      (forward and backward) in place of the kernels: they must agree;
   12. with --profile only: three timed LoRA steps, then one under
      torch.profiler, reported as in phase 9.
-Each path (phases 4, 5, 5b, 6, 8, 8b, 8c, 9b, 10) runs with the launch counts set to
+Each path (phases 4, 5, 5b, 6, 8, 8b, 8c, 8d, 9b, 10) runs with the launch counts set to
 0 just before it and read just after; the JSON record's launches are their
 sum. Each phase's seconds are printed. The last two lines are the kernels'
 JSON record and {"ok": true, ...}.
@@ -175,11 +202,15 @@ import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 from sdxl_tpu_torch.cli import sample as sample_cli
-from sdxl_tpu_torch.configs import SDXL_BASE_DIFFUSER, SDXL_REFINER_DIFFUSER
+from sdxl_tpu_torch.configs import (
+    FREEU_DEFAULTS,
+    SDXL_BASE_DIFFUSER,
+    SDXL_REFINER_DIFFUSER,
+)
 from sdxl_tpu_torch.io.checkpoint import save_native_pipeline
 from sdxl_tpu_torch.io.images import read_png, save_images
 from sdxl_tpu_torch.models.layers import init_reference_
-from sdxl_tpu_torch.models.unet import UNet, unet_forward
+from sdxl_tpu_torch.models.unet import UNet, unet_block_plan, unet_forward
 from sdxl_tpu_torch.ops import attention as attention_mod
 from sdxl_tpu_torch.ops import flash_attention as fa
 from sdxl_tpu_torch.pipeline import loader as loader_mod
@@ -196,6 +227,8 @@ from sdxl_tpu_torch.pipeline.sampler import (
     _cfg_contexts,
     ddim_timesteps,
     expert_head_steps,
+    lcm_guidance_add,
+    lcm_timesteps,
 )
 from sdxl_tpu_torch.scripts import bench_flash_ragged
 from sdxl_tpu_torch.scripts import exp_flash_exp2 as x1
@@ -424,6 +457,17 @@ K_RES = (1024, 1024)
 K_STEPS, K_METHOD_STEPS, HEADLINE_RUNS = 30, 10, 3
 ZSNR_RESCALE = 0.7
 KARRAS_STEP = 5
+# phase 8d: the LCM-distilled base (a 256-wide guidance embedding, as
+# latent-consistency/lcm-sdxl's), its requests' steps and guidance (the
+# headline txt2img timed LCM_RUNS times), the LCM-LoRA recipe's CFG on
+# the standard base, the previews' cadence, PAG's scale, DeepCache's
+# (interval, branch), FreeU's SDXL settings, and the img2img strength
+LCM_TCP, LCM_STEPS, LCM_GS, LCM_LORA_GS, LCM_RUNS = 256, 4, 8.0, 1.5, 3
+LCM_STRENGTH = 0.5
+PREVIEW_EVERY = 10
+PAG_SCALE = 3.0
+DEEPCACHE = (3, 3)
+FREEU = FREEU_DEFAULTS["sdxl"]
 # the f32 pipeline's request: 4 DDIM steps (4 UNet calls) keep its cost
 # near one bf16 request's
 F32_STEPS = 4
@@ -945,7 +989,9 @@ def experiment_path():
     return bench_flash_ragged.main()
 
 
-def run_requests(pipe, requests=REQUESTS, n_steps=30) -> None:
+def run_requests(pipe, requests=REQUESTS, n_steps=30) -> list:
+    """Answer `requests`; returns their images."""
+    answered = []
     for (height, width), seed in requests:
         pipe.timer.stages.clear()
         torch.cuda.reset_peak_memory_stats()
@@ -976,6 +1022,8 @@ def run_requests(pipe, requests=REQUESTS, n_steps=30) -> None:
             fail(f"images {images.shape} {images.dtype}")
         if images.std() == 0:
             fail("constant image")
+        answered.append(images)
+    return answered
 
 
 def with_attention(fn, attn=fa.flash_attention_plain):
@@ -1389,6 +1437,275 @@ def check_k_calls_against_plain(pipe) -> None:
                  f"attention")
 
 
+def unet_attentions(ucfg) -> dict:
+    """K1 d 64/128 launches of one base UNet call at K_RES by evaluation
+    kind, from unet_block_plan (every transformer level of SDXL is over
+    the kernel's gate at 1024^2): a full call and DeepCache's cached one
+    (70), PAG's perturbed call (the middle block's self-attentions are
+    identity maps: 60), and DeepCache's shallow call at DEEPCACHE's branch
+    (the first `branch` input and the last `branch` output blocks)."""
+    in_plan, mid, out_plan = unet_block_plan(ucfg)
+
+    def count(specs):
+        return sum(s.depth for s in specs if s.kind in ("res_t", "res_t_up"))
+
+    full = count(in_plan) + mid.depth + count(out_plan)
+    branch = DEEPCACHE[1]
+    return {"full": full, "cached": full, "pag": full - mid.depth,
+            "shallow": count(in_plan[:branch])
+            + count(out_plan[len(out_plan) - branch:])}
+
+
+@contextlib.contextmanager
+def counting_evaluations():
+    """Inside, the samplers' UNet evaluations are counted by kind: full
+    calls, PAG's perturbed calls (pag_mid), DeepCache's cached and
+    shallow calls."""
+    calls = Counter()
+    names = ("unet_forward", "unet_forward_cached", "unet_forward_shallow")
+    real = {n: getattr(sampler_mod, n) for n in names}
+
+    def counted(name):
+        def call(*args, **kw):
+            if name == "unet_forward":
+                calls["pag" if kw.get("pag_mid") else "full"] += 1
+            else:
+                calls[name.rsplit("_", 1)[1]] += 1
+            return real[name](*args, **kw)
+        return call
+
+    for n in names:
+        setattr(sampler_mod, n, counted(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(sampler_mod, n, real[n])
+
+
+def module10b_request(pipe, label: str, fn, want: dict, want_vae: int,
+                      attentions: dict, latent=None):
+    """One phase-8d request: latency, stage split, UNet evaluations by
+    kind, K1 launches and peak memory printed; fail unless the evaluations
+    are `want`, K1's d 64/128 route was launched as many times as those
+    evaluations' attentions add up to and its f32 d=512 route want_vae
+    times, and the latent (pipe.last_latent, or latent(result)) is
+    finite. Returns fn's result."""
+    pipe.timer.stages.clear()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(fa.launch_counts)
+    with counting_evaluations() as calls:
+        t0 = time.perf_counter()
+        out = fn()
+        latency = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    stages = " ".join(f"{k}={v:.3f}s" for k, v in pipe.timer.stages.items())
+    launches = {k: n - before[k] for k, n in fa.launch_counts.items()
+                if n != before[k]}
+    lat = pipe.last_latent if latent is None else latent(out)
+    lat = torch.as_tensor(lat)
+    print(f"request {label}: latency={latency:.3f}s {stages} "
+          f"unet_evaluations={dict(calls)} (predicted {want}) "
+          f"peak_mem={peak_gib:.2f}GiB launches={launches} max|latent|="
+          f"{lat.abs().max().item():.4g}", flush=True)
+    want_k1 = sum(attentions[k] * n for k, n in want.items())
+    got = (launches.get("sdxl_flash_attention_bf16", 0),
+           launches.get(F32_D512, 0))
+    if dict(calls) != {k: n for k, n in want.items() if n} or \
+            got != (want_k1, want_vae):
+        fail(f"{label}: evaluations {dict(calls)} and K1 launched {got[0]} "
+             f"(bf16 d 64/128) and {got[1]} (f32 d=512) times, not {want}, "
+             f"{want_k1} and {want_vae}")
+    if not bool(torch.isfinite(lat).all()):
+        fail(f"non-finite latent in {label}")
+    if latent is None and (out.shape != (1, *K_RES, 3)
+                           or out.dtype.name != "uint8" or out.std() == 0):
+        fail(f"{label}: images {out.shape} {out.dtype}")
+    return out
+
+
+def lcm_pipeline(pipe):
+    """The pipeline with a random LCM-distilled base UNet (cond_proj of
+    width LCM_TCP, drawn from seed 16) in place of the base, sharing the
+    towers and the VAE; no refiner."""
+    cfg = dataclasses.replace(SDXL_BASE_DIFFUSER, time_cond_proj_dim=LCM_TCP)
+    g = torch.Generator(device=pipe.device).manual_seed(16)
+    unet = init_reference_(UNet(cfg.unet_config(), pipe.device,
+                                pipe.compute_dtype), g)
+    unet.eval().requires_grad_(False)
+    return dataclasses.replace(pipe, diffuser_cfg=cfg, unet=unet,
+                               refiner=None, refiner_cfg=None,
+                               refiner_alphas=None)
+
+
+def module10b_requests(pipe, first: np.ndarray):
+    """Phase 8d: LCM on a random distilled base (txt2img LCM_RUNS times,
+    img2img, a crop-window inpaint) and on the standard base at CFG
+    LCM_LORA_GS; step previews through dpmpp + karras and DDIM, each
+    against the same request without them; ddim_invert of `first` (phase
+    6's first image) and DDIM from the inverted latent; FreeU; PAG with
+    and without CFG; DeepCache through DDIM and dpmpp. 1024x1024, CFG 7.5
+    unless stated. Returns the distilled pipeline (phase 9b's CLI
+    requests load it from a checkpoint)."""
+    att = unet_attentions(pipe.diffuser_cfg.unet_config())
+    if att["full"] != UNET_LAUNCHES_1024 // 31:
+        fail(f"unet_block_plan gives {att['full']} self-attentions, not 70")
+    print(f"K1 launches a base evaluation at {K_RES[0]}x{K_RES[1]}: {att} "
+          f"(DeepCache branch {DEEPCACHE[1]})", flush=True)
+    res, kw = K_RES, dict(guidance_scale=7.5)
+    t0 = time.perf_counter()
+    p_lcm = lcm_pipeline(pipe)
+    torch.cuda.synchronize()
+    print(f"LCM-distilled UNet drawn (time_cond_proj_dim={LCM_TCP}): "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    n_lcm = len(lcm_timesteps(LCM_STEPS))
+    n_i2i = len(lcm_timesteps(min(LCM_STEPS, int(50 * LCM_STRENGTH)),
+                              strength=LCM_STRENGTH))
+    for run in range(LCM_RUNS):
+        lcm_image = module10b_request(
+            p_lcm, f"LCM distilled {LCM_STEPS} steps gs {LCM_GS} (run "
+            f"{run + 1}, batch-1 calls)", lambda run=run: p_lcm.txt2img(
+                PROMPT, res, n_steps=LCM_STEPS, guidance_scale=LCM_GS,
+                seed=40 + run, sampler="lcm"), {"full": n_lcm}, 1, att)
+    module10b_request(
+        p_lcm, f"LCM distilled img2img strength {LCM_STRENGTH}",
+        lambda: p_lcm.img2img(PROMPT, first, strength=LCM_STRENGTH,
+                              n_steps=LCM_STEPS, guidance_scale=LCM_GS,
+                              seed=43, sampler="lcm"),
+        {"full": n_i2i}, 2, att)
+    module10b_request(
+        p_lcm, "LCM distilled crop-window inpaint", lambda: p_lcm.inpaint(
+            PROMPT, lcm_image, seed=44, n_steps=LCM_STEPS,
+            guidance_scale=LCM_GS, sampler="lcm", **CROP_WINDOW),
+        {"full": n_lcm}, 2, att)
+    module10b_request(
+        pipe, f"LCM on the standard base, CFG {LCM_LORA_GS}",
+        lambda: pipe.txt2img(PROMPT, res, n_steps=LCM_STEPS,
+                             guidance_scale=LCM_LORA_GS, seed=45,
+                             sampler="lcm"), {"full": n_lcm}, 1, att)
+
+    for sampler, schedule, seed in (("dpmpp", "karras", 46),
+                                    ("ddim", "linear", 47)):
+        n = unet_calls(pipe, sampler, K_STEPS, schedule)
+        seen = []
+        req = dict(n_steps=K_STEPS, seed=seed, sampler=sampler,
+                   schedule=schedule, **kw)
+        label = f"{sampler} + {schedule} {K_STEPS} steps"
+        module10b_request(
+            pipe, f"{label} preview_every={PREVIEW_EVERY}",
+            lambda: pipe.txt2img(
+                PROMPT, res, preview_every=PREVIEW_EVERY,
+                preview_callback=lambda *a: seen.append(a), **req),
+            {"full": n}, 1, att)
+        with_previews = pipe.last_latent
+        module10b_request(pipe, f"{label} without previews",
+                          lambda: pipe.txt2img(PROMPT, res, **req),
+                          {"full": n}, 1, att)
+        diff = (with_previews - pipe.last_latent).abs().max().item()
+        want = [(PREVIEW_EVERY * (i + 1), n)
+                for i in range((n - 1) // PREVIEW_EVERY)]
+        shapes = {(p.shape, p.dtype.name) for *_, p in seen}
+        print(f"{label}: previews {[(d, t) for d, t, _ in seen]} "
+              f"{shapes}; final latent vs without previews max diff "
+              f"{diff!r}", flush=True)
+        if [(d, t) for d, t, _ in seen] != want or shapes != {
+                ((1, res[0] // 8, res[1] // 8, 3), "uint8")}:
+            fail(f"{label}: previews {[(d, t) for d, t, _ in seen]} "
+                 f"{shapes}, not {want}")
+
+    n_ddim = unet_calls(pipe, "ddim", K_STEPS)
+    inv = module10b_request(
+        pipe, f"ddim_invert {K_STEPS} steps gs 1 (batch-1 calls)",
+        lambda: pipe.ddim_invert(PROMPT, first, n_steps=K_STEPS),
+        {"full": n_ddim}, 1, att, latent=lambda out: out)
+    back = module10b_request(
+        pipe, f"DDIM {K_STEPS} steps from the inverted latent",
+        lambda: pipe.txt2img(PROMPT, res, n_steps=K_STEPS,
+                             initial_latent=inv, **kw),
+        {"full": n_ddim}, 1, att)
+    print(f"inversion round trip: mean |image - phase 6's| "
+          f"{np.abs(back.astype(np.int16) - first.astype(np.int16)).mean():.3f}"
+          f" u8 levels (random weights: no bound)", flush=True)
+
+    cfg = pipe.diffuser_cfg
+    try:
+        pipe.diffuser_cfg = dataclasses.replace(cfg, freeu=FREEU)
+        module10b_request(
+            pipe, f"FreeU {FREEU} dpmpp + karras {K_STEPS} steps",
+            lambda: pipe.txt2img(PROMPT, res, n_steps=K_STEPS, seed=48,
+                                 sampler="dpmpp", schedule="karras", **kw),
+            {"full": unet_calls(pipe, "dpmpp", K_STEPS, "karras")}, 1, att)
+    finally:
+        pipe.diffuser_cfg = cfg
+    module10b_request(
+        pipe, f"PAG {PAG_SCALE} + CFG, DDIM {K_STEPS} steps",
+        lambda: pipe.txt2img(PROMPT, res, n_steps=K_STEPS, seed=49,
+                             pag_scale=PAG_SCALE, **kw),
+        {"full": n_ddim, "pag": n_ddim}, 1, att)
+    n_euler = unet_calls(pipe, "euler", K_STEPS)
+    module10b_request(
+        pipe, f"PAG {PAG_SCALE}, euler {K_STEPS} steps, no CFG",
+        lambda: pipe.txt2img(PROMPT, res, n_steps=K_STEPS, seed=50,
+                             sampler="euler", no_cfg=True,
+                             pag_scale=PAG_SCALE, **kw),
+        {"full": n_euler, "pag": n_euler}, 1, att)
+    interval = DEEPCACHE[0]
+    for sampler, seed in (("ddim", 51), ("dpmpp", 52)):
+        n = unet_calls(pipe, sampler, K_STEPS)
+        cached = len(range(0, n, interval))
+        module10b_request(
+            pipe, f"DeepCache {DEEPCACHE} {sampler} {K_STEPS} steps",
+            lambda sampler=sampler, seed=seed: pipe.txt2img(
+                PROMPT, res, n_steps=K_STEPS, seed=seed, sampler=sampler,
+                deepcache=DEEPCACHE, **kw),
+            {"cached": cached, "shallow": n - cached}, 1, att)
+    return p_lcm
+
+
+@torch.inference_mode()
+def check_extensions_against_plain(pipe, p_lcm) -> None:
+    """One PAG perturbed call (B=1, 60 launches), one FreeU pair-batched
+    call (70) and one call of the distilled UNet with its t_add (B=1, 70)
+    at K_RES, each through K1 and through the plain attention: eps within
+    UNET_REL_TOL relative."""
+    dtype = pipe.compute_dtype
+    att = unet_attentions(pipe.diffuser_cfg.unet_config())
+    cond = pipe.conditioning(PROMPT, K_RES).astype(dtype)
+    ctx2, ch2 = _cfg_contexts(pipe.diffuser_cfg, cond, dtype)
+    ctx, ch = _cfg_contexts(pipe.diffuser_cfg, cond, dtype, use_cfg=False)
+    g = torch.Generator(device=pipe.device).manual_seed(13)
+    x = torch.randn((1, K_RES[0] // 8, K_RES[1] // 8, 4), generator=g,
+                    device=pipe.device).to(dtype)
+    t_add = lcm_guidance_add(p_lcm.unet, p_lcm.diffuser_cfg, LCM_GS, dtype)
+    checks = [
+        ("PAG perturbed call B=1", att["pag"], lambda t: unet_forward(
+            pipe.unet, x, t.expand(1), ctx, ch, pag_mid=True)),
+        (f"FreeU {FREEU} call B=2", att["full"], lambda t: unet_forward(
+            pipe.unet, torch.cat([x, x]), t.expand(2), ctx2, ch2,
+            freeu=FREEU)),
+        (f"LCM-distilled call B=1 with t_add (gs {LCM_GS})", att["full"],
+         lambda t: unet_forward(p_lcm.unet, x, t.expand(1), ctx, ch,
+                                t_add=t_add)),
+    ]
+    t = torch.tensor(float(lcm_timesteps(LCM_STEPS)[1]), device=pipe.device)
+    for label, want_n, call in checks:
+        fa.reset_launch_counts()
+        eps_k = call(t).float()
+        torch.cuda.synchronize()
+        n = fa.launch_counts["sdxl_flash_attention_bf16"]
+        eps_p = with_attention(lambda: call(t)).float()
+        rel = ((eps_k - eps_p).abs().max() / eps_p.abs().max()).item()
+        print(f"{label} {K_RES[0]}x{K_RES[1]} at t={float(t)!r}: bf16 d "
+              f"64/128 launches {n}; eps rel_err={rel:.3e} (tol "
+              f"{UNET_REL_TOL:g}), max|eps| {eps_p.abs().max().item():.4g}",
+              flush=True)
+        if n != want_n:
+            fail(f"the {label} launched K1 {n} times, not {want_n}")
+        if not (bool(torch.isfinite(eps_k).all()) and rel < UNET_REL_TOL):
+            fail(f"the {label} through K1 disagrees with the plain "
+                 f"attention")
+
+
 def drop_page_cache(paths) -> None:
     """Ask the kernel to evict the files' pages (clean after fsync), so the
     next read comes from the disk."""
@@ -1469,12 +1786,14 @@ def check_png(label: str, path: str, want: np.ndarray) -> None:
         fail(f"{label}: the PNG lacks the parameters text chunk")
 
 
-def checkpoint_cli_phase(pipe, total) -> None:
+def checkpoint_cli_phase(pipe, total, p_lcm) -> None:
     """Phase 9b: write the pipeline, refiner included, as a native
-    checkpoint; answer three requests through the sample CLI from it (a
-    txt2img, one with --use-refiner, and an inpaint of the first one's PNG
-    with a mask PNG), and hold each load and image against the in-memory
-    pipeline."""
+    checkpoint; answer requests through the sample CLI from it (a txt2img,
+    one with --use-refiner, an inpaint of the first one's PNG with a mask
+    PNG, two k-samplers, and phase 8d's --freeu, --pag-scale, --deepcache
+    and --invert-img), then from a native checkpoint of the LCM-distilled
+    pipeline p_lcm written in its place (--sampler lcm), and hold each
+    load and image against the in-memory pipeline."""
     modules = [pipe.embedder, pipe.unet, pipe.vae, pipe.vae_encoder,
                pipe.refiner]
     need = sum(p.numel() * p.element_size() for m in modules
@@ -1497,10 +1816,11 @@ def checkpoint_cli_phase(pipe, total) -> None:
         loads.append((time.perf_counter() - t0, out))
         return out
 
-    def cli_request(label, argv, want_unet, want_vae, refiner=False):
+    def cli_request(label, argv, want_unet, want_vae, refiner=False,
+                    want_pipe=pipe):
         """Run the CLI on argv; fail unless it returned 0, launched K1's
-        routes want_unet and want_vae times and loaded the in-memory
-        state. Returns the load's seconds."""
+        routes want_unet and want_vae times and loaded want_pipe's
+        in-memory state. Returns the load's seconds."""
         print(f"-- python -m sdxl_tpu_torch.cli.sample {' '.join(argv)}",
               flush=True)
         loader_mod.load_pipeline = timed_load
@@ -1518,7 +1838,7 @@ def checkpoint_cli_phase(pipe, total) -> None:
                  f" (f32 d=512) times, not {want_unet} and {want_vae}")
         (load_s, loaded), = loads
         loads.clear()
-        check_loaded_state(pipe, loaded, refiner)
+        check_loaded_state(want_pipe, loaded, refiner)
         del loaded
         gc.collect()
         torch.cuda.empty_cache()
@@ -1610,6 +1930,61 @@ def checkpoint_cli_phase(pipe, total) -> None:
                       pipe.txt2img(PROMPT, resolution=(1024, 1024),
                                    n_steps=30, guidance_scale=7.5, seed=0,
                                    sampler=sampler, schedule=schedule)[0])
+
+        # phase 8d's flags (--deepcache's default branch is DEEPCACHE's)
+        att = unet_attentions(pipe.diffuser_cfg.unet_config())
+        n = unet_calls(pipe, "ddim", 30)
+        cached = len(range(0, n, DEEPCACHE[0]))
+        req = dict(resolution=(1024, 1024), n_steps=30, guidance_scale=7.5,
+                   seed=0)
+
+        def freeu_image():
+            cfg = pipe.diffuser_cfg
+            try:
+                pipe.diffuser_cfg = dataclasses.replace(cfg, freeu=FREEU)
+                return pipe.txt2img(PROMPT, **req)
+            finally:
+                pipe.diffuser_cfg = cfg
+
+        def inverted_image():
+            src = read_png(out + "0.png")[0][None]
+            inv = pipe.ddim_invert([""], src, n_steps=30)
+            return pipe.txt2img(PROMPT, initial_latent=inv, **req)
+
+        for name, flags, want_unet, want_vae, image in (
+                ("freeu", ["--freeu"], n * att["full"], 1, freeu_image),
+                ("pag", ["--pag-scale", str(PAG_SCALE)],
+                 n * (att["full"] + att["pag"]), 1,
+                 lambda: pipe.txt2img(PROMPT, pag_scale=PAG_SCALE, **req)),
+                ("deepcache", ["--deepcache", str(DEEPCACHE[0])],
+                 cached * att["cached"] + (n - cached) * att["shallow"], 1,
+                 lambda: pipe.txt2img(PROMPT, deepcache=DEEPCACHE, **req)),
+                ("inverted", ["--invert-img", out + "0.png"],
+                 2 * n * att["full"], 2, inverted_image)):
+            out_x = os.path.join(CKPT_DIR, "out", name)
+            cli_request(f"the sample CLI {' '.join(flags)} request",
+                        argv[:-1] + [out_x] + flags, want_unet, want_vae)
+            check_png(f"the CLI's {' '.join(flags)} image", out_x + "0.png",
+                      image()[0])
+
+        # the distilled pipeline's checkpoint in the base's place
+        shutil.rmtree(ckpt)
+        ckpt_lcm = os.path.join(CKPT_DIR, "lcm")
+        t0 = time.perf_counter()
+        save_native_pipeline(ckpt_lcm, p_lcm)
+        print(f"LCM-distilled checkpoint written in "
+              f"{time.perf_counter() - t0:.3f}s", flush=True)
+        out_l = os.path.join(CKPT_DIR, "out", "lcm")
+        steps = len(lcm_timesteps(LCM_STEPS))
+        cli_request("the sample CLI --sampler lcm request",
+                    ["--model-dir", ckpt_lcm, "--prompt", PROMPT, "-steps",
+                     str(LCM_STEPS), "-gs", str(LCM_GS), "--seed", "0",
+                     "--sampler", "lcm", "--output-dir", out_l],
+                    steps * att["full"], 1, want_pipe=p_lcm)
+        check_png("the CLI's --sampler lcm image", out_l + "0.png",
+                  p_lcm.txt2img(PROMPT, resolution=(1024, 1024),
+                                n_steps=LCM_STEPS, guidance_scale=LCM_GS,
+                                seed=0, sampler="lcm")[0])
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
@@ -1863,8 +2238,8 @@ def main() -> None:
     print(f"random_pipeline(with_encoder=True, refiner_cfg="
           f"SDXL_REFINER_DIFFUSER): {time.perf_counter() - t0:.1f}s",
           flush=True)
-    run_path("the txt2img requests", lambda: run_requests(pipe),
-             ["sdxl_flash_attention_bf16", F32_D512], path)
+    phase6 = run_path("the txt2img requests", lambda: run_requests(pipe),
+                      ["sdxl_flash_attention_bf16", F32_D512], path)
     check_path_against_plain(pipe)
     phase_done("6-7 (txt2img)")
     run_path("the bf16-decode request", lambda: bf16_decode_request(pipe),
@@ -1886,7 +2261,15 @@ def main() -> None:
             profile_request(pipe, K_STEPS, sampler="dpmpp",
                             schedule="karras", no_cfg=no_cfg)
     phase_done("8c (k-samplers, schedules, zsnr, DDIM eta, no CFG)")
-    checkpoint_cli_phase(pipe, path)
+    p_lcm = run_path("the module-10b and module-11 extension requests",
+                     lambda: module10b_requests(pipe, phase6[0]),
+                     ["sdxl_flash_attention_bf16", F32_D512], path)
+    check_extensions_against_plain(pipe, p_lcm)
+    phase_done("8d (LCM, previews, inversion, FreeU, PAG, DeepCache)")
+    checkpoint_cli_phase(pipe, path, p_lcm)
+    del p_lcm
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_done("9b (checkpoint, sample CLI)")
 
     data, cfg, factors, train_launches = run_training(

@@ -7,16 +7,19 @@ pipeline/loader.py detects, or ``--random-weights``; the refiner too with
 ``--use-refiner``), merge ``--lora`` and ``--embedding`` files,
 ``--zsnr``, then txt2img (with the refiner, or the ``--denoising-end``
 split), img2img (``--reference-img`` with ``--img2img-strength``),
-outpaint (``--outpaint``), or inpainting of ``--reference-img`` (a crop
-window, a ``--mask-img``, ``--mask-blur``), each with ``--sampler`` (DDIM
-or a k-sampler), ``--schedule``, ``--ddim-eta``, ``--guidance-rescale``
-and ``--no-cfg``, and write {output_dir}{i}.png with the reference's
-generation metadata. The bad combinations of these flags fail with the
-reference's messages: an exit 1 where the reference's CLI checks them,
-the pipeline's ValueError where the reference's pipeline does. Any other
-flag set away from its default (and ``--sampler lcm``), and any other
-family, is an error naming the module that ports it. Runs on the GPU;
-the tests pass ``device="cpu"`` to ``main``.
+outpaint (``--outpaint``), inpainting of ``--reference-img`` (a crop
+window, a ``--mask-img``, ``--mask-blur``), or DDIM inversion editing
+(``--invert-img`` under ``--invert-prompt``), each with ``--sampler``
+(DDIM, a k-sampler or LCM), ``--schedule``, ``--ddim-eta``,
+``--guidance-rescale``, ``--no-cfg``, ``--freeu``, ``--pag-scale`` and
+``--deepcache`` (txt2img also with ``--preview-every``, which writes
+{output_dir}preview_{step}_0.png), and write {output_dir}{i}.png with
+the reference's generation metadata. The bad combinations of these flags
+fail with the reference's messages: an exit 1 where the reference's CLI
+checks them, the pipeline's ValueError where the reference's pipeline
+does. Any other flag set away from its default, and any other family, is
+an error naming the module that ports it. Runs on the GPU; the tests pass
+``device="cpu"`` to ``main``.
 
 Usage:
   python -m sdxl_tpu_torch.cli.sample --model-dir ./weights \
@@ -43,17 +46,16 @@ _PORTED = {
     "crop_right", "crop_top", "crop_bottom", "crop_out", "mask_img",
     "mask_blur", "img2img_strength", "outpaint", "outpaint_fill",
     "sampler", "schedule", "zsnr", "ddim_eta", "guidance_rescale", "no_cfg",
+    "preview_every", "invert_img", "invert_prompt", "pag_scale", "freeu",
+    "deepcache", "deepcache_branch",
 }
 # every other flag -> the module of ROADMAP Queue 1 that ports it
 _WAITS = {
     **dict.fromkeys(
-        ["preview_every", "invert_img", "invert_prompt"], 10),
-    **dict.fromkeys(
-        ["pag_scale", "freeu", "controlnet", "control_image",
-         "control_scale", "control_start", "control_end", "ip_adapter",
-         "ip_image_encoder", "ip_image", "ip_scale", "deepcache",
-         "deepcache_branch", "edit_image", "image_guidance_scale",
-         "hires_scale", "hires_strength", "vae_tile"], 11),
+        ["controlnet", "control_image", "control_scale", "control_start",
+         "control_end", "ip_adapter", "ip_image_encoder", "ip_image",
+         "ip_scale", "edit_image", "image_guidance_scale", "hires_scale",
+         "hires_strength", "vae_tile"], 11),
     "clip_skip": 12,
     **dict.fromkeys(["no_t5", "slg_scale", "slg_layers", "true_cfg_scale"],
                     13),
@@ -354,8 +356,6 @@ def _unported(parser: argparse.ArgumentParser, args) -> str | None:
     if args.family != "sdxl":
         return (f"--family {args.family} is not ported yet (module "
                 f"{_FAMILY_MODULE[args.family]})")
-    if args.sampler == "lcm":
-        return "--sampler lcm is not ported yet (module 10)"
     for action in parser._actions:
         if action.dest in _PORTED:
             continue
@@ -424,6 +424,31 @@ def main(argv=None, device="cuda") -> int:
               "--reference-img, not an --img2img-strength mode)",
               file=sys.stderr)
         return 1
+    extensions = {}
+    if args.deepcache is not None:
+        if args.preview_every:
+            print("error: --deepcache is incompatible with --controlnet, "
+                  "--hires-scale and --preview-every", file=sys.stderr)
+            return 1
+        if args.deepcache < 1 or args.deepcache_branch < 1:
+            print("error: --deepcache and --deepcache-branch must be >= 1",
+                  file=sys.stderr)
+            return 1
+        extensions["deepcache"] = (args.deepcache, args.deepcache_branch)
+    if args.pag_scale:
+        extensions["pag_scale"] = args.pag_scale
+    if args.invert_img is not None:
+        if (args.reference_img is not None or args.use_refiner
+                or extensions or args.preview_every):
+            print("error: --invert-img is not combinable with "
+                  "--reference-img / --edit-image / --use-refiner / "
+                  "--controlnet / --ip-adapter / --deepcache / --pag-scale "
+                  "/ --preview-every", file=sys.stderr)
+            return 1
+        if args.sampler != "ddim":
+            print("error: --invert-img is defined on the DDIM chain "
+                  "(--sampler ddim)", file=sys.stderr)
+            return 1
 
     if args.random_weights or args.model_dir is None:
         if not args.random_weights:
@@ -455,6 +480,18 @@ def main(argv=None, device="cuda") -> int:
         pipe.rescale_zsnr()
         log("zsnr: alpha-bar table rescaled to zero terminal SNR "
             "(arXiv:2305.08891)")
+    if args.freeu is not None:
+        import dataclasses
+
+        from ..configs import parse_freeu_spec
+
+        try:
+            fu = parse_freeu_spec(args.freeu, args.family)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+        pipe.diffuser_cfg = dataclasses.replace(pipe.diffuser_cfg, freeu=fu)
+        log(f"freeu: (b1,b2,s1,s2) = {fu} (base UNet decoder)")
     if args.embedding:
         try:
             pipe.add_textual_inversions(args.embedding)
@@ -470,8 +507,26 @@ def main(argv=None, device="cuda") -> int:
                   seed=args.seed, negative_prompt=args.negative_prompt,
                   sampler=args.sampler, schedule=args.schedule,
                   guidance_rescale=args.guidance_rescale,
-                  no_cfg=args.no_cfg, ddim_eta=args.ddim_eta)
-    if args.reference_img is not None and args.img2img_strength is not None:
+                  no_cfg=args.no_cfg, ddim_eta=args.ddim_eta, **extensions)
+    if args.invert_img is not None:
+        # DDIM inversion editing (arXiv:2211.09794): invert under the
+        # source prompt, denoise under the edit prompt over the same grid
+        src = load_images([args.invert_img])
+        try:
+            inv = pipe.ddim_invert(
+                [args.invert_prompt] * len(prompts), src,
+                n_steps=args.n_diffusion_steps, guidance_scale=1.0)
+            images = pipe.txt2img(
+                prompts, resolution=(src.shape[1], src.shape[2]),
+                n_steps=args.n_diffusion_steps,
+                guidance_scale=args.unconditional_guidance_scale,
+                seed=args.seed, negative_prompt=args.negative_prompt,
+                guidance_rescale=args.guidance_rescale, no_cfg=args.no_cfg,
+                initial_latent=inv)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    elif args.reference_img is not None and args.img2img_strength is not None:
         ref = load_images([args.reference_img])
         if len(prompts) > 1:
             # one variation per prompt off the same reference
@@ -503,9 +558,15 @@ def main(argv=None, device="cuda") -> int:
             mask_image=_load_mask(args), mask_blur=args.mask_blur,
             use_refiner=args.use_refiner, **common)
     else:
+        preview_cb = None
+        if args.preview_every:
+            def preview_cb(done, total, rgb):
+                save_images(rgb[:1], f"{args.output_dir}preview_{done:03d}_")
+                log(f"preview at step {done}/{total}")
         images = pipe.txt2img(
             prompts, resolution=(args.height, args.width),
             use_refiner=args.use_refiner, denoising_end=args.denoising_end,
+            preview_every=args.preview_every, preview_callback=preview_cb,
             **common)
 
     meta = {

@@ -44,9 +44,10 @@ class UNetConfig:
     transformer_levels: Tuple[int, ...] = (1, 2)
     # fixed head count; 0 = derive from n_head_channels
     n_heads: int = 0
-    # FreeU (b1, b2, s1, s2); None = off. Not ported yet.
+    # FreeU (b1, b2, s1, s2) at the two deepest decoder levels; None = off
     freeu: Optional[Tuple[float, float, float, float]] = None
-    # LCM guidance-embedding width; 0 = none. Not ported yet.
+    # LCM-distilled UNets: the width of the guidance embedding that
+    # time_embed.cond_proj projects onto the timestep sinusoid; 0 = none
     time_cond_proj_dim: int = 0
 
     def __post_init__(self):
@@ -142,6 +143,27 @@ class AutoencoderConfig:
     n_group: int = 32
     n_channels_out: int = 8  # encoder quant channels (4 mean + 4 logvar)
     latent_channels: int = 4
+
+
+# FreeU per-family defaults (b1, b2, s1, s2) from the official repo's
+# recommended settings (github.com/ChenyangSi/FreeU README)
+FREEU_DEFAULTS = {
+    "sdxl": (1.3, 1.4, 0.9, 0.2),
+    "sd1": (1.5, 1.6, 0.9, 0.2),
+    "sd2": (1.4, 1.6, 0.9, 0.2),
+}
+
+
+def parse_freeu_spec(spec: str, family: str) -> Tuple[float, float, float,
+                                                      float]:
+    """CLI --freeu value -> (b1, b2, s1, s2). "auto" (bare --freeu) picks
+    the family default; otherwise a comma list of four floats."""
+    if spec == "auto":
+        return FREEU_DEFAULTS[family]
+    parts = spec.split(",")
+    if len(parts) != 4:
+        raise ValueError(f"--freeu expects B1,B2,S1,S2 (got {spec!r})")
+    return tuple(float(v) for v in parts)
 
 
 # ---------------------------------------------------------------------------

@@ -22,7 +22,9 @@ The native format: one safetensors file per stage holding the reference's
 flat tree keys and layouts, plus the same .cfg JSON.
 ``native_state_dict`` streams such a file into a port state_dict, one
 tensor at a time from the mapped file to the device; ``save_native_pipeline``
-writes a port pipeline back in that layout.
+writes a port pipeline back in that layout, an LCM-distilled UNet's
+``time_embed.cond_proj.w`` included, with time_cond_proj_dim in the
+diffuser.cfg it writes.
 """
 
 from __future__ import annotations

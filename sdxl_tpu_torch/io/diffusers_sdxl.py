@@ -17,10 +17,11 @@ diffusers block indices map onto the reference/ldm block order:
 As in io/hf_sdxl.py, the files are in torch's layouts already: the
 builders return the port's state_dicts of zero-copy views moved to the
 device one tensor at a time. An inpainting UNet (conv_in of 9 channels)
-loads with its config's in_channels set to 9. An LCM UNet the port cannot
-run yet raises NotImplementedError naming the module it waits for
-(module 10); the ControlNet (module 11) and SD1 (module 12) loaders wait
-for theirs.
+loads with its config's in_channels set to 9, an LCM-distilled UNet with
+its time_cond_proj_dim set to the width of time_embedding.cond_proj (its
+guidance-embedding projection, ``time_embed.cond_proj`` in the port). The
+ControlNet (module 11) and SD1 (module 12) loaders wait for their
+modules.
 """
 
 from __future__ import annotations
@@ -162,6 +163,10 @@ def build_unet_from_diffusers(
         "norm_out": ks.norm("conv_norm_out"),
         "conv_out": ks.conv("conv_out"),
     }
+    # LCM-distilled UNets: the guidance-embedding projection (no bias)
+    if ks.has("time_embedding.cond_proj.weight"):
+        params["time_embed"]["cond_proj"] = ks.linear(
+            "time_embedding.cond_proj")
     # SDXL's micro-conditioning embedding; absent in SD 1.x/2.x checkpoints
     if cfg.adm_in_channels and ks.has("add_embedding.linear_1.weight"):
         params["label_embed"] = {
@@ -295,18 +300,18 @@ def load_sdxl_diffusers_dir(
     state_dict, alphas_cumprod | None, vae_scale_factor | None,
     diffuser_cfg), tensors on ``device``. The cfg comes back with
     in_channels corrected from the checkpoint's conv_in width (9 for
-    inpainting UNets). An LCM-distilled UNet (time_embedding.cond_proj)
-    raises NotImplementedError: the port's UNet does not run it yet.
+    inpainting UNets) and time_cond_proj_dim from the width of an
+    LCM-distilled UNet's time_embedding.cond_proj (0 without one).
     """
     unet_tensors = _load_safetensors_dir(os.path.join(model_dir, "unet"))
     cin = int(unet_tensors["conv_in.weight"].shape[1])
     if cin != diffuser_cfg.in_channels:
         diffuser_cfg = dataclasses.replace(diffuser_cfg, in_channels=cin)
-    if ("time_embedding.cond_proj.weight" in unet_tensors
-            or diffuser_cfg.time_cond_proj_dim):
-        raise NotImplementedError(
-            f"{model_dir}: an LCM UNet (time_embedding.cond_proj) is not "
-            f"ported yet (module 10)")
+    cp = unet_tensors.get("time_embedding.cond_proj.weight")
+    tcp = 0 if cp is None else int(cp.shape[1])
+    if tcp != diffuser_cfg.time_cond_proj_dim:
+        diffuser_cfg = dataclasses.replace(diffuser_cfg,
+                                           time_cond_proj_dim=tcp)
     unet = build_unet_from_diffusers(
         unet_tensors, diffuser_cfg.unet_config(), unet_dtype, device=device)
     vae = build_vae_from_diffusers(

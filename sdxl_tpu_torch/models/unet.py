@@ -16,6 +16,16 @@ LoRA slot; cross-attention K/V are computed inline from the context, so
 factors on ``attn2.k``/``attn2.v`` act there (``precompute_cross_kv`` is
 for sampling, where the context is fixed).
 
+The weight-free extensions of the reference's forward: FreeU's backbone
+boost and skip filter at the two deepest decoder levels (``freeu``), PAG's
+perturbed call with the middle block's self-attentions as the identity
+map (``pag_mid``), DeepCache's full call that also returns the deep
+feature and its shallow call that splices it back in
+(``unet_forward_cached`` / ``unet_forward_shallow``), and an LCM-distilled
+UNet's guidance addend to the timestep sinusoid (``t_add``, through the
+bias-free ``time_embed.cond_proj`` when ``cfg.time_cond_proj_dim`` is
+set).
+
 Layout: ``unet_forward`` takes and returns NHWC latents [B, h, w, C] like
 the reference; inside, activations are contiguous NCHW (PyTorch's default
 conv layout) and transformer tokens are [B, HW, C]. Parameters and compute
@@ -136,11 +146,17 @@ class SelfAttention(nn.Module):
         self.qkv = Linear(c, 3 * c, bias=False, **kw)
         self.out = Linear(c, c, **kw)
 
-    def forward(self, x, n_head):
+    def forward(self, x, n_head, identity: bool = False):
+        """identity: PAG's perturbed self-attention (Ahn et al. 2024,
+        arXiv:2403.17377), the softmax map replaced by the identity, so
+        the output is the out projection of v (no attention kernel)."""
         if hasattr(self, "qkv"):
             q, k, v = self.qkv(x).chunk(3, dim=-1)
         else:
-            q, k, v = self.q(x), self.k(x), self.v(x)
+            q, k, v = (None, None, self.v(x)) if identity else (
+                self.q(x), self.k(x), self.v(x))
+        if identity:
+            return self.out(v)
         return self.out(qkv_attention(q, k, v, None, n_head))
 
 
@@ -182,8 +198,8 @@ class TransformerBlock(nn.Module):
         self.norm3 = LayerNorm(c, **kw)
         self.mlp = GEGLU(c, **kw)
 
-    def forward(self, x, context, n_head, kv=None):
-        x = x + self.attn1(self.norm1(x), n_head)
+    def forward(self, x, context, n_head, kv=None, identity_self=False):
+        x = x + self.attn1(self.norm1(x), n_head, identity_self)
         x = x + self.attn2(self.norm2(x), context, n_head, kv)
         return x + self.mlp(self.norm3(x))
 
@@ -198,12 +214,13 @@ class SpatialTransformer(nn.Module):
                                     for _ in range(depth))
         self.proj_out = Linear(c, c, **kw)
 
-    def forward(self, x, context, kv=None):
+    def forward(self, x, context, kv=None, identity_self=False):
         b, c, h, w = x.shape
         y = self.norm(x).permute(0, 2, 3, 1).reshape(b, h * w, c)
         y = self.proj_in(y)
         for i, block in enumerate(self.blocks):
-            y = block(y, context, self.n_head, None if kv is None else kv[i])
+            y = block(y, context, self.n_head, None if kv is None else kv[i],
+                      identity_self)
         y = self.proj_out(y).reshape(b, h, w, c).permute(0, 3, 1, 2)
         return x + y
 
@@ -250,6 +267,10 @@ class UNet(nn.Module):
         in_plan, mid_spec, out_plan = unet_block_plan(cfg)
         emb_dim = cfg.time_embed_dim
         self.time_embed = _mlp2(cfg.model_channels, emb_dim, **kw)
+        if cfg.time_cond_proj_dim:
+            # LCM-distilled UNets: the guidance embedding's projection
+            self.time_embed["cond_proj"] = Linear(
+                cfg.time_cond_proj_dim, cfg.model_channels, bias=False, **kw)
         self.label_embed = (_mlp2(cfg.adm_in_channels, emb_dim, **kw)
                             if cfg.adm_in_channels else None)
         self.input_blocks = nn.ModuleList(UNetBlock(s, cfg, **kw)
@@ -271,9 +292,15 @@ class UNet(nn.Module):
         return unet_forward(self, x, timesteps, context, label, cross_kv)
 
 
-def _unet_embed(model: UNet, timesteps, label, dtype):
+def _unet_embed(model: UNet, timesteps, label, dtype, t_add=None):
+    """The timestep (+ label) embedding. t_add [1 or B, model_channels]:
+    an LCM-distilled UNet's projected guidance embedding, added to the
+    sinusoid after its cast to ``dtype`` and before ``lin1`` (diffusers'
+    TimestepEmbedding cond_proj slot)."""
     te = model.time_embed
     t_emb = timestep_embedding(timesteps, model.cfg.model_channels).to(dtype)
+    if t_add is not None:
+        t_emb = t_emb + t_add.to(dtype)
     emb = te["lin2"](F.silu(te["lin1"](t_emb)))
     if model.label_embed is not None:
         le = model.label_embed
@@ -281,31 +308,134 @@ def _unet_embed(model: UNet, timesteps, label, dtype):
     return emb
 
 
+def freeu_fourier_filter(x: torch.Tensor, threshold: int,
+                         scale: float) -> torch.Tensor:
+    """FreeU's fourier_filter (the official code, diffusers'
+    fourier_filter) over NCHW: an f32 complex FFT over the two spatial
+    axes, the centred 2*threshold-wide low-frequency box scaled by
+    ``scale``, the inverse FFT's real part cast back to x's dtype."""
+    h, w = x.shape[-2:]
+    dims = (-2, -1)
+    xf = torch.fft.fftshift(torch.fft.fft2(x.float(), dim=dims), dim=dims)
+    row = torch.arange(h, device=x.device)
+    col = torch.arange(w, device=x.device)
+    in_row = (row >= h // 2 - threshold) & (row < h // 2 + threshold)
+    in_col = (col >= w // 2 - threshold) & (col < w // 2 + threshold)
+    mask = torch.where(in_row[:, None] & in_col[None, :],
+                       torch.tensor(float(scale), device=x.device),
+                       torch.tensor(1.0, device=x.device))
+    out = torch.fft.ifft2(torch.fft.ifftshift(xf * mask, dim=dims),
+                          dim=dims).real
+    return out.to(x.dtype)
+
+
+def _input_blocks(model: UNet, x, emb, context, in_kv, n=None):
+    """NHWC latent -> (NCHW activation, each input block's output) of the
+    first n input blocks (all of them by default)."""
+    x = x.permute(0, 3, 1, 2).contiguous()
+    saved = []
+    for i, block in enumerate(model.input_blocks[:n]):
+        x = block(x, emb, context, in_kv.get(i))
+        saved.append(x)
+    return x, saved
+
+
+def _output_block(model: UNet, i: int, x, skip, emb, context, out_kv,
+                  freeu):
+    """Output block i on cat(x, skip). FreeU (arXiv:2309.11497; diffusers
+    apply_freeu) at the two deepest decoder levels (three skip-cats a
+    level: level i // 3): the backbone's first half of the channels times
+    b, the skip's low spatial frequencies times s."""
+    if freeu is not None and i // 3 <= 1:
+        b1, b2, s1, s2 = freeu
+        b, s = (b1, s1) if i // 3 == 0 else (b2, s2)
+        half = x.shape[1] // 2
+        x = torch.cat([x[:, :half] * b, x[:, half:]], dim=1)
+        skip = freeu_fourier_filter(skip, 1, s)
+    return model.output_blocks[i](torch.cat([x, skip], dim=1), emb, context,
+                                  out_kv.get(i))
+
+
+def _head(model: UNet, x) -> torch.Tensor:
+    return model.conv_out(F.silu(model.norm_out(x))).permute(0, 2, 3, 1)
+
+
 def unet_forward(model: UNet, x: torch.Tensor, timesteps: torch.Tensor,
                  context: torch.Tensor, label: Optional[torch.Tensor],
-                 cross_kv=None) -> torch.Tensor:
+                 cross_kv=None, t_add=None, pag_mid: bool = False,
+                 freeu=None) -> torch.Tensor:
     """x: [B, h, w, C_in] NHWC latent -> [B, h, w, C_out] NHWC.
 
     cross_kv: optional precompute_cross_kv() output (the context is fixed
-    for a whole sampling run, so every cross-attention K/V is too)."""
+    for a whole sampling run, so every cross-attention K/V is too).
+    t_add: see _unet_embed. pag_mid: the middle block's self-attentions
+    as identity maps (PAG's perturbed call; diffusers' "mid" layers).
+    freeu: (b1, b2, s1, s2) or None (the sampler passes its
+    DiffuserConfig's)."""
+    emb = _unet_embed(model, timesteps, label, x.dtype, t_add)
+    ckv = cross_kv or {}
+    out_kv = ckv.get("output_blocks", {})
+    x, saved = _input_blocks(model, x, emb, context,
+                             ckv.get("input_blocks", {}))
+    mid = model.middle_block
+    x = mid["res1"](x, emb)
+    x = mid["transformer"](x, context, ckv.get("middle_block"), pag_mid)
+    x = mid["res2"](x, emb)
+    for i in range(len(model.output_blocks)):
+        x = _output_block(model, i, x, saved.pop(), emb, context, out_kv,
+                          freeu)
+    return _head(model, x)
+
+
+def _check_branch(model: UNet, branch: int) -> int:
+    n_out = len(model.output_blocks)
+    if not 1 <= branch <= n_out - 1:
+        raise ValueError(f"deepcache branch must be in [1, {n_out - 1}]")
+    return n_out
+
+
+def unet_forward_cached(model: UNet, x, timesteps, context, label,
+                        cross_kv=None, branch: int = 3, freeu=None):
+    """unet_forward that also returns DeepCache's feature
+    (arXiv:2312.00858): the NCHW input of output block n_out - branch
+    before its skip-cat (and before FreeU), the deep U a shallow step
+    reuses. ``branch`` counts the input blocks a shallow step recomputes;
+    output block n_out - branch consumes skip branch - 1."""
+    n_out = _check_branch(model, branch)
     emb = _unet_embed(model, timesteps, label, x.dtype)
     ckv = cross_kv or {}
-    in_kv = ckv.get("input_blocks", {})
     out_kv = ckv.get("output_blocks", {})
-    x = x.permute(0, 3, 1, 2).contiguous()
-    saved = []
-    for i, block in enumerate(model.input_blocks):
-        x = block(x, emb, context, in_kv.get(i))
-        saved.append(x)
+    x, saved = _input_blocks(model, x, emb, context,
+                             ckv.get("input_blocks", {}))
     mid = model.middle_block
     x = mid["res1"](x, emb)
     x = mid["transformer"](x, context, ckv.get("middle_block"))
     x = mid["res2"](x, emb)
-    for i, block in enumerate(model.output_blocks):
-        x = block(torch.cat([x, saved.pop()], dim=1), emb, context,
-                  out_kv.get(i))
-    x = model.conv_out(F.silu(model.norm_out(x)))
-    return x.permute(0, 2, 3, 1)
+    cache = None
+    for i in range(n_out):
+        if i == n_out - branch:
+            cache = x
+        x = _output_block(model, i, x, saved.pop(), emb, context, out_kv,
+                          freeu)
+    return _head(model, x), cache
+
+
+def unet_forward_shallow(model: UNet, x, timesteps, context, label, cache,
+                         cross_kv=None, branch: int = 3, freeu=None):
+    """DeepCache's shallow call: the first ``branch`` input blocks (fresh
+    skips) and the last ``branch`` output blocks, with ``cache`` (from
+    unet_forward_cached) in place of the deep U."""
+    n_out = _check_branch(model, branch)
+    emb = _unet_embed(model, timesteps, label, x.dtype)
+    ckv = cross_kv or {}
+    out_kv = ckv.get("output_blocks", {})
+    _, saved = _input_blocks(model, x, emb, context,
+                             ckv.get("input_blocks", {}), branch)
+    x = cache
+    for i in range(n_out - branch, n_out):
+        x = _output_block(model, i, x, saved.pop(), emb, context, out_kv,
+                          freeu)
+    return _head(model, x)
 
 
 def precompute_cross_kv(model: UNet, context: torch.Tensor):

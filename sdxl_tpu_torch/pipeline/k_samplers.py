@@ -471,7 +471,8 @@ def k_sample(eps_fn: EpsFn, latent: torch.Tensor, method: str,
              sigmas_full: Optional[np.ndarray] = None,
              step_noise: Optional[torch.Tensor] = None,
              pin: Optional[Callable] = None,
-             head_steps: int = 0) -> torch.Tensor:
+             head_steps: int = 0,
+             on_step: Optional[Callable] = None) -> torch.Tensor:
     """Run ``method`` over the host-known schedule (ts [n], sigmas [n+1])
     from the sigma-space latent.
 
@@ -482,7 +483,8 @@ def k_sample(eps_fn: EpsFn, latent: torch.Tensor, method: str,
     lat: the inpainting pin before each step's evaluation. head_steps > 0
     runs only the first head_steps steps (stopping at sigmas[head_steps]).
     sigmas_full: the ᾱ table's sigmas (the K_MID samplers' mid
-    timesteps).
+    timesteps). on_step(done, lat): called after each step with the steps
+    done and the latent (the step previews).
 
     heun and the K_MID samplers skip their second evaluation on the last
     step (sigma_next = 0), where the reference's scan evaluates it and
@@ -560,6 +562,8 @@ def k_sample(eps_fn: EpsFn, latent: torch.Tensor, method: str,
             lat = k_step_update(method, lat, denoised, old, sigma,
                                 sigma_next, sigma_prev, i == 0, noise)
             old = denoised
+        if on_step is not None:
+            on_step(i + 1, lat)
     return lat
 
 

@@ -15,7 +15,10 @@ Every reader yields the port's state_dicts on the pipeline's device (the
 card unless the caller asks for the CPU). Each module is built on the meta
 device and takes its tensors with ``load_state_dict(strict=True,
 assign=True)``: a missing or extra key is an error naming it, and no
-weight is held twice on the device. LoRA files merge into the loaded
+weight is held twice on the device. An LCM-distilled UNet's
+``time_embed.cond_proj`` is such a key: its module has one only when the
+layout's config sets time_cond_proj_dim (diffuser.cfg; a diffusers dir's
+cond_proj width), so a file and a config that disagree fail the load. LoRA files merge into the loaded
 base modules afterwards (io/lora.py). ``use_refiner`` also loads the
 refiner UNet: refiner.{safetensors,cfg} (native), refiner.{mpk,cfg},
 diffuser/diffuser_refiner (npy), or the sd_xl_refiner_* file beside the

@@ -1,14 +1,14 @@
 """SDXL pipeline: prompt (and reference image) -> uint8 images
-(sdxl_tpu/pipeline/pipeline.py's SDXL paths without LCM, previews,
-inversion and the UNet extensions).
+(sdxl_tpu/pipeline/pipeline.py's SDXL paths without ControlNet,
+IP-Adapter, ip2p, hires-fix and tiled VAE).
 
 Stages, as in the reference: dual-CLIP conditioning (f32) -> pair-batched
-CFG DDIM or one of the twelve k-samplers over the base UNet (bf16, or
-f32) -> optional refiner with the same sampler (re-noise at t = 1000 -
-refiner_step_start, or the ensemble-of-experts tail after
+CFG DDIM, one of the twelve k-samplers or LCM over the base UNet (bf16, or
+f32) -> optional refiner with the same sampler (DDIM after LCM; re-noise
+at t = 1000 - refiner_step_start, or the ensemble-of-experts tail after
 ``denoising_end``) -> VAE decode (f32, or bf16 with ``vae_dtype``) ->
-uint8 RGB. Inpainting, img2img and outpaint first encode their reference
-images with the VAE encoder (f32).
+uint8 RGB. Inpainting, img2img, outpaint and DDIM inversion first encode
+their reference images with the VAE encoder (f32).
 
 Precision: building a pipeline sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -19,17 +19,19 @@ otherwise run f32 convolutions in TF32.
 Ported options of ``txt2img``: prompts, resolution, n_steps,
 guidance_scale, seed (one int), negative_prompt, profile_stages,
 initial_latent, use_refiner, refiner_step_start, denoising_end,
-inpaint_reference, inpaint_mask, sampler (ddim or any of K_SAMPLERS),
-schedule, guidance_rescale, no_cfg and ddim_eta; ``img2img``, ``inpaint``
-and ``outpaint`` take the same keywords. Every other option of the
-reference (the LCM sampler, step previews, ControlNet, IP-Adapter,
-per-image seed lists, ...) raises NotImplementedError. The base and the
-refiner stay resident on the device: the reference's HBM planner has no
-work on an 80 GB card.
+inpaint_reference, inpaint_mask, sampler (ddim, any of K_SAMPLERS, or
+lcm), schedule, guidance_rescale, no_cfg, ddim_eta, preview_every,
+preview_callback, deepcache and pag_scale, with FreeU through
+``diffuser_cfg.freeu``; ``inpaint`` and ``outpaint`` take the same
+keywords, ``img2img`` those the reference's takes, and ``ddim_invert``
+inverts images. The reference's other options (ControlNet, IP-Adapter,
+device_output) raise NotImplementedError, and per-image seed lists too.
+The base and the refiner stay resident on the device: the reference's HBM
+planner has no work on an 80 GB card.
 
 Noise: one torch.Generator seeded with ``seed`` gives, in this order, the
 initial latent noise, the inpainting pin noise of every step, the base's
-step noise (stochastic k-samplers, DDIM eta > 0), and the refiner's
+step noise (stochastic k-samplers, LCM, DDIM eta > 0), and the refiner's
 re-noise and step noise (img2img: its re-noise and step noise). JAX and
 torch draws differ, so the same seed gives another image than the
 reference.
@@ -68,27 +70,22 @@ from .k_samplers import (
 from .masks import build_latent_mask
 from .resolutions import RESOLUTIONS, validate_resolution
 from .sampler import (
+    PreviewFn,
+    ddim_invert_latent,
     euler_sample_latent,
     expert_head_steps,
     k_refine_latent,
+    lcm_refine_latent,
+    lcm_sample_latent,
     refine_latent,
     sample_latent,
 )
 
 SAMPLERS = ("ddim",) + K_SAMPLERS + ("lcm",)
-# what module 10b brings (LCM, step previews, inversion)
-_MODULE_10B = ("preview_every", "preview_callback")
 
 
-def _unported(options: dict, sampler: str, what: str) -> None:
+def _unported(options: dict, what: str) -> None:
     """NotImplementedError for a reference option the port lacks."""
-    if sampler == "lcm":
-        raise NotImplementedError(
-            "sampler 'lcm' is not ported yet (module 10)")
-    late = sorted(set(options) & set(_MODULE_10B))
-    if late:
-        raise NotImplementedError(
-            f"{', '.join(late)} is not ported yet (module 10)")
     if options:
         raise NotImplementedError(
             f"{what} options not ported yet: {', '.join(sorted(options))}")
@@ -241,19 +238,33 @@ class SDXLPipeline:
                 inpaint_mask=None, profile_stages: bool = True,
                 sampler: str = "ddim", schedule: str = "linear",
                 guidance_rescale: float = 0.0, no_cfg: bool = False,
+                preview_every: Optional[int] = None,
+                preview_callback: Optional[PreviewFn] = None,
+                deepcache: Optional[Tuple[int, int]] = None,
+                pag_scale: float = 0.0,
                 initial_latent: Optional[torch.Tensor] = None,
                 ddim_eta: float = 0.0, **options) -> np.ndarray:
         """Prompt(s) -> [B, H, W, 3] uint8 images (numpy, on the host).
 
-        sampler: "ddim" (the reference's), or a k-sampler (K_SAMPLERS) in
-        sigma space, on the base and on the refiner stage; schedule (the
+        sampler: "ddim" (the reference's), a k-sampler (K_SAMPLERS) in
+        sigma space, on the base and on the refiner stage, or "lcm" (4-8
+        steps; an LCM-distilled UNet embeds the guidance and runs without
+        CFG; the refiner stage then runs DDIM); schedule (the
         k-samplers'): linear, karras, ays (this family's table),
         trailing, leading. ddim_eta > 0 (DDIM only): stochastic DDIM.
         guidance_rescale > 0: the Lin et al. 2023 std rescale of the
         guided eps. no_cfg, or guidance_scale == 1: the conditional rows
         alone, batch B, half the UNet work.
-        initial_latent ([B, h, w, 4], VP space at the first grid timestep;
-        DDIM only) replaces the seeded starting noise.
+        preview_every=N: between every N steps of the base stage,
+        preview_callback(done, total, [B, h, w, 3] uint8) gets a
+        linear-map preview of the latent; the final image is the one
+        without previews.
+        pag_scale > 0: Perturbed-Attention Guidance, one more conditional
+        UNet call a step. deepcache (interval, branch): DeepCache, the
+        whole UNet every interval-th step (the refiner stage too). FreeU
+        runs when ``diffuser_cfg.freeu`` is set.
+        initial_latent ([B, h, w, 4], VP space at the first grid timestep,
+        e.g. ddim_invert's; DDIM only) replaces the seeded starting noise.
         use_refiner: after the base, the refiner re-noises the latent at
         t = 1000 - refiner_step_start and runs the grid's tail.
         denoising_end (with use_refiner): the ensemble-of-experts split —
@@ -265,7 +276,7 @@ class SDXLPipeline:
         9-channel inpainting UNet takes [mask, latent of the reference
         with the masked pixels set to 127] as extra input channels
         instead."""
-        _unported(options, sampler, "txt2img")
+        _unported(options, "txt2img")
         if not isinstance(seed, (int, np.integer)):
             raise NotImplementedError("per-image seed lists are not ported yet")
         h, w = resolution
@@ -278,20 +289,51 @@ class SDXLPipeline:
                 raise ValueError(
                     "initial_latent starts the DDIM chain (ddim_invert's "
                     "output is defined on it) — use sampler='ddim'")
-            if inpaint_reference is not None or use_refiner:
-                raise ValueError("initial_latent is not combinable with "
-                                 "inpainting or the refiner")
+            if (inpaint_reference is not None or use_refiner
+                    or preview_every is not None):
+                raise ValueError(
+                    "initial_latent is not combinable with inpainting, "
+                    "the refiner, previews, or per-image seed lists")
+            lh, lw = h // 8, w // 8
+            if tuple(initial_latent.shape[1:]) != (lh, lw, 4):
+                raise ValueError(
+                    f"initial_latent shape {tuple(initial_latent.shape)} "
+                    f"does not match resolution {h}x{w} "
+                    f"(expect [B, {lh}, {lw}, 4])")
         if inpaint_reference is not None and inpaint_mask is None:
             raise ValueError("inpaint_reference needs an inpaint_mask")
         _check_sampler(sampler, schedule, ddim_eta)
         schedule = self._resolve_schedule(schedule)
         use_cfg = not (no_cfg or guidance_scale == 1.0)
+        lcm = sampler == "lcm"
+        if lcm and self.diffuser_cfg.time_cond_proj_dim:
+            # an LCM-distilled UNet embeds the guidance: no CFG pair
+            use_cfg = False
+        if deepcache is not None and preview_every is not None:
+            raise ValueError(
+                "deepcache is incompatible with step previews (the "
+                "segmented scans do not carry the feature cache)")
+        if preview_every is not None and lcm:
+            raise ValueError(
+                "step previews are not supported with the LCM sampler "
+                "(4-8 steps total; preview the final image instead)")
+        if pag_scale:
+            if preview_every is not None:
+                raise ValueError("pag_scale is not supported with step "
+                                 "previews")
+            if lcm:
+                raise ValueError("pag_scale does not apply to the LCM "
+                                 "sampler (consistency models embed their "
+                                 "own guidance)")
         head_steps = 0
         if denoising_end is not None:
             if not use_refiner:
                 raise ValueError(
                     "denoising_end is the ensemble-of-experts base/refiner "
                     "split — it requires use_refiner=True")
+            if preview_every is not None or lcm:
+                raise ValueError("denoising_end is not combinable with step "
+                                 "previews or the LCM sampler")
             if inpaint_reference is not None:
                 raise ValueError("denoising_end is not combinable with "
                                  "inpainting (the refiner tail has no pin "
@@ -302,6 +344,9 @@ class SDXLPipeline:
             log(f"expert split: base {head_steps} steps, refiner "
                 f"{grid_total - head_steps} steps (denoising_end="
                 f"{denoising_end})")
+        if lcm and deepcache is not None:
+            raise ValueError("deepcache is not supported with the LCM "
+                             "sampler (few-step by design)")
         if use_refiner and self.refiner is None:
             raise ValueError("refiner weights not loaded")
 
@@ -309,13 +354,12 @@ class SDXLPipeline:
                                  profile_stages)
         noise = None
         if initial_latent is not None:
-            want = (cond.batch, h // 8, w // 8, 4)
-            if tuple(initial_latent.shape) != want:
-                raise ValueError(f"initial_latent shape "
-                                 f"{tuple(initial_latent.shape)}, expected "
-                                 f"{want}")
             noise = torch.as_tensor(initial_latent, dtype=torch.float32,
                                     device=self.device)
+            if noise.shape[0] != cond.batch:
+                raise ValueError(
+                    f"initial_latent batch {noise.shape[0]} for a "
+                    f"{cond.batch}-image batch")
         generator = torch.Generator(device=self.device).manual_seed(int(seed))
 
         reference_latent = mask = concat = None
@@ -333,22 +377,30 @@ class SDXLPipeline:
                     fence(out)
 
         common = dict(initial_noise=noise, reference=reference_latent,
-                      mask=mask, concat_channels=concat,
-                      head_steps=head_steps, use_cfg=use_cfg,
-                      guidance_rescale=guidance_rescale)
+                      mask=mask, concat_channels=concat, use_cfg=use_cfg)
+        ext = dict(head_steps=head_steps, guidance_rescale=guidance_rescale,
+                   deepcache=deepcache, pag_scale=pag_scale,
+                   preview_every=preview_every,
+                   preview_callback=preview_callback)
         with self.timer.stage("diffuser"):
-            if sampler in K_SAMPLERS:
+            if lcm:
+                latent = lcm_sample_latent(
+                    self.unet, self.diffuser_cfg, self.alphas_cumprod,
+                    cond.astype(self.compute_dtype), generator,
+                    guidance_scale, n_steps,
+                    compute_dtype=self.compute_dtype, **common)
+            elif sampler in K_SAMPLERS:
                 latent = euler_sample_latent(
                     self.unet, self.diffuser_cfg, self.alphas_cumprod,
                     cond.astype(self.compute_dtype), generator,
                     guidance_scale, n_steps, self.compute_dtype,
-                    method=sampler, schedule=schedule, **common)
+                    method=sampler, schedule=schedule, **common, **ext)
             else:
                 latent = sample_latent(
                     self.unet, self.diffuser_cfg, self.alphas_cumprod,
                     cond.astype(self.compute_dtype), generator,
                     guidance_scale, n_steps, self.compute_dtype,
-                    ddim_eta=ddim_eta, **common)
+                    ddim_eta=ddim_eta, **common, **ext)
             if profile_stages:
                 fence(latent)
 
@@ -367,7 +419,8 @@ class SDXLPipeline:
             # the expert tail continues the full grid's suffix from the
             # still-noisy handoff: no re-noise, step_start 0
             stage = dict(renoise=not expert,
-                         tail_from=head_steps if expert else 0)
+                         tail_from=head_steps if expert else 0,
+                         deepcache=deepcache)
             with self.timer.stage("refiner"):
                 if sampler in K_SAMPLERS:
                     latent = k_refine_latent(
@@ -407,14 +460,17 @@ class SDXLPipeline:
                 guidance_scale: float = 7.5, seed: int = 0,
                 negative_prompt: str = "", sampler: str = "ddim",
                 schedule: str = "linear", guidance_rescale: float = 0.0,
-                no_cfg: bool = False, ddim_eta: float = 0.0,
+                no_cfg: bool = False,
+                deepcache: Optional[Tuple[int, int]] = None,
+                pag_scale: float = 0.0, ddim_eta: float = 0.0,
                 **options) -> np.ndarray:
         """Strength-based image-to-image: encode the [B, H, W, 3] uint8
         references, re-noise at t = strength * 1000 (a k-sampler: to its
-        schedule's first sigma there) and run the rest of the grid with
-        CFG on the base UNet (refine_latent, k_refine_latent). The
-        sampler keywords are txt2img's."""
-        _unported(options, sampler, "img2img")
+        schedule's first sigma there; LCM: to the first point of its grid
+        windowed by strength) and run the rest of the grid with CFG on the
+        base UNet (refine_latent, k_refine_latent, lcm_refine_latent). The
+        sampler keywords, deepcache and pag_scale are txt2img's."""
+        _unported(options, "img2img")
         if not 0.0 < strength <= 1.0:
             raise ValueError("strength must be in (0, 1]")
         _check_sampler(sampler, schedule, ddim_eta)
@@ -430,21 +486,68 @@ class SDXLPipeline:
         # skip the first (1 - strength) of the schedule
         step_start = int(round((1.0 - strength) * 1000))
         use_cfg = not (no_cfg or guidance_scale == 1.0)
+        if sampler == "lcm" and self.diffuser_cfg.time_cond_proj_dim:
+            use_cfg = False
         generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        ext = dict(use_cfg=use_cfg, guidance_rescale=guidance_rescale,
+                   deepcache=deepcache, pag_scale=pag_scale)
         with self.timer.stage("diffuser"):
-            if sampler in K_SAMPLERS:
+            if sampler == "lcm":
+                if deepcache is not None:
+                    raise ValueError("deepcache is not supported with the "
+                                     "LCM sampler (few-step by design)")
+                if pag_scale:
+                    raise ValueError("pag_scale does not apply to the LCM "
+                                     "sampler")
+                latent = lcm_refine_latent(
+                    self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
+                    cond, generator, guidance_scale, strength, n_steps,
+                    compute_dtype=self.compute_dtype, use_cfg=use_cfg)
+            elif sampler in K_SAMPLERS:
                 latent = k_refine_latent(
                     self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
                     cond, generator, guidance_scale, step_start, n_steps,
                     self.compute_dtype, method=sampler, schedule=schedule,
-                    use_cfg=use_cfg, guidance_rescale=guidance_rescale)
+                    **ext)
             else:
                 latent = refine_latent(
                     self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
                     cond, generator, guidance_scale, step_start, n_steps,
-                    self.compute_dtype, use_cfg=use_cfg,
-                    guidance_rescale=guidance_rescale, ddim_eta=ddim_eta)
+                    self.compute_dtype, ddim_eta=ddim_eta, **ext)
         return self._decode(latent)
+
+    @torch.inference_mode()
+    def ddim_invert(self, prompts, images: np.ndarray, n_steps: int = 50,
+                    guidance_scale: float = 1.0,
+                    negative_prompt: str = "") -> np.ndarray:
+        """DDIM inversion (sampler.ddim_invert_latent): VAE-encode
+        ``images`` ([B, H, W, 3] uint8, or one [H, W, 3]) and walk the
+        deterministic DDIM chain backward under ``prompts``; returns the
+        [B, h, w, 4] f32 latent at the grid's first timestep, on the host.
+        txt2img(initial_latent=..., sampler="ddim", the same n_steps)
+        regenerates the images under the source prompt, or edits them
+        under another. guidance_scale 1 (no CFG pair) inverts the
+        unguided field, the faithful setting."""
+        images = np.asarray(images)
+        if images.ndim == 3:
+            images = images[None]
+        _, height, width, _ = images.shape
+        cond = self.conditioning(
+            [prompts] if isinstance(prompts, str) else prompts,
+            (height, width), negative_prompt=negative_prompt,
+        ).astype(self.compute_dtype)
+        with self.timer.stage("vae_encode"):
+            latent = self._encode(images)
+            b = cond.batch
+            if latent.shape[0] == 1 and b > 1:
+                latent = latent.expand(b, *latent.shape[1:])
+        with self.timer.stage("diffuser"):
+            out = ddim_invert_latent(
+                self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
+                cond, guidance_scale, n_steps, self.compute_dtype,
+                use_cfg=guidance_scale != 1.0)
+            fence(out)
+        return out.cpu().numpy()
 
     def outpaint(self, prompts, reference_images: np.ndarray,
                  pad: Tuple[int, int, int, int] = (0, 0, 0, 0),

@@ -1,7 +1,7 @@
-"""The samplers' UNet side (sdxl_tpu/pipeline/sampler.py without LCM,
-step previews and inversion): DDIM with pair-batched classifier-free
-guidance, the twelve k-samplers (their math in k_samplers.py), the refiner
-stage and latent inpainting.
+"""The samplers' UNet side (sdxl_tpu/pipeline/sampler.py): DDIM with
+pair-batched classifier-free guidance, the twelve k-samplers (their math
+in k_samplers.py), LCM, DDIM inversion, the refiner stage and latent
+inpainting, with step previews, PAG and DeepCache.
 
 - DDIM timestep grid (0..n_train-step_start).rev().step_by(n_train/
   n_steps): 30 "steps" give 31 UNet iterations, as in the reference;
@@ -9,10 +9,19 @@ stage and latent inpainting.
   UNet in its own dtype;
 - k-samplers in sigma space (x = x0 + sigma * eps), the UNet's input
   scaled by 1/sqrt(sigma^2 + 1) in f32 before its cast;
+- LCM (diffusers' LCMScheduler): a few points of the distilled model's
+  50-point DDIM grid, the consistency boundary scalings, a re-noise to the
+  next point on each step but the last; an LCM-distilled UNet embeds the
+  guidance through its cond_proj (no CFG pair);
+- DDIM inversion walks the deterministic DDIM chain backward, from a
+  clean latent to the noise that regenerates it;
 - CFG eps = u + (c - u) * scale with [uncond | cond] in ONE batched UNet
   call, optionally std-rescaled (guidance_rescale); use_cfg=False runs the
   conditional rows alone; every cross-attention K/V of the fixed context
-  is computed once;
+  is computed once; PAG (pag_scale) adds one conditional call a step with
+  the middle block's self-attentions as the identity map; DeepCache
+  (deepcache=(interval, branch)) runs the whole UNet every interval-th
+  step and only its shallow blocks on the others;
 - the refiner (``cfg.is_refiner``) runs unguided on the OpenCLIP context
   and its 2560-wide channel context, batch B;
 - inpainting pins the known region to the re-noised reference every step
@@ -20,22 +29,32 @@ stage and latent inpainting.
   masked-image latent] as extra input channels;
 - ᾱ lives on the device and the step loop reads no value back to the
   host, so the whole run is queued without a sync; the per-step noise (the
-  pin's, and the stochastic methods' and DDIM eta's step noise) is drawn
-  on the device from an explicit torch.Generator before the loop, or
-  given as a [T, B, h, w, 4] tensor.
+  pin's, and the stochastic methods', LCM's and DDIM eta's step noise) is
+  drawn on the device from an explicit torch.Generator before the loop,
+  or given as a [T, B, h, w, 4] tensor. The one exception is a step
+  preview (preview_every / preview_callback): it copies the latent's
+  preview image to the host between steps, one sync each, and the loop
+  queues freely between two previews.
 
 Latents are NHWC [B, h, w, 4] like the reference.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..configs import DiffuserConfig
-from ..models.unet import UNet, precompute_cross_kv, unet_forward
+from ..models.unet import (
+    UNet,
+    precompute_cross_kv,
+    unet_forward,
+    unet_forward_cached,
+    unet_forward_shallow,
+)
+from ..ops.embeddings import guidance_scale_embedding
 from .conditioning import Conditioning
 from .k_samplers import (
     K_MID,
@@ -114,12 +133,40 @@ def _cfg_contexts(cfg: DiffuserConfig, cond: Conditioning,
             torch.cat([uch, ch], dim=0).to(compute_dtype))
 
 
+def _rows(tree, start: int):
+    """The rows from ``start`` of every tensor in a cross-K/V tree."""
+    if isinstance(tree, dict):
+        return {k: _rows(v, start) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_rows(v, start) for v in tree]
+    return tree[start:]
+
+
+def _guide(eps_u, eps_c, guidance_scale: float, guidance_rescale: float,
+           pag=None):
+    """u + (c - u) * scale, then PAG's pag_scale * (c - perturbed) term
+    (``pag``, when given), then the guidance rescale (Lin et al. 2023,
+    arXiv:2305.08891 eq. 15-16): the guided eps rescaled to the
+    conditional eps's std per image and mixed back by that fraction."""
+    eps = eps_u + (eps_c - eps_u) * guidance_scale
+    if pag is not None:
+        eps = eps + pag
+    if guidance_rescale > 0.0:
+        dims = tuple(range(1, eps.ndim))
+        std_c = torch.std(eps_c, dim=dims, keepdim=True, correction=0)
+        std_g = torch.std(eps, dim=dims, keepdim=True, correction=0)
+        rescaled = eps * (std_c / torch.clamp(std_g, min=1e-12))
+        eps = guidance_rescale * rescaled + (1.0 - guidance_rescale) * eps
+    return eps
+
+
 def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
              t: torch.Tensor, ctx2: torch.Tensor, ch2: torch.Tensor,
              guidance_scale: float, compute_dtype: torch.dtype,
              cross_kv=None, concat: Optional[torch.Tensor] = None,
              use_cfg: bool = True, guidance_rescale: float = 0.0,
-             return_uncond: bool = False):
+             return_uncond: bool = False, t_add=None,
+             pag_scale: float = 0.0):
     """One epsilon: the refiner's unguided call at batch B, the base's
     conditional call at batch B (use_cfg=False, contexts from
     _cfg_contexts(use_cfg=False)), or its guided one with [uncond | cond]
@@ -127,36 +174,136 @@ def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
     pair runs) is appended to the UNet's input channels, never to the
     latent the update sees.
 
-    guidance_rescale > 0 (guided calls only): Lin et al. 2023
-    (arXiv:2305.08891 eq. 15-16), the guided eps rescaled to the
-    conditional eps's std per image and mixed back by that fraction.
+    guidance_rescale > 0 (guided calls only): see _guide.
     return_uncond: also return the unconditional eps (the CFG++ sampler);
-    it needs the guided pair."""
+    it needs the guided pair. t_add: an LCM-distilled UNet's projected
+    guidance embedding (models/unet.py _unet_embed). pag_scale > 0:
+    Perturbed-Attention Guidance (Ahn et al. 2024, arXiv:2403.17377;
+    diffusers' "mid" layers): one more UNet call on the conditional rows
+    with the middle block's self-attentions as the identity map, and eps
+    += pag_scale * (eps_cond - eps_perturbed), with or without CFG. The
+    UNet runs with cfg.freeu (FreeU) on every call."""
     n = latent.shape[0]
+    if pag_scale and cfg.is_refiner:
+        raise ValueError("PAG applies to the base/family UNets, not the "
+                         "refiner (its stage runs unguided)")
     if return_uncond and (cfg.is_refiner or not use_cfg):
         raise ValueError("CFG++ needs the pair-batched CFG path (a guided "
                          "base/family UNet, not the refiner or --no-cfg)")
+
+    def call(x, ctx, ch, kv, **kw):
+        return unet_forward(unet, x, t.expand(x.shape[0]), ctx, ch, kv,
+                            t_add=t_add, freeu=cfg.freeu, **kw).float()
+
+    def with_concat(x, cc):
+        x = x.to(compute_dtype)
+        return x if cc is None else torch.cat([x, cc.to(compute_dtype)],
+                                              dim=-1)
+
     if cfg.is_refiner:
-        return unet_forward(unet, latent.to(compute_dtype), t.expand(n), ctx2,
-                            ch2, cross_kv).float()
+        return call(latent.to(compute_dtype), ctx2, ch2, cross_kv)
     if not use_cfg:
-        x = latent.to(compute_dtype)
-        if concat is not None:
-            x = torch.cat([x, concat.to(compute_dtype)], dim=-1)
-        return unet_forward(unet, x, t.expand(n), ctx2, ch2, cross_kv).float()
-    x2 = torch.cat([latent, latent], dim=0).to(compute_dtype)
-    if concat is not None:
-        x2 = torch.cat([x2, concat.to(compute_dtype)], dim=-1)
-    eps2 = unet_forward(unet, x2, t.expand(2 * n), ctx2, ch2, cross_kv).float()
-    eps_u, eps_c = eps2.chunk(2, dim=0)
-    eps = eps_u + (eps_c - eps_u) * guidance_scale
-    if guidance_rescale > 0.0:
-        dims = tuple(range(1, eps.ndim))
-        std_c = torch.std(eps_c, dim=dims, keepdim=True, correction=0)
-        std_g = torch.std(eps, dim=dims, keepdim=True, correction=0)
-        rescaled = eps * (std_c / torch.clamp(std_g, min=1e-12))
-        eps = guidance_rescale * rescaled + (1.0 - guidance_rescale) * eps
+        x = with_concat(latent, concat)
+        eps = call(x, ctx2, ch2, cross_kv)
+        if pag_scale:
+            eps_pert = call(x, ctx2, ch2, cross_kv, pag_mid=True)
+            eps = eps + pag_scale * (eps - eps_pert)
+        return eps
+    x2 = with_concat(torch.cat([latent, latent], dim=0), concat)
+    eps_u, eps_c = call(x2, ctx2, ch2, cross_kv).chunk(2, dim=0)
+    pag = None
+    if pag_scale:
+        eps_pert = call(x2[n:], ctx2[n:], ch2[n:],
+                        None if cross_kv is None else _rows(cross_kv, n),
+                        pag_mid=True)
+        pag = pag_scale * (eps_c - eps_pert)
+    eps = _guide(eps_u, eps_c, guidance_scale, guidance_rescale, pag)
     return (eps, eps_u) if return_uncond else eps
+
+
+def _deepcache_validate(deepcache, concat_channels) -> Tuple[int, int]:
+    """DeepCache (arXiv:2312.00858) runs the plain txt2img / inpaint
+    paths: a 9-channel inpainting UNet's concat changes conv_in, so it is
+    refused rather than silently wrong."""
+    interval, branch = deepcache
+    if interval < 1:
+        raise ValueError("deepcache interval must be >= 1")
+    if concat_channels is not None:
+        raise ValueError("deepcache is incompatible with "
+                         "inpainting-specialized (9-channel) UNets")
+    return interval, branch
+
+
+def _cfg_eps_deepcache(unet: UNet, cfg: DiffuserConfig, latent, t, ctx2,
+                       ch2, guidance_scale: float, compute_dtype, cross_kv,
+                       use_cfg: bool, guidance_rescale: float, cache,
+                       is_full: bool, branch: int):
+    """_cfg_eps with DeepCache's switch, a host bool here: a full step
+    runs the whole UNet and returns the fresh deep feature, a shallow step
+    only the shallow blocks around the cached one. Step 0 is always full,
+    so no cache exists before it. Returns (eps, cache)."""
+    pair = use_cfg and not cfg.is_refiner
+    x = (torch.cat([latent, latent], dim=0) if pair else latent
+         ).to(compute_dtype)
+    t_vec = t.expand(x.shape[0])
+    if is_full:
+        raw, cache = unet_forward_cached(unet, x, t_vec, ctx2, ch2, cross_kv,
+                                         branch=branch, freeu=cfg.freeu)
+    else:
+        raw = unet_forward_shallow(unet, x, t_vec, ctx2, ch2, cache,
+                                   cross_kv, branch=branch, freeu=cfg.freeu)
+    raw = raw.float()
+    if not pair:
+        return raw, cache
+    eps_u, eps_c = raw.chunk(2, dim=0)
+    return _guide(eps_u, eps_c, guidance_scale, guidance_rescale), cache
+
+
+def _deepcache_eps(unet, cfg, ctx2, ch2, guidance_scale, compute_dtype,
+                   cross_kv, use_cfg, guidance_rescale, deepcache):
+    """eps(latent, t) of a step loop with DeepCache: it counts its calls
+    (one a step: the loops refuse the methods that evaluate twice) and
+    runs a full call on step 0 and every interval-th step after."""
+    interval, branch = deepcache
+    state = {"step": 0, "cache": None}
+
+    def eps(latent, t):
+        full = state["step"] % interval == 0
+        out, state["cache"] = _cfg_eps_deepcache(
+            unet, cfg, latent, t, ctx2, ch2, guidance_scale, compute_dtype,
+            cross_kv, use_cfg, guidance_rescale, state["cache"], full,
+            branch)
+        state["step"] += 1
+        return out
+    return eps
+
+
+# Cheap latent -> RGB approximations (the standard public preview factors
+# used across SD tooling, e.g. ComfyUI's latent_rgb_factors); a real decode
+# of intermediates would cost a VAE pass per preview.
+SDXL_LATENT_RGB = np.array(
+    [[0.3920, 0.4054, 0.4549],
+     [-0.2634, -0.0196, 0.0653],
+     [0.0568, 0.1687, -0.0755],
+     [-0.3112, -0.2359, -0.2076]], np.float32)
+
+
+def latent_to_preview(latent: torch.Tensor,
+                      factors: Optional[np.ndarray] = None) -> np.ndarray:
+    """[B, h, w, 4] latent -> [B, h, w, 3] uint8 preview on the host, by a
+    linear map (the one device-to-host copy of a step preview)."""
+    f = torch.as_tensor(SDXL_LATENT_RGB if factors is None else factors,
+                        device=latent.device)
+    rgb = latent.float() @ f
+    return ((rgb + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
+
+
+PreviewFn = Callable[[int, int, np.ndarray], None]
+
+
+def _check_preview(preview_every: Optional[int]) -> None:
+    if preview_every is not None and preview_every < 1:
+        raise ValueError("preview_every must be >= 1")
 
 
 def ddim_sigma(alpha, alpha_prev, eta: float):
@@ -243,7 +390,11 @@ def diffuse_latent(unet: UNet, cfg: DiffuserConfig,
                    head_steps: int = 0, tail_from: int = 0,
                    use_cfg: bool = True, guidance_rescale: float = 0.0,
                    ddim_eta: float = 0.0,
-                   step_noise: Optional[torch.Tensor] = None
+                   step_noise: Optional[torch.Tensor] = None,
+                   deepcache: Optional[Tuple[int, int]] = None,
+                   pag_scale: float = 0.0,
+                   preview_every: Optional[int] = None,
+                   preview_callback: Optional[PreviewFn] = None
                    ) -> torch.Tensor:
     """DDIM loop over the grid from ``latent`` (VP space at the first grid
     timestep).
@@ -256,20 +407,32 @@ def diffuse_latent(unet: UNet, cfg: DiffuserConfig,
     w, 4] or T draws from ``generator`` (after the pin noise's).
     concat_channels [B, h, w, 5]: mask + masked-image latent for
     9-channel inpainting UNets, doubled here for the CFG pair.
-    use_cfg=False: the conditional rows alone; guidance_rescale: see
-    _cfg_eps.
+    use_cfg=False: the conditional rows alone; guidance_rescale and
+    pag_scale: see _cfg_eps. deepcache (interval, branch): DeepCache
+    (arXiv:2312.00858), the whole UNet every interval-th step (step 0
+    first), the ``branch`` shallowest blocks around the cached deep
+    feature on the others; interval 1 is the plain loop's math.
     head_steps > 0: run only the grid's first head_steps entries, ending
     at the handoff level alpha(ts[head_steps]); tail_from > 0: run the
-    suffix ts[tail_from:] from the still-noisy handoff latent."""
+    suffix ts[tail_from:] from the still-noisy handoff latent.
+    preview_every: after every preview_every steps but the last,
+    preview_callback(done, total, [B, h, w, 3] uint8) gets
+    latent_to_preview of the latent (a host copy); the final latent is
+    the one the same request gives without previews, bit for bit."""
+    if pag_scale and deepcache is not None:
+        raise ValueError("pag_scale is not combinable with ControlNet or "
+                         "deepcache")
     n_train = alphas_cumprod.shape[0]
     if cfg.n_steps != n_train:
         raise ValueError(
             f"DiffuserConfig.n_steps={cfg.n_steps} does not match the "
             f"alphas_cumprod table length {n_train}")
+    _check_preview(preview_every)
     step_size = n_train // n_steps
     ts_np = ddim_timesteps(step_start, n_steps, n_train)
     _check_split(len(ts_np), head_steps, tail_from)
     ts_np = ts_np[tail_from:]
+    total = len(ts_np)
     device = alphas_cumprod.device
     ts = torch.as_tensor(ts_np, dtype=torch.long, device=device)
     a_t = alphas_cumprod[ts]
@@ -278,7 +441,7 @@ def diffuse_latent(unet: UNet, cfg: DiffuserConfig,
                          alphas_cumprod[(ts - step_size).clamp(min=0)], one)
 
     lat = latent.float()
-    want = (len(ts_np), *lat.shape)
+    want = (total, *lat.shape)
     if inpaint:
         reference = reference.float()
         pin_noise = _draws(pin_noise, generator, want, device, "pin_noise")
@@ -287,17 +450,30 @@ def diffuse_latent(unet: UNet, cfg: DiffuserConfig,
 
     ctx2, ch2, cross_kv, cc = _guided_setup(unet, cfg, cond, compute_dtype,
                                             use_cfg, concat_channels)
-    for i in range(head_steps or len(ts_np)):
+    if deepcache is not None:
+        eps_fn = _deepcache_eps(
+            unet, cfg, ctx2, ch2, guidance_scale, compute_dtype, cross_kv,
+            use_cfg, guidance_rescale,
+            _deepcache_validate(deepcache, concat_channels))
+    else:
+        def eps_fn(x, t):
+            return _cfg_eps(unet, cfg, x, t, ctx2, ch2, guidance_scale,
+                            compute_dtype, cross_kv, cc, use_cfg,
+                            guidance_rescale, pag_scale=pag_scale)
+    for i in range(head_steps or total):
         alpha = a_t[i]
         if inpaint:
             noised_ref = (reference * torch.sqrt(alpha)
                           + pin_noise[i] * torch.sqrt(1.0 - alpha))
             lat = inpaint_pin(mask, lat, noised_ref)
-        eps = _cfg_eps(unet, cfg, lat, ts[i], ctx2, ch2, guidance_scale,
-                       compute_dtype, cross_kv, cc, use_cfg, guidance_rescale)
+        eps = eps_fn(lat, ts[i])
         x0 = (lat - eps * torch.sqrt(1.0 - alpha)) / torch.sqrt(alpha)
         lat = _ddim_update(x0, eps, alpha, a_prev[i], ddim_eta,
                            None if step_noise is None else step_noise[i])
+        done = i + 1
+        if preview_every and done % preview_every == 0 and done < total \
+                and preview_callback is not None:
+            preview_callback(done, total, latent_to_preview(lat))
     return lat
 
 
@@ -316,7 +492,11 @@ def k_diffuse_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
                      schedule: str = "linear", use_cfg: bool = True,
                      guidance_rescale: float = 0.0,
                      concat_channels: Optional[torch.Tensor] = None,
-                     head_steps: int = 0, tail_from: int = 0
+                     head_steps: int = 0, tail_from: int = 0,
+                     deepcache: Optional[Tuple[int, int]] = None,
+                     pag_scale: float = 0.0,
+                     preview_every: Optional[int] = None,
+                     preview_callback: Optional[PreviewFn] = None
                      ) -> torch.Tensor:
     """A k-sampler over the ᾱ table, from the sigma-space latent (x = x0 +
     sigma * eps at the schedule's first sigma): k_schedule's (timesteps,
@@ -336,23 +516,44 @@ def k_diffuse_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
     re-enters its scheduler; memoryless methods give one full run.
     euler_cfgpp unguided (the refiner, use_cfg=False) is plain euler.
     heun, dpm2, dpm2_a and dpmpp_2s_a evaluate the UNet twice a step
-    but once on the last (see k_sample)."""
+    but once on the last (see k_sample). pag_scale, deepcache: as
+    diffuse_latent's (deepcache refuses the methods with a second
+    evaluation, lms's history and CFG++). preview_every: as
+    diffuse_latent's, the preview of the VP latent lat / sqrt(sigma^2 +
+    1) at the step's sigma_next."""
     if method not in K_SAMPLERS:
         raise ValueError(
             f"unknown k-sampler {method!r} ({'|'.join(K_SAMPLERS)})")
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r} "
                          f"({'|'.join(SCHEDULES)})")
+    if pag_scale and deepcache is not None:
+        raise ValueError("pag_scale is not combinable with ControlNet or "
+                         "deepcache")
+    _check_preview(preview_every)
     ts, sigmas = k_schedule(alphas_cumprod, step_start, n_steps, schedule)
     _check_split(len(ts), head_steps, tail_from)
     ts, sigmas = ts[tail_from:], sigmas[tail_from:]
     if method == "euler_cfgpp" and (cfg.is_refiner or not use_cfg):
         method = "euler"  # unguided, eps_u == eps: CFG++ is Euler
     cfgpp = method == "euler_cfgpp"
+    if deepcache is not None:
+        if cfgpp:
+            raise ValueError("euler_cfgpp is not combinable with deepcache "
+                             "(the cached-step eps path has no uncond "
+                             "split)")
+        if method == "heun" or method in K_MID:
+            raise ValueError(f"{method} (two UNet evals per step) is not "
+                             "combinable with deepcache")
+        if method == "lms":
+            raise ValueError("lms (4-deep derivative history) is not "
+                             "combinable with deepcache")
+        deepcache = _deepcache_validate(deepcache, concat_channels)
 
     device = latent.device
     lat = latent.float()
-    want = (len(ts), *lat.shape)
+    total = len(ts)
+    want = (total, *lat.shape)
     pin = None
     if inpaint:
         reference = reference.float()
@@ -365,17 +566,33 @@ def k_diffuse_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
 
     ctx2, ch2, cross_kv, cc = _guided_setup(unet, cfg, cond, compute_dtype,
                                             use_cfg, concat_channels)
+    if deepcache is not None:
+        dc_eps = _deepcache_eps(unet, cfg, ctx2, ch2, guidance_scale,
+                                compute_dtype, cross_kv, use_cfg,
+                                guidance_rescale, deepcache)
 
-    def eps_fn(x, sigma, t):
-        scaled = x / torch.sqrt(sigma ** 2 + 1.0)
-        return _cfg_eps(unet, cfg, scaled, t, ctx2, ch2, guidance_scale,
-                        compute_dtype, cross_kv, cc, use_cfg,
-                        guidance_rescale, return_uncond=cfgpp)
+        def eps_fn(x, sigma, t):
+            return dc_eps(x / torch.sqrt(sigma ** 2 + 1.0), t)
+    else:
+        def eps_fn(x, sigma, t):
+            scaled = x / torch.sqrt(sigma ** 2 + 1.0)
+            return _cfg_eps(unet, cfg, scaled, t, ctx2, ch2, guidance_scale,
+                            compute_dtype, cross_kv, cc, use_cfg,
+                            guidance_rescale, return_uncond=cfgpp,
+                            pag_scale=pag_scale)
+
+    on_step = None
+    if preview_every and preview_callback is not None:
+        def on_step(done, x):
+            if done % preview_every == 0 and done < total:
+                vp = x / np.sqrt(float(sigmas[done]) ** 2 + 1.0)
+                preview_callback(done, total, latent_to_preview(vp))
 
     return k_sample(eps_fn, lat, method, ts, sigmas,
                     sigmas_full=(sigma_table(alphas_cumprod)
                                  if method in K_MID else None),
-                    step_noise=step_noise, pin=pin, head_steps=head_steps)
+                    step_noise=step_noise, pin=pin, head_steps=head_steps,
+                    on_step=on_step)
 
 
 def gen_noise(generator: torch.Generator, cond: Conditioning,
@@ -399,12 +616,14 @@ def sample_latent(unet: UNet, cfg: DiffuserConfig,
                   pin_noise: Optional[torch.Tensor] = None,
                   use_cfg: bool = True, guidance_rescale: float = 0.0,
                   ddim_eta: float = 0.0,
-                  step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  step_noise: Optional[torch.Tensor] = None,
+                  **extensions) -> torch.Tensor:
     """txt2img latent, with latent-mask inpainting when ``reference`` is
     given, then the DDIM loop (diffuse_latent). ``generator`` draws the
     initial noise unless ``initial_noise`` is given, then the pin noise
     and the eta step noise unless given. head_steps > 0: the
-    ensemble-of-experts base stage."""
+    ensemble-of-experts base stage. extensions: diffuse_latent's
+    deepcache, pag_scale, preview_every and preview_callback."""
     latent = (initial_noise if initial_noise is not None
               else gen_noise(generator, cond, alphas_cumprod.device))
     return diffuse_latent(
@@ -413,7 +632,7 @@ def sample_latent(unet: UNet, cfg: DiffuserConfig,
         mask=mask, generator=generator, pin_noise=pin_noise,
         concat_channels=concat_channels, head_steps=head_steps,
         use_cfg=use_cfg, guidance_rescale=guidance_rescale,
-        ddim_eta=ddim_eta, step_noise=step_noise)
+        ddim_eta=ddim_eta, step_noise=step_noise, **extensions)
 
 
 def euler_sample_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
@@ -430,13 +649,15 @@ def euler_sample_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
                         initial_noise: Optional[torch.Tensor] = None,
                         head_steps: int = 0,
                         pin_noise: Optional[torch.Tensor] = None,
-                        step_noise: Optional[torch.Tensor] = None
-                        ) -> torch.Tensor:
+                        step_noise: Optional[torch.Tensor] = None,
+                        **extensions) -> torch.Tensor:
     """txt2img (and latent-mask inpainting) with a k-sampler: the initial
     noise (``initial_noise`` or drawn from ``generator``) times the
     schedule's first sigma, then k_diffuse_latent, whose pin and step
     noise ``generator`` draws next unless given. head_steps > 0 returns
-    the still-noisy sigma-space handoff latent."""
+    the still-noisy sigma-space handoff latent. extensions:
+    k_diffuse_latent's deepcache, pag_scale, preview_every and
+    preview_callback."""
     sigma_max = float(k_sigma_max(alphas_cumprod, n_steps, schedule))
     noise = (initial_noise if initial_noise is not None
              else gen_noise(generator, cond, alphas_cumprod.device))
@@ -447,7 +668,7 @@ def euler_sample_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
         generator=generator, pin_noise=pin_noise, step_noise=step_noise,
         schedule=schedule, use_cfg=use_cfg,
         guidance_rescale=guidance_rescale, concat_channels=concat_channels,
-        head_steps=head_steps)
+        head_steps=head_steps, **extensions)
 
 
 def refine_latent(unet: UNet, cfg: DiffuserConfig,
@@ -459,13 +680,16 @@ def refine_latent(unet: UNet, cfg: DiffuserConfig,
                   noise: Optional[torch.Tensor] = None, renoise: bool = True,
                   tail_from: int = 0, use_cfg: bool = True,
                   guidance_rescale: float = 0.0, ddim_eta: float = 0.0,
-                  step_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  step_noise: Optional[torch.Tensor] = None,
+                  deepcache: Optional[Tuple[int, int]] = None,
+                  pag_scale: float = 0.0) -> torch.Tensor:
     """Refiner stage (and img2img on the base UNet): re-noise ``latent`` at
     t = n_train - step_start with ``noise`` (drawn from ``generator``
     when not given), then run the grid from step_start — whose first
     entry is t - 1, as in the reference. renoise=False with tail_from=h:
     ``latent`` is already the still-noisy handoff of a head_steps=h base
-    run; continue the full grid's suffix (step_start 0)."""
+    run; continue the full grid's suffix (step_start 0). deepcache and
+    pag_scale (img2img; the refiner refuses PAG): see diffuse_latent."""
     if renoise:
         t = alphas_cumprod.shape[0] - step_start
         start_alpha = alphas_cumprod[t]
@@ -481,7 +705,8 @@ def refine_latent(unet: UNet, cfg: DiffuserConfig,
                           guidance_scale, step_start, n_steps, compute_dtype,
                           generator=generator, tail_from=tail_from,
                           use_cfg=use_cfg, guidance_rescale=guidance_rescale,
-                          ddim_eta=ddim_eta, step_noise=step_noise)
+                          ddim_eta=ddim_eta, step_noise=step_noise,
+                          deepcache=deepcache, pag_scale=pag_scale)
 
 
 def k_refine_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
@@ -494,15 +719,17 @@ def k_refine_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
                     use_cfg: bool = True, guidance_rescale: float = 0.0,
                     noise: Optional[torch.Tensor] = None,
                     renoise: bool = True, tail_from: int = 0,
-                    step_noise: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    step_noise: Optional[torch.Tensor] = None,
+                    deepcache: Optional[Tuple[int, int]] = None,
+                    pag_scale: float = 0.0) -> torch.Tensor:
     """The refiner stage (and img2img) with a k-sampler: re-noise the
     clean ``latent`` to the schedule's actual first sigma, x = latent +
     sigma_start * noise (``noise`` or drawn from ``generator``), then run
     the schedule's tail from step_start; the stochastic methods' step
     noise comes after. renoise=False with tail_from=h: ``latent`` is the
     still-noisy sigma-space handoff of a head_steps=h base run; continue
-    the full schedule's suffix (step_start 0)."""
+    the full schedule's suffix (step_start 0). deepcache, pag_scale: see
+    k_diffuse_latent."""
     lat = latent.float()
     if renoise:
         sigma_start = float(k_schedule(alphas_cumprod, step_start, n_steps,
@@ -515,4 +742,232 @@ def k_refine_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
         unet, cfg, alphas_cumprod, lat, cond, guidance_scale, method,
         step_start, n_steps, compute_dtype, generator=generator,
         step_noise=step_noise, schedule=schedule, use_cfg=use_cfg,
-        guidance_rescale=guidance_rescale, tail_from=tail_from)
+        guidance_rescale=guidance_rescale, tail_from=tail_from,
+        deepcache=deepcache, pag_scale=pag_scale)
+
+
+# ---------------------------------------------------------------------------
+# LCM (Latent Consistency Models, arXiv:2310.04378; LCM-LoRA
+# arXiv:2311.05556): diffusers' LCMScheduler (set_timesteps' linspace index
+# selection, the discrete boundary scalings with timestep_scaling 10 and
+# sigma_data 0.5, the per-step re-noise)
+# ---------------------------------------------------------------------------
+
+def lcm_timesteps(n_steps: int, original_steps: int = 50,
+                  n_train: int = N_STEPS_TOTAL,
+                  strength: float = 1.0) -> np.ndarray:
+    """LCMScheduler.set_timesteps: the distilled model's
+    ``original_steps``-point DDIM grid (t = k*i - 1, k = n_train //
+    original_steps), windowed by ``strength``; n_steps of its points by
+    floor(linspace) indexing over the descending grid."""
+    k = n_train // original_steps
+    n_origin = max(int(original_steps * strength), 1)
+    origin = (np.arange(1, n_origin + 1, dtype=np.int64) * k - 1)[::-1]
+    if n_steps > len(origin):
+        raise ValueError(
+            f"LCM: n_steps={n_steps} exceeds the trained grid "
+            f"({len(origin)} points at original_steps={original_steps}, "
+            f"strength={strength})")
+    idx = np.floor(np.linspace(0, len(origin), num=n_steps,
+                               endpoint=False)).astype(np.int64)
+    return origin[idx].astype(np.int32)
+
+
+def lcm_step_update(lat, eps, alpha, alpha_prev, t, noise, is_last: bool,
+                    timestep_scaling: float = 10.0,
+                    sigma_data: float = 0.5):
+    """One LCMScheduler.step (epsilon prediction): the consistency
+    function f = c_skip(t) * x + c_out(t) * x0 with the discrete boundary
+    scalings, then, unless this is the last step, the re-noise to the
+    next grid point sqrt(a_prev) * f + sqrt(1 - a_prev) * noise. Returns
+    (next latent, f)."""
+    x0 = (lat - torch.sqrt(1.0 - alpha) * eps) / torch.sqrt(alpha)
+    st = torch.as_tensor(t, dtype=torch.float32,
+                         device=lat.device) * timestep_scaling
+    c_skip = sigma_data ** 2 / (st ** 2 + sigma_data ** 2)
+    c_out = st / torch.sqrt(st ** 2 + sigma_data ** 2)
+    denoised = c_out * x0 + c_skip * lat
+    if is_last:
+        return denoised, denoised
+    return (torch.sqrt(alpha_prev) * denoised
+            + torch.sqrt(1.0 - alpha_prev) * noise), denoised
+
+
+def lcm_guidance_add(unet: UNet, cfg: DiffuserConfig, guidance_scale: float,
+                     compute_dtype: torch.dtype) -> Optional[torch.Tensor]:
+    """An LCM-distilled UNet's t_add [1, model_channels]: the guidance
+    embedding of w = guidance_scale - 1 (f32) through cond_proj, once a
+    request. None for a UNet without cond_proj."""
+    if not cfg.time_cond_proj_dim:
+        return None
+    device = next(unet.parameters()).device
+    w = torch.tensor(guidance_scale, dtype=torch.float32) - 1.0
+    w_emb = guidance_scale_embedding(w, cfg.time_cond_proj_dim)
+    return unet.time_embed["cond_proj"](w_emb.to(device, compute_dtype))
+
+
+@torch.no_grad()
+def lcm_diffuse_latent(unet: UNet, cfg: DiffuserConfig,
+                       alphas_cumprod: torch.Tensor, latent: torch.Tensor,
+                       cond: Conditioning, guidance_scale: float,
+                       generator: Optional[torch.Generator] = None,
+                       n_steps: int = 4, original_steps: int = 50,
+                       strength: float = 1.0,
+                       compute_dtype: torch.dtype = torch.bfloat16,
+                       inpaint: bool = False,
+                       reference: Optional[torch.Tensor] = None,
+                       mask: Optional[torch.Tensor] = None,
+                       use_cfg: bool = False,
+                       concat_channels: Optional[torch.Tensor] = None,
+                       pin_noise: Optional[torch.Tensor] = None,
+                       step_noise: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """The LCM loop over lcm_timesteps' grid. An LCM-distilled UNet
+    (cfg.time_cond_proj_dim > 0) embeds the guidance (w = guidance_scale
+    - 1) through cond_proj and runs without CFG; a standard UNet
+    (LCM-LoRA) may run the CFG pair at a small scale. Each step but the
+    last re-noises with step_noise[i] ([n, B, h, w, 4], or n draws from
+    ``generator`` after the pin noise's); inpaint pins as DDIM does, with
+    pin_noise[i]. strength < 1 windows the grid (img2img): ``latent`` is
+    already noised to its first point."""
+    n_train = alphas_cumprod.shape[0]
+    if cfg.n_steps != n_train:
+        raise ValueError(
+            f"DiffuserConfig.n_steps={cfg.n_steps} does not match the "
+            f"alphas_cumprod table length {n_train}")
+    if cfg.time_cond_proj_dim and use_cfg:
+        raise ValueError(
+            "LCM-distilled UNets (time_cond_proj_dim > 0) embed guidance; "
+            "run them with use_cfg=False")
+    if cfg.is_refiner:
+        raise ValueError("LCM sampling applies to the base/family UNets, "
+                         "not the SDXL refiner")
+    ts_np = lcm_timesteps(n_steps, original_steps, n_train, strength)
+    n = len(ts_np)
+    device = alphas_cumprod.device
+    ts = torch.as_tensor(ts_np, dtype=torch.long, device=device)
+    a_t = alphas_cumprod[ts]
+    # the next grid point's alpha (not read on the last step)
+    a_prev = torch.cat([alphas_cumprod[ts[1:]], a_t[-1:]])
+
+    lat = latent.float()
+    want = (n, *lat.shape)
+    if inpaint:
+        reference = reference.float()
+        pin_noise = _draws(pin_noise, generator, want, device, "pin_noise")
+    step_noise = _draws(step_noise, generator, want, device, "step_noise")
+    ctx2, ch2, cross_kv, cc = _guided_setup(unet, cfg, cond, compute_dtype,
+                                            use_cfg, concat_channels)
+    t_add = lcm_guidance_add(unet, cfg, guidance_scale, compute_dtype)
+    for i in range(n):
+        alpha = a_t[i]
+        if inpaint:
+            noised_ref = (reference * torch.sqrt(alpha)
+                          + pin_noise[i] * torch.sqrt(1.0 - alpha))
+            lat = inpaint_pin(mask, lat, noised_ref)
+        eps = _cfg_eps(unet, cfg, lat, ts[i], ctx2, ch2, guidance_scale,
+                       compute_dtype, cross_kv, cc, use_cfg, t_add=t_add)
+        lat, _ = lcm_step_update(lat, eps, alpha, a_prev[i], ts[i],
+                                 step_noise[i], i == n - 1)
+    return lat
+
+
+def lcm_sample_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
+                      cond: Conditioning,
+                      generator: Optional[torch.Generator],
+                      guidance_scale: float = 7.5, n_steps: int = 4,
+                      original_steps: int = 50,
+                      compute_dtype: torch.dtype = torch.bfloat16,
+                      reference: Optional[torch.Tensor] = None,
+                      mask: Optional[torch.Tensor] = None,
+                      use_cfg: bool = False,
+                      concat_channels: Optional[torch.Tensor] = None,
+                      initial_noise: Optional[torch.Tensor] = None,
+                      pin_noise: Optional[torch.Tensor] = None,
+                      step_noise: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """LCM txt2img (and latent-mask inpainting when ``reference`` and
+    ``mask`` are given) from N(0, 1) noise (LCMScheduler's
+    init_noise_sigma is 1): ``initial_noise`` or drawn from
+    ``generator``, then lcm_diffuse_latent."""
+    latent = (initial_noise if initial_noise is not None
+              else gen_noise(generator, cond, alphas_cumprod.device))
+    return lcm_diffuse_latent(
+        unet, cfg, alphas_cumprod, latent, cond, guidance_scale, generator,
+        n_steps, original_steps, 1.0, compute_dtype,
+        inpaint=reference is not None and mask is not None,
+        reference=reference, mask=mask, use_cfg=use_cfg,
+        concat_channels=concat_channels, pin_noise=pin_noise,
+        step_noise=step_noise)
+
+
+def lcm_refine_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
+                      latent: torch.Tensor, cond: Conditioning,
+                      generator: Optional[torch.Generator],
+                      guidance_scale: float = 7.5, strength: float = 0.3,
+                      n_steps: int = 4, original_steps: int = 50,
+                      compute_dtype: torch.dtype = torch.bfloat16,
+                      use_cfg: bool = False,
+                      concat_channels: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      step_noise: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """LCM img2img: the grid windowed by ``strength`` (at most
+    int(original_steps * strength) steps), the clean ``latent`` noised to
+    its first point with ``noise`` (or a draw from ``generator``), then
+    the loop."""
+    n_train = alphas_cumprod.shape[0]
+    eff_steps = min(n_steps, max(1, int(original_steps * strength)))
+    ts = lcm_timesteps(eff_steps, original_steps, n_train, strength)
+    if noise is None:
+        noise = torch.randn(latent.shape, generator=generator,
+                            dtype=torch.float32, device=latent.device)
+    a0 = alphas_cumprod[int(ts[0])]
+    noised = (latent.float() * torch.sqrt(a0)
+              + noise.to(latent.device).float() * torch.sqrt(1.0 - a0))
+    return lcm_diffuse_latent(
+        unet, cfg, alphas_cumprod, noised, cond, guidance_scale, generator,
+        eff_steps, original_steps, strength, compute_dtype, use_cfg=use_cfg,
+        concat_channels=concat_channels, step_noise=step_noise)
+
+
+# ---------------------------------------------------------------------------
+# DDIM inversion
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def ddim_invert_latent(unet: UNet, cfg: DiffuserConfig,
+                       alphas_cumprod: torch.Tensor, latent: torch.Tensor,
+                       cond: Conditioning, guidance_scale: float = 1.0,
+                       n_steps: int = 50,
+                       compute_dtype: torch.dtype = torch.bfloat16,
+                       use_cfg: bool = False) -> torch.Tensor:
+    """DDIM inversion (diffusers' DDIMInverseScheduler, the null-text
+    inversion loop, arXiv:2211.09794): the sampling grid ascending; at
+    each point t the model's eps at t steps from alpha(t - step_size) up
+    to alpha(t): x0 = (x - sqrt(1 - a_src) eps) / sqrt(a_src), x =
+    sqrt(a_dst) x0 + sqrt(1 - a_dst) eps. Exact when eps is constant in
+    x; txt2img(initial_latent=...) with the same n_steps and DDIM then
+    regenerates the image. use_cfg inverts the guided field."""
+    n_train = alphas_cumprod.shape[0]
+    if cfg.n_steps != n_train:
+        raise ValueError(
+            f"DiffuserConfig.n_steps={cfg.n_steps} does not match the "
+            f"alphas_cumprod table length {n_train}")
+    step_size = n_train // n_steps
+    device = alphas_cumprod.device
+    ts = torch.as_tensor(ddim_timesteps(0, n_steps, n_train)[::-1].copy(),
+                         dtype=torch.long, device=device)
+    a_dst = alphas_cumprod[ts]
+    one = torch.ones((), dtype=alphas_cumprod.dtype, device=device)
+    a_src = torch.where(ts >= step_size,
+                        alphas_cumprod[(ts - step_size).clamp(min=0)], one)
+    lat = latent.float()
+    ctx2, ch2, cross_kv, _ = _guided_setup(unet, cfg, cond, compute_dtype,
+                                           use_cfg, None)
+    for i in range(len(ts)):
+        eps = _cfg_eps(unet, cfg, lat, ts[i], ctx2, ch2, guidance_scale,
+                       compute_dtype, cross_kv, use_cfg=use_cfg)
+        x0 = (lat - eps * torch.sqrt(1.0 - a_src[i])) / torch.sqrt(a_src[i])
+        lat = x0 * torch.sqrt(a_dst[i]) + eps * torch.sqrt(1.0 - a_dst[i])
+    return lat

@@ -377,9 +377,9 @@ def test_diffusers_configs_are_inferred(layouts):
 def test_checkpoint_errors_name_the_key(layouts, tmp_path,
                                        reference_host_casts):
     """A native file with a missing tensor fails with the key's name; an
-    LCM UNet names the module it waits for; a 9-channel (inpainting) UNet
-    loads, its config's in_channels 9, bitwise as the reference's reader
-    gives it; a refiner asked of a dir without one is the reference's
+    LCM-distilled UNet (time_embedding.cond_proj) and a 9-channel
+    (inpainting) UNet load, their configs' time_cond_proj_dim 256 and
+    in_channels 9, bitwise as the reference's reader gives them; a refiner asked of a dir without one is the reference's
     FileNotFoundError."""
     src = layouts["native"]
     bad = tmp_path / "bad"
@@ -401,7 +401,8 @@ def test_checkpoint_errors_name_the_key(layouts, tmp_path,
             ("inpaint", {"conv_in.weight": np.concatenate([w, w[:, :1]] * 3,
                                                           axis=1)[:, :9]}),
             ("lcm", {"time_embedding.cond_proj.weight":
-                     np.zeros((128, 256), w.dtype)})):
+                     np.random.default_rng(0).standard_normal(
+                         (w.shape[0], 256)).astype(w.dtype)})):
         lay = tmp_path / name
         lay.mkdir()
         for sub in os.listdir(dif):
@@ -412,15 +413,16 @@ def test_checkpoint_errors_name_the_key(layouts, tmp_path,
                    lay / "unet" / "config.json")
         st_save(dict(unet, **edit),
                 str(lay / "unet" / "diffusion_pytorch_model.safetensors"))
-        if name == "lcm":
-            with pytest.raises(NotImplementedError, match="module 10"):
-                load_pipeline(str(lay), device="cpu")
-            continue
         pipe = load_pipeline(str(lay), device="cpu")
         e_cfg, d_cfg, v_cfg = j_infer(str(lay))
         _, j_unet, _, _, _, d_cfg = j_load_dif(str(lay), d_cfg, e_cfg,
                                                jnp.float32, vae_cfg=v_cfg)
-        assert pipe.diffuser_cfg.in_channels == d_cfg.in_channels == 9
+        if name == "lcm":
+            assert "cond_proj" in j_unet["time_embed"]
+            assert pipe.diffuser_cfg.time_cond_proj_dim == \
+                d_cfg.time_cond_proj_dim == 256
+        else:
+            assert pipe.diffuser_cfg.in_channels == d_cfg.in_channels == 9
         assert dataclasses.asdict(pipe.diffuser_cfg) == dataclasses.asdict(
             d_cfg)
         assert_state_equal(pipe.unet, unet_state_dict(_bf16(j_unet)))
@@ -784,7 +786,7 @@ def test_cli_parser_is_the_references():
 
 
 @pytest.mark.parametrize("extra,module", [
-    (["--sampler", "lcm"], 10),
+    (["--hires-scale", "2"], 11),
     (["--trace", "t"], 7),
     (["--quantize", "int8"], 14),
     (["--family", "sd3"], 13),

@@ -21,8 +21,8 @@ guidance rescale and no-CFG, against sdxl_tpu on the CPU.
   |latent|): zsnr's first sigma is 4096 and a random UNet leaves latents
   of that size) and images within one u8 level, PR 14's bounds.
 - The CLI's new flags against the in-memory pipeline, their bad
-  combinations against the reference CLI's messages, and the flags module
-  10b ports still refused.
+  combinations against the reference CLI's messages, and the flags the
+  rest of module 11 ports still refused.
 """
 
 import dataclasses
@@ -418,14 +418,17 @@ def test_img2img_dpmpp_sde_no_cfg_matches_reference(pipes, monkeypatch):
 
 def test_zsnr_trailing_guidance_rescale_matches_reference(pipes,
                                                           monkeypatch):
-    """Euler on the zero-terminal-SNR table (first sigma about 4096, the
-    UNet's input scaled in f32 before its cast), the trailing grid and
-    guidance_rescale 0.7; both tables restored after."""
+    """Guided CFG++ (euler_cfgpp at CFG 7.5: the Euler step toward the
+    guided denoised along the unconditional eps, the second output of
+    _cfg_eps's return_uncond) on the zero-terminal-SNR table (first sigma
+    about 4096, the UNet's input scaled in f32 before its cast), the
+    trailing grid and guidance_rescale 0.7; both tables restored after."""
     jpipe, tpipe = pipes
     j_alphas, t_alphas = jpipe.alphas_cumprod, tpipe.alphas_cumprod
     d = txt2img_draws(6, 4)
     kw = dict(resolution=RES, n_steps=4, seed=6, negative_prompt=NEGATIVE,
-              sampler="euler", schedule="trailing", guidance_rescale=0.7)
+              sampler="euler_cfgpp", schedule="trailing",
+              guidance_rescale=0.7)
     try:
         jpipe.rescale_zsnr()
         tpipe.rescale_zsnr()
@@ -587,12 +590,14 @@ def test_cli_bad_sampler_combinations_fail_as_the_reference(
 
 
 @pytest.mark.parametrize("flags", [
-    ["--sampler", "lcm"],
-    ["--preview-every", "2"],
-    ["--invert-img", "x.png"],
-    ["--invert-prompt", "a cat"],
-], ids=["lcm", "preview_every", "invert_img", "invert_prompt"])
+    ["--ip-adapter", "x.safetensors"],
+    ["--hires-scale", "2"],
+    ["--vae-tile", "96"],
+    ["--edit-image", "x.png"],
+], ids=["ip_adapter", "hires_scale", "vae_tile", "edit_image"])
 def test_cli_module10b_flags_still_exit_1(flags, capsys, tmp_path):
+    """Module 10b's flags run now (tests/test_torch_module10b.py); the rest
+    of module 11 still exits 1 naming its module."""
     from sdxl_tpu_torch.cli.sample import main
 
     argv = ["--random-weights", "--prompt", "a cat", "--output-dir",
@@ -600,4 +605,4 @@ def test_cli_module10b_flags_still_exit_1(flags, capsys, tmp_path):
     assert main(argv, device="cpu") == 1
     err = capsys.readouterr().err
     assert f"error: {flags[0]}" in err
-    assert "is not ported yet (module 10)" in err
+    assert "is not ported yet (module 11)" in err

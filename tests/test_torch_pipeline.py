@@ -136,7 +136,8 @@ def test_unported_options_raise(pipes):
         tpipe.txt2img("a cat", RES, n_steps=2,
                       control_image=np.zeros((*RES, 3), np.uint8))
     with pytest.raises(NotImplementedError):
-        tpipe.txt2img("a cat", RES, n_steps=2, sampler="lcm")
+        tpipe.txt2img("a cat", RES, n_steps=2,
+                      ip_adapter_image=np.zeros((*RES, 3), np.uint8))
 
 
 def test_port_never_imports_jax():
