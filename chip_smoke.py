@@ -224,6 +224,7 @@ from sdxl_tpu_torch.pipeline.k_samplers import (
 )
 from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
 from sdxl_tpu_torch.pipeline.sampler import (
+    LCM_ORIGINAL_STEPS,
     _cfg_contexts,
     ddim_timesteps,
     expert_head_steps,
@@ -1462,15 +1463,17 @@ def counting_evaluations():
     calls, PAG's perturbed calls (pag_mid), DeepCache's cached and
     shallow calls."""
     calls = Counter()
-    names = ("unet_forward", "unet_forward_cached", "unet_forward_shallow")
+    names = ("unet_forward", "unet_forward_shallow")
     real = {n: getattr(sampler_mod, n) for n in names}
 
     def counted(name):
         def call(*args, **kw):
-            if name == "unet_forward":
-                calls["pag" if kw.get("pag_mid") else "full"] += 1
+            if name == "unet_forward_shallow":
+                calls["shallow"] += 1
+            elif kw.get("cache_branch") is not None:
+                calls["cached"] += 1
             else:
-                calls[name.rsplit("_", 1)[1]] += 1
+                calls["pag" if kw.get("pag_mid") else "full"] += 1
             return real[name](*args, **kw)
         return call
 
@@ -1559,7 +1562,8 @@ def module10b_requests(pipe, first: np.ndarray):
     print(f"LCM-distilled UNet drawn (time_cond_proj_dim={LCM_TCP}): "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     n_lcm = len(lcm_timesteps(LCM_STEPS))
-    n_i2i = len(lcm_timesteps(min(LCM_STEPS, int(50 * LCM_STRENGTH)),
+    n_i2i = len(lcm_timesteps(min(LCM_STEPS,
+                                  int(LCM_ORIGINAL_STEPS * LCM_STRENGTH)),
                               strength=LCM_STRENGTH))
     for run in range(LCM_RUNS):
         lcm_image = module10b_request(

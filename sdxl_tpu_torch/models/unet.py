@@ -360,10 +360,17 @@ def _head(model: UNet, x) -> torch.Tensor:
     return model.conv_out(F.silu(model.norm_out(x))).permute(0, 2, 3, 1)
 
 
+def _check_branch(model: UNet, branch: int) -> int:
+    n_out = len(model.output_blocks)
+    if not 1 <= branch <= n_out - 1:
+        raise ValueError(f"deepcache branch must be in [1, {n_out - 1}]")
+    return n_out
+
+
 def unet_forward(model: UNet, x: torch.Tensor, timesteps: torch.Tensor,
                  context: torch.Tensor, label: Optional[torch.Tensor],
                  cross_kv=None, t_add=None, pag_mid: bool = False,
-                 freeu=None) -> torch.Tensor:
+                 freeu=None, cache_branch: Optional[int] = None):
     """x: [B, h, w, C_in] NHWC latent -> [B, h, w, C_out] NHWC.
 
     cross_kv: optional precompute_cross_kv() output (the context is fixed
@@ -371,7 +378,13 @@ def unet_forward(model: UNet, x: torch.Tensor, timesteps: torch.Tensor,
     t_add: see _unet_embed. pag_mid: the middle block's self-attentions
     as identity maps (PAG's perturbed call; diffusers' "mid" layers).
     freeu: (b1, b2, s1, s2) or None (the sampler passes its
-    DiffuserConfig's)."""
+    DiffuserConfig's). cache_branch: also return DeepCache's feature
+    (arXiv:2312.00858), as (output, feature): the NCHW input of output
+    block n_out - cache_branch before its skip-cat (and before FreeU),
+    the deep U a shallow step reuses (unet_forward_shallow)."""
+    n_out = len(model.output_blocks)
+    if cache_branch is not None:
+        _check_branch(model, cache_branch)
     emb = _unet_embed(model, timesteps, label, x.dtype, t_add)
     ckv = cross_kv or {}
     out_kv = ckv.get("output_blocks", {})
@@ -381,43 +394,24 @@ def unet_forward(model: UNet, x: torch.Tensor, timesteps: torch.Tensor,
     x = mid["res1"](x, emb)
     x = mid["transformer"](x, context, ckv.get("middle_block"), pag_mid)
     x = mid["res2"](x, emb)
-    for i in range(len(model.output_blocks)):
+    cache = None
+    for i in range(n_out):
+        if cache_branch is not None and i == n_out - cache_branch:
+            cache = x
         x = _output_block(model, i, x, saved.pop(), emb, context, out_kv,
                           freeu)
-    return _head(model, x)
-
-
-def _check_branch(model: UNet, branch: int) -> int:
-    n_out = len(model.output_blocks)
-    if not 1 <= branch <= n_out - 1:
-        raise ValueError(f"deepcache branch must be in [1, {n_out - 1}]")
-    return n_out
+    out = _head(model, x)
+    return out if cache_branch is None else (out, cache)
 
 
 def unet_forward_cached(model: UNet, x, timesteps, context, label,
                         cross_kv=None, branch: int = 3, freeu=None):
-    """unet_forward that also returns DeepCache's feature
-    (arXiv:2312.00858): the NCHW input of output block n_out - branch
-    before its skip-cat (and before FreeU), the deep U a shallow step
-    reuses. ``branch`` counts the input blocks a shallow step recomputes;
-    output block n_out - branch consumes skip branch - 1."""
-    n_out = _check_branch(model, branch)
-    emb = _unet_embed(model, timesteps, label, x.dtype)
-    ckv = cross_kv or {}
-    out_kv = ckv.get("output_blocks", {})
-    x, saved = _input_blocks(model, x, emb, context,
-                             ckv.get("input_blocks", {}))
-    mid = model.middle_block
-    x = mid["res1"](x, emb)
-    x = mid["transformer"](x, context, ckv.get("middle_block"))
-    x = mid["res2"](x, emb)
-    cache = None
-    for i in range(n_out):
-        if i == n_out - branch:
-            cache = x
-        x = _output_block(model, i, x, saved.pop(), emb, context, out_kv,
-                          freeu)
-    return _head(model, x), cache
+    """The reference's name for unet_forward(cache_branch=branch):
+    (output, DeepCache's feature). ``branch`` counts the input blocks a
+    shallow step recomputes; output block n_out - branch consumes skip
+    branch - 1."""
+    return unet_forward(model, x, timesteps, context, label, cross_kv,
+                        freeu=freeu, cache_branch=branch)
 
 
 def unet_forward_shallow(model: UNet, x, timesteps, context, label, cache,

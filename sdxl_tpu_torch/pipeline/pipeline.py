@@ -538,14 +538,14 @@ class SDXLPipeline:
         ).astype(self.compute_dtype)
         with self.timer.stage("vae_encode"):
             latent = self._encode(images)
+            fence(latent)
             b = cond.batch
             if latent.shape[0] == 1 and b > 1:
                 latent = latent.expand(b, *latent.shape[1:])
         with self.timer.stage("diffuser"):
             out = ddim_invert_latent(
                 self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
-                cond, guidance_scale, n_steps, self.compute_dtype,
-                use_cfg=guidance_scale != 1.0)
+                cond, guidance_scale, n_steps, self.compute_dtype)
             fence(out)
         return out.cpu().numpy()
 

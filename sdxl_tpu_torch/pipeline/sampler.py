@@ -51,7 +51,6 @@ from ..models.unet import (
     UNet,
     precompute_cross_kv,
     unet_forward,
-    unet_forward_cached,
     unet_forward_shallow,
 )
 from ..ops.embeddings import guidance_scale_embedding
@@ -166,7 +165,7 @@ def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
              cross_kv=None, concat: Optional[torch.Tensor] = None,
              use_cfg: bool = True, guidance_rescale: float = 0.0,
              return_uncond: bool = False, t_add=None,
-             pag_scale: float = 0.0):
+             pag_scale: float = 0.0, forward=None):
     """One epsilon: the refiner's unguided call at batch B, the base's
     conditional call at batch B (use_cfg=False, contexts from
     _cfg_contexts(use_cfg=False)), or its guided one with [uncond | cond]
@@ -181,8 +180,10 @@ def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
     Perturbed-Attention Guidance (Ahn et al. 2024, arXiv:2403.17377;
     diffusers' "mid" layers): one more UNet call on the conditional rows
     with the middle block's self-attentions as the identity map, and eps
-    += pag_scale * (eps_cond - eps_perturbed), with or without CFG. The
-    UNet runs with cfg.freeu (FreeU) on every call."""
+    += pag_scale * (eps_cond - eps_perturbed), with or without CFG.
+    forward(x, timesteps, context, label, cross_kv, **kw): the UNet call,
+    by default unet_forward with t_add and cfg.freeu (FreeU) on every
+    call; DeepCache passes its full-or-shallow switch (_deepcache_eps)."""
     n = latent.shape[0]
     if pag_scale and cfg.is_refiner:
         raise ValueError("PAG applies to the base/family UNets, not the "
@@ -191,9 +192,13 @@ def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
         raise ValueError("CFG++ needs the pair-batched CFG path (a guided "
                          "base/family UNet, not the refiner or --no-cfg)")
 
+    if forward is None:
+        def forward(x, ts, ctx, ch, kv, **kw):
+            return unet_forward(unet, x, ts, ctx, ch, kv, t_add=t_add,
+                                freeu=cfg.freeu, **kw)
+
     def call(x, ctx, ch, kv, **kw):
-        return unet_forward(unet, x, t.expand(x.shape[0]), ctx, ch, kv,
-                            t_add=t_add, freeu=cfg.freeu, **kw).float()
+        return forward(x, t.expand(x.shape[0]), ctx, ch, kv, **kw).float()
 
     def with_concat(x, cc):
         x = x.to(compute_dtype)
@@ -234,45 +239,30 @@ def _deepcache_validate(deepcache, concat_channels) -> Tuple[int, int]:
     return interval, branch
 
 
-def _cfg_eps_deepcache(unet: UNet, cfg: DiffuserConfig, latent, t, ctx2,
-                       ch2, guidance_scale: float, compute_dtype, cross_kv,
-                       use_cfg: bool, guidance_rescale: float, cache,
-                       is_full: bool, branch: int):
-    """_cfg_eps with DeepCache's switch, a host bool here: a full step
-    runs the whole UNet and returns the fresh deep feature, a shallow step
-    only the shallow blocks around the cached one. Step 0 is always full,
-    so no cache exists before it. Returns (eps, cache)."""
-    pair = use_cfg and not cfg.is_refiner
-    x = (torch.cat([latent, latent], dim=0) if pair else latent
-         ).to(compute_dtype)
-    t_vec = t.expand(x.shape[0])
-    if is_full:
-        raw, cache = unet_forward_cached(unet, x, t_vec, ctx2, ch2, cross_kv,
-                                         branch=branch, freeu=cfg.freeu)
-    else:
-        raw = unet_forward_shallow(unet, x, t_vec, ctx2, ch2, cache,
-                                   cross_kv, branch=branch, freeu=cfg.freeu)
-    raw = raw.float()
-    if not pair:
-        return raw, cache
-    eps_u, eps_c = raw.chunk(2, dim=0)
-    return _guide(eps_u, eps_c, guidance_scale, guidance_rescale), cache
-
-
 def _deepcache_eps(unet, cfg, ctx2, ch2, guidance_scale, compute_dtype,
                    cross_kv, use_cfg, guidance_rescale, deepcache):
-    """eps(latent, t) of a step loop with DeepCache: it counts its calls
-    (one a step: the loops refuse the methods that evaluate twice) and
-    runs a full call on step 0 and every interval-th step after."""
+    """eps(latent, t) of a step loop with DeepCache: _cfg_eps through a
+    UNet call that counts the steps (one call a step: the loops refuse
+    the methods that evaluate twice). Step 0 and every interval-th step
+    after run the whole UNet and keep the fresh deep feature, the others
+    only the shallow blocks around the kept one; the switch is a host
+    bool, and step 0 is always full, so no cache exists before it."""
     interval, branch = deepcache
     state = {"step": 0, "cache": None}
 
+    def forward(x, ts, ctx, ch, kv):
+        if state["step"] % interval == 0:
+            out, state["cache"] = unet_forward(
+                unet, x, ts, ctx, ch, kv, freeu=cfg.freeu,
+                cache_branch=branch)
+            return out
+        return unet_forward_shallow(unet, x, ts, ctx, ch, state["cache"],
+                                    kv, branch=branch, freeu=cfg.freeu)
+
     def eps(latent, t):
-        full = state["step"] % interval == 0
-        out, state["cache"] = _cfg_eps_deepcache(
-            unet, cfg, latent, t, ctx2, ch2, guidance_scale, compute_dtype,
-            cross_kv, use_cfg, guidance_rescale, state["cache"], full,
-            branch)
+        out = _cfg_eps(unet, cfg, latent, t, ctx2, ch2, guidance_scale,
+                       compute_dtype, cross_kv, use_cfg=use_cfg,
+                       guidance_rescale=guidance_rescale, forward=forward)
         state["step"] += 1
         return out
     return eps
@@ -288,12 +278,10 @@ SDXL_LATENT_RGB = np.array(
      [-0.3112, -0.2359, -0.2076]], np.float32)
 
 
-def latent_to_preview(latent: torch.Tensor,
-                      factors: Optional[np.ndarray] = None) -> np.ndarray:
-    """[B, h, w, 4] latent -> [B, h, w, 3] uint8 preview on the host, by a
-    linear map (the one device-to-host copy of a step preview)."""
-    f = torch.as_tensor(SDXL_LATENT_RGB if factors is None else factors,
-                        device=latent.device)
+def latent_to_preview(latent: torch.Tensor) -> np.ndarray:
+    """[B, h, w, 4] latent -> [B, h, w, 3] uint8 preview on the host, by
+    SDXL_LATENT_RGB (the one device-to-host copy of a step preview)."""
+    f = torch.as_tensor(SDXL_LATENT_RGB, device=latent.device)
     rgb = latent.float() @ f
     return ((rgb + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
 
@@ -749,11 +737,17 @@ def k_refine_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
 # ---------------------------------------------------------------------------
 # LCM (Latent Consistency Models, arXiv:2310.04378; LCM-LoRA
 # arXiv:2311.05556): diffusers' LCMScheduler (set_timesteps' linspace index
-# selection, the discrete boundary scalings with timestep_scaling 10 and
-# sigma_data 0.5, the per-step re-noise)
+# selection, the discrete boundary scalings, the per-step re-noise)
 # ---------------------------------------------------------------------------
 
-def lcm_timesteps(n_steps: int, original_steps: int = 50,
+# the distilled model's DDIM grid (LCMScheduler's original_inference_steps)
+LCM_ORIGINAL_STEPS = 50
+# LCMScheduler's boundary-condition constants
+LCM_TIMESTEP_SCALING = 10.0
+LCM_SIGMA_DATA = 0.5
+
+
+def lcm_timesteps(n_steps: int, original_steps: int = LCM_ORIGINAL_STEPS,
                   n_train: int = N_STEPS_TOTAL,
                   strength: float = 1.0) -> np.ndarray:
     """LCMScheduler.set_timesteps: the distilled model's
@@ -773,9 +767,7 @@ def lcm_timesteps(n_steps: int, original_steps: int = 50,
     return origin[idx].astype(np.int32)
 
 
-def lcm_step_update(lat, eps, alpha, alpha_prev, t, noise, is_last: bool,
-                    timestep_scaling: float = 10.0,
-                    sigma_data: float = 0.5):
+def lcm_step_update(lat, eps, alpha, alpha_prev, t, noise, is_last: bool):
     """One LCMScheduler.step (epsilon prediction): the consistency
     function f = c_skip(t) * x + c_out(t) * x0 with the discrete boundary
     scalings, then, unless this is the last step, the re-noise to the
@@ -783,9 +775,9 @@ def lcm_step_update(lat, eps, alpha, alpha_prev, t, noise, is_last: bool,
     (next latent, f)."""
     x0 = (lat - torch.sqrt(1.0 - alpha) * eps) / torch.sqrt(alpha)
     st = torch.as_tensor(t, dtype=torch.float32,
-                         device=lat.device) * timestep_scaling
-    c_skip = sigma_data ** 2 / (st ** 2 + sigma_data ** 2)
-    c_out = st / torch.sqrt(st ** 2 + sigma_data ** 2)
+                         device=lat.device) * LCM_TIMESTEP_SCALING
+    c_skip = LCM_SIGMA_DATA ** 2 / (st ** 2 + LCM_SIGMA_DATA ** 2)
+    c_out = st / torch.sqrt(st ** 2 + LCM_SIGMA_DATA ** 2)
     denoised = c_out * x0 + c_skip * lat
     if is_last:
         return denoised, denoised
@@ -811,8 +803,7 @@ def lcm_diffuse_latent(unet: UNet, cfg: DiffuserConfig,
                        alphas_cumprod: torch.Tensor, latent: torch.Tensor,
                        cond: Conditioning, guidance_scale: float,
                        generator: Optional[torch.Generator] = None,
-                       n_steps: int = 4, original_steps: int = 50,
-                       strength: float = 1.0,
+                       n_steps: int = 4, strength: float = 1.0,
                        compute_dtype: torch.dtype = torch.bfloat16,
                        inpaint: bool = False,
                        reference: Optional[torch.Tensor] = None,
@@ -842,7 +833,7 @@ def lcm_diffuse_latent(unet: UNet, cfg: DiffuserConfig,
     if cfg.is_refiner:
         raise ValueError("LCM sampling applies to the base/family UNets, "
                          "not the SDXL refiner")
-    ts_np = lcm_timesteps(n_steps, original_steps, n_train, strength)
+    ts_np = lcm_timesteps(n_steps, LCM_ORIGINAL_STEPS, n_train, strength)
     n = len(ts_np)
     device = alphas_cumprod.device
     ts = torch.as_tensor(ts_np, dtype=torch.long, device=device)
@@ -876,7 +867,6 @@ def lcm_sample_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
                       cond: Conditioning,
                       generator: Optional[torch.Generator],
                       guidance_scale: float = 7.5, n_steps: int = 4,
-                      original_steps: int = 50,
                       compute_dtype: torch.dtype = torch.bfloat16,
                       reference: Optional[torch.Tensor] = None,
                       mask: Optional[torch.Tensor] = None,
@@ -894,7 +884,7 @@ def lcm_sample_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
               else gen_noise(generator, cond, alphas_cumprod.device))
     return lcm_diffuse_latent(
         unet, cfg, alphas_cumprod, latent, cond, guidance_scale, generator,
-        n_steps, original_steps, 1.0, compute_dtype,
+        n_steps, 1.0, compute_dtype,
         inpaint=reference is not None and mask is not None,
         reference=reference, mask=mask, use_cfg=use_cfg,
         concat_channels=concat_channels, pin_noise=pin_noise,
@@ -905,20 +895,19 @@ def lcm_refine_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
                       latent: torch.Tensor, cond: Conditioning,
                       generator: Optional[torch.Generator],
                       guidance_scale: float = 7.5, strength: float = 0.3,
-                      n_steps: int = 4, original_steps: int = 50,
+                      n_steps: int = 4,
                       compute_dtype: torch.dtype = torch.bfloat16,
                       use_cfg: bool = False,
-                      concat_channels: Optional[torch.Tensor] = None,
                       noise: Optional[torch.Tensor] = None,
                       step_noise: Optional[torch.Tensor] = None
                       ) -> torch.Tensor:
     """LCM img2img: the grid windowed by ``strength`` (at most
-    int(original_steps * strength) steps), the clean ``latent`` noised to
+    int(LCM_ORIGINAL_STEPS * strength) steps), the clean ``latent`` noised to
     its first point with ``noise`` (or a draw from ``generator``), then
     the loop."""
     n_train = alphas_cumprod.shape[0]
-    eff_steps = min(n_steps, max(1, int(original_steps * strength)))
-    ts = lcm_timesteps(eff_steps, original_steps, n_train, strength)
+    eff_steps = min(n_steps, max(1, int(LCM_ORIGINAL_STEPS * strength)))
+    ts = lcm_timesteps(eff_steps, LCM_ORIGINAL_STEPS, n_train, strength)
     if noise is None:
         noise = torch.randn(latent.shape, generator=generator,
                             dtype=torch.float32, device=latent.device)
@@ -927,8 +916,8 @@ def lcm_refine_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
               + noise.to(latent.device).float() * torch.sqrt(1.0 - a0))
     return lcm_diffuse_latent(
         unet, cfg, alphas_cumprod, noised, cond, guidance_scale, generator,
-        eff_steps, original_steps, strength, compute_dtype, use_cfg=use_cfg,
-        concat_channels=concat_channels, step_noise=step_noise)
+        eff_steps, strength, compute_dtype, use_cfg=use_cfg,
+        step_noise=step_noise)
 
 
 # ---------------------------------------------------------------------------
@@ -940,15 +929,16 @@ def ddim_invert_latent(unet: UNet, cfg: DiffuserConfig,
                        alphas_cumprod: torch.Tensor, latent: torch.Tensor,
                        cond: Conditioning, guidance_scale: float = 1.0,
                        n_steps: int = 50,
-                       compute_dtype: torch.dtype = torch.bfloat16,
-                       use_cfg: bool = False) -> torch.Tensor:
+                       compute_dtype: torch.dtype = torch.bfloat16
+                       ) -> torch.Tensor:
     """DDIM inversion (diffusers' DDIMInverseScheduler, the null-text
     inversion loop, arXiv:2211.09794): the sampling grid ascending; at
     each point t the model's eps at t steps from alpha(t - step_size) up
     to alpha(t): x0 = (x - sqrt(1 - a_src) eps) / sqrt(a_src), x =
     sqrt(a_dst) x0 + sqrt(1 - a_dst) eps. Exact when eps is constant in
     x; txt2img(initial_latent=...) with the same n_steps and DDIM then
-    regenerates the image. use_cfg inverts the guided field."""
+    regenerates the image. guidance_scale != 1 inverts the guided field
+    (the CFG pair); 1, the faithful setting, the conditional rows alone."""
     n_train = alphas_cumprod.shape[0]
     if cfg.n_steps != n_train:
         raise ValueError(
@@ -963,6 +953,7 @@ def ddim_invert_latent(unet: UNet, cfg: DiffuserConfig,
     a_src = torch.where(ts >= step_size,
                         alphas_cumprod[(ts - step_size).clamp(min=0)], one)
     lat = latent.float()
+    use_cfg = guidance_scale != 1.0
     ctx2, ch2, cross_kv, _ = _guided_setup(unet, cfg, cond, compute_dtype,
                                            use_cfg, None)
     for i in range(len(ts)):

@@ -52,7 +52,13 @@ from sdxl_tpu_torch.pipeline.k_samplers import scaled_linear_alphas_cumprod
 from sdxl_tpu_torch.pipeline.loader import load_pipeline
 from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
 from tests.test_pipeline_e2e import TINY_VAE
-from tests.test_torch_module10 import BASE, SHAPE, assert_matches, normal
+from tests.test_torch_module10 import (
+    BASE,
+    REFINER,
+    SHAPE,
+    assert_matches,
+    normal,
+)
 from tests.test_torch_module9 import (
     CROP,
     NEGATIVE,
@@ -337,6 +343,25 @@ def pipes():
     return jpipe, tpipe, j_lcm, t_lcm
 
 
+@pytest.fixture(scope="module")
+def refiner(pipes):
+    """(reference, port) keywords that give a pipeline the same random
+    refiner UNet (module 10's tiny one). Its weights are N(0, 0.3^2): at
+    the init's 0.02 a DeepCache shallow step moves the refiner's latent
+    by about 1e-4, under the requests' bound; at 0.3 by about 0.15."""
+    unet = TU.UNet(REFINER.unet_config(), dtype=torch.float32)
+    gen = torch.Generator().manual_seed(17)
+    with torch.no_grad():
+        for p in unet.parameters():
+            p.copy_(0.3 * torch.randn(p.shape, generator=gen)
+                    + (0.05 if p.dim() == 1 else 0.0))
+    unet.eval().requires_grad_(False)
+    return (dict(refiner_cfg=REFINER,
+                 refiner_params=fused(reference_tree(unet)),
+                 refiner_alphas=pipes[0].alphas_cumprod),
+            dict(refiner_cfg=REFINER, refiner=unet))
+
+
 def lcm_draws(key, n):
     """LCM's per-step noise from its scan key: split(key, n), stream 0 of
     each step key (the pin noise would be stream 1)."""
@@ -351,20 +376,25 @@ def inject(monkeypatch, name, **draws):
                         lambda *a, **k: real(*a, **{**k, **kw}))
 
 
-def test_lcm_distilled_txt2img_matches_reference(pipes, monkeypatch):
+def test_lcm_distilled_txt2img_matches_reference(pipes, refiner,
+                                                 monkeypatch):
     """The distilled UNet at 4 steps, guidance 8 through its embedding
-    (batch-1 calls): the initial noise and each step's re-noise from the
-    reference's keys."""
+    (batch-1 calls), then the refiner's DDIM stage (the reference runs it
+    after LCM): the initial noise, each step's re-noise and the refiner's
+    re-noise from the reference's keys."""
     _, _, j_lcm, t_lcm = pipes
-    base_key = jax.random.split(jax.random.PRNGKey(11))[0]
+    j_lcm = dataclasses.replace(j_lcm, **refiner[0])
+    t_lcm = dataclasses.replace(t_lcm, **refiner[1])
+    base_key, refiner_key = jax.random.split(jax.random.PRNGKey(11))
     noise_key, scan_key = jax.random.split(base_key)
     kw = dict(resolution=RES, n_steps=4, guidance_scale=8.0, seed=11,
-              negative_prompt=NEGATIVE, sampler="lcm")
+              negative_prompt=NEGATIVE, sampler="lcm", use_refiner=True)
     want_images, want_latent = run_reference(
         monkeypatch, j_lcm, lambda: j_lcm.txt2img(PROMPT, **kw))
     initial = normal(noise_key)
     inject(monkeypatch, "lcm_sample_latent", initial_noise=initial,
            step_noise=lcm_draws(scan_key, 4))
+    inject(monkeypatch, "refine_latent", noise=normal(refiner_key))
     got = t_lcm.txt2img(PROMPT, **kw)
     assert_matches(got, t_lcm, want_images, want_latent, initial)
 
@@ -420,23 +450,30 @@ def test_pag_freeu_dpmpp_matches_reference(pipes, monkeypatch):
     assert_matches(got, tpipe, want_images, want_latent, initial)
 
 
-def test_deepcache_ddim_inpaint_matches_reference(pipes, monkeypatch):
+def test_deepcache_ddim_inpaint_matches_reference(pipes, refiner,
+                                                 monkeypatch):
     """DeepCache (2, 1) through DDIM on a crop-window inpaint: full calls
-    at steps 0 and 2, shallow ones at 1 and 3, the pin noise each step."""
+    at steps 0, 2, 4 and 6, shallow ones between, the pin noise each step;
+    then the refiner's stage with DeepCache too (unguided, batch B: a full
+    call at t = 199, a shallow one at 74) after its re-noise."""
     jpipe, tpipe, _, _ = pipes
+    jpipe = dataclasses.replace(jpipe, **refiner[0])
+    tpipe = dataclasses.replace(tpipe, **refiner[1])
     ref = image(33)
-    noise_key, scan_key = jax.random.split(jax.random.split(
-        jax.random.PRNGKey(14))[0])
+    base_key, refiner_key = jax.random.split(jax.random.PRNGKey(14))
+    noise_key, scan_key = jax.random.split(base_key)
     pin = np.stack([np.asarray(R._scan_normal(k, SHAPE))
                     for k in jax.random.split(scan_key, len(
-                        R.ddim_timesteps(0, 4)))])
-    kw = dict(n_steps=4, seed=14, negative_prompt=NEGATIVE,
-              deepcache=(2, 1), **CROP)
+                        R.ddim_timesteps(0, 8)))])
+    assert len(R.ddim_timesteps(800, 8)) == 2
+    kw = dict(n_steps=8, seed=14, negative_prompt=NEGATIVE,
+              deepcache=(2, 1), use_refiner=True, **CROP)
     want_images, want_latent = run_reference(
         monkeypatch, jpipe, lambda: jpipe.inpaint(PROMPT, ref, **kw))
     initial = normal(noise_key)
     inject(monkeypatch, "sample_latent", initial_noise=initial,
            pin_noise=pin)
+    inject(monkeypatch, "refine_latent", noise=normal(refiner_key))
     got = tpipe.inpaint(PROMPT, ref, **kw)
     assert_matches(got, tpipe, want_images, want_latent, initial)
 
