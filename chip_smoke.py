@@ -25,7 +25,11 @@ Phases (any failure exits non-zero before the result line):
      bf16 and the no-CFG base's [1,10,4096,64] and [1,20,1024,64] among
      K1's, those four also inside one CUDA graph; K1/K2/K3 at a
      token count no multiple of 4, and at Flux-dev's joint attention,
-     [1,24,4608,128]) —
+     [1,24,4608,128]; module 11's ip2p batch-3 [3,10,4096,64] and
+     [3,20,1024,64] bf16 (both also in a CUDA graph), hires-fix's
+     [2,10,9216,64] and [2,20,2304,64] bf16 and [1,1,36864,512] f32, and
+     a tiled VAE's [1,1,9216,512] f32, their plain versions in query
+     chunks of at most 1 GiB of f32 logits) —
      K1 on every route (bf16 d 64/128 and 512, f32 d
      64/128 and 512), K2, K3a, K3b in bf16 and in f32: K1 and K2's output
      within the tolerance times min(1, max|plain output|) and a relative
@@ -141,6 +145,27 @@ Phases (any failure exits non-zero before the result line):
      call (60 launches), a FreeU pair-batched call and the distilled
      UNet's call with its t_add (70 each) through K1 and through the
      plain attention: eps within 2e-2 relative;
+  8e. the rest of module 11 on the same pipeline, 1024x1024, 30 steps,
+     CFG 7.5, each request's latency, stage split, evaluations by kind
+     (ControlNet trunk calls too), K1's launches by route and peak memory
+     printed, and the evaluations and launches held to the code's counts
+     (70 a UNet call at any batch and size, 34 a trunk call, a trunk not
+     run at a step whose window scale is 0; one d=512 launch a decode or
+     encode, four a tiled one at tile 96): two random full-width
+     ControlNets (zero convs drawn like every conv) drawn with the ViT-H
+     tower, the proj (4 tokens) and plus (Resampler, 16 tokens)
+     IP-Adapters and an 8-channel InstructPix2Pix UNet of the base's
+     width; ControlNet through DDIM with windows (0, 1) and (0, 0.5), two
+     ControlNets through dpmpp + karras, ControlNet img2img at 0.3, the
+     proj and plus IP-Adapters (a 768 x 640 image prompt), ip2p through
+     DDIM and euler_a (batch-3 calls), hires-fix 1.5x (1536x1536) through
+     DDIM and dpmpp, a txt2img with vae_tile=96 and an img2img with tiled
+     encode and decode, each printed against the untiled image (mean and
+     max u8 difference, no bound); then a ControlNet-guided pair call
+     (104 launches), ip2p's batch-3 call, an IP-Adapter pair call and a
+     1536x1536 pair call (70 each) through K1 and through the plain
+     attention: eps within 2e-2 relative; the second net and the plus
+     adapter freed;
   9b. checkpoint loading and the sample CLI: the same full-width
      pipeline, refiner included, written with save_native_pipeline
      (UNets bf16, the rest f32) into build/checkpoint (free space checked
@@ -150,14 +175,21 @@ Phases (any failure exits non-zero before the result line):
      five times: txt2img, --use-refiner, --reference-img (the first
      request's PNG) with --mask-img (a PNG written by save_images),
      --sampler dpmpp --schedule karras, --sampler euler_a, --freeu,
-     --pag-scale 3, --deepcache 3 and --invert-img (the first PNG); then
-     the distilled pipeline of phase 8d written in the base's place and
-     --sampler lcm -steps 4 -gs 8 from it. Each
+     --pag-scale 3, --deepcache 3 and --invert-img (the first PNG),
+     --controlnet (a directory written by io/diffusers_write.py) with
+     --control-image (the first PNG), --ip-adapter with
+     --ip-image-encoder (written by io/ip_adapter.py) and --ip-image (the
+     first PNG's 768 x 640 crop), --hires-scale 1.5 and --vae-tile 96;
+     then the distilled pipeline of phase 8d written in the base's place
+     and --sampler lcm -steps 4 -gs 8 from it, then phase 8e's 8-channel
+     pipeline in its place and --edit-image (the first PNG). Each
      time the pipeline the CLI loaded must be bitwise equal to the
      in-memory one (CLIP towers, UNet, VAE decoder and encoder,
-     alphas_cumprod, and the refiner with --use-refiner), K1 launched as
-     counted (2170 + 1, 2450 + 1, 2170 + 2, 2100 + 1, 2100 + 1, 2170 + 1,
-     4030 + 1, 770 + 1, 4340 + 2, 280 + 1), and the
+     alphas_cumprod, the refiner with --use-refiner, and the ControlNet,
+     the adapter and its tower), K1 launched as counted (2170 + 1,
+     2450 + 1, 2170 + 2, 2100 + 1, 2100 + 1, 2170 + 1, 4030 + 1, 770 + 1,
+     4340 + 2, 3224 + 1, 2170 + 1, 2870 + 1, 2170 + 4, 280 + 1,
+     2170 + 2), and the
      PNG it wrote (decoded
      with io/images.py read_png) within 1 u8 level of the in-memory
      pipeline's image (the count of differing pixels printed); bytes
@@ -174,7 +206,7 @@ Phases (any failure exits non-zero before the result line):
      (forward and backward) in place of the kernels: they must agree;
   12. with --profile only: three timed LoRA steps, then one under
      torch.profiler, reported as in phase 9.
-Each path (phases 4, 5, 5b, 6, 8, 8b, 8c, 8d, 9b, 10) runs with the launch counts set to
+Each path (phases 4, 5, 5b, 6, 8, 8b, 8c, 8d, 8e, 9b, 10) runs with the launch counts set to
 0 just before it and read just after; the JSON record's launches are their
 sum. Each phase's seconds are printed. The last two lines are the kernels'
 JSON record and {"ok": true, ...}.
@@ -208,9 +240,27 @@ from sdxl_tpu_torch.configs import (
     SDXL_REFINER_DIFFUSER,
 )
 from sdxl_tpu_torch.io.checkpoint import save_native_pipeline
+from sdxl_tpu_torch.io.diffusers_write import write_diffusers_controlnet_dir
 from sdxl_tpu_torch.io.images import read_png, save_images
+from sdxl_tpu_torch.io.ip_adapter import (
+    save_clip_vision_dir,
+    save_ip_adapter_file,
+)
+from sdxl_tpu_torch.models.clip_vision import CLIPVisionConfig, CLIPVisionModel
+from sdxl_tpu_torch.models.controlnet import (
+    ControlNet,
+    control_cond_embed,
+    controlnet_forward,
+    precompute_control_cross_kv,
+)
+from sdxl_tpu_torch.models.ip_adapter import IPAdapter, IPAdapterConfig
 from sdxl_tpu_torch.models.layers import init_reference_
-from sdxl_tpu_torch.models.unet import UNet, unet_block_plan, unet_forward
+from sdxl_tpu_torch.models.unet import (
+    UNet,
+    precompute_cross_kv,
+    unet_block_plan,
+    unet_forward,
+)
 from sdxl_tpu_torch.ops import attention as attention_mod
 from sdxl_tpu_torch.ops import flash_attention as fa
 from sdxl_tpu_torch.pipeline import loader as loader_mod
@@ -226,6 +276,8 @@ from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
 from sdxl_tpu_torch.pipeline.sampler import (
     LCM_ORIGINAL_STEPS,
     _cfg_contexts,
+    _control_window_scales,
+    _merge_ip,
     ddim_timesteps,
     expert_head_steps,
     lcm_guidance_add,
@@ -322,6 +374,15 @@ KERNEL_CASES = [
     (1, 1, 16384, 512, torch.bfloat16, 2e-2),
     (1, 1, 15808, 512, torch.bfloat16, 2e-2),
     (1, 1, 14336, 512, torch.bfloat16, 2e-2),
+    # module 11: ip2p's batch-3 call (192-row tiles: 22 x 30 and 6 x 60
+    # blocks), hires-fix at 1.5x (1536x1536: 9216 and 2304 tokens, and
+    # the f32 decode's 36864), and a tiled VAE's 768x768 tile (tile 96)
+    (3, 10, 4096, 64, torch.bfloat16, 2e-2),
+    (3, 20, 1024, 64, torch.bfloat16, 2e-2),
+    (2, 10, 9216, 64, torch.bfloat16, 2e-2),
+    (2, 20, 2304, 64, torch.bfloat16, 2e-2),
+    (1, 1, 36864, 512, torch.float32, 1e-3),
+    (1, 1, 9216, 512, torch.float32, 1e-3),
 ]
 # K1 at a ragged edge no path takes (use_flash routes none of them, so they
 # are not held to its gate): a token count that is no multiple of 8 at
@@ -335,7 +396,10 @@ K1_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # the base's without CFG (no_cfg or guidance 1: batch 1, 220 and 120
 # blocks)
 K1_GRAPHED = {(1, 12, 4096, 64), (1, 24, 1024, 64), (1, 10, 4096, 64),
-              (1, 20, 1024, 64)}
+              (1, 20, 1024, 64), (3, 10, 4096, 64), (3, 20, 1024, 64)}
+# the plain version runs in query chunks whose f32 logits stay under this
+# (at [2,10,9216,64] they would be 6.8 GB, at [1,1,36864,512] 5.4 GB)
+PLAIN_CHUNK_BYTES = 1 << 30
 # The kernels of the Hopper sources: for each source, its export that
 # gives a kernel's dynamic shared memory (from the kernel's index and the
 # first three int template arguments of its symbol, 0 where it has fewer),
@@ -469,6 +533,29 @@ PREVIEW_EVERY = 10
 PAG_SCALE = 3.0
 DEEPCACHE = (3, 3)
 FREEU = FREEU_DEFAULTS["sdxl"]
+# phase 8e: module 11. Two random full-width ControlNets (SDXL's trunk,
+# zero convs drawn like every conv), the windows of the single-net DDIM
+# requests and the two nets' scales and windows (dpmpp + karras); the
+# IP-Adapters of h94/IP-Adapter's sdxl_models (ip-adapter_sdxl_vit-h: the
+# ViT-H/14 tower, 32 layers 1280 wide, projection 1024, 4 tokens;
+# ip-adapter-plus_sdxl_vit-h: the Resampler 1280 wide, depth 4, 20 heads,
+# 16 tokens) and their scale; ip2p's image guidance; hires-fix's scale and
+# strength; the tiled VAE's tile (latent pixels); the img2img strength
+CONTROL_WINDOWS = ((0.0, 1.0), (0.0, 0.5))
+MULTI_CONTROL = dict(control_scale=(1.0, 0.6), control_start=(0.0, 0.2),
+                     control_end=(1.0, 0.8))
+VIT_H = CLIPVisionConfig()
+# the SDXL trunk's self-attentions: its input blocks' 24 and the middle
+# block's 10 (the UNet's 70 less its output blocks' 36)
+TRUNK_ATTENTIONS = 34
+IP_PROJ = IPAdapterConfig(clip_embed_dim=VIT_H.embed_dim)
+IP_PLUS = IPAdapterConfig(clip_embed_dim=VIT_H.n_state, n_tokens=16,
+                          variant="resampler", dim=1280, depth=4, heads=20)
+IP_SCALE = 0.6
+IP2P_IMAGE_GS = 1.5
+HIRES_SCALE, HIRES_STRENGTH = 1.5, 0.3
+VAE_TILE = 96
+M11_STRENGTH = 0.3
 # the f32 pipeline's request: 4 DDIM steps (4 UNet calls) keep its cost
 # near one bf16 request's
 F32_STEPS = 4
@@ -637,6 +724,18 @@ def nan_filled_empty():
         torch.use_deterministic_algorithms(was)
 
 
+def plain_attention(q, k, v) -> torch.Tensor:
+    """K1's plain version (fa.flash_attention_plain) over query chunks of
+    at most PLAIN_CHUNK_BYTES of f32 logits: the same row-wise math, as
+    each output row depends on its own query row alone."""
+    b, h, tq, _ = q.shape
+    rows = max(1, PLAIN_CHUNK_BYTES // (b * h * k.shape[2] * 4))
+    if rows >= tq:
+        return fa.flash_attention_plain(q, k, v)
+    return torch.cat([fa.flash_attention_plain(q[:, :, i:i + rows], k, v)
+                      for i in range(0, tq, rows)], dim=2)
+
+
 def readings(got, want) -> tuple:
     """(max abs error, relative L2 error, max |want|), in f32."""
     diff = got.float() - want.float()
@@ -654,7 +753,7 @@ def check_k1(results) -> None:
             fail(f"use_flash does not route {(b, h, t, d)}")
         with nan_filled_empty():
             out = fa.flash_attention_bhtd(q, k, v)
-        ref = fa.flash_attention_plain(q, k, v)
+        ref = plain_attention(q, k, v)
         torch.cuda.synchronize()
         err, rel, ref_max = readings(out, ref)
         limit, rel_tol = tol * min(1.0, ref_max), K1_REL_TOL[dtype]
@@ -676,9 +775,11 @@ def check_k1(results) -> None:
         record_case(
             results, name, (b, h, t, d), dtype, err,
             cuda_ms(lambda: fa.flash_attention_bhtd(q, k, v), iters),
-            cuda_ms(lambda: fa.flash_attention_plain(q, k, v), iters),
+            cuda_ms(lambda: plain_attention(q, k, v), iters),
             cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), iters),
             graph=graph)
+        del q, k, v, out, ref
+        torch.cuda.empty_cache()
 
 
 def check_train_kernels(results) -> None:
@@ -1443,8 +1544,9 @@ def unet_attentions(ucfg) -> dict:
     kind, from unet_block_plan (every transformer level of SDXL is over
     the kernel's gate at 1024^2): a full call and DeepCache's cached one
     (70), PAG's perturbed call (the middle block's self-attentions are
-    identity maps: 60), and DeepCache's shallow call at DEEPCACHE's branch
-    (the first `branch` input and the last `branch` output blocks)."""
+    identity maps: 60), DeepCache's shallow call at DEEPCACHE's branch
+    (the first `branch` input and the last `branch` output blocks), and a
+    ControlNet trunk call (its input blocks and middle block: 34)."""
     in_plan, mid, out_plan = unet_block_plan(ucfg)
 
     def count(specs):
@@ -1454,21 +1556,24 @@ def unet_attentions(ucfg) -> dict:
     branch = DEEPCACHE[1]
     return {"full": full, "cached": full, "pag": full - mid.depth,
             "shallow": count(in_plan[:branch])
-            + count(out_plan[len(out_plan) - branch:])}
+            + count(out_plan[len(out_plan) - branch:]),
+            "trunk": count(in_plan) + mid.depth}
 
 
 @contextlib.contextmanager
 def counting_evaluations():
     """Inside, the samplers' UNet evaluations are counted by kind: full
     calls, PAG's perturbed calls (pag_mid), DeepCache's cached and
-    shallow calls."""
+    shallow calls, and ControlNet trunk calls."""
     calls = Counter()
-    names = ("unet_forward", "unet_forward_shallow")
+    names = ("unet_forward", "unet_forward_shallow", "controlnet_forward")
     real = {n: getattr(sampler_mod, n) for n in names}
 
     def counted(name):
         def call(*args, **kw):
-            if name == "unet_forward_shallow":
+            if name == "controlnet_forward":
+                calls["trunk"] += 1
+            elif name == "unet_forward_shallow":
                 calls["shallow"] += 1
             elif kw.get("cache_branch") is not None:
                 calls["cached"] += 1
@@ -1487,7 +1592,7 @@ def counting_evaluations():
 
 
 def module10b_request(pipe, label: str, fn, want: dict, want_vae: int,
-                      attentions: dict, latent=None):
+                      attentions: dict, latent=None, res=K_RES):
     """One phase-8d request: latency, stage split, UNet evaluations by
     kind, K1 launches and peak memory printed; fail unless the evaluations
     are `want`, K1's d 64/128 route was launched as many times as those
@@ -1521,7 +1626,7 @@ def module10b_request(pipe, label: str, fn, want: dict, want_vae: int,
              f"{want_k1} and {want_vae}")
     if not bool(torch.isfinite(lat).all()):
         fail(f"non-finite latent in {label}")
-    if latent is None and (out.shape != (1, *K_RES, 3)
+    if latent is None and (out.shape != (1, *res, 3)
                            or out.dtype.name != "uint8" or out.std() == 0):
         fail(f"{label}: images {out.shape} {out.dtype}")
     return out
@@ -1692,22 +1797,217 @@ def check_extensions_against_plain(pipe, p_lcm) -> None:
                                 t_add=t_add)),
     ]
     t = torch.tensor(float(lcm_timesteps(LCM_STEPS)[1]), device=pipe.device)
+    hold_calls_to_plain(checks, t)
+
+
+def hold_calls_to_plain(checks, t) -> None:
+    """Each (label, K1 launches wanted, call(t)) through K1 and through the
+    plain attention (in query chunks): K1's d 64/128 route launched as
+    wanted, eps within UNET_REL_TOL relative."""
     for label, want_n, call in checks:
         fa.reset_launch_counts()
         eps_k = call(t).float()
         torch.cuda.synchronize()
         n = fa.launch_counts["sdxl_flash_attention_bf16"]
-        eps_p = with_attention(lambda: call(t)).float()
+        eps_p = with_attention(lambda: call(t), plain_attention).float()
         rel = ((eps_k - eps_p).abs().max() / eps_p.abs().max()).item()
-        print(f"{label} {K_RES[0]}x{K_RES[1]} at t={float(t)!r}: bf16 d "
-              f"64/128 launches {n}; eps rel_err={rel:.3e} (tol "
-              f"{UNET_REL_TOL:g}), max|eps| {eps_p.abs().max().item():.4g}",
-              flush=True)
+        print(f"{label} at t={float(t)!r}: bf16 d 64/128 launches {n}; eps "
+              f"rel_err={rel:.3e} (tol {UNET_REL_TOL:g}), max|eps| "
+              f"{eps_p.abs().max().item():.4g}", flush=True)
         if n != want_n:
             fail(f"the {label} launched K1 {n} times, not {want_n}")
         if not (bool(torch.isfinite(eps_k).all()) and rel < UNET_REL_TOL):
             fail(f"the {label} through K1 disagrees with the plain "
                  f"attention")
+        del eps_k, eps_p
+        torch.cuda.empty_cache()
+
+
+def module11_weights(pipe) -> dict:
+    """Phase 8e's random weights, drawn on the card from seed 17 with the
+    reference's init: two full-width ControlNets of the base's plan (bf16;
+    their zero convs drawn like every conv, so nonzero), the ViT-H tower
+    and the proj and plus adapters (f32), and an 8-channel InstructPix2Pix
+    UNet of the base's width (bf16) in a pipeline sharing the towers and
+    the VAE."""
+    dev, dtype = pipe.device, pipe.compute_dtype
+    g = torch.Generator(device=dev).manual_seed(17)
+    ucfg = pipe.diffuser_cfg.unet_config()
+
+    def drawn(module, **kw):
+        return init_reference_(module, g, **kw).eval().requires_grad_(False)
+
+    nets = tuple(drawn(ControlNet(ucfg, dev, dtype)) for _ in range(2))
+    vision = drawn(CLIPVisionModel(VIT_H, dev))
+    adapters = {"proj": drawn(IPAdapter(IP_PROJ, ucfg, device=dev)),
+                "plus": drawn(IPAdapter(IP_PLUS, ucfg, device=dev))}
+    cfg8 = dataclasses.replace(pipe.diffuser_cfg, in_channels=8)
+    edit = dataclasses.replace(
+        pipe, diffuser_cfg=cfg8, unet=drawn(UNet(cfg8.unet_config(), dev,
+                                                 dtype)),
+        refiner=None, refiner_cfg=None, refiner_alphas=None)
+    return dict(nets=nets, vision=vision, adapters=adapters, edit=edit)
+
+
+def with_ip(pipe, w, variant: str):
+    return dataclasses.replace(pipe, ip_adapter=w["adapters"][variant],
+                               ip_vision=w["vision"])
+
+
+def module11_requests(pipe, first: np.ndarray, w: dict) -> None:
+    """Phase 8e: ControlNet through DDIM in two windows, two ControlNets
+    through dpmpp + karras, ControlNet img2img, the proj and plus
+    IP-Adapters, ip2p through DDIM and euler_a, hires-fix through DDIM and
+    dpmpp, and the tiled VAE's txt2img and img2img beside the untiled
+    images. 1024x1024 (hires 1536x1536), 30 steps, CFG 7.5; the control
+    images are phase 6's first image and its negative, the image prompt
+    its 768 x 640 top-left crop, the edit and img2img image the image."""
+    att = unet_attentions(pipe.diffuser_cfg.unet_config())
+    if att["trunk"] != TRUNK_ATTENTIONS:
+        fail(f"unet_block_plan gives {att['trunk']} trunk self-attentions, "
+             f"not {TRUNK_ATTENTIONS}")
+    res, kw = K_RES, dict(guidance_scale=7.5, n_steps=K_STEPS)
+    ctl = (first[0], 255 - first[0])
+    n_ddim = unet_calls(pipe, "ddim", K_STEPS)
+    n_i2i = unet_calls(pipe, "ddim", K_STEPS,
+                       step_start=int(round((1 - M11_STRENGTH) * 1000)))
+
+    def trunk_calls(n, scale, window):
+        return int((_control_window_scales(n, scale, window) != 0).sum())
+
+    pc = dataclasses.replace(pipe, controlnet=w["nets"][0])
+    for window in CONTROL_WINDOWS:
+        module10b_request(
+            pc, f"ControlNet DDIM window {window}",
+            lambda window=window: pc.txt2img(
+                PROMPT, res, seed=60, control_image=ctl[0],
+                control_start=window[0], control_end=window[1], **kw),
+            {"full": n_ddim, "trunk": trunk_calls(n_ddim, 1.0, window)}, 1,
+            att)
+    pm = dataclasses.replace(pipe, controlnet=w["nets"])
+    n = unet_calls(pipe, "dpmpp", K_STEPS, "karras")
+    module10b_request(
+        pm, f"two ControlNets dpmpp + karras {MULTI_CONTROL}",
+        lambda: pm.txt2img(PROMPT, res, seed=61, sampler="dpmpp",
+                           schedule="karras", control_image=list(ctl),
+                           **MULTI_CONTROL, **kw),
+        {"full": n, "trunk": trunk_calls(
+            n, MULTI_CONTROL["control_scale"],
+            tuple(zip(MULTI_CONTROL["control_start"],
+                      MULTI_CONTROL["control_end"])))}, 1, att)
+    module10b_request(
+        pc, f"ControlNet img2img strength {M11_STRENGTH}",
+        lambda: pc.img2img(PROMPT, first, strength=M11_STRENGTH, seed=62,
+                           control_image=ctl[0], **kw),
+        {"full": n_i2i, "trunk": n_i2i}, 2, att)
+
+    for variant in ("proj", "plus"):
+        pi = with_ip(pipe, w, variant)
+        module10b_request(
+            pi, f"IP-Adapter {variant} scale {IP_SCALE}",
+            lambda: pi.txt2img(PROMPT, res, seed=63,
+                               ip_adapter_image=first[0, :768, :640],
+                               ip_adapter_scale=IP_SCALE, **kw),
+            {"full": n_ddim}, 1, att)
+
+    edit = w["edit"]
+    for sampler in ("ddim", "euler_a"):
+        module10b_request(
+            edit, f"ip2p {sampler} image guidance {IP2P_IMAGE_GS} (batch-3 "
+            f"calls)", lambda sampler=sampler: edit.ip2p(
+                PROMPT, first, seed=64, sampler=sampler,
+                image_guidance_scale=IP2P_IMAGE_GS, **kw),
+            {"full": unet_calls(pipe, sampler, K_STEPS)}, 2, att)
+
+    hires = tuple(round(r * HIRES_SCALE / 8) * 8 for r in res)
+    start = int(round((1 - HIRES_STRENGTH) * 1000))
+    for sampler in ("ddim", "dpmpp"):
+        module10b_request(
+            pipe, f"hires-fix {HIRES_SCALE}x {sampler} strength "
+            f"{HIRES_STRENGTH} ({hires[0]}x{hires[1]})",
+            lambda sampler=sampler: pipe.txt2img_hires(
+                PROMPT, res, hires_scale=HIRES_SCALE,
+                hires_strength=HIRES_STRENGTH, seed=65, sampler=sampler,
+                **kw),
+            {"full": unet_calls(pipe, sampler, K_STEPS)
+             + unet_calls(pipe, sampler, K_STEPS, step_start=start)}, 1,
+            att, res=hires)
+
+    pt = dataclasses.replace(pipe, vae_tile=VAE_TILE)
+    tiled = module10b_request(
+        pt, f"txt2img vae_tile={VAE_TILE}",
+        lambda: pt.txt2img(PROMPT, res, seed=66, **kw),
+        {"full": n_ddim}, 4, att)
+    whole = decode_latent_to_images(pipe.vae, pt.last_latent,
+                                    pipe.scale_factor).cpu().numpy()
+    tiled_i2i = module10b_request(
+        pt, f"img2img strength {M11_STRENGTH} vae_tile={VAE_TILE} (tiled "
+        f"encode and decode)",
+        lambda: pt.img2img(PROMPT, first, strength=M11_STRENGTH, seed=67,
+                           **kw), {"full": n_i2i}, 8, att)
+    untiled_i2i = module10b_request(
+        pipe, f"img2img strength {M11_STRENGTH} untiled",
+        lambda: pipe.img2img(PROMPT, first, strength=M11_STRENGTH, seed=67,
+                             **kw), {"full": n_i2i}, 2, att)
+    for label, a, b in (("txt2img", tiled, whole),
+                        ("img2img", tiled_i2i, untiled_i2i)):
+        d = np.abs(a.astype(np.int16) - b.astype(np.int16))
+        print(f"tiled VAE {label} vs untiled: mean {d.mean():.4f} max "
+              f"{int(d.max())} u8 levels (random weights: no bound)",
+              flush=True)
+
+
+@torch.inference_mode()
+def check_module11_against_plain(pipe, first: np.ndarray, w: dict) -> None:
+    """A ControlNet-guided pair call (trunk and UNet: 34 + 70 launches),
+    ip2p's batch-3 call, an IP-Adapter pair call (70 each) at K_RES, and a
+    pair call at hires-fix's 1536x1536 (70), each through K1 and through
+    the plain attention: eps within UNET_REL_TOL relative."""
+    dtype, dev = pipe.compute_dtype, pipe.device
+    att = unet_attentions(pipe.diffuser_cfg.unet_config())
+    cfg = pipe.diffuser_cfg
+    g = torch.Generator(device=dev).manual_seed(14)
+    hires = tuple(round(r * HIRES_SCALE / 8) * 8 for r in K_RES)
+
+    def pair(res):
+        cond = pipe.conditioning(PROMPT, res).astype(dtype)
+        ctx2, ch2 = _cfg_contexts(cfg, cond, dtype)
+        x = torch.randn((1, res[0] // 8, res[1] // 8, 4), generator=g,
+                        device=dev).to(dtype)
+        return cond, ctx2, ch2, torch.cat([x, x])
+
+    cond, ctx2, ch2, x2 = pair(K_RES)
+    net = w["nets"][0]
+    image = torch.as_tensor(first, device=dev).float() / 255.0
+    emb = control_cond_embed(net, image)
+    emb2, ckv = torch.cat([emb, emb]), precompute_control_cross_kv(net, ctx2)
+
+    def controlled(t):
+        ts = t.expand(2)
+        res = controlnet_forward(net, x2, ts, ctx2, ch2, emb2, ckv)
+        return unet_forward(pipe.unet, x2, ts, ctx2, ch2,
+                            control_residuals=res)
+
+    edit = w["edit"]
+    ctx3, ch3 = _cfg_contexts(edit.diffuser_cfg, cond, dtype, rows3=True)
+    e = edit._encode(first, scale_factor=1.0).to(dtype)
+    x3 = torch.cat([torch.cat([x2[:1]] * 3),
+                    torch.cat([torch.zeros_like(e), e, e])], dim=-1)
+    ip = with_ip(pipe, w, "proj")._prep_ip(first[0, :768, :640], IP_SCALE)
+    ip_kv = _merge_ip(precompute_cross_kv(pipe.unet, ctx2), ip, cfg, cond,
+                      dtype, True)
+    _, hctx2, hch2, hx2 = pair(hires)
+    checks = [
+        ("ControlNet-guided call B=2 (trunk and UNet)",
+         att["trunk"] + att["full"], controlled),
+        ("ip2p call B=3", att["full"], lambda t: unet_forward(
+            edit.unet, x3, t.expand(3), ctx3, ch3)),
+        ("IP-Adapter call B=2", att["full"], lambda t: unet_forward(
+            pipe.unet, x2, t.expand(2), ctx2, ch2, ip_kv)),
+        (f"hires-size call B=2 {hires[0]}x{hires[1]}", att["full"],
+         lambda t: unet_forward(pipe.unet, hx2, t.expand(2), hctx2, hch2)),
+    ]
+    hold_calls_to_plain(checks, torch.tensor(500.0, device=dev))
 
 
 def drop_page_cache(paths) -> None:
@@ -1790,16 +2090,20 @@ def check_png(label: str, path: str, want: np.ndarray) -> None:
         fail(f"{label}: the PNG lacks the parameters text chunk")
 
 
-def checkpoint_cli_phase(pipe, total, p_lcm) -> None:
+def checkpoint_cli_phase(pipe, total, p_lcm, m11) -> None:
     """Phase 9b: write the pipeline, refiner included, as a native
     checkpoint; answer requests through the sample CLI from it (a txt2img,
     one with --use-refiner, an inpaint of the first one's PNG with a mask
-    PNG, two k-samplers, and phase 8d's --freeu, --pag-scale, --deepcache
-    and --invert-img), then from a native checkpoint of the LCM-distilled
-    pipeline p_lcm written in its place (--sampler lcm), and hold each
-    load and image against the in-memory pipeline."""
+    PNG, two k-samplers, phase 8d's --freeu, --pag-scale, --deepcache and
+    --invert-img, and phase 8e's --controlnet and --ip-adapter from files
+    the port's writers made, --hires-scale and --vae-tile), then from a
+    native checkpoint of the LCM-distilled pipeline p_lcm written in its
+    place (--sampler lcm), then from one of phase 8e's 8-channel pipeline
+    (--edit-image), and hold each load and image against the in-memory
+    pipeline."""
     modules = [pipe.embedder, pipe.unet, pipe.vae, pipe.vae_encoder,
-               pipe.refiner]
+               pipe.refiner, m11["nets"][0], m11["vision"],
+               m11["adapters"]["proj"]]
     need = sum(p.numel() * p.element_size() for m in modules
                for p in m.parameters())
     shutil.rmtree(CKPT_DIR, ignore_errors=True)
@@ -1821,10 +2125,12 @@ def checkpoint_cli_phase(pipe, total, p_lcm) -> None:
         return out
 
     def cli_request(label, argv, want_unet, want_vae, refiner=False,
-                    want_pipe=pipe):
+                    want_pipe=pipe, extras=()):
         """Run the CLI on argv; fail unless it returned 0, launched K1's
         routes want_unet and want_vae times and loaded want_pipe's
-        in-memory state. Returns the load's seconds."""
+        in-memory state, and each (attribute, module) of extras (a
+        ControlNet, an adapter, its tower) bitwise. Returns the load's
+        seconds."""
         print(f"-- python -m sdxl_tpu_torch.cli.sample {' '.join(argv)}",
               flush=True)
         loader_mod.load_pipeline = timed_load
@@ -1843,6 +2149,15 @@ def checkpoint_cli_phase(pipe, total, p_lcm) -> None:
         (load_s, loaded), = loads
         loads.clear()
         check_loaded_state(want_pipe, loaded, refiner)
+        for attr, module in extras:
+            sa, sb = module.state_dict(), getattr(loaded, attr).state_dict()
+            if sorted(sa) != sorted(sb) or any(
+                    sa[k].dtype != sb[k].dtype or not torch.equal(sa[k], sb[k])
+                    for k in sa):
+                fail(f"{label}: the loaded {attr} differs from the "
+                     f"in-memory one")
+            print(f"loaded {attr}: {sum(v.numel() for v in sa.values())} "
+                  f"parameters bitwise equal", flush=True)
         del loaded
         gc.collect()
         torch.cuda.empty_cache()
@@ -1971,6 +2286,59 @@ def checkpoint_cli_phase(pipe, total, p_lcm) -> None:
             check_png(f"the CLI's {' '.join(flags)} image", out_x + "0.png",
                       image()[0])
 
+        # phase 8e's flags: a ControlNet directory and an IP-Adapter file
+        # with its encoder directory from the port's writers
+        t0 = time.perf_counter()
+        net, vision = m11["nets"][0], m11["vision"]
+        adapter = m11["adapters"]["proj"]
+        cn_dir = write_diffusers_controlnet_dir(
+            os.path.join(CKPT_DIR, "controlnet"), net)
+        enc_dir = save_clip_vision_dir(os.path.join(CKPT_DIR, "encoder"),
+                                       vision)
+        ip_file = save_ip_adapter_file(
+            os.path.join(CKPT_DIR, "ip-adapter_sdxl_vit-h.safetensors"),
+            adapter)
+        ip_png, = save_images(read_png(out + "0.png")[0][None, :768, :640],
+                              os.path.join(CKPT_DIR, "out", "ip_image"))
+        print(f"ControlNet, IP-Adapter and encoder written in "
+              f"{time.perf_counter() - t0:.3f}s", flush=True)
+        first_png = read_png(out + "0.png")[0]
+        hires = tuple(round(r * HIRES_SCALE / 8) * 8 for r in (1024, 1024))
+        n_hires = unet_calls(pipe, "ddim", 30, step_start=int(
+            round((1 - HIRES_STRENGTH) * 1000)))
+        for name, flags, want_unet, want_vae, extras, image in (
+                ("controlnet", ["--controlnet", cn_dir, "--control-image",
+                                out + "0.png"],
+                 n * (att["full"] + att["trunk"]), 1,
+                 (("controlnet", net),),
+                 lambda: dataclasses.replace(pipe, controlnet=net).txt2img(
+                     PROMPT, control_image=first_png, **req)),
+                ("ip_adapter", ["--ip-adapter", ip_file,
+                                "--ip-image-encoder", enc_dir,
+                                "--ip-image", ip_png],
+                 n * att["full"], 1,
+                 (("ip_adapter", adapter), ("ip_vision", vision)),
+                 lambda: with_ip(pipe, m11, "proj").txt2img(
+                     PROMPT, ip_adapter_image=read_png(ip_png)[0],
+                     ip_adapter_scale=IP_SCALE, **req)),
+                ("hires", ["--hires-scale", str(HIRES_SCALE)],
+                 (n + n_hires) * att["full"], 1, (),
+                 lambda: pipe.txt2img_hires(
+                     PROMPT, hires_scale=HIRES_SCALE,
+                     hires_strength=HIRES_STRENGTH, **req)),
+                ("tiled", ["--vae-tile", str(VAE_TILE)], n * att["full"], 4,
+                 (), lambda: dataclasses.replace(
+                     pipe, vae_tile=VAE_TILE).txt2img(PROMPT, **req))):
+            out_x = os.path.join(CKPT_DIR, "out", name)
+            cli_request(f"the sample CLI {' '.join(flags)} request",
+                        argv[:-1] + [out_x] + flags, want_unet, want_vae,
+                        extras=extras)
+            want = image()[0]
+            if name == "hires" and want.shape != (*hires, 3):
+                fail(f"the hires-fix image is {want.shape}")
+            check_png(f"the CLI's {' '.join(flags[:1])} image",
+                      out_x + "0.png", want)
+
         # the distilled pipeline's checkpoint in the base's place
         shutil.rmtree(ckpt)
         ckpt_lcm = os.path.join(CKPT_DIR, "lcm")
@@ -1989,6 +2357,25 @@ def checkpoint_cli_phase(pipe, total, p_lcm) -> None:
                   p_lcm.txt2img(PROMPT, resolution=(1024, 1024),
                                 n_steps=LCM_STEPS, guidance_scale=LCM_GS,
                                 seed=0, sampler="lcm")[0])
+
+        # phase 8e's 8-channel InstructPix2Pix pipeline in its place
+        shutil.rmtree(ckpt_lcm)
+        edit = m11["edit"]
+        ckpt_edit = os.path.join(CKPT_DIR, "ip2p")
+        t0 = time.perf_counter()
+        save_native_pipeline(ckpt_edit, edit)
+        print(f"8-channel InstructPix2Pix checkpoint written in "
+              f"{time.perf_counter() - t0:.3f}s", flush=True)
+        out_e = os.path.join(CKPT_DIR, "out", "edited")
+        cli_request("the sample CLI --edit-image request",
+                    ["--model-dir", ckpt_edit, "--prompt", PROMPT, "-steps",
+                     "30", "-gs", "7.5", "--seed", "0", "--edit-image",
+                     out + "0.png", "--output-dir", out_e],
+                    n * att["full"], 2, want_pipe=edit)
+        check_png("the CLI's --edit-image image", out_e + "0.png",
+                  edit.ip2p(PROMPT, first_png[None], n_steps=30,
+                            guidance_scale=7.5,
+                            image_guidance_scale=IP2P_IMAGE_GS, seed=0)[0])
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
@@ -2270,8 +2657,24 @@ def main() -> None:
                      ["sdxl_flash_attention_bf16", F32_D512], path)
     check_extensions_against_plain(pipe, p_lcm)
     phase_done("8d (LCM, previews, inversion, FreeU, PAG, DeepCache)")
-    checkpoint_cli_phase(pipe, path, p_lcm)
-    del p_lcm
+    t0 = time.perf_counter()
+    m11 = module11_weights(pipe)
+    torch.cuda.synchronize()
+    print(f"module-11 weights drawn (two ControlNets, ViT-H, the proj and "
+          f"plus adapters, an 8-channel UNet): "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    run_path("the module-11 requests",
+             lambda: module11_requests(pipe, phase6[0], m11),
+             ["sdxl_flash_attention_bf16", F32_D512], path)
+    check_module11_against_plain(pipe, phase6[0], m11)
+    # phase 9b's CLI requests use one ControlNet and the proj adapter
+    m11["nets"] = m11["nets"][:1]
+    del m11["adapters"]["plus"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("8e (ControlNet, IP-Adapter, ip2p, hires-fix, tiled VAE)")
+    checkpoint_cli_phase(pipe, path, p_lcm, m11)
+    del p_lcm, m11
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("9b (checkpoint, sample CLI)")

@@ -5,14 +5,20 @@ sdxl_tpu/cli/sample.py).
 reference parses. ``main`` runs ``--family sdxl``: load (any layout
 pipeline/loader.py detects, or ``--random-weights``; the refiner too with
 ``--use-refiner``), merge ``--lora`` and ``--embedding`` files,
-``--zsnr``, then txt2img (with the refiner, or the ``--denoising-end``
-split), img2img (``--reference-img`` with ``--img2img-strength``),
-outpaint (``--outpaint``), inpainting of ``--reference-img`` (a crop
-window, a ``--mask-img``, ``--mask-blur``), or DDIM inversion editing
-(``--invert-img`` under ``--invert-prompt``), each with ``--sampler``
-(DDIM, a k-sampler or LCM), ``--schedule``, ``--ddim-eta``,
+``--zsnr``, ``--vae-tile``, load ``--controlnet`` directories and an
+``--ip-adapter`` with its ``--ip-image-encoder``, then txt2img (with the
+refiner, or the ``--denoising-end`` split), hires-fix (``--hires-scale``,
+``--hires-strength``), img2img (``--reference-img`` with
+``--img2img-strength``), outpaint (``--outpaint``), inpainting of
+``--reference-img`` (a crop window, a ``--mask-img``, ``--mask-blur``),
+DDIM inversion editing (``--invert-img`` under ``--invert-prompt``), or
+InstructPix2Pix (``--edit-image``, ``--image-guidance-scale``), each with
+``--sampler`` (DDIM, a k-sampler or LCM), ``--schedule``, ``--ddim-eta``,
 ``--guidance-rescale``, ``--no-cfg``, ``--freeu``, ``--pag-scale`` and
-``--deepcache`` (txt2img also with ``--preview-every``, which writes
+``--deepcache``, the ControlNet flags (``--control-image``,
+``--control-scale``, ``--control-start``, ``--control-end``, one each a
+net) and the IP-Adapter's (``--ip-image``, ``--ip-scale``) where the
+reference takes them (txt2img also with ``--preview-every``, which writes
 {output_dir}preview_{step}_0.png), and write {output_dir}{i}.png with
 the reference's generation metadata. The bad combinations of these flags
 fail with the reference's messages: an exit 1 where the reference's CLI
@@ -47,15 +53,13 @@ _PORTED = {
     "mask_blur", "img2img_strength", "outpaint", "outpaint_fill",
     "sampler", "schedule", "zsnr", "ddim_eta", "guidance_rescale", "no_cfg",
     "preview_every", "invert_img", "invert_prompt", "pag_scale", "freeu",
-    "deepcache", "deepcache_branch",
+    "deepcache", "deepcache_branch", "controlnet", "control_image",
+    "control_scale", "control_start", "control_end", "ip_adapter",
+    "ip_image_encoder", "ip_image", "ip_scale", "edit_image",
+    "image_guidance_scale", "hires_scale", "hires_strength", "vae_tile",
 }
 # every other flag -> the module of ROADMAP Queue 1 that ports it
 _WAITS = {
-    **dict.fromkeys(
-        ["controlnet", "control_image", "control_scale", "control_start",
-         "control_end", "ip_adapter", "ip_image_encoder", "ip_image",
-         "ip_scale", "edit_image", "image_guidance_scale", "hires_scale",
-         "hires_strength", "vae_tile"], 11),
     "clip_skip": 12,
     **dict.fromkeys(["no_t5", "slg_scale", "slg_layers", "true_cfg_scale"],
                     13),
@@ -374,6 +378,97 @@ def _load_mask(args):
     return load_images([args.mask_img])[0]
 
 
+def _per_net(vals, default, n: int, name: str):
+    """A repeatable ControlNet flag's value(s) for n nets: the default,
+    one value for all, or one a net."""
+    if vals is None:
+        return default if n == 1 else [default] * n
+    if len(vals) == 1:
+        return vals[0] if n == 1 else vals * n
+    if len(vals) != n:
+        raise ValueError(f"{name}: {len(vals)} values for {n} ControlNets")
+    return vals
+
+
+def _check_module11(args):
+    """The reference CLI's checks of the ControlNet, IP-Adapter,
+    DeepCache, PAG, outpaint, mask, hires-fix, inversion and
+    InstructPix2Pix flags, in its order: the error message of the first
+    that fails, else the request's extra pipeline keywords (the control
+    ones without the images, which main loads after the pipeline)."""
+    control_kw = {}
+    if (args.controlnet is None) != (args.control_image is None):
+        return "--controlnet and --control-image go together"
+    if args.controlnet is not None:
+        if args.hires_scale is not None:
+            return ("--controlnet applies to txt2img/img2img/inpaint (no "
+                    "--hires-scale)")
+        n = len(args.controlnet)
+        if len(args.control_image) != n:
+            return (f"{n} --controlnet but {len(args.control_image)} "
+                    "--control-image (need one image per net)")
+        try:
+            control_kw = dict(
+                control_scale=_per_net(args.control_scale, 1.0, n,
+                                       "--control-scale"),
+                control_start=_per_net(args.control_start, 0.0, n,
+                                       "--control-start"),
+                control_end=_per_net(args.control_end, 1.0, n,
+                                     "--control-end"))
+        except ValueError as e:
+            return str(e)
+    if args.ip_adapter is not None or args.ip_image is not None:
+        if not (args.ip_adapter and args.ip_image and args.ip_image_encoder):
+            return "--ip-adapter, --ip-image-encoder and --ip-image go together"
+        if args.hires_scale is not None:
+            return ("--ip-adapter applies to txt2img/img2img/inpaint (no "
+                    "--hires-scale)")
+        control_kw["ip_adapter_scale"] = args.ip_scale
+    if args.deepcache is not None:
+        if args.controlnet is not None or args.hires_scale is not None \
+                or args.preview_every:
+            return ("--deepcache is incompatible with --controlnet, "
+                    "--hires-scale and --preview-every")
+        if args.deepcache < 1 or args.deepcache_branch < 1:
+            return "--deepcache and --deepcache-branch must be >= 1"
+        control_kw["deepcache"] = (args.deepcache, args.deepcache_branch)
+    if args.pag_scale:
+        if args.hires_scale is not None:
+            return "--pag-scale is not supported with --hires-scale"
+        control_kw["pag_scale"] = args.pag_scale
+    if args.outpaint is not None and (
+            args.reference_img is None or args.img2img_strength is not None):
+        return ("--outpaint extends --reference-img (and is not an "
+                "--img2img-strength mode)")
+    if (args.mask_img is not None or args.mask_blur > 0) and (
+            args.reference_img is None or args.img2img_strength is not None):
+        return ("--mask-img/--mask-blur are inpainting flags (need "
+                "--reference-img, not an --img2img-strength mode)")
+    if args.hires_scale is not None:
+        if args.reference_img is not None or args.use_refiner:
+            return ("--hires-scale is a txt2img feature (no --reference-img "
+                    "/ --use-refiner)")
+    elif args.invert_img is not None:
+        if (args.reference_img is not None or args.edit_image is not None
+                or args.use_refiner or control_kw or args.preview_every):
+            return ("--invert-img is not combinable with --reference-img / "
+                    "--edit-image / --use-refiner / --controlnet / "
+                    "--ip-adapter / --deepcache / --pag-scale / "
+                    "--preview-every")
+        if args.sampler != "ddim":
+            return "--invert-img is defined on the DDIM chain (--sampler ddim)"
+    elif args.edit_image is not None:
+        if args.reference_img is not None:
+            return ("--edit-image (ip2p) and --reference-img "
+                    "(img2img/inpaint) are different conditioning modes — "
+                    "pass one")
+        if args.use_refiner or control_kw or args.preview_every:
+            return ("--edit-image (ip2p) is not combinable with "
+                    "--use-refiner / --controlnet / --ip-adapter / "
+                    "--deepcache / --pag-scale / --preview-every")
+    return control_kw
+
+
 def main(argv=None, device="cuda") -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -413,42 +508,10 @@ def main(argv=None, device="cuda") -> int:
         print("error: use either repeated --prompt or --batch, not both",
               file=sys.stderr)
         return 1
-    if args.outpaint is not None and (
-            args.reference_img is None or args.img2img_strength is not None):
-        print("error: --outpaint extends --reference-img (and is not an "
-              "--img2img-strength mode)", file=sys.stderr)
+    control_kw = _check_module11(args)
+    if isinstance(control_kw, str):
+        print(f"error: {control_kw}", file=sys.stderr)
         return 1
-    if (args.mask_img is not None or args.mask_blur > 0) and (
-            args.reference_img is None or args.img2img_strength is not None):
-        print("error: --mask-img/--mask-blur are inpainting flags (need "
-              "--reference-img, not an --img2img-strength mode)",
-              file=sys.stderr)
-        return 1
-    extensions = {}
-    if args.deepcache is not None:
-        if args.preview_every:
-            print("error: --deepcache is incompatible with --controlnet, "
-                  "--hires-scale and --preview-every", file=sys.stderr)
-            return 1
-        if args.deepcache < 1 or args.deepcache_branch < 1:
-            print("error: --deepcache and --deepcache-branch must be >= 1",
-                  file=sys.stderr)
-            return 1
-        extensions["deepcache"] = (args.deepcache, args.deepcache_branch)
-    if args.pag_scale:
-        extensions["pag_scale"] = args.pag_scale
-    if args.invert_img is not None:
-        if (args.reference_img is not None or args.use_refiner
-                or extensions or args.preview_every):
-            print("error: --invert-img is not combinable with "
-                  "--reference-img / --edit-image / --use-refiner / "
-                  "--controlnet / --ip-adapter / --deepcache / --pag-scale "
-                  "/ --preview-every", file=sys.stderr)
-            return 1
-        if args.sampler != "ddim":
-            print("error: --invert-img is defined on the DDIM chain "
-                  "(--sampler ddim)", file=sys.stderr)
-            return 1
 
     if args.random_weights or args.model_dir is None:
         if not args.random_weights:
@@ -474,6 +537,8 @@ def main(argv=None, device="cuda") -> int:
             return 1
     if args.vae_bf16:
         pipe.vae_dtype = torch.bfloat16
+    if args.vae_tile:
+        pipe.vae_tile = args.vae_tile
     if args.no_strict_resolution:
         pipe.strict_resolutions = False
     if args.zsnr:
@@ -500,6 +565,20 @@ def main(argv=None, device="cuda") -> int:
                   file=sys.stderr)
             return 1
 
+    if args.controlnet is not None:
+        pipe.load_controlnet(args.controlnet[0] if len(args.controlnet) == 1
+                             else args.controlnet)
+        images = [load_images([p])[0] for p in args.control_image]
+        control_kw["control_image"] = (images[0] if len(images) == 1
+                                       else images)
+    if args.ip_adapter is not None:
+        try:
+            pipe.load_ip_adapter(args.ip_adapter, args.ip_image_encoder)
+        except (KeyError, FileNotFoundError, ValueError) as e:
+            print(f"error: failed to load IP-Adapter: {e}", file=sys.stderr)
+            return 1
+        control_kw["ip_adapter_image"] = load_images([args.ip_image])[0]
+
     prompts = (args.prompt if len(args.prompt) > 1
                else [args.prompt[0]] * args.batch)
     common = dict(n_steps=args.n_diffusion_steps,
@@ -507,8 +586,13 @@ def main(argv=None, device="cuda") -> int:
                   seed=args.seed, negative_prompt=args.negative_prompt,
                   sampler=args.sampler, schedule=args.schedule,
                   guidance_rescale=args.guidance_rescale,
-                  no_cfg=args.no_cfg, ddim_eta=args.ddim_eta, **extensions)
-    if args.invert_img is not None:
+                  no_cfg=args.no_cfg)
+    if args.hires_scale is not None:
+        images = pipe.txt2img_hires(
+            prompts, resolution=(args.height, args.width),
+            hires_scale=args.hires_scale,
+            hires_strength=args.hires_strength, **common)
+    elif args.invert_img is not None:
         # DDIM inversion editing (arXiv:2211.09794): invert under the
         # source prompt, denoise under the edit prompt over the same grid
         src = load_images([args.invert_img])
@@ -526,13 +610,27 @@ def main(argv=None, device="cuda") -> int:
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 1
+    elif args.edit_image is not None:
+        # InstructPix2Pix (arXiv:2211.09800): an 8-channel UNet, 3-way CFG
+        try:
+            images = pipe.ip2p(
+                prompts, load_images([args.edit_image]),
+                n_steps=args.n_diffusion_steps,
+                guidance_scale=args.unconditional_guidance_scale,
+                image_guidance_scale=args.image_guidance_scale,
+                seed=args.seed, negative_prompt=args.negative_prompt,
+                sampler=args.sampler, schedule=args.schedule,
+                no_cfg=args.no_cfg)
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
     elif args.reference_img is not None and args.img2img_strength is not None:
         ref = load_images([args.reference_img])
         if len(prompts) > 1:
             # one variation per prompt off the same reference
             ref = np.repeat(ref, len(prompts), axis=0)
         images = pipe.img2img(prompts, ref, strength=args.img2img_strength,
-                              **common)
+                              ddim_eta=args.ddim_eta, **common, **control_kw)
     elif args.reference_img is not None and args.outpaint is not None:
         try:
             pad = tuple(int(v) for v in args.outpaint.split(","))
@@ -545,7 +643,9 @@ def main(argv=None, device="cuda") -> int:
         ref = load_images([args.reference_img])
         try:
             images = pipe.outpaint(prompts, ref, pad=pad,
-                                   fill=args.outpaint_fill, **common)
+                                   fill=args.outpaint_fill,
+                                   ddim_eta=args.ddim_eta, **common,
+                                   **control_kw)
         except ValueError as e:
             print(f"error: {e}", file=sys.stderr)
             return 1
@@ -556,7 +656,8 @@ def main(argv=None, device="cuda") -> int:
             crop_right=args.crop_right, crop_top=args.crop_top,
             crop_bottom=args.crop_bottom, crop_out=args.crop_out,
             mask_image=_load_mask(args), mask_blur=args.mask_blur,
-            use_refiner=args.use_refiner, **common)
+            use_refiner=args.use_refiner, ddim_eta=args.ddim_eta, **common,
+            **control_kw)
     else:
         preview_cb = None
         if args.preview_every:
@@ -567,7 +668,7 @@ def main(argv=None, device="cuda") -> int:
             prompts, resolution=(args.height, args.width),
             use_refiner=args.use_refiner, denoising_end=args.denoising_end,
             preview_every=args.preview_every, preview_callback=preview_cb,
-            **common)
+            ddim_eta=args.ddim_eta, **common, **control_kw)
 
     meta = {
         "parameters": (

@@ -19,9 +19,15 @@ builders return the port's state_dicts of zero-copy views moved to the
 device one tensor at a time. An inpainting UNet (conv_in of 9 channels)
 loads with its config's in_channels set to 9, an LCM-distilled UNet with
 its time_cond_proj_dim set to the width of time_embedding.cond_proj (its
-guidance-embedding projection, ``time_embed.cond_proj`` in the port). The
-ControlNet (module 11) and SD1 (module 12) loaders wait for their
-modules.
+guidance-embedding projection, ``time_embed.cond_proj`` in the port), an
+InstructPix2Pix UNet (8 channels) with in_channels 8.
+
+A diffusers ``ControlNetModel`` directory (controlnet-canny-sdxl-1.0's
+layout) loads with ``load_controlnet_dir``: the trunk's keys are the
+UNet's input side (conv_in, down_blocks, mid_block), plus
+controlnet_cond_embedding.*, controlnet_down_blocks.{i} (one zero conv an
+input block) and controlnet_mid_block; io/diffusers_write.py writes it.
+The SD1 loaders wait for module 12.
 """
 
 from __future__ import annotations
@@ -112,15 +118,8 @@ def _dif_spatial(ks: _KeyStore, key: str):
     }
 
 
-def build_unet_from_diffusers(
-    tensors: Dict[str, torch.Tensor], cfg: UNetConfig, dtype=torch.bfloat16,
-    device="cpu",
-) -> Dict[str, torch.Tensor]:
-    """The port UNet's state_dict (fused self-attention qkv)."""
-    ks = _KeyStore(tensors, device=device, dtype=dtype)
-    in_plan, _, out_plan = unet_block_plan(cfg)
-    n_levels = len(cfg.channel_mults)
-
+def _dif_input_side(ks: _KeyStore, n_levels: int):
+    """(input blocks, middle block) trees of a UNet or ControlNet trunk."""
     input_blocks = [{"conv": ks.conv("conv_in")}]
     for level in range(n_levels):
         d = ks.sub(f"down_blocks.{level}")
@@ -139,6 +138,33 @@ def build_unet_from_diffusers(
         "transformer": _dif_spatial(mid, "attentions.0"),
         "res2": _dif_res(mid, "resnets.1"),
     }
+    return input_blocks, middle
+
+
+def _dif_embeds(ks: _KeyStore, cfg: UNetConfig) -> dict:
+    """time_embed and, for SDXL's micro-conditioning, label_embed."""
+    out = {"time_embed": {
+        "lin1": ks.linear("time_embedding.linear_1"),
+        "lin2": ks.linear("time_embedding.linear_2"),
+    }}
+    # absent in SD 1.x/2.x checkpoints
+    if cfg.adm_in_channels and ks.has("add_embedding.linear_1.weight"):
+        out["label_embed"] = {
+            "lin1": ks.linear("add_embedding.linear_1"),
+            "lin2": ks.linear("add_embedding.linear_2"),
+        }
+    return out
+
+
+def build_unet_from_diffusers(
+    tensors: Dict[str, torch.Tensor], cfg: UNetConfig, dtype=torch.bfloat16,
+    device="cpu",
+) -> Dict[str, torch.Tensor]:
+    """The port UNet's state_dict (fused self-attention qkv)."""
+    ks = _KeyStore(tensors, device=device, dtype=dtype)
+    in_plan, _, out_plan = unet_block_plan(cfg)
+    n_levels = len(cfg.channel_mults)
+    input_blocks, middle = _dif_input_side(ks, n_levels)
 
     output_blocks = []
     for i in range(n_levels):  # up_blocks are already deep->shallow
@@ -153,10 +179,7 @@ def build_unet_from_diffusers(
             output_blocks.append(p)
 
     params = {
-        "time_embed": {
-            "lin1": ks.linear("time_embedding.linear_1"),
-            "lin2": ks.linear("time_embedding.linear_2"),
-        },
+        **_dif_embeds(ks, cfg),
         "input_blocks": input_blocks,
         "middle_block": middle,
         "output_blocks": output_blocks,
@@ -167,12 +190,6 @@ def build_unet_from_diffusers(
     if ks.has("time_embedding.cond_proj.weight"):
         params["time_embed"]["cond_proj"] = ks.linear(
             "time_embedding.cond_proj")
-    # SDXL's micro-conditioning embedding; absent in SD 1.x/2.x checkpoints
-    if cfg.adm_in_channels and ks.has("add_embedding.linear_1.weight"):
-        params["label_embed"] = {
-            "lin1": ks.linear("add_embedding.linear_1"),
-            "lin2": ks.linear("add_embedding.linear_2"),
-        }
 
     # structural validation against the generated plan
     if len(input_blocks) != len(in_plan) or len(output_blocks) != len(out_plan):
@@ -185,6 +202,70 @@ def build_unet_from_diffusers(
         if spec.kind in ("res_t", "res_t_up") and "transformer" not in p:
             raise ValueError(f"plan expects a transformer at a {spec.kind} block")
     return fuse_qkv(flatten_pytree(params))
+
+
+# ---------------------------------------------------------------------------
+# ControlNet (diffusers ControlNetModel layout)
+# ---------------------------------------------------------------------------
+
+def build_controlnet_from_diffusers(
+    tensors: Dict[str, torch.Tensor], cfg: UNetConfig, dtype=torch.bfloat16,
+    device="cpu",
+) -> Dict[str, torch.Tensor]:
+    """The state_dict of a models/controlnet.py ``ControlNet`` (fused
+    self-attention qkv) from a diffusers ControlNetModel's tensors: the
+    trunk as the UNet's input side, plus controlnet_cond_embedding.
+    {conv_in, blocks.{2i, 2i+1}, conv_out}, controlnet_down_blocks.{i}
+    and controlnet_mid_block."""
+    ks = _KeyStore(tensors, device=device, dtype=dtype)
+    in_plan, _, _ = unet_block_plan(cfg)
+    input_blocks, middle = _dif_input_side(ks, len(cfg.channel_mults))
+    if len(input_blocks) != len(in_plan):
+        raise ValueError(
+            f"controlnet trunk block count mismatch: got {len(input_blocks)}, "
+            f"plan expects {len(in_plan)} — wrong config for these weights?")
+    ce = ks.sub("controlnet_cond_embedding")
+    ce_blocks = []
+    while ce.has(f"blocks.{2 * len(ce_blocks)}.weight"):
+        i = len(ce_blocks)
+        ce_blocks.append({"conv1": ce.conv(f"blocks.{2 * i}"),
+                          "conv2": ce.conv(f"blocks.{2 * i + 1}")})
+    params = {
+        **_dif_embeds(ks, cfg),
+        "cond_embed": {"conv_in": ce.conv("conv_in"), "blocks": ce_blocks,
+                       "conv_out": ce.conv("conv_out")},
+        "input_blocks": input_blocks,
+        "zero_convs": [ks.conv(f"controlnet_down_blocks.{i}")
+                       for i in range(len(in_plan))],
+        "middle_block": middle,
+        "zero_conv_mid": ks.conv("controlnet_mid_block"),
+    }
+    return fuse_qkv(flatten_pytree(params))
+
+
+def load_controlnet_dir(model_dir: str, diffuser_cfg, dtype=torch.bfloat16,
+                        device="cuda"):
+    """A diffusers ControlNetModel directory (config.json +
+    diffusion_pytorch_model*.safetensors) -> (ControlNet on ``device`` in
+    ``dtype``, its UNetConfig: the hosting diffuser's unet_config(), its
+    4-channel input whatever the UNet's)."""
+    from ..models.controlnet import ControlNet
+
+    cfg = dataclasses.replace(diffuser_cfg.unet_config(), in_channels=4,
+                              freeu=None, time_cond_proj_dim=0)
+    sd = build_controlnet_from_diffusers(
+        _load_safetensors_dir(model_dir), cfg, dtype, device)
+    return _load_strict(ControlNet(cfg, "meta", dtype), sd, model_dir), cfg
+
+
+def _load_strict(module, sd: Dict[str, torch.Tensor], path: str):
+    """A meta-device module given ``sd``'s tensors strictly: a missing,
+    extra or misshapen key is a ValueError naming the file."""
+    try:
+        module.load_state_dict(sd, strict=True, assign=True)
+    except RuntimeError as e:
+        raise ValueError(f"{path}: {e}") from None
+    return module.eval().requires_grad_(False)
 
 
 # ---------------------------------------------------------------------------

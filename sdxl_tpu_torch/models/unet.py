@@ -16,7 +16,11 @@ LoRA slot; cross-attention K/V are computed inline from the context, so
 factors on ``attn2.k``/``attn2.v`` act there (``precompute_cross_kv`` is
 for sampling, where the context is fixed).
 
-The weight-free extensions of the reference's forward: FreeU's backbone
+The reference's UNet extensions: ControlNet's residuals added to the
+skips and to the middle block's output (``control_residuals``; the trunk
+is models/controlnet.py), IP-Adapter's decoupled image-token attention in
+every cross-attention (``ip_k``/``ip_v`` in its precomputed K/V, merged by
+models/ip_adapter.py), FreeU's backbone
 boost and skip filter at the two deepest decoder levels (``freeu``), PAG's
 perturbed call with the middle block's self-attentions as the identity
 map (``pag_mid``), DeepCache's full call that also returns the deep
@@ -170,11 +174,17 @@ class CrossAttention(nn.Module):
 
     def forward(self, x, context, n_head, kv=None):
         """kv: optional precomputed {"k", "v"} of a loop-invariant context
-        (precompute_cross_kv)."""
+        (precompute_cross_kv), with IP-Adapter's {"ip_k", "ip_v"} over the
+        image tokens when merged (ip_adapter.merge_ip_kv): the two
+        attentions are summed before the out projection, the adapter's
+        scale already folded into ip_v."""
         if kv is None:
             kv = {"k": self.k(context), "v": self.v(context)}
-        return self.out(qkv_attention(self.q(x), kv["k"], kv["v"], None,
-                                      n_head))
+        q = self.q(x)
+        att = qkv_attention(q, kv["k"], kv["v"], None, n_head)
+        if "ip_k" in kv:
+            att = att + qkv_attention(q, kv["ip_k"], kv["ip_v"], None, n_head)
+        return self.out(att)
 
 
 class GEGLU(nn.Module):
@@ -259,6 +269,18 @@ def _mlp2(c_in: int, c_out: int, **kw) -> nn.ModuleDict:
                           "lin2": Linear(c_out, c_out, **kw)})
 
 
+def middle_block(spec: BlockSpec, cfg: UNetConfig, **kw) -> nn.ModuleDict:
+    """The middle block (res1, transformer, res2) of the UNet and of the
+    ControlNet trunk."""
+    c = spec.ch_out
+    return nn.ModuleDict({
+        "res1": ResBlock(c, c, cfg.time_embed_dim, **kw),
+        "transformer": SpatialTransformer(c, cfg.context_dim, spec.depth,
+                                          spec.n_head, **kw),
+        "res2": ResBlock(c, c, cfg.time_embed_dim, **kw),
+    })
+
+
 class UNet(nn.Module):
     def __init__(self, cfg: UNetConfig, device=None, dtype=torch.bfloat16):
         super().__init__()
@@ -275,14 +297,7 @@ class UNet(nn.Module):
                             if cfg.adm_in_channels else None)
         self.input_blocks = nn.ModuleList(UNetBlock(s, cfg, **kw)
                                           for s in in_plan)
-        c = mid_spec.ch_out
-        self.middle_block = nn.ModuleDict({
-            "res1": ResBlock(c, c, emb_dim, **kw),
-            "transformer": SpatialTransformer(c, cfg.context_dim,
-                                              mid_spec.depth, mid_spec.n_head,
-                                              **kw),
-            "res2": ResBlock(c, c, emb_dim, **kw),
-        })
+        self.middle_block = middle_block(mid_spec, cfg, **kw)
         self.norm_out = GroupNorm(cfg.model_channels, **kw)
         self.conv_out = Conv2d(cfg.model_channels, cfg.out_channels, 3, **kw)
         self.output_blocks = nn.ModuleList(UNetBlock(s, cfg, **kw)
@@ -329,15 +344,26 @@ def freeu_fourier_filter(x: torch.Tensor, threshold: int,
     return out.to(x.dtype)
 
 
-def _input_blocks(model: UNet, x, emb, context, in_kv, n=None):
+def _input_blocks(model, x, emb, context, in_kv, n=None, inject=None):
     """NHWC latent -> (NCHW activation, each input block's output) of the
-    first n input blocks (all of them by default)."""
+    first n input blocks (all of them by default). inject: NCHW, added to
+    input block 0's output (the ControlNet trunk's conditioning-image
+    embedding, models/controlnet.py)."""
     x = x.permute(0, 3, 1, 2).contiguous()
     saved = []
     for i, block in enumerate(model.input_blocks[:n]):
         x = block(x, emb, context, in_kv.get(i))
+        if i == 0 and inject is not None:
+            x = x + inject.to(x.dtype)
         saved.append(x)
     return x, saved
+
+
+def _middle(model, x, emb, context, kv=None, pag_mid: bool = False):
+    mid = model.middle_block
+    x = mid["res1"](x, emb)
+    x = mid["transformer"](x, context, kv, pag_mid)
+    return mid["res2"](x, emb)
 
 
 def _output_block(model: UNet, i: int, x, skip, emb, context, out_kv,
@@ -370,7 +396,8 @@ def _check_branch(model: UNet, branch: int) -> int:
 def unet_forward(model: UNet, x: torch.Tensor, timesteps: torch.Tensor,
                  context: torch.Tensor, label: Optional[torch.Tensor],
                  cross_kv=None, t_add=None, pag_mid: bool = False,
-                 freeu=None, cache_branch: Optional[int] = None):
+                 freeu=None, cache_branch: Optional[int] = None,
+                 control_residuals=None):
     """x: [B, h, w, C_in] NHWC latent -> [B, h, w, C_out] NHWC.
 
     cross_kv: optional precompute_cross_kv() output (the context is fixed
@@ -381,7 +408,11 @@ def unet_forward(model: UNet, x: torch.Tensor, timesteps: torch.Tensor,
     DiffuserConfig's). cache_branch: also return DeepCache's feature
     (arXiv:2312.00858), as (output, feature): the NCHW input of output
     block n_out - cache_branch before its skip-cat (and before FreeU),
-    the deep U a shallow step reuses (unet_forward_shallow)."""
+    the deep U a shallow step reuses (unet_forward_shallow).
+    control_residuals: (down, mid) of the ControlNet trunk(s)
+    (controlnet_forward, NCHW, scaled and summed by the sampler): each down
+    residual added to its saved skip in the skip's dtype, mid to the
+    middle block's output."""
     n_out = len(model.output_blocks)
     if cache_branch is not None:
         _check_branch(model, cache_branch)
@@ -390,10 +421,11 @@ def unet_forward(model: UNet, x: torch.Tensor, timesteps: torch.Tensor,
     out_kv = ckv.get("output_blocks", {})
     x, saved = _input_blocks(model, x, emb, context,
                              ckv.get("input_blocks", {}))
-    mid = model.middle_block
-    x = mid["res1"](x, emb)
-    x = mid["transformer"](x, context, ckv.get("middle_block"), pag_mid)
-    x = mid["res2"](x, emb)
+    x = _middle(model, x, emb, context, ckv.get("middle_block"), pag_mid)
+    if control_residuals is not None:
+        down, mid = control_residuals
+        saved = [s + r.to(s.dtype) for s, r in zip(saved, down)]
+        x = x + mid.to(x.dtype)
     cache = None
     for i in range(n_out):
         if cache_branch is not None and i == n_out - cache_branch:
@@ -432,10 +464,11 @@ def unet_forward_shallow(model: UNet, x, timesteps, context, label, cache,
     return _head(model, x)
 
 
-def precompute_cross_kv(model: UNet, context: torch.Tensor):
+def precompute_cross_kv(model, context: torch.Tensor):
     """Cross-attention K/V of a fixed context for every transformer block:
     {"input_blocks": {i: [{"k", "v"}] * depth}, "middle_block": [...],
-    "output_blocks": {i: [...]}} (the reference's layout)."""
+    "output_blocks": {i: [...]}} (the reference's layout). The ControlNet
+    trunk has no output blocks: its "output_blocks" is empty."""
 
     def st_kv(st: SpatialTransformer):
         return [{"k": blk.attn2.k(context), "v": blk.attn2.v(context)}
@@ -448,7 +481,7 @@ def precompute_cross_kv(model: UNet, context: torch.Tensor):
     return {
         "input_blocks": blocks_kv(model.input_blocks),
         "middle_block": st_kv(model.middle_block["transformer"]),
-        "output_blocks": blocks_kv(model.output_blocks),
+        "output_blocks": blocks_kv(getattr(model, "output_blocks", ())),
     }
 
 

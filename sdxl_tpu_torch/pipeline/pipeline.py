@@ -1,6 +1,5 @@
 """SDXL pipeline: prompt (and reference image) -> uint8 images
-(sdxl_tpu/pipeline/pipeline.py's SDXL paths without ControlNet,
-IP-Adapter, ip2p, hires-fix and tiled VAE).
+(sdxl_tpu/pipeline/pipeline.py's SDXL paths).
 
 Stages, as in the reference: dual-CLIP conditioning (f32) -> pair-batched
 CFG DDIM, one of the twelve k-samplers or LCM over the base UNet (bf16, or
@@ -8,7 +7,10 @@ f32) -> optional refiner with the same sampler (DDIM after LCM; re-noise
 at t = 1000 - refiner_step_start, or the ensemble-of-experts tail after
 ``denoising_end``) -> VAE decode (f32, or bf16 with ``vae_dtype``) ->
 uint8 RGB. Inpainting, img2img, outpaint and DDIM inversion first encode
-their reference images with the VAE encoder (f32).
+their reference images with the VAE encoder (f32); ``vae_tile`` tiles
+both VAE directions (latent.py). ``txt2img_hires`` samples, upscales the
+latent and refines it at the target size; ``ip2p`` edits an image with an
+8-channel InstructPix2Pix UNet.
 
 Precision: building a pipeline sets
 ``torch.backends.cuda.matmul.allow_tf32 = False`` and
@@ -21,13 +23,15 @@ guidance_scale, seed (one int), negative_prompt, profile_stages,
 initial_latent, use_refiner, refiner_step_start, denoising_end,
 inpaint_reference, inpaint_mask, sampler (ddim, any of K_SAMPLERS, or
 lcm), schedule, guidance_rescale, no_cfg, ddim_eta, preview_every,
-preview_callback, deepcache and pag_scale, with FreeU through
-``diffuser_cfg.freeu``; ``inpaint`` and ``outpaint`` take the same
-keywords, ``img2img`` those the reference's takes, and ``ddim_invert``
-inverts images. The reference's other options (ControlNet, IP-Adapter,
-device_output) raise NotImplementedError, and per-image seed lists too.
-The base and the refiner stay resident on the device: the reference's HBM
-planner has no work on an 80 GB card.
+preview_callback, deepcache, pag_scale, control_image, control_scale,
+control_start, control_end (the ControlNets of ``load_controlnet``),
+ip_adapter_image and ip_adapter_scale (the adapter of
+``load_ip_adapter``), with FreeU through ``diffuser_cfg.freeu``;
+``inpaint`` and ``outpaint`` take the same keywords, ``img2img`` those
+the reference's takes, and ``ddim_invert`` inverts images. The
+reference's device_output raises NotImplementedError, and per-image seed
+lists too. The base and the refiner stay resident on the device: the
+reference's HBM planner has no work on an 80 GB card.
 
 Noise: one torch.Generator seeded with ``seed`` gives, in this order, the
 initial latent noise, the inpainting pin noise of every step, the base's
@@ -39,6 +43,7 @@ reference.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -60,7 +65,12 @@ from ..models.vae import VAEDecoder, VAEEncoder
 from ..tokenizer import ClipTokenizer, OpenClipTokenizer
 from ..utils import StageTimer, fence, log
 from .conditioning import Conditioning, text_to_conditioning
-from .latent import decode_latent_to_images, encode_images_to_latent
+from .latent import (
+    decode_latent_tiled,
+    decode_latent_to_images,
+    encode_images_tiled,
+    encode_images_to_latent,
+)
 from .k_samplers import (
     K_SAMPLERS,
     host_table,
@@ -133,6 +143,16 @@ class SDXLPipeline:
     timer: StageTimer = field(default_factory=StageTimer)
     # final latent [B, h, w, 4] f32 of the last txt2img / img2img call
     last_latent: Optional[torch.Tensor] = None
+    # ControlNet (load_controlnet): one trunk or a tuple of them; a request
+    # with a control_image runs them
+    controlnet: object = None
+    # IP-Adapter (load_ip_adapter) and its CLIP vision tower, both f32, each
+    # with its config as .cfg; a request with an ip_adapter_image runs them
+    ip_adapter: Optional[nn.Module] = None
+    ip_vision: Optional[nn.Module] = None
+    # tiled VAE decode and encode: the latent tile size (None: whole
+    # images)
+    vae_tile: Optional[int] = None
     # unconditional half of the conditioning, memoised across requests
     # (see text_to_conditioning); clear it when the embedder changes
     _uncond_cache: dict = field(default_factory=dict)
@@ -208,25 +228,195 @@ class SDXLPipeline:
         return torch.as_tensor(a if isinstance(a, torch.Tensor)
                                else np.asarray(a), device=self.device)
 
-    def _encode(self, images) -> torch.Tensor:
+    def _encode(self, images, scale_factor: Optional[float] = None
+                ) -> torch.Tensor:
         """[B, H, W, 3] uint8 (numpy or tensor) -> VAE latent on the
-        device, encoded in f32."""
+        device, encoded in f32 (tiled with vae_tile) and times
+        scale_factor (the pipeline's by default)."""
         if self.vae_encoder is None:
             raise ValueError(
                 "this pipeline has no VAE encoder (a checkpoint without "
                 "encoder weights, or random_pipeline(with_encoder=False))")
-        return encode_images_to_latent(self.vae_encoder,
-                                       self._on_device(images),
-                                       self.scale_factor)
+        sf = self.scale_factor if scale_factor is None else scale_factor
+        images = self._on_device(images)
+        if self.vae_tile is not None:
+            return encode_images_tiled(self.vae_encoder, images, sf,
+                                       tile=self.vae_tile)
+        return encode_images_to_latent(self.vae_encoder, images, sf)
 
     def _decode(self, latent: torch.Tensor) -> np.ndarray:
+        """The final latent -> uint8 images on the host; with vae_tile
+        each image is decoded in tiles on its own."""
         self.last_latent = latent
         with self.timer.stage("vae_decode"):
-            images = decode_latent_to_images(self.vae, latent,
-                                             self.scale_factor,
-                                             self.vae_dtype)
+            if self.vae_tile is not None:
+                images = torch.cat([
+                    decode_latent_tiled(self.vae, latent[i:i + 1],
+                                        self.scale_factor, self.vae_dtype,
+                                        tile=self.vae_tile)
+                    for i in range(latent.shape[0])])
+            else:
+                images = decode_latent_to_images(self.vae, latent,
+                                                 self.scale_factor,
+                                                 self.vae_dtype)
             fence(images)
         return images.cpu().numpy()
+
+    def load_controlnet(self, model_dir) -> None:
+        """Load diffusers-layout ControlNetModel directories for this
+        pipeline's UNet (io/diffusers_sdxl.py) in its dtype: one path, or a
+        sequence for multi-ControlNet (diffusers' MultiControlNetModel: the
+        residuals summed, each net at its own scale and window). A request
+        with a control_image then runs the trunk(s) every step."""
+        from ..io.diffusers_sdxl import load_controlnet_dir
+
+        dirs = ([model_dir] if isinstance(model_dir, (str, os.PathLike))
+                else list(model_dir))
+        loaded = [load_controlnet_dir(d, self.diffuser_cfg,
+                                      self.compute_dtype, self.device)
+                  for d in dirs]
+        self.controlnet = (loaded[0][0] if len(loaded) == 1
+                           else tuple(net for net, _ in loaded))
+        log(f"controlnet loaded from {', '.join(map(str, dirs))}"
+            + (f" ({len(loaded)} nets)" if len(loaded) > 1 else ""))
+
+    def load_ip_adapter(self, adapter_path: str,
+                        image_encoder_dir: str) -> None:
+        """Load an official IP-Adapter safetensors file and its
+        transformers CLIPVisionModelWithProjection directory
+        (io/ip_adapter.py), both f32. A request with an ip_adapter_image
+        then adds the decoupled image-token attention to the base UNet
+        (the refiner's stage runs without it)."""
+        from ..io.ip_adapter import load_clip_vision_dir, load_ip_adapter_file
+
+        self.ip_vision, vision_cfg = load_clip_vision_dir(image_encoder_dir,
+                                                          self.device)
+        self.ip_adapter, cfg = load_ip_adapter_file(
+            adapter_path, self.diffuser_cfg.unet_config(), self.device)
+        # "proj" reads the projected image embedding; the "plus"
+        # Resampler the penultimate hidden states
+        enc_dim = (vision_cfg.n_state if cfg.variant == "resampler"
+                   else vision_cfg.embed_dim)
+        if cfg.clip_embed_dim != enc_dim:
+            raise ValueError(
+                f"IP-Adapter expects {cfg.clip_embed_dim}-d "
+                f"image features but the encoder provides {enc_dim} — "
+                "wrong image encoder? (ip-adapter_sdxl pairs with "
+                "ViT-bigG, *_vit-h adapters with ViT-H)")
+        log(f"ip-adapter loaded from {adapter_path} "
+            f"(encoder {image_encoder_dir}, "
+            f"{cfg.variant} variant, {cfg.n_tokens} image tokens)")
+
+    def _prep_ip(self, image, scale: float) -> Optional[dict]:
+        """ip_adapter_image -> the samplers' ``ip``: the image through the
+        vision tower and the adapter's projection once a request, with the
+        unconditional rows' tokens (a zero embedding for the proj variant;
+        the tower on zero pixels, after normalisation, for plus)."""
+        if image is None:
+            return None
+        if self.ip_adapter is None:
+            raise ValueError(
+                "ip_adapter_image given but no IP-Adapter is loaded "
+                "(pipe.load_ip_adapter / --ip-adapter)")
+        from ..models.clip_vision import (
+            clip_vision_embed,
+            clip_vision_penultimate,
+            preprocess_image,
+        )
+        from ..models.ip_adapter import (
+            ip_image_tokens,
+            organize_ip_layers,
+            resampler_tokens,
+        )
+
+        pixels = preprocess_image(image, self.ip_vision.cfg, self.device)
+        if self.ip_adapter.cfg.variant == "resampler":
+            tokens, utokens = (
+                resampler_tokens(self.ip_adapter, clip_vision_penultimate(
+                    self.ip_vision, px))
+                for px in (pixels, torch.zeros_like(pixels)))
+        else:
+            embed = clip_vision_embed(self.ip_vision, pixels)
+            tokens, utokens = (ip_image_tokens(self.ip_adapter, e)
+                               for e in (embed, torch.zeros_like(embed)))
+        return {"layers": organize_ip_layers(
+                    self.ip_adapter, self.diffuser_cfg.unet_config()),
+                "tokens": tokens, "tokens_uncond": utokens,
+                "scale": float(scale)}
+
+    @property
+    def n_controlnets(self) -> int:
+        if self.controlnet is None:
+            return 0
+        return len(self.controlnet) if isinstance(self.controlnet,
+                                                  tuple) else 1
+
+    def _prep_one_control(self, control_image, resolution,
+                          batch: int) -> torch.Tensor:
+        """A control image ([H, W, 3] or [B, H, W, 3], uint8 or float in
+        [0, 1]) at the generation's resolution -> [batch, H, W, 3] f32 in
+        [0, 1] on the device."""
+        img = np.asarray(control_image)
+        if img.ndim == 3:
+            img = img[None]
+        h, w = resolution
+        if img.shape[1:3] != (h, w):
+            raise ValueError(
+                f"control image is {img.shape[1]}x{img.shape[2]}, generation "
+                f"resolution is {h}x{w} — they must match")
+        if img.dtype == np.uint8:
+            img = img.astype(np.float32) / 255.0
+        img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        return img.expand(batch, h, w, 3)
+
+    def _control_kwargs(self, control_image, control_scale, control_start,
+                        control_end, resolution, batch: int) -> dict:
+        """The samplers' ControlNet keywords: one control image for one net
+        (a scale, start and end, or one-item sequences), or a sequence of N
+        images for N nets (each of scale, start and end one float for all
+        or N)."""
+        if control_image is None:
+            return {}
+        n = self.n_controlnets
+        if n == 0:
+            raise ValueError(
+                "control_image given but no ControlNet is loaded "
+                "(pipe.load_controlnet / --controlnet)")
+        multi_img = (isinstance(control_image, (list, tuple))
+                     or (isinstance(control_image, np.ndarray)
+                         and control_image.ndim == 5))
+
+        def per_net(v, name):
+            if isinstance(v, (list, tuple)):
+                if len(v) != n:
+                    raise ValueError(
+                        f"{name}: {len(v)} values for {n} ControlNets")
+                return tuple(float(x) for x in v)
+            return (float(v),) * n
+
+        def first(v):
+            return float(v[0] if isinstance(v, (list, tuple)) else v)
+
+        if n == 1 and not multi_img:
+            return dict(
+                controlnet=self.controlnet,
+                control_image=self._prep_one_control(control_image,
+                                                     resolution, batch),
+                control_scale=first(control_scale),
+                control_window=(first(control_start), first(control_end)))
+        imgs = list(control_image) if multi_img else [control_image] * n
+        if len(imgs) != n:
+            raise ValueError(f"{len(imgs)} control images for {n} "
+                             "ControlNets")
+        nets = (self.controlnet if isinstance(self.controlnet, tuple)
+                else (self.controlnet,))
+        return dict(
+            controlnet=nets,
+            control_image=tuple(self._prep_one_control(im, resolution, batch)
+                                for im in imgs),
+            control_scale=per_net(control_scale, "control_scale"),
+            control_window=tuple(zip(per_net(control_start, "control_start"),
+                                     per_net(control_end, "control_end"))))
 
     @torch.inference_mode()
     def txt2img(self, prompts, resolution: Tuple[int, int] = (1024, 1024),
@@ -243,7 +433,10 @@ class SDXLPipeline:
                 deepcache: Optional[Tuple[int, int]] = None,
                 pag_scale: float = 0.0,
                 initial_latent: Optional[torch.Tensor] = None,
-                ddim_eta: float = 0.0, **options) -> np.ndarray:
+                ddim_eta: float = 0.0, control_image=None,
+                control_scale=1.0, control_start=0.0, control_end=1.0,
+                ip_adapter_image=None, ip_adapter_scale: float = 0.6,
+                **options) -> np.ndarray:
         """Prompt(s) -> [B, H, W, 3] uint8 images (numpy, on the host).
 
         sampler: "ddim" (the reference's), a k-sampler (K_SAMPLERS) in
@@ -263,6 +456,14 @@ class SDXLPipeline:
         UNet call a step. deepcache (interval, branch): DeepCache, the
         whole UNet every interval-th step (the refiner stage too). FreeU
         runs when ``diffuser_cfg.freeu`` is set.
+        control_image ([H, W, 3] or [B, H, W, 3], uint8 or [0, 1] float,
+        the request's size; a sequence of them with several ControlNets):
+        the loaded ControlNet(s) every step of the base stage, residuals
+        scaled by control_scale inside the (control_start, control_end)
+        step-fraction window (each one float, or one per net).
+        ip_adapter_image (any size; CLIP-resized): the loaded IP-Adapter's
+        image tokens at ip_adapter_scale in every cross-attention of the
+        base stage.
         initial_latent ([B, h, w, 4], VP space at the first grid timestep,
         e.g. ddim_invert's; DDIM only) replaces the seeded starting noise.
         use_refiner: after the base, the refiner re-noises the latent at
@@ -352,6 +553,10 @@ class SDXLPipeline:
 
         cond = self.conditioning(prompts, resolution, negative_prompt,
                                  profile_stages)
+        ctl = self._control_kwargs(control_image, control_scale,
+                                   control_start, control_end, resolution,
+                                   cond.batch)
+        ipd = self._prep_ip(ip_adapter_image, ip_adapter_scale)
         noise = None
         if initial_latent is not None:
             noise = torch.as_tensor(initial_latent, dtype=torch.float32,
@@ -377,7 +582,8 @@ class SDXLPipeline:
                     fence(out)
 
         common = dict(initial_noise=noise, reference=reference_latent,
-                      mask=mask, concat_channels=concat, use_cfg=use_cfg)
+                      mask=mask, concat_channels=concat, use_cfg=use_cfg,
+                      ip=ipd, **ctl)
         ext = dict(head_steps=head_steps, guidance_rescale=guidance_rescale,
                    deepcache=deepcache, pag_scale=pag_scale,
                    preview_every=preview_every,
@@ -463,13 +669,17 @@ class SDXLPipeline:
                 no_cfg: bool = False,
                 deepcache: Optional[Tuple[int, int]] = None,
                 pag_scale: float = 0.0, ddim_eta: float = 0.0,
-                **options) -> np.ndarray:
+                control_image=None, control_scale=1.0, control_start=0.0,
+                control_end=1.0, ip_adapter_image=None,
+                ip_adapter_scale: float = 0.6, **options) -> np.ndarray:
         """Strength-based image-to-image: encode the [B, H, W, 3] uint8
         references, re-noise at t = strength * 1000 (a k-sampler: to its
         schedule's first sigma there; LCM: to the first point of its grid
         windowed by strength) and run the rest of the grid with CFG on the
         base UNet (refine_latent, k_refine_latent, lcm_refine_latent). The
-        sampler keywords, deepcache and pag_scale are txt2img's."""
+        sampler keywords, deepcache, pag_scale, the ControlNet keywords
+        (the window over the steps run) and the IP-Adapter's are
+        txt2img's."""
         _unported(options, "img2img")
         if not 0.0 < strength <= 1.0:
             raise ValueError("strength must be in (0, 1]")
@@ -483,6 +693,10 @@ class SDXLPipeline:
         with self.timer.stage("vae_encode"):
             latent = self._encode(reference_images)
             fence(latent)
+        ctl = self._control_kwargs(control_image, control_scale,
+                                   control_start, control_end,
+                                   (height, width), cond.batch)
+        ipd = self._prep_ip(ip_adapter_image, ip_adapter_scale)
         # skip the first (1 - strength) of the schedule
         step_start = int(round((1.0 - strength) * 1000))
         use_cfg = not (no_cfg or guidance_scale == 1.0)
@@ -490,7 +704,7 @@ class SDXLPipeline:
             use_cfg = False
         generator = torch.Generator(device=self.device).manual_seed(int(seed))
         ext = dict(use_cfg=use_cfg, guidance_rescale=guidance_rescale,
-                   deepcache=deepcache, pag_scale=pag_scale)
+                   deepcache=deepcache, pag_scale=pag_scale, ip=ipd, **ctl)
         with self.timer.stage("diffuser"):
             if sampler == "lcm":
                 if deepcache is not None:
@@ -502,7 +716,8 @@ class SDXLPipeline:
                 latent = lcm_refine_latent(
                     self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
                     cond, generator, guidance_scale, strength, n_steps,
-                    compute_dtype=self.compute_dtype, use_cfg=use_cfg)
+                    compute_dtype=self.compute_dtype, use_cfg=use_cfg,
+                    ip=ipd, **ctl)
             elif sampler in K_SAMPLERS:
                 latent = k_refine_latent(
                     self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
@@ -514,6 +729,149 @@ class SDXLPipeline:
                     self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
                     cond, generator, guidance_scale, step_start, n_steps,
                     self.compute_dtype, ddim_eta=ddim_eta, **ext)
+        return self._decode(latent)
+
+    @torch.inference_mode()
+    def txt2img_hires(self, prompts, resolution: Tuple[int, int] = (1024,
+                                                                    1024),
+                      hires_scale: float = 2.0, hires_strength: float = 0.3,
+                      n_steps: int = 30, guidance_scale: float = 7.5,
+                      seed: int = 0, negative_prompt: str = "",
+                      sampler: str = "ddim", schedule: str = "linear",
+                      guidance_rescale: float = 0.0,
+                      no_cfg: bool = False, **options) -> np.ndarray:
+        """Hires-fix: sample at ``resolution``, upscale the latent by
+        hires_scale (bicubic, the size rounded to a multiple of 8 pixels),
+        then re-noise at hires_strength and denoise the grid's tail at the
+        target size (stage ``hires``) under a second conditioning at that
+        size. The generator gives the base's draws, then the hires pass's
+        re-noise and step noise."""
+        _unported(options, "txt2img_hires")
+        h, w = resolution
+        hh = int(round(h * hires_scale / 8.0)) * 8
+        hw = int(round(w * hires_scale / 8.0)) * 8
+        if hires_scale <= 1.0:
+            raise ValueError("hires_scale must be > 1")
+        if not 0.0 < hires_strength <= 1.0:
+            raise ValueError("hires_strength must be in (0, 1]")
+        if sampler not in SAMPLERS:
+            raise ValueError(
+                f"unknown sampler {sampler!r} ({'|'.join(SAMPLERS)})")
+        schedule = self._resolve_schedule(schedule)
+        use_cfg = not (no_cfg or guidance_scale == 1.0)
+        if sampler == "lcm" and self.diffuser_cfg.time_cond_proj_dim:
+            use_cfg = False
+        common = dict(guidance_scale=guidance_scale,
+                      compute_dtype=self.compute_dtype, use_cfg=use_cfg)
+        k_common = dict(common, guidance_rescale=guidance_rescale)
+        generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        cond = self.conditioning(prompts, resolution,
+                                 negative_prompt).astype(self.compute_dtype)
+        args = (self.unet, self.diffuser_cfg, self.alphas_cumprod)
+        with self.timer.stage("diffuser"):
+            if sampler == "lcm":
+                latent = lcm_sample_latent(*args, cond, generator,
+                                           n_steps=n_steps, **common)
+            elif sampler in K_SAMPLERS:
+                latent = euler_sample_latent(
+                    *args, cond, generator, n_steps=n_steps, method=sampler,
+                    schedule=schedule, **k_common)
+            else:
+                latent = sample_latent(*args, cond, generator,
+                                       n_steps=n_steps, **k_common)
+            fence(latent)
+        # the reference's jax.image.resize "cubic": Keys' a = -0.5 (torch's
+        # antialiased bicubic; an upscale needs no antialiasing)
+        up = torch.nn.functional.interpolate(
+            latent.float().permute(0, 3, 1, 2), size=(hh // 8, hw // 8),
+            mode="bicubic", align_corners=False, antialias=True
+        ).permute(0, 2, 3, 1)
+        cond_hi = self.conditioning(prompts, (hh, hw),
+                                    negative_prompt).astype(self.compute_dtype)
+        step_start = int(round((1.0 - hires_strength) * 1000))
+        with self.timer.stage("hires"):
+            if sampler == "lcm":
+                latent = lcm_refine_latent(*args, up, cond_hi, generator,
+                                           strength=hires_strength,
+                                           n_steps=n_steps, **common)
+            elif sampler in K_SAMPLERS:
+                latent = k_refine_latent(
+                    *args, up, cond_hi, generator, step_start=step_start,
+                    n_steps=n_steps, method=sampler, schedule=schedule,
+                    **k_common)
+            else:
+                latent = refine_latent(*args, up, cond_hi, generator,
+                                       step_start=step_start,
+                                       n_steps=n_steps, **k_common)
+            fence(latent)
+        return self._decode(latent)
+
+    @torch.inference_mode()
+    def ip2p(self, prompts, edit_images: np.ndarray, n_steps: int = 30,
+             guidance_scale: float = 7.5, image_guidance_scale: float = 1.5,
+             seed: int = 0, negative_prompt: str = "", sampler: str = "ddim",
+             schedule: str = "linear", no_cfg: bool = False,
+             **options) -> np.ndarray:
+        """InstructPix2Pix (Brooks et al. 2023, arXiv:2211.09800) on an
+        8-channel edit UNet: the prompt is the edit instruction; sampling
+        starts from noise at the image's size with the edit image's
+        latents as 4 extra input channels — its posterior mean unscaled
+        (scale factor 1.0, the ip2p training convention and diffusers').
+        Guidance is the 3-way e_u + s_I (e_img - e_u) + s_T (e_txt -
+        e_img), s_T = guidance_scale, s_I = image_guidance_scale; no_cfg
+        (or both scales 1) runs the conditional rows alone."""
+        _unported(options, "ip2p")
+        if not isinstance(seed, (int, np.integer)):
+            raise NotImplementedError("per-image seed lists are not ported yet")
+        if self.diffuser_cfg.in_channels != 8:
+            raise ValueError(
+                "InstructPix2Pix needs an 8-channel edit UNet (this "
+                f"checkpoint has in_channels={self.diffuser_cfg.in_channels};"
+                " e.g. timbrooks/instruct-pix2pix)")
+        edit_images = np.asarray(edit_images)
+        if edit_images.ndim == 3:
+            edit_images = edit_images[None]
+        _, height, width, _ = edit_images.shape
+        if height % 8 or width % 8:
+            raise ValueError(f"edit image {height}x{width} must be a "
+                             "multiple of 8")
+        cond = self.conditioning(
+            [prompts] if isinstance(prompts, str) else prompts,
+            (height, width), negative_prompt=negative_prompt,
+        ).astype(self.compute_dtype)
+        with self.timer.stage("vae_encode"):
+            edit_latents = self._encode(edit_images, scale_factor=1.0)
+            if edit_latents.shape[0] == 1 and cond.batch > 1:
+                edit_latents = edit_latents.expand(cond.batch,
+                                                   *edit_latents.shape[1:])
+            fence(edit_latents)
+        if sampler not in SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r} "
+                             f"({'|'.join(SAMPLERS)})")
+        if sampler == "lcm":
+            raise ValueError("the LCM sampler does not serve ip2p "
+                             "checkpoints")
+        if schedule != "linear" and sampler == "ddim":
+            raise ValueError("--schedule applies to the euler/dpmpp "
+                             "samplers")
+        schedule = self._resolve_schedule(schedule)
+        use_cfg = not (no_cfg or (guidance_scale == 1.0
+                                  and image_guidance_scale == 1.0))
+        generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        edit = dict(use_cfg=use_cfg, concat_channels=edit_latents, edit=True,
+                    image_guidance_scale=image_guidance_scale)
+        with self.timer.stage("diffuser"):
+            if sampler in K_SAMPLERS:
+                latent = euler_sample_latent(
+                    self.unet, self.diffuser_cfg, self.alphas_cumprod, cond,
+                    generator, guidance_scale, n_steps, self.compute_dtype,
+                    method=sampler, schedule=schedule, **edit)
+            else:
+                latent = sample_latent(
+                    self.unet, self.diffuser_cfg, self.alphas_cumprod, cond,
+                    generator, guidance_scale, n_steps, self.compute_dtype,
+                    **edit)
+            fence(latent)
         return self._decode(latent)
 
     @torch.inference_mode()

@@ -1,7 +1,8 @@
 """The samplers' UNet side (sdxl_tpu/pipeline/sampler.py): DDIM with
 pair-batched classifier-free guidance, the twelve k-samplers (their math
 in k_samplers.py), LCM, DDIM inversion, the refiner stage and latent
-inpainting, with step previews, PAG and DeepCache.
+inpainting, with step previews, PAG, DeepCache, ControlNet (one or
+several), IP-Adapter and InstructPix2Pix's 3-way guidance.
 
 - DDIM timestep grid (0..n_train-step_start).rev().step_by(n_train/
   n_steps): 30 "steps" give 31 UNet iterations, as in the reference;
@@ -22,6 +23,17 @@ inpainting, with step previews, PAG and DeepCache.
   the middle block's self-attentions as the identity map; DeepCache
   (deepcache=(interval, branch)) runs the whole UNet every interval-th
   step and only its shallow blocks on the others;
+- ControlNet (``controlnet``: one trunk or a sequence): each step's
+  window scale is known on the host (``_control_window_scales``, diffusers'
+  controlnet_keep); the trunks run on the 4-channel latent at the UNet's
+  batch, their residuals scaled and summed in f32; a trunk whose scale is
+  0 at a step is not run (the UNet's result is the same). Its
+  conditioning-image embedding and cross K/V are computed once a request;
+- IP-Adapter (``ip``): the image tokens' K/V join every cross-attention's
+  precomputed K/V once a request (``_merge_ip``);
+- InstructPix2Pix (``edit``): one batch-3 UNet call over [uncond | image
+  | image+text] rows with the edit latents as 4 extra input channels,
+  eps = e_u + s_I (e_i - e_u) + s_T (e_t - e_i);
 - the refiner (``cfg.is_refiner``) runs unguided on the OpenCLIP context
   and its 2560-wide channel context, batch B;
 - inpainting pins the known region to the re-noised reference every step
@@ -47,6 +59,11 @@ import numpy as np
 import torch
 
 from ..configs import DiffuserConfig
+from ..models.controlnet import (
+    control_cond_embed,
+    controlnet_forward,
+    precompute_control_cross_kv,
+)
 from ..models.unet import (
     UNet,
     precompute_cross_kv,
@@ -113,12 +130,14 @@ def expert_head_steps(alphas_cumprod, n_steps: int, denoising_end: float,
 
 
 def _cfg_contexts(cfg: DiffuserConfig, cond: Conditioning,
-                  compute_dtype: torch.dtype, use_cfg: bool = True
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  compute_dtype: torch.dtype, use_cfg: bool = True,
+                  rows3: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Loop-invariant context and channel tensors: the refiner's OpenCLIP
     context and refiner channel (no CFG pair), the base's [uncond | cond]
     pair, or with use_cfg=False the base's conditional rows alone (as
-    guidance_scale == 1, at half the UNet work)."""
+    guidance_scale == 1, at half the UNet work). rows3 (InstructPix2Pix):
+    [uncond | uncond | cond], the first two rows told apart by the image
+    channels the caller builds ([zeros | image | image])."""
     if cfg.is_refiner:
         return (cond.context_open_clip.to(compute_dtype),
                 cond.channel_context_refiner.to(compute_dtype))
@@ -128,8 +147,9 @@ def _cfg_contexts(cfg: DiffuserConfig, cond: Conditioning,
         return ctx.to(compute_dtype), ch.to(compute_dtype)
     uctx = cond.unconditional_context_full.expand_as(ctx)
     uch = cond.unconditional_channel_context.expand_as(ch)
-    return (torch.cat([uctx, ctx], dim=0).to(compute_dtype),
-            torch.cat([uch, ch], dim=0).to(compute_dtype))
+    lead = 2 if rows3 else 1
+    return (torch.cat([uctx] * lead + [ctx], dim=0).to(compute_dtype),
+            torch.cat([uch] * lead + [ch], dim=0).to(compute_dtype))
 
 
 def _rows(tree, start: int):
@@ -165,7 +185,8 @@ def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
              cross_kv=None, concat: Optional[torch.Tensor] = None,
              use_cfg: bool = True, guidance_rescale: float = 0.0,
              return_uncond: bool = False, t_add=None,
-             pag_scale: float = 0.0, forward=None):
+             pag_scale: float = 0.0, forward=None, control=None,
+             control_scale=None, image_scale: Optional[float] = None):
     """One epsilon: the refiner's unguided call at batch B, the base's
     conditional call at batch B (use_cfg=False, contexts from
     _cfg_contexts(use_cfg=False)), or its guided one with [uncond | cond]
@@ -183,7 +204,14 @@ def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
     += pag_scale * (eps_cond - eps_perturbed), with or without CFG.
     forward(x, timesteps, context, label, cross_kv, **kw): the UNet call,
     by default unet_forward with t_add and cfg.freeu (FreeU) on every
-    call; DeepCache passes its full-or-shallow switch (_deepcache_eps)."""
+    call; DeepCache passes its full-or-shallow switch (_deepcache_eps).
+    control: _control_setup's [(trunk, cond_emb, cross K/V)], with
+    control_scale this step's scale of each (a 0 skips its trunk); the
+    trunks run on the latent (the CFG pair's where the UNet runs it), never
+    on the concat channels, and the refiner takes none. image_scale
+    (InstructPix2Pix, with the rows3 contexts and the [zeros | image |
+    image] concat): e_u + image_scale (e_i - e_u) + guidance_scale (e_t -
+    e_i) from one batch-3 call."""
     n = latent.shape[0]
     if pag_scale and cfg.is_refiner:
         raise ValueError("PAG applies to the base/family UNets, not the "
@@ -201,24 +229,54 @@ def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
         return forward(x, t.expand(x.shape[0]), ctx, ch, kv, **kw).float()
 
     def with_concat(x, cc):
-        x = x.to(compute_dtype)
         return x if cc is None else torch.cat([x, cc.to(compute_dtype)],
                                               dim=-1)
 
+    def residuals(x):
+        """The trunks' residuals at x (scaled, summed in f32), or None
+        when every scale of this step is 0."""
+        total = None
+        for (net, emb, kv), scale in zip(control, control_scale):
+            scale = float(scale)
+            if scale == 0:
+                continue
+            down, mid = controlnet_forward(net, x, t.expand(x.shape[0]),
+                                           ctx2, ch2, emb, kv)
+            parts = [r.float() * scale for r in down + [mid]]
+            total = parts if total is None else [
+                a + b for a, b in zip(total, parts)]
+        return None if total is None else (total[:-1], total[-1])
+
+    def control_kw(x):
+        res = residuals(x) if control else None
+        return {} if res is None else {"control_residuals": res}
+
     if cfg.is_refiner:
         return call(latent.to(compute_dtype), ctx2, ch2, cross_kv)
+    if image_scale is not None and use_cfg:
+        if pag_scale or return_uncond or control or guidance_rescale:
+            raise ValueError("InstructPix2Pix 3-way CFG is not combinable "
+                             "with PAG / CFG++ / ControlNet / "
+                             "guidance_rescale")
+        x3 = with_concat(torch.cat([latent] * 3, dim=0).to(compute_dtype),
+                         concat)
+        e_u, e_i, e_t = call(x3, ctx2, ch2, cross_kv).chunk(3, dim=0)
+        return e_u + image_scale * (e_i - e_u) + guidance_scale * (e_t - e_i)
     if not use_cfg:
-        x = with_concat(latent, concat)
-        eps = call(x, ctx2, ch2, cross_kv)
+        x = latent.to(compute_dtype)
+        x_in = with_concat(x, concat)
+        eps = call(x_in, ctx2, ch2, cross_kv, **control_kw(x))
         if pag_scale:
-            eps_pert = call(x, ctx2, ch2, cross_kv, pag_mid=True)
+            eps_pert = call(x_in, ctx2, ch2, cross_kv, pag_mid=True)
             eps = eps + pag_scale * (eps - eps_pert)
         return eps
-    x2 = with_concat(torch.cat([latent, latent], dim=0), concat)
-    eps_u, eps_c = call(x2, ctx2, ch2, cross_kv).chunk(2, dim=0)
+    x2 = torch.cat([latent, latent], dim=0).to(compute_dtype)
+    x_in = with_concat(x2, concat)
+    eps_u, eps_c = call(x_in, ctx2, ch2, cross_kv,
+                        **control_kw(x2)).chunk(2, dim=0)
     pag = None
     if pag_scale:
-        eps_pert = call(x2[n:], ctx2[n:], ch2[n:],
+        eps_pert = call(x_in[n:], ctx2[n:], ch2[n:],
                         None if cross_kv is None else _rows(cross_kv, n),
                         pag_mid=True)
         pag = pag_scale * (eps_c - eps_pert)
@@ -226,13 +284,18 @@ def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
     return (eps, eps_u) if return_uncond else eps
 
 
-def _deepcache_validate(deepcache, concat_channels) -> Tuple[int, int]:
+def _deepcache_validate(deepcache, controlnet,
+                        concat_channels) -> Tuple[int, int]:
     """DeepCache (arXiv:2312.00858) runs the plain txt2img / inpaint
-    paths: a 9-channel inpainting UNet's concat changes conv_in, so it is
-    refused rather than silently wrong."""
+    paths: ControlNet's residuals target the deep skips a shallow step
+    never computes, and a 9-channel inpainting UNet's concat changes
+    conv_in, so both are refused rather than silently wrong."""
     interval, branch = deepcache
     if interval < 1:
         raise ValueError("deepcache interval must be >= 1")
+    if controlnet is not None:
+        raise ValueError("deepcache is incompatible with ControlNet "
+                         "(residuals target the skipped deep blocks)")
     if concat_channels is not None:
         raise ValueError("deepcache is incompatible with "
                          "inpainting-specialized (9-channel) UNets")
@@ -259,7 +322,7 @@ def _deepcache_eps(unet, cfg, ctx2, ch2, guidance_scale, compute_dtype,
         return unet_forward_shallow(unet, x, ts, ctx, ch, state["cache"],
                                     kv, branch=branch, freeu=cfg.freeu)
 
-    def eps(latent, t):
+    def eps(latent, t, *_):
         out = _cfg_eps(unet, cfg, latent, t, ctx2, ch2, guidance_scale,
                        compute_dtype, cross_kv, use_cfg=use_cfg,
                        guidance_rescale=guidance_rescale, forward=forward)
@@ -353,14 +416,104 @@ def _check_split(n: int, head_steps: int, tail_from: int) -> None:
                              f"each side of the {n}-entry grid")
 
 
-def _guided_setup(unet, cfg, cond, compute_dtype, use_cfg, concat_channels):
-    """The loop-invariant contexts, their cross-attention K/V, and the
-    concat channels (doubled where the CFG pair runs)."""
-    ctx2, ch2 = _cfg_contexts(cfg, cond, compute_dtype, use_cfg)
+def _edit_validate(cfg, concat_channels, inpaint, controlnet, deepcache,
+                   pag_scale, ip, guidance_rescale, use_cfg) -> None:
+    """InstructPix2Pix's refusals (the reference's, for both loops)."""
+    if concat_channels is None:
+        raise ValueError("edit=True needs concat_channels = the edit-image "
+                         "latents [B,h,w,4]")
+    if cfg.is_refiner:
+        raise ValueError("InstructPix2Pix applies to the base/family UNets")
+    if cfg.in_channels != 4 + concat_channels.shape[-1]:
+        raise ValueError(
+            "InstructPix2Pix needs an 8-channel edit UNet (in_channels="
+            f"{cfg.in_channels}; e.g. timbrooks/instruct-pix2pix)")
+    if inpaint or controlnet is not None or deepcache is not None:
+        raise ValueError("InstructPix2Pix is not combinable with the "
+                         "inpaint pin / ControlNet / DeepCache")
+    if pag_scale or ip is not None:
+        raise ValueError("InstructPix2Pix is not combinable with PAG or "
+                         "IP-Adapter")
+    if guidance_rescale and use_cfg:
+        raise ValueError("guidance_rescale does not apply to the ip2p "
+                         "3-way CFG")
+
+
+def _control_window_scales(n: int, scale, window) -> np.ndarray:
+    """Each step's ControlNet scale on the host: ``scale`` where step i
+    lies in the (start, end) fraction window, 0 elsewhere (diffusers'
+    controlnet_keep: i / n >= start and (i + 1) / n <= end). Several nets:
+    ``scale`` and ``window`` sequences of N -> [n, N], a column a net."""
+    if isinstance(scale, (tuple, list)):
+        return np.stack([_control_window_scales(n, s, w)
+                         for s, w in zip(scale, window)], axis=1)
+    start, end = window
+    keep = np.array([0.0 if (i / n < start or (i + 1) / n > end) else 1.0
+                     for i in range(n)], np.float32)
+    return keep * np.float32(scale)
+
+
+def _control_setup(controlnet, control_image, ctx2, compute_dtype, use_cfg,
+                   n: int, scale, window):
+    """The loop-invariant ControlNet work of a request: for each trunk
+    (one, or a sequence with a sequence of images) its conditioning-image
+    embedding (doubled for the CFG pair) and cross-attention K/V; and each
+    step's scales, [n, N] on the host. (None, None) without a ControlNet."""
+    if controlnet is None:
+        return None, None
+    multi = isinstance(controlnet, (tuple, list))
+    nets = tuple(controlnet) if multi else (controlnet,)
+    images = tuple(control_image) if multi else (control_image,)
+    control = []
+    for net, image in zip(nets, images):
+        emb = control_cond_embed(net, image.to(compute_dtype))
+        if use_cfg:
+            emb = torch.cat([emb, emb], dim=0)
+        control.append((net, emb, precompute_control_cross_kv(net, ctx2)))
+    scales = _control_window_scales(n, scale, window)
+    return control, (scales if multi else scales[:, None])
+
+
+def _merge_ip(cross_kv, ip, cfg: DiffuserConfig, cond: Conditioning,
+              compute_dtype: torch.dtype, use_cfg: bool):
+    """The cross K/V with IP-Adapter's image-token K/V merged in
+    (models/ip_adapter.py merge_ip_kv). ip: {"layers": organize_ip_layers'
+    tree, "tokens": [1 or B, n, d], "tokens_uncond": the unconditional
+    rows' tokens, "scale": float}, paired [uncond | cond] as the text
+    context is."""
+    if ip is None:
+        return cross_kv
+    from ..models.ip_adapter import merge_ip_kv
+
+    tok = ip["tokens"]
+    tok = tok.expand(cond.batch, *tok.shape[1:])
+    if use_cfg and not cfg.is_refiner:
+        tok = torch.cat([ip["tokens_uncond"].expand_as(tok), tok], dim=0)
+    return merge_ip_kv(cross_kv, ip["layers"], tok.to(compute_dtype),
+                       ip["scale"])
+
+
+def _check_extensions(pag_scale, deepcache, controlnet) -> None:
+    if pag_scale and (controlnet is not None or deepcache is not None):
+        raise ValueError("pag_scale is not combinable with ControlNet or "
+                         "deepcache")
+
+
+def _guided_setup(unet, cfg, cond, compute_dtype, use_cfg, concat_channels,
+                  ip=None, edit: bool = False):
+    """The loop-invariant contexts (rows3 for InstructPix2Pix), their
+    cross-attention K/V with IP-Adapter's merged in, and the concat
+    channels (doubled where the CFG pair runs; [zeros | image | image]
+    for InstructPix2Pix)."""
+    edit3 = edit and use_cfg and not cfg.is_refiner
+    ctx2, ch2 = _cfg_contexts(cfg, cond, compute_dtype, use_cfg, edit3)
     cc = concat_channels
     if cc is not None and use_cfg and not cfg.is_refiner:
-        cc = torch.cat([cc, cc], dim=0)
-    return ctx2, ch2, precompute_cross_kv(unet, ctx2), cc
+        cc = torch.cat([torch.zeros_like(cc), cc, cc] if edit3 else [cc, cc],
+                       dim=0)
+    cross_kv = _merge_ip(precompute_cross_kv(unet, ctx2), ip, cfg, cond,
+                         compute_dtype, use_cfg)
+    return ctx2, ch2, cross_kv, cc
 
 
 @torch.no_grad()
@@ -382,7 +535,11 @@ def diffuse_latent(unet: UNet, cfg: DiffuserConfig,
                    deepcache: Optional[Tuple[int, int]] = None,
                    pag_scale: float = 0.0,
                    preview_every: Optional[int] = None,
-                   preview_callback: Optional[PreviewFn] = None
+                   preview_callback: Optional[PreviewFn] = None,
+                   controlnet=None,
+                   control_image: Optional[torch.Tensor] = None,
+                   control_scale=1.0, control_window=(0.0, 1.0), ip=None,
+                   edit: bool = False, image_guidance_scale: float = 1.5
                    ) -> torch.Tensor:
     """DDIM loop over the grid from ``latent`` (VP space at the first grid
     timestep).
@@ -406,10 +563,14 @@ def diffuse_latent(unet: UNet, cfg: DiffuserConfig,
     preview_every: after every preview_every steps but the last,
     preview_callback(done, total, [B, h, w, 3] uint8) gets
     latent_to_preview of the latent (a host copy); the final latent is
-    the one the same request gives without previews, bit for bit."""
-    if pag_scale and deepcache is not None:
-        raise ValueError("pag_scale is not combinable with ControlNet or "
-                         "deepcache")
+    the one the same request gives without previews, bit for bit.
+    controlnet (a ControlNet or a sequence), control_image ([B, 8h, 8w, 3]
+    in [0, 1], or a sequence), control_scale and control_window (floats
+    and (start, end), or sequences): ControlNet guidance over the steps
+    this call runs. ip: IP-Adapter (_merge_ip). edit (InstructPix2Pix):
+    concat_channels are the unscaled edit latents [B, h, w, 4] of an
+    8-channel UNet, guided by image_guidance_scale and guidance_scale."""
+    _check_extensions(pag_scale, deepcache, controlnet)
     n_train = alphas_cumprod.shape[0]
     if cfg.n_steps != n_train:
         raise ValueError(
@@ -436,25 +597,37 @@ def diffuse_latent(unet: UNet, cfg: DiffuserConfig,
     if ddim_eta > 0:
         step_noise = _draws(step_noise, generator, want, device, "step_noise")
 
+    if edit:
+        _edit_validate(cfg, concat_channels, inpaint, controlnet, deepcache,
+                       pag_scale, ip, guidance_rescale, use_cfg)
     ctx2, ch2, cross_kv, cc = _guided_setup(unet, cfg, cond, compute_dtype,
-                                            use_cfg, concat_channels)
+                                            use_cfg, concat_channels, ip,
+                                            edit)
+    control, scales = _control_setup(
+        controlnet, control_image, ctx2, compute_dtype,
+        use_cfg and not cfg.is_refiner, total, control_scale, control_window)
     if deepcache is not None:
         eps_fn = _deepcache_eps(
             unet, cfg, ctx2, ch2, guidance_scale, compute_dtype, cross_kv,
             use_cfg, guidance_rescale,
-            _deepcache_validate(deepcache, concat_channels))
+            _deepcache_validate(deepcache, controlnet, concat_channels))
     else:
-        def eps_fn(x, t):
+        def eps_fn(x, t, i):
             return _cfg_eps(unet, cfg, x, t, ctx2, ch2, guidance_scale,
                             compute_dtype, cross_kv, cc, use_cfg,
-                            guidance_rescale, pag_scale=pag_scale)
+                            guidance_rescale, pag_scale=pag_scale,
+                            control=control,
+                            control_scale=None if control is None
+                            else scales[i],
+                            image_scale=image_guidance_scale if edit
+                            else None)
     for i in range(head_steps or total):
         alpha = a_t[i]
         if inpaint:
             noised_ref = (reference * torch.sqrt(alpha)
                           + pin_noise[i] * torch.sqrt(1.0 - alpha))
             lat = inpaint_pin(mask, lat, noised_ref)
-        eps = eps_fn(lat, ts[i])
+        eps = eps_fn(lat, ts[i], i)
         x0 = (lat - eps * torch.sqrt(1.0 - alpha)) / torch.sqrt(alpha)
         lat = _ddim_update(x0, eps, alpha, a_prev[i], ddim_eta,
                            None if step_noise is None else step_noise[i])
@@ -484,7 +657,11 @@ def k_diffuse_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
                      deepcache: Optional[Tuple[int, int]] = None,
                      pag_scale: float = 0.0,
                      preview_every: Optional[int] = None,
-                     preview_callback: Optional[PreviewFn] = None
+                     preview_callback: Optional[PreviewFn] = None,
+                     controlnet=None,
+                     control_image: Optional[torch.Tensor] = None,
+                     control_scale=1.0, control_window=(0.0, 1.0), ip=None,
+                     edit: bool = False, image_guidance_scale: float = 1.5
                      ) -> torch.Tensor:
     """A k-sampler over the ᾱ table, from the sigma-space latent (x = x0 +
     sigma * eps at the schedule's first sigma): k_schedule's (timesteps,
@@ -508,16 +685,16 @@ def k_diffuse_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
     diffuse_latent's (deepcache refuses the methods with a second
     evaluation, lms's history and CFG++). preview_every: as
     diffuse_latent's, the preview of the VP latent lat / sqrt(sigma^2 +
-    1) at the step's sigma_next."""
+    1) at the step's sigma_next. controlnet, control_*, ip, edit: as
+    diffuse_latent's (a step's second evaluation takes its step's control
+    scale)."""
     if method not in K_SAMPLERS:
         raise ValueError(
             f"unknown k-sampler {method!r} ({'|'.join(K_SAMPLERS)})")
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown schedule {schedule!r} "
                          f"({'|'.join(SCHEDULES)})")
-    if pag_scale and deepcache is not None:
-        raise ValueError("pag_scale is not combinable with ControlNet or "
-                         "deepcache")
+    _check_extensions(pag_scale, deepcache, controlnet)
     _check_preview(preview_every)
     ts, sigmas = k_schedule(alphas_cumprod, step_start, n_steps, schedule)
     _check_split(len(ts), head_steps, tail_from)
@@ -536,7 +713,14 @@ def k_diffuse_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
         if method == "lms":
             raise ValueError("lms (4-deep derivative history) is not "
                              "combinable with deepcache")
-        deepcache = _deepcache_validate(deepcache, concat_channels)
+        deepcache = _deepcache_validate(deepcache, controlnet,
+                                        concat_channels)
+    if edit:
+        if cfgpp:
+            raise ValueError("euler_cfgpp does not apply to the ip2p 3-way "
+                             "CFG (no single uncond direction)")
+        _edit_validate(cfg, concat_channels, inpaint, controlnet, deepcache,
+                       pag_scale, ip, guidance_rescale, use_cfg)
 
     device = latent.device
     lat = latent.float()
@@ -553,7 +737,12 @@ def k_diffuse_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
         step_noise = _draws(step_noise, generator, want, device, "step_noise")
 
     ctx2, ch2, cross_kv, cc = _guided_setup(unet, cfg, cond, compute_dtype,
-                                            use_cfg, concat_channels)
+                                            use_cfg, concat_channels, ip,
+                                            edit)
+    control, scales = _control_setup(
+        controlnet, control_image, ctx2, compute_dtype,
+        use_cfg and not cfg.is_refiner, total, control_scale, control_window)
+    step = [0]  # the step k_sample is on (on_step moves it)
     if deepcache is not None:
         dc_eps = _deepcache_eps(unet, cfg, ctx2, ch2, guidance_scale,
                                 compute_dtype, cross_kv, use_cfg,
@@ -567,14 +756,18 @@ def k_diffuse_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
             return _cfg_eps(unet, cfg, scaled, t, ctx2, ch2, guidance_scale,
                             compute_dtype, cross_kv, cc, use_cfg,
                             guidance_rescale, return_uncond=cfgpp,
-                            pag_scale=pag_scale)
+                            pag_scale=pag_scale, control=control,
+                            control_scale=None if control is None
+                            else scales[step[0]],
+                            image_scale=image_guidance_scale if edit
+                            else None)
 
-    on_step = None
-    if preview_every and preview_callback is not None:
-        def on_step(done, x):
-            if done % preview_every == 0 and done < total:
-                vp = x / np.sqrt(float(sigmas[done]) ** 2 + 1.0)
-                preview_callback(done, total, latent_to_preview(vp))
+    def on_step(done, x):
+        step[0] = done
+        if preview_every and preview_callback is not None \
+                and done % preview_every == 0 and done < total:
+            vp = x / np.sqrt(float(sigmas[done]) ** 2 + 1.0)
+            preview_callback(done, total, latent_to_preview(vp))
 
     return k_sample(eps_fn, lat, method, ts, sigmas,
                     sigmas_full=(sigma_table(alphas_cumprod)
@@ -611,7 +804,7 @@ def sample_latent(unet: UNet, cfg: DiffuserConfig,
     initial noise unless ``initial_noise`` is given, then the pin noise
     and the eta step noise unless given. head_steps > 0: the
     ensemble-of-experts base stage. extensions: diffuse_latent's
-    deepcache, pag_scale, preview_every and preview_callback."""
+    deepcache, pag_scale, previews, ControlNet, ip and edit keywords."""
     latent = (initial_noise if initial_noise is not None
               else gen_noise(generator, cond, alphas_cumprod.device))
     return diffuse_latent(
@@ -644,8 +837,8 @@ def euler_sample_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
     schedule's first sigma, then k_diffuse_latent, whose pin and step
     noise ``generator`` draws next unless given. head_steps > 0 returns
     the still-noisy sigma-space handoff latent. extensions:
-    k_diffuse_latent's deepcache, pag_scale, preview_every and
-    preview_callback."""
+    k_diffuse_latent's deepcache, pag_scale, previews, ControlNet, ip and
+    edit keywords."""
     sigma_max = float(k_sigma_max(alphas_cumprod, n_steps, schedule))
     noise = (initial_noise if initial_noise is not None
              else gen_noise(generator, cond, alphas_cumprod.device))
@@ -669,15 +862,16 @@ def refine_latent(unet: UNet, cfg: DiffuserConfig,
                   tail_from: int = 0, use_cfg: bool = True,
                   guidance_rescale: float = 0.0, ddim_eta: float = 0.0,
                   step_noise: Optional[torch.Tensor] = None,
-                  deepcache: Optional[Tuple[int, int]] = None,
-                  pag_scale: float = 0.0) -> torch.Tensor:
+                  **extensions) -> torch.Tensor:
     """Refiner stage (and img2img on the base UNet): re-noise ``latent`` at
     t = n_train - step_start with ``noise`` (drawn from ``generator``
     when not given), then run the grid from step_start — whose first
     entry is t - 1, as in the reference. renoise=False with tail_from=h:
     ``latent`` is already the still-noisy handoff of a head_steps=h base
-    run; continue the full grid's suffix (step_start 0). deepcache and
-    pag_scale (img2img; the refiner refuses PAG): see diffuse_latent."""
+    run; continue the full grid's suffix (step_start 0). extensions
+    (img2img and hires-fix; the refiner refuses PAG and gets no
+    ControlNet): diffuse_latent's deepcache, pag_scale, ControlNet and ip
+    keywords."""
     if renoise:
         t = alphas_cumprod.shape[0] - step_start
         start_alpha = alphas_cumprod[t]
@@ -694,7 +888,7 @@ def refine_latent(unet: UNet, cfg: DiffuserConfig,
                           generator=generator, tail_from=tail_from,
                           use_cfg=use_cfg, guidance_rescale=guidance_rescale,
                           ddim_eta=ddim_eta, step_noise=step_noise,
-                          deepcache=deepcache, pag_scale=pag_scale)
+                          **extensions)
 
 
 def k_refine_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
@@ -708,16 +902,15 @@ def k_refine_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
                     noise: Optional[torch.Tensor] = None,
                     renoise: bool = True, tail_from: int = 0,
                     step_noise: Optional[torch.Tensor] = None,
-                    deepcache: Optional[Tuple[int, int]] = None,
-                    pag_scale: float = 0.0) -> torch.Tensor:
+                    **extensions) -> torch.Tensor:
     """The refiner stage (and img2img) with a k-sampler: re-noise the
     clean ``latent`` to the schedule's actual first sigma, x = latent +
     sigma_start * noise (``noise`` or drawn from ``generator``), then run
     the schedule's tail from step_start; the stochastic methods' step
     noise comes after. renoise=False with tail_from=h: ``latent`` is the
     still-noisy sigma-space handoff of a head_steps=h base run; continue
-    the full schedule's suffix (step_start 0). deepcache, pag_scale: see
-    k_diffuse_latent."""
+    the full schedule's suffix (step_start 0). extensions: see
+    refine_latent."""
     lat = latent.float()
     if renoise:
         sigma_start = float(k_schedule(alphas_cumprod, step_start, n_steps,
@@ -731,7 +924,7 @@ def k_refine_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
         step_start, n_steps, compute_dtype, generator=generator,
         step_noise=step_noise, schedule=schedule, use_cfg=use_cfg,
         guidance_rescale=guidance_rescale, tail_from=tail_from,
-        deepcache=deepcache, pag_scale=pag_scale)
+        **extensions)
 
 
 # ---------------------------------------------------------------------------
@@ -811,8 +1004,11 @@ def lcm_diffuse_latent(unet: UNet, cfg: DiffuserConfig,
                        use_cfg: bool = False,
                        concat_channels: Optional[torch.Tensor] = None,
                        pin_noise: Optional[torch.Tensor] = None,
-                       step_noise: Optional[torch.Tensor] = None
-                       ) -> torch.Tensor:
+                       step_noise: Optional[torch.Tensor] = None,
+                       controlnet=None,
+                       control_image: Optional[torch.Tensor] = None,
+                       control_scale=1.0, control_window=(0.0, 1.0),
+                       ip=None) -> torch.Tensor:
     """The LCM loop over lcm_timesteps' grid. An LCM-distilled UNet
     (cfg.time_cond_proj_dim > 0) embeds the guidance (w = guidance_scale
     - 1) through cond_proj and runs without CFG; a standard UNet
@@ -820,7 +1016,8 @@ def lcm_diffuse_latent(unet: UNet, cfg: DiffuserConfig,
     last re-noises with step_noise[i] ([n, B, h, w, 4], or n draws from
     ``generator`` after the pin noise's); inpaint pins as DDIM does, with
     pin_noise[i]. strength < 1 windows the grid (img2img): ``latent`` is
-    already noised to its first point."""
+    already noised to its first point. controlnet, control_*, ip: as
+    diffuse_latent's."""
     n_train = alphas_cumprod.shape[0]
     if cfg.n_steps != n_train:
         raise ValueError(
@@ -848,7 +1045,10 @@ def lcm_diffuse_latent(unet: UNet, cfg: DiffuserConfig,
         pin_noise = _draws(pin_noise, generator, want, device, "pin_noise")
     step_noise = _draws(step_noise, generator, want, device, "step_noise")
     ctx2, ch2, cross_kv, cc = _guided_setup(unet, cfg, cond, compute_dtype,
-                                            use_cfg, concat_channels)
+                                            use_cfg, concat_channels, ip)
+    control, scales = _control_setup(controlnet, control_image, ctx2,
+                                     compute_dtype, use_cfg, n,
+                                     control_scale, control_window)
     t_add = lcm_guidance_add(unet, cfg, guidance_scale, compute_dtype)
     for i in range(n):
         alpha = a_t[i]
@@ -857,7 +1057,9 @@ def lcm_diffuse_latent(unet: UNet, cfg: DiffuserConfig,
                           + pin_noise[i] * torch.sqrt(1.0 - alpha))
             lat = inpaint_pin(mask, lat, noised_ref)
         eps = _cfg_eps(unet, cfg, lat, ts[i], ctx2, ch2, guidance_scale,
-                       compute_dtype, cross_kv, cc, use_cfg, t_add=t_add)
+                       compute_dtype, cross_kv, cc, use_cfg, t_add=t_add,
+                       control=control, control_scale=None
+                       if control is None else scales[i])
         lat, _ = lcm_step_update(lat, eps, alpha, a_prev[i], ts[i],
                                  step_noise[i], i == n - 1)
     return lat
@@ -874,12 +1076,13 @@ def lcm_sample_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
                       concat_channels: Optional[torch.Tensor] = None,
                       initial_noise: Optional[torch.Tensor] = None,
                       pin_noise: Optional[torch.Tensor] = None,
-                      step_noise: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      step_noise: Optional[torch.Tensor] = None,
+                      **extensions) -> torch.Tensor:
     """LCM txt2img (and latent-mask inpainting when ``reference`` and
     ``mask`` are given) from N(0, 1) noise (LCMScheduler's
     init_noise_sigma is 1): ``initial_noise`` or drawn from
-    ``generator``, then lcm_diffuse_latent."""
+    ``generator``, then lcm_diffuse_latent (extensions: its ControlNet
+    and ip keywords)."""
     latent = (initial_noise if initial_noise is not None
               else gen_noise(generator, cond, alphas_cumprod.device))
     return lcm_diffuse_latent(
@@ -888,7 +1091,7 @@ def lcm_sample_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
         inpaint=reference is not None and mask is not None,
         reference=reference, mask=mask, use_cfg=use_cfg,
         concat_channels=concat_channels, pin_noise=pin_noise,
-        step_noise=step_noise)
+        step_noise=step_noise, **extensions)
 
 
 def lcm_refine_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
@@ -899,12 +1102,12 @@ def lcm_refine_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
                       compute_dtype: torch.dtype = torch.bfloat16,
                       use_cfg: bool = False,
                       noise: Optional[torch.Tensor] = None,
-                      step_noise: Optional[torch.Tensor] = None
-                      ) -> torch.Tensor:
+                      step_noise: Optional[torch.Tensor] = None,
+                      **extensions) -> torch.Tensor:
     """LCM img2img: the grid windowed by ``strength`` (at most
     int(LCM_ORIGINAL_STEPS * strength) steps), the clean ``latent`` noised to
     its first point with ``noise`` (or a draw from ``generator``), then
-    the loop."""
+    the loop (extensions: its ControlNet and ip keywords)."""
     n_train = alphas_cumprod.shape[0]
     eff_steps = min(n_steps, max(1, int(LCM_ORIGINAL_STEPS * strength)))
     ts = lcm_timesteps(eff_steps, LCM_ORIGINAL_STEPS, n_train, strength)
@@ -917,7 +1120,7 @@ def lcm_refine_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
     return lcm_diffuse_latent(
         unet, cfg, alphas_cumprod, noised, cond, guidance_scale, generator,
         eff_steps, strength, compute_dtype, use_cfg=use_cfg,
-        step_noise=step_noise)
+        step_noise=step_noise, **extensions)
 
 
 # ---------------------------------------------------------------------------

@@ -377,10 +377,11 @@ def test_diffusers_configs_are_inferred(layouts):
 def test_checkpoint_errors_name_the_key(layouts, tmp_path,
                                        reference_host_casts):
     """A native file with a missing tensor fails with the key's name; an
-    LCM-distilled UNet (time_embedding.cond_proj) and a 9-channel
-    (inpainting) UNet load, their configs' time_cond_proj_dim 256 and
-    in_channels 9, bitwise as the reference's reader gives them; a refiner asked of a dir without one is the reference's
-    FileNotFoundError."""
+    LCM-distilled UNet (time_embedding.cond_proj), a 9-channel
+    (inpainting) and an 8-channel (InstructPix2Pix) UNet load, their
+    configs' time_cond_proj_dim 256 and in_channels 9 and 8, bitwise as
+    the reference's reader gives them; a refiner asked of a dir without
+    one is the reference's FileNotFoundError."""
     src = layouts["native"]
     bad = tmp_path / "bad"
     bad.mkdir()
@@ -402,7 +403,9 @@ def test_checkpoint_errors_name_the_key(layouts, tmp_path,
                                                           axis=1)[:, :9]}),
             ("lcm", {"time_embedding.cond_proj.weight":
                      np.random.default_rng(0).standard_normal(
-                         (w.shape[0], 256)).astype(w.dtype)})):
+                         (w.shape[0], 256)).astype(w.dtype)}),
+            ("ip2p", {"conv_in.weight": np.concatenate([w, w[:, ::-1]],
+                                                       axis=1)})):
         lay = tmp_path / name
         lay.mkdir()
         for sub in os.listdir(dif):
@@ -422,7 +425,8 @@ def test_checkpoint_errors_name_the_key(layouts, tmp_path,
             assert pipe.diffuser_cfg.time_cond_proj_dim == \
                 d_cfg.time_cond_proj_dim == 256
         else:
-            assert pipe.diffuser_cfg.in_channels == d_cfg.in_channels == 9
+            assert pipe.diffuser_cfg.in_channels == d_cfg.in_channels == (
+                9 if name == "inpaint" else 8)
         assert dataclasses.asdict(pipe.diffuser_cfg) == dataclasses.asdict(
             d_cfg)
         assert_state_equal(pipe.unet, unet_state_dict(_bf16(j_unet)))
@@ -786,11 +790,11 @@ def test_cli_parser_is_the_references():
 
 
 @pytest.mark.parametrize("extra,module", [
-    (["--hires-scale", "2"], 11),
+    (["--family", "flux", "--edit-image", "e.png"], 13),
     (["--trace", "t"], 7),
     (["--quantize", "int8"], 14),
     (["--family", "sd3"], 13),
-    (["--controlnet", "cn", "--control-image", "c.png"], 11),
+    (["--dp", "2"], 17),
     (["--clip-skip", "1"], 12),
 ])
 def test_cli_unported_flag_exits_1(extra, module, tmp_path, capsys):

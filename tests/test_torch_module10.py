@@ -589,20 +589,26 @@ def test_cli_bad_sampler_combinations_fail_as_the_reference(
     assert not os.path.exists(tmp_path / "x0.png")
 
 
-@pytest.mark.parametrize("flags", [
-    ["--ip-adapter", "x.safetensors"],
-    ["--hires-scale", "2"],
-    ["--vae-tile", "96"],
-    ["--edit-image", "x.png"],
+@pytest.mark.parametrize("flags,error", [
+    (["--ip-adapter", "x.safetensors"],
+     "--ip-adapter, --ip-image-encoder and --ip-image go together"),
+    (["--hires-scale", "2", "--reference-img", "x.png"],
+     "--hires-scale is a txt2img feature (no --reference-img / "
+     "--use-refiner)"),
+    (["--vae-tile", "96", "--quantize", "int8"],
+     "--quantize is not ported yet (module 14)"),
+    (["--edit-image", "x.png", "--family", "flux"],
+     "--family flux is not ported yet (module 13)"),
 ], ids=["ip_adapter", "hires_scale", "vae_tile", "edit_image"])
-def test_cli_module10b_flags_still_exit_1(flags, capsys, tmp_path):
-    """Module 10b's flags run now (tests/test_torch_module10b.py); the rest
-    of module 11 still exits 1 naming its module."""
+def test_cli_module10b_flags_still_exit_1(flags, error, capsys, tmp_path):
+    """Module 11's flags run now (tests/test_torch_module11.py): an
+    incomplete or misplaced one exits 1 with the reference CLI's message
+    before any weights load, --vae-tile beside a flag that still waits
+    names that flag's module, and --edit-image with --family flux
+    (Kontext) names module 13."""
     from sdxl_tpu_torch.cli.sample import main
 
     argv = ["--random-weights", "--prompt", "a cat", "--output-dir",
             str(tmp_path / "x"), *flags]
     assert main(argv, device="cpu") == 1
-    err = capsys.readouterr().err
-    assert f"error: {flags[0]}" in err
-    assert "is not ported yet (module 11)" in err
+    assert capsys.readouterr().err.strip() == f"error: {error}"

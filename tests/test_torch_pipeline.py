@@ -131,20 +131,22 @@ def test_vae_dtype_bf16_decodes_through_the_bf16_copy(pipes):
 
 
 def test_unported_options_raise(pipes):
+    """The options that still wait for module 16: device_output and
+    per-image seed lists."""
     _, tpipe = pipes
-    with pytest.raises(NotImplementedError):
-        tpipe.txt2img("a cat", RES, n_steps=2,
-                      control_image=np.zeros((*RES, 3), np.uint8))
-    with pytest.raises(NotImplementedError):
-        tpipe.txt2img("a cat", RES, n_steps=2,
-                      ip_adapter_image=np.zeros((*RES, 3), np.uint8))
+    with pytest.raises(NotImplementedError, match="device_output"):
+        tpipe.txt2img("a cat", RES, n_steps=2, device_output=True)
+    with pytest.raises(NotImplementedError, match="seed lists"):
+        tpipe.txt2img(["a cat", "a dog"], RES, n_steps=2, seed=[1, 2])
 
 
 def test_port_never_imports_jax():
     """Every module of the port imports, and a tiny pipeline runs txt2img,
     txt2img with the refiner (DDIM, and a k-sampler on the karras
-    schedule) and a mask-image inpaint request (the VAE encoder, masks.py,
-    the pin), with `import jax` and `import sdxl_tpu`
+    schedule), a mask-image inpaint request (the VAE encoder, masks.py,
+    the pin), a ControlNet request and an IP-Adapter request (the adapter
+    and its vision tower written by the port's writers and read back),
+    with `import jax` and `import sdxl_tpu`
     made to fail: the port keeps its own configs and tokenizer. Nor does
     it import the packages the card lacks (safetensors, msgpack, PIL,
     ml_dtypes): it has its own readers."""
@@ -192,6 +194,35 @@ def test_port_never_imports_jax():
         mask = np.zeros((64, 64, 3), np.uint8)
         mask[8:40, 16:48] = 255
         img = pipe.inpaint("a cat", img, mask_image=mask, n_steps=2)
+        assert img.shape == (1, 64, 64, 3), img.shape
+        import os, tempfile
+        from sdxl_tpu_torch.io.ip_adapter import (
+            save_clip_vision_dir, save_ip_adapter_file)
+        from sdxl_tpu_torch.models.clip_vision import (
+            CLIPVisionConfig, CLIPVisionModel)
+        from sdxl_tpu_torch.models.controlnet import ControlNet
+        from sdxl_tpu_torch.models.ip_adapter import (
+            IPAdapter, IPAdapterConfig)
+        from sdxl_tpu_torch.models.layers import init_reference_
+        g = torch.Generator().manual_seed(0)
+        ucfg = pipe.diffuser_cfg.unet_config()
+        pipe.controlnet = init_reference_(
+            ControlNet(ucfg, dtype=torch.float32), g).eval()
+        img = pipe.txt2img("a cat", (64, 64), n_steps=2, control_image=img)
+        assert img.shape == (1, 64, 64, 3), img.shape
+        vcfg = CLIPVisionConfig(image_size=28, patch_size=14, n_state=32,
+                                n_head=4, n_layer=2, embed_dim=16)
+        tmp = tempfile.mkdtemp()
+        save_clip_vision_dir(os.path.join(tmp, "enc"), init_reference_(
+            CLIPVisionModel(vcfg), g))
+        save_ip_adapter_file(os.path.join(tmp, "ip.safetensors"),
+                             init_reference_(IPAdapter(IPAdapterConfig(
+                                 clip_embed_dim=16, context_dim=64), ucfg),
+                                 g))
+        pipe.load_ip_adapter(os.path.join(tmp, "ip.safetensors"),
+                             os.path.join(tmp, "enc"))
+        img = pipe.txt2img("a cat", (64, 64), n_steps=2,
+                           ip_adapter_image=img)
         assert img.shape == (1, 64, 64, 3), img.shape
         assert not any(k.split(".")[0] in BLOCKED
                        for k, v in sys.modules.items() if v is not None)
