@@ -251,7 +251,6 @@ from sdxl_tpu_torch.models.controlnet import (
     ControlNet,
     control_cond_embed,
     controlnet_forward,
-    precompute_control_cross_kv,
 )
 from sdxl_tpu_torch.models.ip_adapter import IPAdapter, IPAdapterConfig
 from sdxl_tpu_torch.models.layers import init_reference_
@@ -397,9 +396,10 @@ K1_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # blocks)
 K1_GRAPHED = {(1, 12, 4096, 64), (1, 24, 1024, 64), (1, 10, 4096, 64),
               (1, 20, 1024, 64), (3, 10, 4096, 64), (3, 20, 1024, 64)}
-# the plain version runs in query chunks whose f32 logits stay under this
-# (at [2,10,9216,64] they would be 6.8 GB, at [1,1,36864,512] 5.4 GB)
-PLAIN_CHUNK_BYTES = 1 << 30
+# the plain version runs in query chunks where its f32 logits would pass
+# this (at [2,10,9216,64] they are 6.8 GB, at [1,1,36864,512] 5.4 GB;
+# every other shape runs it whole, as before those two)
+PLAIN_CHUNK_BYTES = 4 << 30
 # The kernels of the Hopper sources: for each source, its export that
 # gives a kernel's dynamic shared memory (from the kernel's index and the
 # first three int template arguments of its symbol, 0 where it has fewer),
@@ -1980,7 +1980,7 @@ def check_module11_against_plain(pipe, first: np.ndarray, w: dict) -> None:
     net = w["nets"][0]
     image = torch.as_tensor(first, device=dev).float() / 255.0
     emb = control_cond_embed(net, image)
-    emb2, ckv = torch.cat([emb, emb]), precompute_control_cross_kv(net, ctx2)
+    emb2, ckv = torch.cat([emb, emb]), precompute_cross_kv(net, ctx2)
 
     def controlled(t):
         ts = t.expand(2)

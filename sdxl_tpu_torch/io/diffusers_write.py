@@ -15,7 +15,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -107,16 +107,12 @@ def controlnet_to_diffusers(net: ControlNet) -> Dict[str, torch.Tensor]:
     return {_diffusers_key(k, where): v for k, v in sd.items()}
 
 
-def write_diffusers_controlnet_dir(out_dir: str, net: ControlNet,
-                                   dtype: Optional[torch.dtype] = None
-                                   ) -> str:
+def write_diffusers_controlnet_dir(out_dir: str, net: ControlNet) -> str:
     """Write ``{out_dir}/{diffusion_pytorch_model.safetensors,
-    config.json}``, a diffusers ControlNetModel directory (in ``dtype``,
-    or the net's)."""
+    config.json}``, a diffusers ControlNetModel directory in the net's
+    dtype."""
     cfg = net.cfg
     flat = controlnet_to_diffusers(net)
-    if dtype is not None:
-        flat = {k: v.to(dtype) for k, v in flat.items()}
     os.makedirs(out_dir, exist_ok=True)
     save_file(flat, os.path.join(out_dir,
                                  "diffusion_pytorch_model.safetensors"))

@@ -91,16 +91,15 @@ def _vision_config(raw: dict) -> CLIPVisionConfig:
         quick_gelu=vc.get("hidden_act", "gelu") == "quick_gelu")
 
 
-def load_clip_vision_dir(model_dir: str, device="cuda",
-                         dtype=torch.float32
+def load_clip_vision_dir(model_dir: str, device="cuda"
                          ) -> Tuple[CLIPVisionModel, CLIPVisionConfig]:
     """A transformers CLIPVisionModelWithProjection directory -> (the
-    tower on ``device`` in ``dtype``, its config)."""
+    tower on ``device`` in f32, its config)."""
     with open(os.path.join(model_dir, "config.json"), encoding="utf-8") as f:
         cfg = _vision_config(json.load(f))
     sd = build_clip_vision_from_tensors(_load_safetensors_dir(model_dir),
-                                        cfg, dtype, device)
-    return _load_strict(CLIPVisionModel(cfg, "meta", dtype), sd,
+                                        cfg, torch.float32, device)
+    return _load_strict(CLIPVisionModel(cfg, "meta", torch.float32), sd,
                         model_dir), cfg
 
 
@@ -154,11 +153,10 @@ def _adapter_config(t: Dict[str, torch.Tensor], path: str) -> IPAdapterConfig:
         f"(Resampler/'plus') found (top-level keys: {present})")
 
 
-def load_ip_adapter_file(path: str, unet_cfg: UNetConfig, device="cuda",
-                         dtype=torch.float32
+def load_ip_adapter_file(path: str, unet_cfg: UNetConfig, device="cuda"
                          ) -> Tuple[IPAdapter, IPAdapterConfig]:
     """An official ip-adapter*.safetensors -> (IPAdapter on ``device`` in
-    ``dtype``, its config). The ip_adapter.{n} pairs are taken in numeric
+    f32, its config). The ip_adapter.{n} pairs are taken in numeric
     order onto the UNet's cross-attentions (organize_ip_layers)."""
     t = load_file(path)
     cfg = _adapter_config(t, path)
@@ -175,8 +173,8 @@ def load_ip_adapter_file(path: str, unet_cfg: UNetConfig, device="cuda",
         if kinds != {"k", "v"}:
             raise ValueError(f"{path}: ip_adapter.{i} missing to_k_ip or "
                              "to_v_ip")
-    adapter = IPAdapter(cfg, unet_cfg, sorted(by_idx), "meta", dtype)
-    sd = {k: v.to(device=device, dtype=dtype) for k, v in t.items()}
+    adapter = IPAdapter(cfg, unet_cfg, sorted(by_idx), "meta", torch.float32)
+    sd = {k: v.to(device=device, dtype=torch.float32) for k, v in t.items()}
     return _load_strict(adapter, sd, path), cfg
 
 

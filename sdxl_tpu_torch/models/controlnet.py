@@ -34,7 +34,6 @@ from .unet import (
     _mlp2,
     _unet_embed,
     middle_block,
-    precompute_cross_kv,
     unet_block_plan,
 )
 
@@ -44,12 +43,12 @@ COND_EMBED_CHANNELS = (16, 32, 96, 256)
 
 class ControlCondEmbed(nn.Module):
     """conv_in -> (conv1, stride-2 conv2) x 3 with SiLU -> conv_out: the
-    image at 8x the latent grid down to model_channels at the grid."""
+    RGB image at 8x the latent grid down to model_channels at the grid."""
 
-    def __init__(self, model_channels: int, cond_channels: int = 3, **kw):
+    def __init__(self, model_channels: int, **kw):
         super().__init__()
         c = COND_EMBED_CHANNELS
-        self.conv_in = Conv2d(cond_channels, c[0], 3, **kw)
+        self.conv_in = Conv2d(3, c[0], 3, **kw)
         self.blocks = nn.ModuleList(
             nn.ModuleDict({"conv1": Conv2d(c[i], c[i], 3, **kw),
                            "conv2": Conv2d(c[i], c[i + 1], 3, stride=2,
@@ -99,7 +98,8 @@ def controlnet_forward(model: ControlNet, x: torch.Tensor,
     """The trunk on the UNet's inputs (x NHWC [B, h, w, 4]); cond_emb:
     control_cond_embed's output at the same batch. Returns (one NCHW down
     residual per input block, aligned with the UNet's skips; the NCHW mid
-    residual). cross_kv: precompute_control_cross_kv's output."""
+    residual). cross_kv: precompute_cross_kv(model, context), the trunk's
+    input and middle blocks' K/V of a fixed context."""
     emb = _unet_embed(model, timesteps, label, x.dtype)
     ckv = cross_kv or {}
     x, saved = _input_blocks(model, x, emb, context,
@@ -108,8 +108,3 @@ def controlnet_forward(model: ControlNet, x: torch.Tensor,
     x = _middle(model, x, emb, context, ckv.get("middle_block"))
     return down, model.zero_conv_mid(x)
 
-
-def precompute_control_cross_kv(model: ControlNet, context: torch.Tensor):
-    """The trunk's cross-attention K/V of a fixed context (input blocks
-    and middle block; no output blocks), precompute_cross_kv's layout."""
-    return precompute_cross_kv(model, context)

@@ -476,9 +476,9 @@ def k_sample(eps_fn: EpsFn, latent: torch.Tensor, method: str,
     """Run ``method`` over the host-known schedule (ts [n], sigmas [n+1])
     from the sigma-space latent.
 
-    eps_fn(x, sigma, t) -> the model's epsilon at the sigma-space latent
-    x ((eps, unconditional eps) for euler_cfgpp); sigma and t are 0-d
-    tensors on the latent's device. step_noise [n, ...]: the stochastic
+    eps_fn(x, sigma, t, i) -> the model's epsilon at the sigma-space
+    latent x ((eps, unconditional eps) for euler_cfgpp) in step i; sigma
+    and t are 0-d tensors on the latent's device. step_noise [n, ...]: the stochastic
     methods' standard normals, one per step. pin(lat, i, sigma) ->
     lat: the inpainting pin before each step's evaluation. head_steps > 0
     runs only the first head_steps steps (stopping at sigmas[head_steps]).
@@ -516,7 +516,7 @@ def k_sample(eps_fn: EpsFn, latent: torch.Tensor, method: str,
         noise = None if step_noise is None else step_noise[i]
         if pin is not None:
             lat = pin(lat, i, sigma)
-        eps = eps_fn(lat, sigma, t_dev[i])
+        eps = eps_fn(lat, sigma, t_dev[i], i)
         if cfgpp:
             eps, eps_u = eps
         denoised = lat - sigma * eps
@@ -540,7 +540,7 @@ def k_sample(eps_fn: EpsFn, latent: torch.Tensor, method: str,
             denoised_2 = denoised  # not read on the last step
             if not final:
                 denoised_2 = x_2 - sigma_next * eps_fn(x_2, sigma_next,
-                                                       t_dev[i + 1])
+                                                       t_dev[i + 1], i)
             lat = heun_combine(lat, denoised, x_2, denoised_2, sigma,
                                sigma_next)
         elif method in K_MID:
@@ -549,7 +549,7 @@ def k_sample(eps_fn: EpsFn, latent: torch.Tensor, method: str,
             denoised_2 = denoised  # not read on the last step
             if not final:
                 sm = torch.clamp(s_mid[i], min=1e-10)
-                denoised_2 = x_2 - sm * eps_fn(x_2, sm, t_mid[i])
+                denoised_2 = x_2 - sm * eps_fn(x_2, sm, t_mid[i], i)
             lat = mid_combine(method, lat, denoised, x_2, denoised_2, sigma,
                               sigma_next, s_mid[i], s_down[i], s_up[i],
                               noise)

@@ -91,29 +91,26 @@ def _ramp(tile: int, overlap: int, device) -> torch.Tensor:
     return r[:, None] * r[None, :]
 
 
-def _default_overlap(tile: int, overlap: Optional[int]) -> int:
-    if overlap is None:  # adapt to small tiles
-        overlap = min(16, max(tile // 4, 1))
-    if overlap >= tile:
-        raise ValueError("overlap must be < tile")
-    return overlap
+def _overlap(tile: int) -> int:
+    """Latent pixels two neighbouring tiles share: 16, less for small
+    tiles (always < tile)."""
+    return min(16, max(tile // 4, 1))
 
 
 @torch.no_grad()
 def decode_latent_tiled(vae: VAEDecoder, latent: torch.Tensor,
                         scale_factor: float = 0.13025,
                         compute_dtype: Optional[torch.dtype] = None,
-                        tile: int = 96, overlap: Optional[int] = None
-                        ) -> torch.Tensor:
-    """Tiled decode: latent tiles of tile x tile (``overlap`` latent
-    pixels, 16 by default, hide the seams), each decoded alone, blended in
+                        tile: int = 96) -> torch.Tensor:
+    """Tiled decode: latent tiles of tile x tile (an overlap of
+    ``_overlap(tile)`` latent pixels hides the seams), each decoded alone, blended in
     f32, then rounded and clipped to uint8. A latent within one tile takes
     decode_latent_to_images."""
     b, h, w, _ = latent.shape
     if h <= tile and w <= tile:
         return decode_latent_to_images(vae, latent, scale_factor,
                                        compute_dtype)
-    overlap = _default_overlap(tile, overlap)
+    overlap = _overlap(tile)
     vae = _decoder_in(vae, compute_dtype or vae.post_quant_conv.weight.dtype)
     dtype = vae.post_quant_conv.weight.dtype
     f = 2 ** (len(vae.cfg.decoder_channels) - 1)  # the VAE's upsampling
@@ -137,10 +134,10 @@ def decode_latent_tiled(vae: VAEDecoder, latent: torch.Tensor,
 
 @torch.no_grad()
 def encode_images_tiled(vae_encoder: VAEEncoder, images_u8: torch.Tensor,
-                        scale_factor: float = 0.13025, tile: int = 96,
-                        overlap: Optional[int] = None) -> torch.Tensor:
+                        scale_factor: float = 0.13025, tile: int = 96
+                        ) -> torch.Tensor:
     """Tiled encode, the decode's twin: image tiles of 8 * tile pixels
-    (``tile`` and ``overlap`` in latent pixels, as the decode's), each
+    (``tile`` and the overlap in latent pixels, as the decode's), each
     encoded alone, their latents blended in f32. Images within one tile
     take encode_images_to_latent."""
     f = 2 ** (len(vae_encoder.cfg.encoder_channels) - 1)
@@ -148,7 +145,7 @@ def encode_images_tiled(vae_encoder: VAEEncoder, images_u8: torch.Tensor,
     h, w = H // f, W // f
     if h <= tile and w <= tile:
         return encode_images_to_latent(vae_encoder, images_u8, scale_factor)
-    overlap = _default_overlap(tile, overlap)
+    overlap = _overlap(tile)
     out = torch.zeros((b, h, w, 4), dtype=torch.float32,
                       device=images_u8.device)
     wsum = torch.zeros((1, h, w, 1), dtype=torch.float32,

@@ -418,6 +418,48 @@ class SDXLPipeline:
             control_window=tuple(zip(per_net(control_start, "control_start"),
                                      per_net(control_end, "control_end"))))
 
+    def _sample(self, cond: Conditioning, generator, guidance_scale: float,
+                n_steps: int, sampler: str, schedule: str,
+                ddim_eta: float = 0.0, ext: Optional[dict] = None,
+                **common) -> torch.Tensor:
+        """The base UNet from seeded noise (txt2img, hires-fix's first
+        pass, ip2p) with LCM, a k-sampler or DDIM. ``common`` goes to
+        each sampler; ``ext`` (the options LCM refuses or ignores) to the
+        k-sampler and DDIM loops only."""
+        args = (self.unet, self.diffuser_cfg, self.alphas_cumprod, cond,
+                generator, guidance_scale, n_steps, self.compute_dtype)
+        if sampler == "lcm":
+            return lcm_sample_latent(*args, **common)
+        if sampler in K_SAMPLERS:
+            return euler_sample_latent(*args, method=sampler,
+                                       schedule=schedule, **common,
+                                       **(ext or {}))
+        return sample_latent(*args, ddim_eta=ddim_eta, **common,
+                             **(ext or {}))
+
+    def _refine(self, latent: torch.Tensor, cond: Conditioning, generator,
+                guidance_scale: float, strength: float, n_steps: int,
+                sampler: str, schedule: str, ddim_eta: float = 0.0,
+                ext: Optional[dict] = None, **common) -> torch.Tensor:
+        """The base UNet from a clean ``latent`` re-noised at
+        ``strength`` (img2img, hires-fix's second pass): LCM over its
+        grid windowed by strength, a k-sampler or DDIM from step_start =
+        round((1 - strength) * 1000). ``common`` and ``ext`` as
+        _sample's."""
+        args = (self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
+                cond, generator, guidance_scale)
+        if sampler == "lcm":
+            return lcm_refine_latent(*args, strength, n_steps,
+                                     self.compute_dtype, **common)
+        step_start = int(round((1.0 - strength) * 1000))
+        if sampler in K_SAMPLERS:
+            return k_refine_latent(*args, step_start, n_steps,
+                                   self.compute_dtype, method=sampler,
+                                   schedule=schedule, **common,
+                                   **(ext or {}))
+        return refine_latent(*args, step_start, n_steps, self.compute_dtype,
+                             ddim_eta=ddim_eta, **common, **(ext or {}))
+
     @torch.inference_mode()
     def txt2img(self, prompts, resolution: Tuple[int, int] = (1024, 1024),
                 n_steps: int = 30, guidance_scale: float = 7.5, seed: int = 0,
@@ -589,24 +631,9 @@ class SDXLPipeline:
                    preview_every=preview_every,
                    preview_callback=preview_callback)
         with self.timer.stage("diffuser"):
-            if lcm:
-                latent = lcm_sample_latent(
-                    self.unet, self.diffuser_cfg, self.alphas_cumprod,
-                    cond.astype(self.compute_dtype), generator,
-                    guidance_scale, n_steps,
-                    compute_dtype=self.compute_dtype, **common)
-            elif sampler in K_SAMPLERS:
-                latent = euler_sample_latent(
-                    self.unet, self.diffuser_cfg, self.alphas_cumprod,
-                    cond.astype(self.compute_dtype), generator,
-                    guidance_scale, n_steps, self.compute_dtype,
-                    method=sampler, schedule=schedule, **common, **ext)
-            else:
-                latent = sample_latent(
-                    self.unet, self.diffuser_cfg, self.alphas_cumprod,
-                    cond.astype(self.compute_dtype), generator,
-                    guidance_scale, n_steps, self.compute_dtype,
-                    ddim_eta=ddim_eta, **common, **ext)
+            latent = self._sample(cond.astype(self.compute_dtype), generator,
+                                  guidance_scale, n_steps, sampler, schedule,
+                                  ddim_eta, ext, **common)
             if profile_stages:
                 fence(latent)
 
@@ -697,38 +724,24 @@ class SDXLPipeline:
                                    control_start, control_end,
                                    (height, width), cond.batch)
         ipd = self._prep_ip(ip_adapter_image, ip_adapter_scale)
-        # skip the first (1 - strength) of the schedule
-        step_start = int(round((1.0 - strength) * 1000))
         use_cfg = not (no_cfg or guidance_scale == 1.0)
         if sampler == "lcm" and self.diffuser_cfg.time_cond_proj_dim:
             use_cfg = False
         generator = torch.Generator(device=self.device).manual_seed(int(seed))
-        ext = dict(use_cfg=use_cfg, guidance_rescale=guidance_rescale,
-                   deepcache=deepcache, pag_scale=pag_scale, ip=ipd, **ctl)
+        if sampler == "lcm":
+            if deepcache is not None:
+                raise ValueError("deepcache is not supported with the "
+                                 "LCM sampler (few-step by design)")
+            if pag_scale:
+                raise ValueError("pag_scale does not apply to the LCM "
+                                 "sampler")
+        ext = dict(guidance_rescale=guidance_rescale, deepcache=deepcache,
+                   pag_scale=pag_scale)
         with self.timer.stage("diffuser"):
-            if sampler == "lcm":
-                if deepcache is not None:
-                    raise ValueError("deepcache is not supported with the "
-                                     "LCM sampler (few-step by design)")
-                if pag_scale:
-                    raise ValueError("pag_scale does not apply to the LCM "
-                                     "sampler")
-                latent = lcm_refine_latent(
-                    self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
-                    cond, generator, guidance_scale, strength, n_steps,
-                    compute_dtype=self.compute_dtype, use_cfg=use_cfg,
-                    ip=ipd, **ctl)
-            elif sampler in K_SAMPLERS:
-                latent = k_refine_latent(
-                    self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
-                    cond, generator, guidance_scale, step_start, n_steps,
-                    self.compute_dtype, method=sampler, schedule=schedule,
-                    **ext)
-            else:
-                latent = refine_latent(
-                    self.unet, self.diffuser_cfg, self.alphas_cumprod, latent,
-                    cond, generator, guidance_scale, step_start, n_steps,
-                    self.compute_dtype, ddim_eta=ddim_eta, **ext)
+            latent = self._refine(latent, cond, generator, guidance_scale,
+                                  strength, n_steps, sampler, schedule,
+                                  ddim_eta, ext, use_cfg=use_cfg, ip=ipd,
+                                  **ctl)
         return self._decode(latent)
 
     @torch.inference_mode()
@@ -761,24 +774,14 @@ class SDXLPipeline:
         use_cfg = not (no_cfg or guidance_scale == 1.0)
         if sampler == "lcm" and self.diffuser_cfg.time_cond_proj_dim:
             use_cfg = False
-        common = dict(guidance_scale=guidance_scale,
-                      compute_dtype=self.compute_dtype, use_cfg=use_cfg)
-        k_common = dict(common, guidance_rescale=guidance_rescale)
+        ext = dict(guidance_rescale=guidance_rescale)
         generator = torch.Generator(device=self.device).manual_seed(int(seed))
         cond = self.conditioning(prompts, resolution,
                                  negative_prompt).astype(self.compute_dtype)
-        args = (self.unet, self.diffuser_cfg, self.alphas_cumprod)
         with self.timer.stage("diffuser"):
-            if sampler == "lcm":
-                latent = lcm_sample_latent(*args, cond, generator,
-                                           n_steps=n_steps, **common)
-            elif sampler in K_SAMPLERS:
-                latent = euler_sample_latent(
-                    *args, cond, generator, n_steps=n_steps, method=sampler,
-                    schedule=schedule, **k_common)
-            else:
-                latent = sample_latent(*args, cond, generator,
-                                       n_steps=n_steps, **k_common)
+            latent = self._sample(cond, generator, guidance_scale, n_steps,
+                                  sampler, schedule, ext=ext,
+                                  use_cfg=use_cfg)
             fence(latent)
         # the reference's jax.image.resize "cubic": Keys' a = -0.5 (torch's
         # antialiased bicubic; an upscale needs no antialiasing)
@@ -788,21 +791,10 @@ class SDXLPipeline:
         ).permute(0, 2, 3, 1)
         cond_hi = self.conditioning(prompts, (hh, hw),
                                     negative_prompt).astype(self.compute_dtype)
-        step_start = int(round((1.0 - hires_strength) * 1000))
         with self.timer.stage("hires"):
-            if sampler == "lcm":
-                latent = lcm_refine_latent(*args, up, cond_hi, generator,
-                                           strength=hires_strength,
-                                           n_steps=n_steps, **common)
-            elif sampler in K_SAMPLERS:
-                latent = k_refine_latent(
-                    *args, up, cond_hi, generator, step_start=step_start,
-                    n_steps=n_steps, method=sampler, schedule=schedule,
-                    **k_common)
-            else:
-                latent = refine_latent(*args, up, cond_hi, generator,
-                                       step_start=step_start,
-                                       n_steps=n_steps, **k_common)
+            latent = self._refine(up, cond_hi, generator, guidance_scale,
+                                  hires_strength, n_steps, sampler, schedule,
+                                  ext=ext, use_cfg=use_cfg)
             fence(latent)
         return self._decode(latent)
 
@@ -823,11 +815,6 @@ class SDXLPipeline:
         _unported(options, "ip2p")
         if not isinstance(seed, (int, np.integer)):
             raise NotImplementedError("per-image seed lists are not ported yet")
-        if self.diffuser_cfg.in_channels != 8:
-            raise ValueError(
-                "InstructPix2Pix needs an 8-channel edit UNet (this "
-                f"checkpoint has in_channels={self.diffuser_cfg.in_channels};"
-                " e.g. timbrooks/instruct-pix2pix)")
         edit_images = np.asarray(edit_images)
         if edit_images.ndim == 3:
             edit_images = edit_images[None]
@@ -858,19 +845,11 @@ class SDXLPipeline:
         use_cfg = not (no_cfg or (guidance_scale == 1.0
                                   and image_guidance_scale == 1.0))
         generator = torch.Generator(device=self.device).manual_seed(int(seed))
-        edit = dict(use_cfg=use_cfg, concat_channels=edit_latents, edit=True,
-                    image_guidance_scale=image_guidance_scale)
         with self.timer.stage("diffuser"):
-            if sampler in K_SAMPLERS:
-                latent = euler_sample_latent(
-                    self.unet, self.diffuser_cfg, self.alphas_cumprod, cond,
-                    generator, guidance_scale, n_steps, self.compute_dtype,
-                    method=sampler, schedule=schedule, **edit)
-            else:
-                latent = sample_latent(
-                    self.unet, self.diffuser_cfg, self.alphas_cumprod, cond,
-                    generator, guidance_scale, n_steps, self.compute_dtype,
-                    **edit)
+            latent = self._sample(cond, generator, guidance_scale, n_steps,
+                                  sampler, schedule, use_cfg=use_cfg,
+                                  concat_channels=edit_latents, edit=True,
+                                  image_guidance_scale=image_guidance_scale)
             fence(latent)
         return self._decode(latent)
 

@@ -62,7 +62,6 @@ from ..configs import DiffuserConfig
 from ..models.controlnet import (
     control_cond_embed,
     controlnet_forward,
-    precompute_control_cross_kv,
 )
 from ..models.unet import (
     UNet,
@@ -254,10 +253,6 @@ def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
     if cfg.is_refiner:
         return call(latent.to(compute_dtype), ctx2, ch2, cross_kv)
     if image_scale is not None and use_cfg:
-        if pag_scale or return_uncond or control or guidance_rescale:
-            raise ValueError("InstructPix2Pix 3-way CFG is not combinable "
-                             "with PAG / CFG++ / ControlNet / "
-                             "guidance_rescale")
         x3 = with_concat(torch.cat([latent] * 3, dim=0).to(compute_dtype),
                          concat)
         e_u, e_i, e_t = call(x3, ctx2, ch2, cross_kv).chunk(3, dim=0)
@@ -469,7 +464,7 @@ def _control_setup(controlnet, control_image, ctx2, compute_dtype, use_cfg,
         emb = control_cond_embed(net, image.to(compute_dtype))
         if use_cfg:
             emb = torch.cat([emb, emb], dim=0)
-        control.append((net, emb, precompute_control_cross_kv(net, ctx2)))
+        control.append((net, emb, precompute_cross_kv(net, ctx2)))
     scales = _control_window_scales(n, scale, window)
     return control, (scales if multi else scales[:, None])
 
@@ -742,32 +737,31 @@ def k_diffuse_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
     control, scales = _control_setup(
         controlnet, control_image, ctx2, compute_dtype,
         use_cfg and not cfg.is_refiner, total, control_scale, control_window)
-    step = [0]  # the step k_sample is on (on_step moves it)
     if deepcache is not None:
         dc_eps = _deepcache_eps(unet, cfg, ctx2, ch2, guidance_scale,
                                 compute_dtype, cross_kv, use_cfg,
                                 guidance_rescale, deepcache)
 
-        def eps_fn(x, sigma, t):
+        def eps_fn(x, sigma, t, i):
             return dc_eps(x / torch.sqrt(sigma ** 2 + 1.0), t)
     else:
-        def eps_fn(x, sigma, t):
+        def eps_fn(x, sigma, t, i):
             scaled = x / torch.sqrt(sigma ** 2 + 1.0)
             return _cfg_eps(unet, cfg, scaled, t, ctx2, ch2, guidance_scale,
                             compute_dtype, cross_kv, cc, use_cfg,
                             guidance_rescale, return_uncond=cfgpp,
                             pag_scale=pag_scale, control=control,
                             control_scale=None if control is None
-                            else scales[step[0]],
+                            else scales[i],
                             image_scale=image_guidance_scale if edit
                             else None)
 
-    def on_step(done, x):
-        step[0] = done
-        if preview_every and preview_callback is not None \
-                and done % preview_every == 0 and done < total:
-            vp = x / np.sqrt(float(sigmas[done]) ** 2 + 1.0)
-            preview_callback(done, total, latent_to_preview(vp))
+    on_step = None
+    if preview_every and preview_callback is not None:
+        def on_step(done, x):
+            if done % preview_every == 0 and done < total:
+                vp = x / np.sqrt(float(sigmas[done]) ** 2 + 1.0)
+                preview_callback(done, total, latent_to_preview(vp))
 
     return k_sample(eps_fn, lat, method, ts, sigmas,
                     sigmas_full=(sigma_table(alphas_cumprod)

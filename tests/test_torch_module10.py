@@ -127,7 +127,7 @@ def test_k_loop_matches_goldens(case, goldens):
     noise = torch.tensor(g["step_noises"]) if noisy else None
     evals = []
 
-    def eps_fn(x, sigma, t):
+    def eps_fn(x, sigma, t, i):
         evals.append(float(sigma))
         eps = (x - synth_model(x, sigma)) / sigma
         return (eps, eps) if method == "euler_cfgpp" else eps

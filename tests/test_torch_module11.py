@@ -14,9 +14,10 @@ VAE, against sdxl_tpu at tiny configs, f32 on the CPU.
 - Requests through the reference pipeline's entry points and the port's
   with the reference's draws injected (as tests/test_torch_module10b.py):
   txt2img and img2img with one and with two ControlNets, the proj and
-  plus IP-Adapters from official-layout files both load, ip2p through
-  DDIM and euler_a (its 3-way eps alone too, and the unscaled edit
-  latents), hires-fix through DDIM and dpmpp: final latents within 1e-3
+  plus IP-Adapters from official-layout files both load (each in one of
+  the txt2img ControlNet requests, so their loops compile once), ip2p
+  through DDIM and euler_a (its 3-way eps alone too, and the unscaled
+  edit latents), hires-fix through DDIM and dpmpp: final latents within 1e-3
   of max(1, |latent|), images within one u8 level.
 - The tiled decode (u8 within one level) and encode (2e-3) over 3 x 3
   tiles.
@@ -26,6 +27,7 @@ VAE, against sdxl_tpu at tiny configs, f32 on the CPU.
 
 import dataclasses
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -156,7 +158,7 @@ def test_controlnet_forward_matches_reference(trunk):
     with torch.no_grad():
         ce = TC.control_cond_embed(net, torch.from_numpy(img))
         down, mid = TC.controlnet_forward(net, *args, ce)
-        kv = TC.precompute_control_cross_kv(net, args[2])
+        kv = TU.precompute_cross_kv(net, args[2])
         down_kv, mid_kv = TC.controlnet_forward(net, *args, ce, kv)
     _close(_nhwc(ce), ce_j, UNET_TOL)
     assert len(down) == len(down_j) == len(net.input_blocks)
@@ -345,22 +347,32 @@ def _draws(seed):
 
 
 CONTROL_CASES = {
-    # (entry point, nets, sampler, the request's control keywords)
-    "txt2img_one": ("txt2img", 1, "heun", dict(control_end=0.5)),
+    # (entry point, nets, sampler, the request's control keywords, the
+    # IP-Adapter variant in the same request)
+    "txt2img_one": ("txt2img", 1, "heun", dict(control_end=0.5), "proj"),
     "txt2img_two": ("txt2img", 2, "dpmpp", dict(
-        control_scale=[1.0, 0.6], control_start=[0.0, 0.25])),
-    "img2img_one": ("img2img", 1, "euler", dict(control_scale=0.8)),
-    "img2img_two": ("img2img", 2, "ddim", dict(control_end=[1.0, 0.5])),
+        control_scale=[1.0, 0.6], control_start=[0.0, 0.25]), "plus"),
+    "img2img_one": ("img2img", 1, "euler", dict(control_scale=0.8), None),
+    "img2img_two": ("img2img", 2, "ddim", dict(control_end=[1.0, 0.5]),
+                    None),
 }
+IP_CASES = {"proj": "txt2img_one", "plus": "txt2img_two"}
 
 
-@pytest.mark.parametrize("case", list(CONTROL_CASES))
-def test_controlnet_requests_match_reference(case, pipes, monkeypatch):
-    """txt2img and img2img (strength 0.6) with one ControlNet and with
-    two (their residuals summed, each with its scale and window): 4 steps,
-    [0, 1] control images at the request's size; heun's second evaluation
-    of a step takes that step's window scale."""
-    entry, n, sampler, ctl = CONTROL_CASES[case]
+@pytest.fixture(scope="module")
+def ip_files(tmp_path_factory):
+    """variant -> an official-layout IP-Adapter file of TINY_BASE."""
+    root = tmp_path_factory.mktemp("ip")
+    return {v: write_ip_adapter(str(root / f"{v}.safetensors"), v,
+                                TINY_BASE.unet_config())
+            for v in ("proj", "plus")}
+
+
+def _control_request(case, pipes, ip_files, monkeypatch):
+    """One CONTROL_CASES request on both pipelines (the reference's draws
+    injected into the port), then the port's again without the control
+    keywords."""
+    entry, n, sampler, ctl, ip = CONTROL_CASES[case]
     jpipe = dataclasses.replace(pipes["j"], controlnet_params=(
         pipes["j_nets"][0] if n == 1 else tuple(pipes["j_nets"])))
     tpipe = dataclasses.replace(pipes["t"], controlnet=(
@@ -368,6 +380,14 @@ def test_controlnet_requests_match_reference(case, pipes, monkeypatch):
     imgs = [image(40 + i, (*RES, 3)) for i in range(n)]
     kw = dict(n_steps=4, seed=17, negative_prompt=NEGATIVE, sampler=sampler,
               control_image=imgs[0] if n == 1 else imgs, **ctl)
+    if ip is not None:
+        params, cfg = j_load_ip(ip_files[ip], TINY_BASE.unet_config())
+        jpipe = dataclasses.replace(jpipe, ip_adapter_params=params,
+                                    ip_adapter_cfg=cfg)
+        tpipe = dataclasses.replace(tpipe, ip_adapter=load_ip_adapter_file(
+            ip_files[ip], TINY_BASE.unet_config(), "cpu")[0])
+        kw.update(ip_adapter_image=image(27, (40, 50, 3)),
+                  ip_adapter_scale=0.8)
     if entry == "txt2img":
         def request(p, **k):
             return p.txt2img(PROMPT, resolution=RES, **k)
@@ -385,11 +405,42 @@ def test_controlnet_requests_match_reference(case, pipes, monkeypatch):
         monkeypatch, jpipe, lambda: request(jpipe, **kw))
     inject(monkeypatch, name, **draws)
     got = request(tpipe, **kw)
+    latent = tpipe.last_latent
     start = (initial if entry == "txt2img" else tpipe._encode(ref).numpy())
-    assert_matches(got, tpipe, want_images, want_latent, start)
     plain = request(tpipe, **{k: v for k, v in kw.items()
                               if not k.startswith("control")})
-    assert np.abs(plain.astype(int) - got.astype(int)).max() > 1
+    return dict(got=got, port=types.SimpleNamespace(last_latent=latent),
+                want_images=want_images, want_latent=want_latent,
+                start=start, plain=plain)
+
+
+@pytest.fixture(scope="module")
+def control_runs(pipes, ip_files):
+    """case -> _control_request's result, each request run once for the
+    ControlNet test and the IP-Adapter test that share it."""
+    done = {}
+
+    def run(case):
+        if case not in done:
+            with pytest.MonkeyPatch.context() as mp:
+                done[case] = _control_request(case, pipes, ip_files, mp)
+        return done[case]
+    return run
+
+
+@pytest.mark.parametrize("case", list(CONTROL_CASES))
+def test_controlnet_requests_match_reference(case, control_runs):
+    """txt2img and img2img (strength 0.6) with one ControlNet and with
+    two (their residuals summed, each with its scale and window): 4 steps,
+    [0, 1] control images at the request's size; heun's second evaluation
+    of a step takes that step's window scale. The txt2img cases carry an
+    IP-Adapter too (test_ip_adapter_txt2img_matches_reference), so each
+    reference loop compiles once for both features. Without the control
+    keywords the image moves by more than one level."""
+    r = control_runs(case)
+    assert_matches(r["got"], r["port"], r["want_images"], r["want_latent"],
+                   r["start"])
+    assert np.abs(r["plain"].astype(int) - r["got"].astype(int)).max() > 1
 
 
 def _plus_tensors(rng, embedding_dim, out_ctx, dim=32, n_q=4, depth=2,
@@ -451,32 +502,24 @@ def write_ip_adapter(path, variant, ucfg, seed=26):
 
 
 @pytest.mark.parametrize("variant", ["proj", "plus"])
-def test_ip_adapter_txt2img_matches_reference(variant, pipes, monkeypatch,
-                                              tmp_path):
+def test_ip_adapter_txt2img_matches_reference(variant, ip_files,
+                                              control_runs, tmp_path):
     """An official-layout file loaded by both packages (the plus geometry
-    read off the tensors); txt2img DDIM 3 steps with a 40 x 50 image
-    prompt at scale 0.8: the tokens, the zero-embedding (proj) or
+    read off the tensors), then txt2img with a 40 x 50 image prompt at
+    scale 0.8 beside the ControlNet(s) of IP_CASES' request (heun for
+    proj, dpmpp for plus): the tokens, the zero-embedding (proj) or
     zero-pixel (plus) unconditional rows and the six sites' numbering;
     the port's writer gives the file's tensors back."""
-    path = write_ip_adapter(str(tmp_path / "ip.safetensors"), variant,
-                            TINY_BASE.unet_config())
-    params, cfg = j_load_ip(path, pipes["j"].diffuser_cfg.unet_config())
-    jpipe = dataclasses.replace(pipes["j"], ip_adapter_params=params,
-                                ip_adapter_cfg=cfg)
+    path = ip_files[variant]
     adapter, t_cfg = load_ip_adapter_file(path, TINY_BASE.unet_config(),
                                           "cpu")
     assert (t_cfg.variant, t_cfg.n_tokens) == (
         "resampler" if variant == "plus" else "proj", 4)
-    tpipe = dataclasses.replace(pipes["t"], ip_adapter=adapter)
-    ip_img = image(27, (40, 50, 3))
-    kw = dict(resolution=RES, n_steps=3, seed=18, negative_prompt=NEGATIVE,
-              ip_adapter_image=ip_img, ip_adapter_scale=0.8)
-    want_images, want_latent = run_reference(
-        monkeypatch, jpipe, lambda: jpipe.txt2img(PROMPT, **kw))
-    initial, _ = _draws(18)
-    inject(monkeypatch, "sample_latent", initial_noise=initial)
-    got = tpipe.txt2img(PROMPT, **kw)
-    assert_matches(got, tpipe, want_images, want_latent, initial)
+    _, cfg = j_load_ip(path, TINY_BASE.unet_config())
+    assert cfg.n_tokens == t_cfg.n_tokens
+    r = control_runs(IP_CASES[variant])
+    assert_matches(r["got"], r["port"], r["want_images"], r["want_latent"],
+                   r["start"])
     again = load_ip_adapter_file(
         save_ip_adapter_file(str(tmp_path / "again.safetensors"), adapter),
         TINY_BASE.unet_config(), "cpu")[0]

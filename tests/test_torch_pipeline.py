@@ -140,7 +140,7 @@ def test_unported_options_raise(pipes):
         tpipe.txt2img(["a cat", "a dog"], RES, n_steps=2, seed=[1, 2])
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     """Every module of the port imports, and a tiny pipeline runs txt2img,
     txt2img with the refiner (DDIM, and a k-sampler on the karras
     schedule), a mask-image inpaint request (the VAE encoder, masks.py,
@@ -195,7 +195,7 @@ def test_port_never_imports_jax():
         mask[8:40, 16:48] = 255
         img = pipe.inpaint("a cat", img, mask_image=mask, n_steps=2)
         assert img.shape == (1, 64, 64, 3), img.shape
-        import os, tempfile
+        import os
         from sdxl_tpu_torch.io.ip_adapter import (
             save_clip_vision_dir, save_ip_adapter_file)
         from sdxl_tpu_torch.models.clip_vision import (
@@ -212,7 +212,7 @@ def test_port_never_imports_jax():
         assert img.shape == (1, 64, 64, 3), img.shape
         vcfg = CLIPVisionConfig(image_size=28, patch_size=14, n_state=32,
                                 n_head=4, n_layer=2, embed_dim=16)
-        tmp = tempfile.mkdtemp()
+        tmp = sys.argv[1]  # the test's tmp_path
         save_clip_vision_dir(os.path.join(tmp, "enc"), init_reference_(
             CLIPVisionModel(vcfg), g))
         save_ip_adapter_file(os.path.join(tmp, "ip.safetensors"),
@@ -229,7 +229,8 @@ def test_port_never_imports_jax():
         print("NO_JAX_OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
