@@ -28,8 +28,11 @@ Phases (any failure exits non-zero before the result line):
      [1,24,4608,128]; module 11's ip2p batch-3 [3,10,4096,64] and
      [3,20,1024,64] bf16 (both also in a CUDA graph), hires-fix's
      [2,10,9216,64] and [2,20,2304,64] bf16 and [1,1,36864,512] f32, and
-     a tiled VAE's [1,1,9216,512] f32, their plain versions in query
-     chunks of at most 1 GiB of f32 logits) —
+     a tiled VAE's [1,1,9216,512] f32; module 12's SD 2.x pairs at 512²,
+     [2,5,4096,64] and [2,10,1024,64], and at 768², [2,5,9216,64] and
+     [2,10,2304,64] bf16 (all four also in a CUDA graph), and the SD
+     VAE's [1,1,4096,512] f32 at 512²; the plain versions in query
+     chunks where their f32 logits pass 4 GiB) —
      K1 on every route (bf16 d 64/128 and 512, f32 d
      64/128 and 512), K2, K3a, K3b in bf16 and in f32: K1 and K2's output
      within the tolerance times min(1, max|plain output|) and a relative
@@ -166,6 +169,21 @@ Phases (any failure exits non-zero before the result line):
      1536x1536 pair call (70 each) through K1 and through the plain
      attention: eps within 2e-2 relative; the second net and the plus
      adapter freed;
+  8f. module 12: random full-width SD 1.5 (CLIP ViT-L's final LN, 8
+     fixed heads, no K1 route) and SD 2.1-768 (OpenCLIP ViT-H's
+     penultimate hidden, v-prediction) pipelines, bf16 UNets and f32 VAEs
+     with encoders, a full-width ControlNet of SD 2.x's 4-level trunk,
+     and SD 2-base (SD2_DIFFUSER, eps) on the SD 2.x weights; SD 1.5 at
+     512x512, 30 steps, CFG 7.5: DDIM, dpmpp + karras, dpmpp + ays (the
+     SD 1.x table, 10 steps), img2img at 0.5, an off-bucket crop-window
+     inpaint, clip_skip 1; SD 2.1-768 at 768x768: DDIM, euler, DeepCache
+     (3, 3), the ControlNet, clip_skip 1 on the penultimate hidden; SD
+     2-base DDIM at 512x512 — each request's evaluations by kind and K1's
+     launches held to the code's counts (routed_attentions: 0 an SD 1.5
+     call, 10 an SD 2.x call, 5 a shallow one, 4 a trunk call; one d=512
+     launch a decode or encode); then SD 2.1-768's v-prediction pair call
+     (its eps) through K1 and the plain attention within 2e-2 relative,
+     and an f32 SD 1.5 decode through both within 1 u8 level;
   9b. checkpoint loading and the sample CLI: the same full-width
      pipeline, refiner included, written with save_native_pipeline
      (UNets bf16, the rest f32) into build/checkpoint (free space checked
@@ -174,22 +192,26 @@ Phases (any failure exits non-zero before the result line):
      --model-dir on it, one prompt, 1024x1024, 30 steps, CFG 7.5, seed 0,
      five times: txt2img, --use-refiner, --reference-img (the first
      request's PNG) with --mask-img (a PNG written by save_images),
-     --sampler dpmpp --schedule karras, --sampler euler_a, --freeu,
-     --pag-scale 3, --deepcache 3 and --invert-img (the first PNG),
-     --controlnet (a directory written by io/diffusers_write.py) with
-     --control-image (the first PNG), --ip-adapter with
+     --sampler dpmpp --schedule karras, --sampler euler_a, --clip-skip
+     1, --freeu, --pag-scale 3, --deepcache 3 and --invert-img (the first
+     PNG), --controlnet (a directory written by io/diffusers_write.py)
+     with --control-image (the first PNG), --ip-adapter with
      --ip-image-encoder (written by io/ip_adapter.py) and --ip-image (the
      first PNG's 768 x 640 crop), --hires-scale 1.5 and --vae-tile 96;
      then the distilled pipeline of phase 8d written in the base's place
      and --sampler lcm -steps 4 -gs 8 from it, then phase 8e's 8-channel
-     pipeline in its place and --edit-image (the first PNG). Each
+     pipeline in its place and --edit-image (the first PNG), then
+     --family sd1 at 512x512 and --family sd2 --clip-skip 1 at 768x768
+     from diffusers directories of phase 8f's SD 1.5 and SD 2-base
+     pipelines written by io/diffusers_write.py. Each
      time the pipeline the CLI loaded must be bitwise equal to the
      in-memory one (CLIP towers, UNet, VAE decoder and encoder,
      alphas_cumprod, the refiner with --use-refiner, and the ControlNet,
-     the adapter and its tower), K1 launched as counted (2170 + 1,
-     2450 + 1, 2170 + 2, 2100 + 1, 2100 + 1, 2170 + 1, 4030 + 1, 770 + 1,
-     4340 + 2, 3224 + 1, 2170 + 1, 2870 + 1, 2170 + 4, 280 + 1,
-     2170 + 2), and the
+     the adapter and its tower; an SD tower without the projection a
+     diffusers text_encoder lacks), K1 launched as counted (2170 + 1,
+     2450 + 1, 2170 + 2, 2100 + 1, 2100 + 1, 2170 + 1, 2170 + 1,
+     4030 + 1, 770 + 1, 4340 + 2, 3224 + 1, 2170 + 1, 2870 + 1,
+     2170 + 4, 280 + 1, 2170 + 2, 0 + 1, 310 + 1), and the
      PNG it wrote (decoded
      with io/images.py read_png) within 1 u8 level of the in-memory
      pipeline's image (the count of differing pixels printed); bytes
@@ -206,7 +228,7 @@ Phases (any failure exits non-zero before the result line):
      (forward and backward) in place of the kernels: they must agree;
   12. with --profile only: three timed LoRA steps, then one under
      torch.profiler, reported as in phase 9.
-Each path (phases 4, 5, 5b, 6, 8, 8b, 8c, 8d, 8e, 9b, 10) runs with the launch counts set to
+Each path (phases 4, 5, 5b, 6, 8, 8b, 8c, 8d, 8e, 8f, 9b, 10) runs with the launch counts set to
 0 just before it and read just after; the JSON record's launches are their
 sum. Each phase's seconds are printed. The last two lines are the kernels'
 JSON record and {"ok": true, ...}.
@@ -236,11 +258,17 @@ from torch.autograd import DeviceType
 from sdxl_tpu_torch.cli import sample as sample_cli
 from sdxl_tpu_torch.configs import (
     FREEU_DEFAULTS,
+    OPEN_CLIP_VITH_CONFIG,
+    SD2_DIFFUSER,
+    SD21_768_DIFFUSER,
     SDXL_BASE_DIFFUSER,
     SDXL_REFINER_DIFFUSER,
 )
 from sdxl_tpu_torch.io.checkpoint import save_native_pipeline
-from sdxl_tpu_torch.io.diffusers_write import write_diffusers_controlnet_dir
+from sdxl_tpu_torch.io.diffusers_write import (
+    write_diffusers_controlnet_dir,
+    write_sd1_diffusers_pipeline_dir,
+)
 from sdxl_tpu_torch.io.images import read_png, save_images
 from sdxl_tpu_torch.io.ip_adapter import (
     save_clip_vision_dir,
@@ -271,10 +299,12 @@ from sdxl_tpu_torch.pipeline.k_samplers import (
     model_evaluations,
     rescale_zero_terminal_snr,
 )
+from sdxl_tpu_torch.pipeline import sd1 as sd1_mod
 from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
 from sdxl_tpu_torch.pipeline.sampler import (
     LCM_ORIGINAL_STEPS,
     _cfg_contexts,
+    _cfg_eps,
     _control_window_scales,
     _merge_ip,
     ddim_timesteps,
@@ -382,6 +412,15 @@ KERNEL_CASES = [
     (2, 20, 2304, 64, torch.bfloat16, 2e-2),
     (1, 1, 36864, 512, torch.float32, 1e-3),
     (1, 1, 9216, 512, torch.float32, 1e-3),
+    # module 12: SD 2.x's 64-wide heads at 512x512 (levels 0 and 1: 5 heads
+    # at 4096 tokens, 10 at 1024) and 768x768 (9216 and 2304 tokens), the
+    # CFG pair's batch 2; the SD-family VAE's mid-block attention at
+    # 512x512 (4096 tokens, one 512-wide head: 128 blocks, one wave)
+    (2, 5, 4096, 64, torch.bfloat16, 2e-2),
+    (2, 10, 1024, 64, torch.bfloat16, 2e-2),
+    (2, 5, 9216, 64, torch.bfloat16, 2e-2),
+    (2, 10, 2304, 64, torch.bfloat16, 2e-2),
+    (1, 1, 4096, 512, torch.float32, 1e-3),
 ]
 # K1 at a ragged edge no path takes (use_flash routes none of them, so they
 # are not held to its gate): a token count that is no multiple of 8 at
@@ -395,7 +434,9 @@ K1_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 # the base's without CFG (no_cfg or guidance 1: batch 1, 220 and 120
 # blocks)
 K1_GRAPHED = {(1, 12, 4096, 64), (1, 24, 1024, 64), (1, 10, 4096, 64),
-              (1, 20, 1024, 64), (3, 10, 4096, 64), (3, 20, 1024, 64)}
+              (1, 20, 1024, 64), (3, 10, 4096, 64), (3, 20, 1024, 64),
+              (2, 5, 4096, 64), (2, 10, 1024, 64), (2, 5, 9216, 64),
+              (2, 10, 2304, 64)}
 # the plain version runs in query chunks where its f32 logits would pass
 # this (at [2,10,9216,64] they are 6.8 GB, at [1,1,36864,512] 5.4 GB;
 # every other shape runs it whole, as before those two)
@@ -556,6 +597,18 @@ IP2P_IMAGE_GS = 1.5
 HIRES_SCALE, HIRES_STRENGTH = 1.5, 0.3
 VAE_TILE = 96
 M11_STRENGTH = 0.3
+# phase 8f: module 12. Random full-width SD 1.5 (CLIP ViT-L's final LN,
+# 8 fixed heads) at 512x512 and SD 2.1-768 (OpenCLIP ViT-H's penultimate
+# hidden, v-prediction) at 768x768, bf16 UNets and f32 VAEs with their
+# encoders, a full-width ControlNet of SD 2.x's 4-level trunk, and SD
+# 2-base (SD2_DIFFUSER: eps) on the SD 2.x weights at 512x512; the
+# requests' steps, img2img strength, the off-bucket crop window, the AYS
+# request's steps (the table's native 10) and DeepCache's (interval,
+# branch)
+SD1_RES, SD2_RES, SD2_BASE_RES = (512, 512), (768, 768), (512, 512)
+M12_STEPS, M12_AYS_STEPS, M12_STRENGTH = 30, 10, 0.5
+SD1_CROP = dict(crop_left=128, crop_right=384, crop_top=192, crop_bottom=448)
+M12_DEEPCACHE = (3, 3)
 # the f32 pipeline's request: 4 DDIM steps (4 UNet calls) keep its cost
 # near one bf16 request's
 F32_STEPS = 4
@@ -2010,6 +2063,191 @@ def check_module11_against_plain(pipe, first: np.ndarray, w: dict) -> None:
     hold_calls_to_plain(checks, torch.tensor(500.0, device=dev))
 
 
+def routed_attentions(ucfg, res, branch: int = M12_DEEPCACHE[1]) -> dict:
+    """K1 d 64/128 launches of one UNet call at `res` by evaluation kind,
+    from unet_block_plan and use_flash's gate: a block's self-attentions
+    launch K1 when their level's token count and head width pass the gate
+    (SD 2.x: levels 0 and 1 with 64-wide heads, 10 a call; SD 1.5's 40-,
+    80- and 160-wide heads: none). full and cached: every block; pag: less
+    the middle block's; shallow: the first and last `branch` blocks
+    (DeepCache); trunk: the input blocks and the middle block (a
+    ControlNet)."""
+    in_plan, mid, out_plan = unet_block_plan(ucfg)
+    h, w = res[0] // 8, res[1] // 8
+
+    def launches(spec, level):
+        if spec.kind not in ("res_t", "res_t_up", "res_t_res"):
+            return 0
+        t = (h >> level) * (w >> level)
+        return spec.depth if fa.use_flash(t, t, spec.ch_out // spec.n_head,
+                                          False) else 0
+
+    ins, level = [], 0
+    for spec in in_plan:
+        ins.append(launches(spec, level))
+        level += spec.kind == "down"
+    m = launches(mid, level)
+    outs = []
+    for spec in out_plan:  # the deepest level first; "_up" ends a level
+        outs.append(launches(spec, level))
+        level -= spec.kind.endswith("_up")
+    full = sum(ins) + m + sum(outs)
+    return {"full": full, "cached": full, "pag": full - m,
+            "shallow": sum(ins[:branch]) + sum(outs[len(outs) - branch:]),
+            "trunk": sum(ins) + m}
+
+
+def module12_weights() -> dict:
+    """Phase 8f's random pipelines, drawn on the card: SD 1.5 (seed 21)
+    and SD 2.1-768 (seed 22, OpenCLIP ViT-H's penultimate hidden,
+    v-prediction), each with its VAE encoder; a full-width ControlNet of
+    SD 2.x's plan (bf16, seed 23; zero convs drawn like every conv); and
+    SD 2-base, SD2_DIFFUSER (eps) on the SD 2.x weights."""
+    sd1 = sd1_mod.random_sd1_pipeline(21, device="cuda", with_encoder=True)
+    sd2 = sd1_mod.random_sd1_pipeline(
+        22, device="cuda", clip_cfg=OPEN_CLIP_VITH_CONFIG,
+        diffuser_cfg=SD21_768_DIFFUSER, penultimate_hidden=True,
+        with_encoder=True)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    net = init_reference_(ControlNet(SD21_768_DIFFUSER.unet_config(), "cuda",
+                                     torch.bfloat16), g)
+    return dict(sd1=sd1, sd2=sd2, net=net.eval().requires_grad_(False),
+                sd2_base=dataclasses.replace(sd2, diffuser_cfg=SD2_DIFFUSER))
+
+
+def module12_requests(w: dict):
+    """Phase 8f: SD 1.5 at 512x512 (DDIM, dpmpp + karras, dpmpp + ays
+    (the SD 1.x table), img2img, an off-bucket crop-window inpaint,
+    clip_skip 1), SD 2.1-768 at 768x768 with v-prediction (DDIM, euler,
+    DeepCache, a ControlNet, clip_skip 1 on the penultimate hidden) and SD
+    2-base at 512x512 (DDIM), CFG 7.5; each request's evaluations and K1
+    launches held to the code's counts. Returns the SD 1.5 DDIM request's
+    final latent."""
+    sd1, sd2, base = w["sd1"], w["sd2"], w["sd2_base"]
+    kw = dict(guidance_scale=7.5, n_steps=M12_STEPS)
+    a1 = routed_attentions(sd1.diffuser_cfg.unet_config(), SD1_RES)
+    a2 = routed_attentions(sd2.diffuser_cfg.unet_config(), SD2_RES)
+    ab = routed_attentions(base.diffuser_cfg.unet_config(), SD2_BASE_RES)
+    sdxl = routed_attentions(SDXL_BASE_DIFFUSER.unet_config(), K_RES,
+                             DEEPCACHE[1])
+    print(f"K1 launches a UNet call: SD 1.5 {SD1_RES} {a1}; SD 2.1-768 "
+          f"{SD2_RES} {a2}; SD 2-base {SD2_BASE_RES} {ab}; SDXL {K_RES} "
+          f"{sdxl}", flush=True)
+    if (a1["full"], a2["full"], ab["full"]) != (0, 10, 10) or sdxl != \
+            unet_attentions(SDXL_BASE_DIFFUSER.unet_config()):
+        fail("routed_attentions disagrees with the plans' counts")
+    ays = sd1._resolve_schedule("ays")
+    if ays != "ays_sd15":
+        fail(f"schedule='ays' resolves to {ays} on an SD1Pipeline")
+
+    def req(pipe, label, fn, want, want_vae, att, res):
+        return module10b_request(pipe, label, fn, want, want_vae, att,
+                                 res=res)
+
+    n1 = unet_calls(sd1, "ddim", M12_STEPS)
+    first = req(sd1, f"SD 1.5 DDIM {M12_STEPS} steps {SD1_RES}",
+                lambda: sd1.txt2img(PROMPT, SD1_RES, seed=70, **kw),
+                {"full": n1}, 1, a1, SD1_RES)
+    latent = sd1.last_latent
+    req(sd1, "SD 1.5 dpmpp + karras",
+        lambda: sd1.txt2img(PROMPT, SD1_RES, seed=71, sampler="dpmpp",
+                            schedule="karras", **kw),
+        {"full": unet_calls(sd1, "dpmpp", M12_STEPS, "karras")}, 1, a1,
+        SD1_RES)
+    req(sd1, f"SD 1.5 dpmpp + ays ({ays}) {M12_AYS_STEPS} steps",
+        lambda: sd1.txt2img(PROMPT, SD1_RES, seed=72, sampler="dpmpp",
+                            schedule="ays", guidance_scale=7.5,
+                            n_steps=M12_AYS_STEPS),
+        {"full": unet_calls(sd1, "dpmpp", M12_AYS_STEPS, ays)}, 1, a1,
+        SD1_RES)
+    n_i2i = unet_calls(sd1, "ddim", M12_STEPS,
+                       step_start=int(round((1 - M12_STRENGTH) * 1000)))
+    req(sd1, f"SD 1.5 img2img strength {M12_STRENGTH}",
+        lambda: sd1.img2img(PROMPT, first, strength=M12_STRENGTH, seed=73,
+                            **kw), {"full": n_i2i}, 2, a1, SD1_RES)
+    req(sd1, f"SD 1.5 off-bucket crop-window inpaint {SD1_CROP}",
+        lambda: sd1.inpaint(PROMPT, first, seed=74, **SD1_CROP, **kw),
+        {"full": n1}, 2, a1, SD1_RES)
+    skip1 = dataclasses.replace(sd1, clip_skip=1)
+    skipped = req(skip1, "SD 1.5 clip_skip=1 DDIM (seed 70)",
+                  lambda: skip1.txt2img(PROMPT, SD1_RES, seed=70, **kw),
+                  {"full": n1}, 1, a1, SD1_RES)
+    print(f"SD 1.5 clip_skip=1 vs 0 at seed 70: mean "
+          f"{np.abs(skipped.astype(np.int16) - first).mean():.3f} u8 levels",
+          flush=True)
+
+    n2 = unet_calls(sd2, "ddim", M12_STEPS)
+    first2 = req(sd2, f"SD 2.1-768 v DDIM {M12_STEPS} steps {SD2_RES}",
+                 lambda: sd2.txt2img(PROMPT, SD2_RES, seed=75, **kw),
+                 {"full": n2}, 1, a2, SD2_RES)
+    req(sd2, "SD 2.1-768 v euler",
+        lambda: sd2.txt2img(PROMPT, SD2_RES, seed=76, sampler="euler", **kw),
+        {"full": unet_calls(sd2, "euler", M12_STEPS)}, 1, a2, SD2_RES)
+    cached = len(range(0, n2, M12_DEEPCACHE[0]))
+    req(sd2, f"SD 2.1-768 v DeepCache {M12_DEEPCACHE} DDIM",
+        lambda: sd2.txt2img(PROMPT, SD2_RES, seed=77,
+                            deepcache=M12_DEEPCACHE, **kw),
+        {"cached": cached, "shallow": n2 - cached}, 1, a2, SD2_RES)
+    pc = dataclasses.replace(sd2, controlnet=w["net"])
+    req(pc, "SD 2.1-768 v ControlNet DDIM (SD 2.x's 4-level trunk)",
+        lambda: pc.txt2img(PROMPT, SD2_RES, seed=78,
+                           control_image=first2[0], **kw),
+        {"full": n2, "trunk": n2}, 1, a2, SD2_RES)
+    skip2 = dataclasses.replace(sd2, clip_skip=1)
+    req(skip2, "SD 2.1-768 v penultimate hidden clip_skip=1 DDIM",
+        lambda: skip2.txt2img(PROMPT, SD2_RES, seed=75, **kw),
+        {"full": n2}, 1, a2, SD2_RES)
+    req(base, f"SD 2-base (eps) DDIM {SD2_BASE_RES}",
+        lambda: base.txt2img(PROMPT, SD2_BASE_RES, seed=79, **kw),
+        {"full": unet_calls(base, "ddim", M12_STEPS)}, 1, ab, SD2_BASE_RES)
+    return latent
+
+
+@torch.inference_mode()
+def check_module12_against_plain(w: dict, sd1_latent) -> None:
+    """SD 2.1-768's v-prediction pair call at 768x768 (10 K1 launches),
+    its [uncond | cond] rows turned into eps at ᾱ_t, through K1 and
+    through the plain attention: eps within UNET_REL_TOL relative; the
+    f32 SD 1.5 decode of sd1_latent (one f32 d=512 launch at
+    [1,1,4096,512]) through both, within VAE_LEVEL_TOL."""
+    sd1, sd2 = w["sd1"], w["sd2"]
+    dtype, dev, cfg = sd2.compute_dtype, sd2.device, sd2.diffuser_cfg
+    cond = sd2.conditioning(PROMPT, SD2_RES).astype(dtype)
+    ctx2, ch2 = _cfg_contexts(cfg, cond, dtype)
+    kv = precompute_cross_kv(sd2.unet, ctx2)
+    g = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn((1, SD2_RES[0] // 8, SD2_RES[1] // 8, 4), generator=g,
+                    device=dev)
+    att = routed_attentions(cfg.unet_config(), SD2_RES)
+    t = torch.tensor(500, device=dev)
+
+    def pair_eps(t):
+        # the pair's rows and contexts as one unguided batch-2 call
+        return _cfg_eps(sd2.unet, cfg, torch.cat([x, x]).to(dtype), t, ctx2,
+                        ch2, 1.0, dtype, kv, use_cfg=False,
+                        alpha_t=sd2.alphas_cumprod[t])
+
+    hold_calls_to_plain([(
+        f"SD 2.1-768 v-prediction pair call B=2 {SD2_RES[0]}x"
+        f"{SD2_RES[1]} (eps)", att["full"], pair_eps)], t)
+
+    def decode():
+        return decode_latent_to_images(sd1.vae, sd1_latent,
+                                       sd1.scale_factor).int()
+
+    fa.reset_launch_counts()
+    img_k = decode()
+    torch.cuda.synchronize()
+    n = fa.launch_counts[F32_D512]
+    img_p = with_attention(decode, plain_attention)
+    levels = (img_k - img_p).abs().max().item()
+    print(f"SD 1.5 f32 decode {SD1_RES}: f32 d=512 launches {n}; image max "
+          f"diff {levels} levels (tol {VAE_LEVEL_TOL})", flush=True)
+    if n != 1 or levels > VAE_LEVEL_TOL:
+        fail("the SD 1.5 decode through K1 disagrees with the plain "
+             "attention")
+
+
 def drop_page_cache(paths) -> None:
     """Ask the kernel to evict the files' pages (clean after fsync), so the
     next read comes from the disk."""
@@ -2058,6 +2296,9 @@ def check_loaded_state(pipe, loaded, refiner: bool = False) -> None:
     n = 0
     for what, a, b in pairs:
         sa, sb = a.state_dict(), b.state_dict()
+        if what == "embedder" and isinstance(loaded, sd1_mod.SD1Pipeline):
+            # a diffusers text_encoder (HF CLIPTextModel) has no projection
+            sa.pop("text_projection", None)
         if sorted(sa) != sorted(sb):
             fail(f"loaded {what}: keys differ "
                  f"{sorted(set(sa) ^ set(sb))[:5]}")
@@ -2090,17 +2331,19 @@ def check_png(label: str, path: str, want: np.ndarray) -> None:
         fail(f"{label}: the PNG lacks the parameters text chunk")
 
 
-def checkpoint_cli_phase(pipe, total, p_lcm, m11) -> None:
+def checkpoint_cli_phase(pipe, total, p_lcm, m11, m12) -> None:
     """Phase 9b: write the pipeline, refiner included, as a native
     checkpoint; answer requests through the sample CLI from it (a txt2img,
     one with --use-refiner, an inpaint of the first one's PNG with a mask
-    PNG, two k-samplers, phase 8d's --freeu, --pag-scale, --deepcache and
-    --invert-img, and phase 8e's --controlnet and --ip-adapter from files
-    the port's writers made, --hires-scale and --vae-tile), then from a
-    native checkpoint of the LCM-distilled pipeline p_lcm written in its
-    place (--sampler lcm), then from one of phase 8e's 8-channel pipeline
-    (--edit-image), and hold each load and image against the in-memory
-    pipeline."""
+    PNG, two k-samplers, --clip-skip 1, phase 8d's --freeu, --pag-scale,
+    --deepcache and --invert-img, and phase 8e's --controlnet and
+    --ip-adapter from files the port's writers made, --hires-scale and
+    --vae-tile), then from a native checkpoint of the LCM-distilled
+    pipeline p_lcm written in its place (--sampler lcm), then from one of
+    phase 8e's 8-channel pipeline (--edit-image), then --family sd1 and
+    --family sd2 --clip-skip 1 from diffusers directories of phase 8f's SD
+    1.5 and SD 2-base pipelines that the port's writer made, and hold each
+    load and image against the in-memory pipeline."""
     modules = [pipe.embedder, pipe.unet, pipe.vae, pipe.vae_encoder,
                pipe.refiner, m11["nets"][0], m11["vision"],
                m11["adapters"]["proj"]]
@@ -2116,13 +2359,18 @@ def checkpoint_cli_phase(pipe, total, p_lcm, m11) -> None:
              f"{CKPT_SLACK}")
     loads = []
     real_load = loader_mod.load_pipeline
+    real_sd1_load = sd1_mod.load_sd1_pipeline
 
-    def timed_load(*args, **kw):
-        t0 = time.perf_counter()
-        out = real_load(*args, **kw)
-        torch.cuda.synchronize()
-        loads.append((time.perf_counter() - t0, out))
-        return out
+    def timed(load):
+        def timed_load(*args, **kw):
+            t0 = time.perf_counter()
+            out = load(*args, **kw)
+            torch.cuda.synchronize()
+            loads.append((time.perf_counter() - t0, out))
+            return out
+        return timed_load
+
+    timed_load = timed(real_load)
 
     def cli_request(label, argv, want_unet, want_vae, refiner=False,
                     want_pipe=pipe, extras=()):
@@ -2134,11 +2382,14 @@ def checkpoint_cli_phase(pipe, total, p_lcm, m11) -> None:
         print(f"-- python -m sdxl_tpu_torch.cli.sample {' '.join(argv)}",
               flush=True)
         loader_mod.load_pipeline = timed_load
+        sd1_mod.load_sd1_pipeline = timed(real_sd1_load)
         try:
             rc = run_path(label, lambda: sample_cli.main(argv),
+                          [F32_D512] if want_unet == 0 else
                           ["sdxl_flash_attention_bf16", F32_D512], total)
         finally:
             loader_mod.load_pipeline = real_load
+            sd1_mod.load_sd1_pipeline = real_sd1_load
         got = (fa.launch_counts["sdxl_flash_attention_bf16"],
                fa.launch_counts[F32_D512])
         if rc != 0:
@@ -2249,6 +2500,19 @@ def checkpoint_cli_phase(pipe, total, p_lcm, m11) -> None:
                       pipe.txt2img(PROMPT, resolution=(1024, 1024),
                                    n_steps=30, guidance_scale=7.5, seed=0,
                                    sampler=sampler, schedule=schedule)[0])
+
+        # module 12's --clip-skip on SDXL: both towers one block earlier
+        out_c = os.path.join(CKPT_DIR, "out", "clip_skip")
+        cli_request("the sample CLI --clip-skip 1 request",
+                    argv[:-1] + [out_c, "--clip-skip", "1"],
+                    UNET_LAUNCHES_1024, 1)
+        pipe.clip_skip = 1
+        try:
+            want = pipe.txt2img(PROMPT, resolution=(1024, 1024), n_steps=30,
+                                guidance_scale=7.5, seed=0)[0]
+        finally:
+            pipe.clip_skip = 0
+        check_png("the CLI's --clip-skip 1 image", out_c + "0.png", want)
 
         # phase 8d's flags (--deepcache's default branch is DEEPCACHE's)
         att = unet_attentions(pipe.diffuser_cfg.unet_config())
@@ -2376,6 +2640,40 @@ def checkpoint_cli_phase(pipe, total, p_lcm, m11) -> None:
                   edit.ip2p(PROMPT, first_png[None], n_steps=30,
                             guidance_scale=7.5,
                             image_guidance_scale=IP2P_IMAGE_GS, seed=0)[0])
+        shutil.rmtree(ckpt_edit)
+
+        # module 12: SD 1.5 and SD 2-base diffusers directories from the
+        # port's writer (sd2=True: the tokenizer directory pads with "!",
+        # which the CLIP tokenizer reads as the reference's does: EOT)
+        for family, sd, res, flags in (
+                ("sd1", m12["sd1"], SD1_RES, []),
+                ("sd2", m12["sd2_base"], SD2_RES, ["--clip-skip", "1"])):
+            d = os.path.join(CKPT_DIR, family)
+            t0 = time.perf_counter()
+            write_sd1_diffusers_pipeline_dir(d, sd, sd2=family == "sd2")
+            written = sum(os.path.getsize(os.path.join(r, f))
+                          for r, _, fs in os.walk(d) for f in fs)
+            print(f"{family} diffusers directory written: {written} bytes in "
+                  f"{time.perf_counter() - t0:.3f}s", flush=True)
+            att = routed_attentions(sd.diffuser_cfg.unet_config(), res)
+            out_f = os.path.join(CKPT_DIR, "out", family)
+            cli_request(
+                f"the sample CLI --family {family} {' '.join(flags)} "
+                f"request", ["--family", family, "--model-dir", d,
+                             "--prompt", PROMPT, "--height", str(res[0]),
+                             "--width", str(res[1]), "-steps", "30", "-gs",
+                             "7.5", "--seed", "0", "--output-dir", out_f,
+                             *flags],
+                unet_calls(sd, "ddim", 30) * att["full"], 1, want_pipe=sd)
+            sd.clip_skip = 1 if flags else 0
+            try:
+                want = sd.txt2img(PROMPT, resolution=res, n_steps=30,
+                                  guidance_scale=7.5, seed=0)[0]
+            finally:
+                sd.clip_skip = 0
+            check_png(f"the CLI's --family {family} {' '.join(flags)} image",
+                      out_f + "0.png", want)
+            shutil.rmtree(d)
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
@@ -2673,8 +2971,21 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("8e (ControlNet, IP-Adapter, ip2p, hires-fix, tiled VAE)")
-    checkpoint_cli_phase(pipe, path, p_lcm, m11)
-    del p_lcm, m11
+    t0 = time.perf_counter()
+    m12 = module12_weights()
+    torch.cuda.synchronize()
+    print(f"module-12 weights drawn (SD 1.5, SD 2.1-768 and an SD 2.x "
+          f"ControlNet): {time.perf_counter() - t0:.1f}s", flush=True)
+    sd1_latent = run_path("the module-12 requests",
+                          lambda: module12_requests(m12),
+                          ["sdxl_flash_attention_bf16", F32_D512], path)
+    check_module12_against_plain(m12, sd1_latent)
+    del m12["net"], m12["sd2"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("8f (SD 1.5, SD 2.1-768 v-prediction, SD 2-base)")
+    checkpoint_cli_phase(pipe, path, p_lcm, m11, m12)
+    del p_lcm, m11, m12
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("9b (checkpoint, sample CLI)")

@@ -1,11 +1,15 @@
-"""`sample` CLI: SDXL images from a checkpoint on disk (counterpart of
-sdxl_tpu/cli/sample.py).
+"""`sample` CLI: SDXL and SD 1.x / 2.x images from a checkpoint on disk
+(counterpart of sdxl_tpu/cli/sample.py).
 
 ``build_parser`` is the reference's in full, so every flag of the
-reference parses. ``main`` runs ``--family sdxl``: load (any layout
-pipeline/loader.py detects, or ``--random-weights``; the refiner too with
-``--use-refiner``), merge ``--lora`` and ``--embedding`` files,
-``--zsnr``, ``--vae-tile``, load ``--controlnet`` directories and an
+reference parses. ``main`` runs ``--family sdxl``, ``sd1`` and ``sd2``:
+load (SDXL: any layout pipeline/loader.py detects, the refiner too with
+``--use-refiner``; SD 1.x / 2.x: a diffusers directory or an ldm single
+file through pipeline/sd1.py, SD15_DIFFUSER with the CLIP ViT-L tower or
+SD2_DIFFUSER with the OpenCLIP ViT-H tower's penultimate hidden; or
+``--random-weights``), merge ``--lora`` and ``--embedding`` files,
+``--zsnr``, ``--vae-tile``, ``--clip-skip`` (checked against the towers'
+depth), load ``--controlnet`` directories and an
 ``--ip-adapter`` with its ``--ip-image-encoder``, then txt2img (with the
 refiner, or the ``--denoising-end`` split), hires-fix (``--hires-scale``,
 ``--hires-strength``), img2img (``--reference-img`` with
@@ -23,9 +27,9 @@ reference takes them (txt2img also with ``--preview-every``, which writes
 the reference's generation metadata. The bad combinations of these flags
 fail with the reference's messages: an exit 1 where the reference's CLI
 checks them, the pipeline's ValueError where the reference's pipeline
-does. Any other flag set away from its default, and any other family, is
-an error naming the module that ports it. Runs on the GPU; the tests pass
-``device="cpu"`` to ``main``.
+does. Any other flag set away from its default, and any other family
+(sd3, flux), is an error naming the module that ports it. Runs on the
+GPU; the tests pass ``device="cpu"`` to ``main``.
 
 Usage:
   python -m sdxl_tpu_torch.cli.sample --model-dir ./weights \
@@ -57,17 +61,17 @@ _PORTED = {
     "control_scale", "control_start", "control_end", "ip_adapter",
     "ip_image_encoder", "ip_image", "ip_scale", "edit_image",
     "image_guidance_scale", "hires_scale", "hires_strength", "vae_tile",
+    "clip_skip",
 }
 # every other flag -> the module of ROADMAP Queue 1 that ports it
 _WAITS = {
-    "clip_skip": 12,
     **dict.fromkeys(["no_t5", "slg_scale", "slg_layers", "true_cfg_scale"],
                     13),
     "quantize": 14,
     **dict.fromkeys(["dp", "tp"], 17),
     **dict.fromkeys(["trace", "debug_nans"], 7),
 }
-_FAMILY_MODULE = {"sd1": 12, "sd2": 12, "sd3": 13, "flux": 13}
+_FAMILY_MODULE = {"sd3": 13, "flux": 13}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -357,7 +361,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(parser: argparse.ArgumentParser, args) -> str | None:
     """The error for the first flag main() does not run, or None."""
-    if args.family != "sdxl":
+    if args.family in _FAMILY_MODULE:
         return (f"--family {args.family} is not ported yet (module "
                 f"{_FAMILY_MODULE[args.family]})")
     for action in parser._actions:
@@ -367,6 +371,44 @@ def _unported(parser: argparse.ArgumentParser, args) -> str | None:
             return (f"{action.option_strings[0]} is not ported yet (module "
                     f"{_WAITS[action.dest]})")
     return None
+
+
+def pipe_min_layers(pipe) -> int:
+    """The shallowest text tower's depth (bounds --clip-skip)."""
+    cfg = pipe.embedder_cfg
+    if hasattr(cfg, "clip_config"):
+        return min(cfg.clip_config.n_layer, cfg.open_clip_config.n_layer)
+    return cfg.n_layer
+
+
+def _load_sd1(args, dtype, loras, device):
+    """--family sd1|sd2: (the pipeline, None) or (None, the error)."""
+    from ..configs import (
+        CLIP_VIT_L_CONFIG,
+        OPEN_CLIP_VITH_CONFIG,
+        SD2_DIFFUSER,
+        SD15_DIFFUSER,
+    )
+    from ..pipeline.sd1 import load_sd1_pipeline, random_sd1_pipeline
+
+    sd2 = args.family == "sd2"
+    clip_cfg = OPEN_CLIP_VITH_CONFIG if sd2 else CLIP_VIT_L_CONFIG
+    d_cfg = SD2_DIFFUSER if sd2 else SD15_DIFFUSER
+    if args.use_refiner:
+        return None, "--use-refiner is an SDXL feature"
+    if args.random_weights or args.model_dir is None:
+        if not args.random_weights:
+            return None, "--model-dir is required (or --random-weights)"
+        return random_sd1_pipeline(
+            device=device, clip_cfg=clip_cfg, diffuser_cfg=d_cfg,
+            unet_dtype=dtype, tokenizer_dir=args.tokenizer_dir,
+            penultimate_hidden=sd2), None
+    try:
+        return load_sd1_pipeline(
+            args.model_dir, clip_cfg, d_cfg, dtype, args.tokenizer_dir,
+            penultimate_hidden=sd2, loras=loras, device=device), None
+    except (KeyError, FileNotFoundError, ValueError) as e:
+        return None, f"failed to load checkpoint from {args.model_dir}: {e}"
 
 
 def _load_mask(args):
@@ -498,7 +540,8 @@ def main(argv=None, device="cuda") -> int:
               file=sys.stderr)
         return 1
     if args.denoising_end is not None and (
-            not args.use_refiner or args.reference_img is not None):
+            args.family != "sdxl" or not args.use_refiner
+            or args.reference_img is not None):
         print("error: --denoising-end is the SDXL ensemble-of-experts "
               "txt2img split; it requires --family sdxl with "
               "--use-refiner and no --reference-img",
@@ -513,7 +556,12 @@ def main(argv=None, device="cuda") -> int:
         print(f"error: {control_kw}", file=sys.stderr)
         return 1
 
-    if args.random_weights or args.model_dir is None:
+    if args.family in ("sd1", "sd2"):
+        pipe, err = _load_sd1(args, dtype, loras, device)
+        if err:
+            print(f"error: {err}", file=sys.stderr)
+            return 1
+    elif args.random_weights or args.model_dir is None:
         if not args.random_weights:
             print("error: --model-dir is required (or pass --random-weights)",
                   file=sys.stderr)
@@ -564,6 +612,12 @@ def main(argv=None, device="cuda") -> int:
             print(f"error: failed to load textual-inversion embedding: {e}",
                   file=sys.stderr)
             return 1
+    if args.clip_skip:
+        if not 0 <= args.clip_skip < pipe_min_layers(pipe) - 1:
+            print(f"error: --clip-skip {args.clip_skip} out of range for "
+                  f"this model", file=sys.stderr)
+            return 1
+        pipe.clip_skip = args.clip_skip
 
     if args.controlnet is not None:
         pipe.load_controlnet(args.controlnet[0] if len(args.controlnet) == 1

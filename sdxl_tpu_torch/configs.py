@@ -1,10 +1,11 @@
 """Model configurations (the port's copy of the SDXL part of sdxl_tpu/configs.py).
 
 Frozen dataclasses with the reference's field names and defaults, and the
-SDXL 1.0 presets, so a config describes the same model in both packages
-(a CPU test holds ``dataclasses.asdict`` of each against the reference's),
-and ``load_cfg`` / ``save_cfg`` for the ``.cfg`` JSON files of a checkpoint
-directory. The SD1/SD2, SD3, T5 and Flux configs wait for their slices.
+SDXL 1.0 and SD 1.x / 2.x presets, so a config describes the same model
+in both packages (a CPU test holds ``dataclasses.asdict`` of each against
+the reference's), and ``load_cfg`` / ``save_cfg`` for the ``.cfg`` JSON
+files of a checkpoint directory. The SD3, T5 and Flux configs wait for
+their slices.
 """
 
 from __future__ import annotations
@@ -202,6 +203,57 @@ SDXL_REFINER_DIFFUSER = DiffuserConfig(
 
 SDXL_EMBEDDER = EmbedderConfig(
     clip_config=CLIP_VIT_L_CONFIG, open_clip_config=OPEN_CLIP_BIGG_CONFIG)
+
+
+# ---------------------------------------------------------------------------
+# SD 1.x / 2.x presets: the same UNet generator with other knobs
+# ---------------------------------------------------------------------------
+
+# SD 1.4/1.5: 4 levels, transformers at 0-2 (depth 1), FIXED 8 heads at
+# every width, single CLIP ViT-L context (768), no label embedding.
+SD15_DIFFUSER = DiffuserConfig(
+    adm_in_channels=0,
+    model_channels=320,
+    channel_mults=(1, 2, 4, 4),
+    num_head_channels=64,  # unused (n_heads set)
+    transformer_depths=(1, 1, 1, 1),
+    context_dim=768,
+    transformer_levels=(0, 1, 2),
+    n_heads=8,
+)
+
+# SD 2.x (512-base, eps-prediction): OpenCLIP ViT-H context (1024),
+# 64-wide heads like SDXL, transformers at levels 0-2.
+SD2_DIFFUSER = DiffuserConfig(
+    adm_in_channels=0,
+    model_channels=320,
+    channel_mults=(1, 2, 4, 4),
+    num_head_channels=64,
+    transformer_depths=(1, 1, 1, 1),
+    context_dim=1024,
+    transformer_levels=(0, 1, 2),
+)
+
+# SD 2.1-768: the same architecture, v-prediction objective
+SD21_768_DIFFUSER = DiffuserConfig(
+    adm_in_channels=0,
+    model_channels=320,
+    channel_mults=(1, 2, 4, 4),
+    num_head_channels=64,
+    transformer_depths=(1, 1, 1, 1),
+    context_dim=1024,
+    transformer_levels=(0, 1, 2),
+    prediction_type="v",
+)
+
+# SD 1.x's text tower is OpenAI CLIP ViT-L (SDXL's first tower); SD 2.x's
+# is OpenCLIP ViT-H (1024 wide, its penultimate hidden of 24 layers).
+OPEN_CLIP_VITH_CONFIG = CLIPConfig(
+    n_vocab=49408, n_state=1024, embed_dim=1024, n_head=16, n_ctx=77,
+    n_layer=24, quick_gelu=False,
+)
+
+SD15_VAE_SCALE = 0.18215  # SDXL's is 0.13025
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Import SDXL weights from a diffusers model directory (the SDXL part of
-sdxl_tpu/io/diffusers_sdxl.py).
+"""Import SDXL and SD 1.x / 2.x weights from a diffusers model directory
+(counterpart of sdxl_tpu/io/diffusers_sdxl.py).
 
 The `stabilityai/stable-diffusion-xl-base-1.0` repository layout:
 
@@ -27,7 +27,12 @@ layout) loads with ``load_controlnet_dir``: the trunk's keys are the
 UNet's input side (conv_in, down_blocks, mid_block), plus
 controlnet_cond_embedding.*, controlnet_down_blocks.{i} (one zero conv an
 input block) and controlnet_mid_block; io/diffusers_write.py writes it.
-The SD1 loaders wait for module 12.
+
+``load_sd1_diffusers_dir`` reads the single-tower StableDiffusionPipeline
+layout (runwayml/stable-diffusion-v1-5, stabilityai/stable-diffusion-2-1):
+unet/ (no add_embedding), vae/, text_encoder/ and the scheduler's ᾱ
+table. As in the reference, it does not read the scheduler's
+prediction_type: SD 2.1-768's v-prediction comes from the caller's config.
 """
 
 from __future__ import annotations
@@ -385,14 +390,7 @@ def load_sdxl_diffusers_dir(
     LCM-distilled UNet's time_embedding.cond_proj (0 without one).
     """
     unet_tensors = _load_safetensors_dir(os.path.join(model_dir, "unet"))
-    cin = int(unet_tensors["conv_in.weight"].shape[1])
-    if cin != diffuser_cfg.in_channels:
-        diffuser_cfg = dataclasses.replace(diffuser_cfg, in_channels=cin)
-    cp = unet_tensors.get("time_embedding.cond_proj.weight")
-    tcp = 0 if cp is None else int(cp.shape[1])
-    if tcp != diffuser_cfg.time_cond_proj_dim:
-        diffuser_cfg = dataclasses.replace(diffuser_cfg,
-                                           time_cond_proj_dim=tcp)
+    diffuser_cfg = _corrected_cfg(diffuser_cfg, unet_tensors)
     unet = build_unet_from_diffusers(
         unet_tensors, diffuser_cfg.unet_config(), unet_dtype, device=device)
     vae = build_vae_from_diffusers(
@@ -420,30 +418,66 @@ def load_sdxl_diffusers_dir(
             ),
         }
 
-    alphas = None
-    sched = os.path.join(model_dir, "scheduler", "scheduler_config.json")
-    if os.path.isfile(sched):
-        with open(sched) as f:
-            sc = json.load(f)
-        if sc.get("beta_schedule", "scaled_linear") == "scaled_linear":
-            betas = (
-                np.linspace(
-                    sc.get("beta_start", 0.00085) ** 0.5,
-                    sc.get("beta_end", 0.012) ** 0.5,
-                    sc.get("num_train_timesteps", 1000),
-                    dtype=np.float64,
-                )
-                ** 2
-            )
-            alphas = np.cumprod(1.0 - betas).astype(np.float32)
+    return (embedder, unet, vae, _scheduler_alphas(model_dir),
+            _vae_scale(model_dir), diffuser_cfg)
 
-    scale = None
-    vae_cfg_path = os.path.join(model_dir, "vae", "config.json")
-    if os.path.isfile(vae_cfg_path):
-        with open(vae_cfg_path) as f:
-            scale = json.load(f).get("scaling_factor")
 
-    return embedder, unet, vae, alphas, scale, diffuser_cfg
+def _scheduler_alphas(model_dir: str):
+    """The ᾱ table of the directory's scaled-linear scheduler, or None."""
+    sc = _read_json(os.path.join(model_dir, "scheduler",
+                                 "scheduler_config.json"))
+    if sc is None or sc.get("beta_schedule",
+                            "scaled_linear") != "scaled_linear":
+        return None
+    betas = np.linspace(sc.get("beta_start", 0.00085) ** 0.5,
+                        sc.get("beta_end", 0.012) ** 0.5,
+                        sc.get("num_train_timesteps", 1000),
+                        dtype=np.float64) ** 2
+    return np.cumprod(1.0 - betas).astype(np.float32)
+
+
+def _vae_scale(model_dir: str):
+    """vae/config.json's scaling_factor, or None."""
+    vm = _read_json(os.path.join(model_dir, "vae", "config.json"))
+    return None if vm is None else vm.get("scaling_factor")
+
+
+def _corrected_cfg(diffuser_cfg, unet_tensors):
+    """The diffuser config with in_channels from conv_in's width (9 for
+    inpainting UNets, 8 for InstructPix2Pix) and time_cond_proj_dim from
+    an LCM-distilled UNet's time_embedding.cond_proj (0 without one)."""
+    cin = int(unet_tensors["conv_in.weight"].shape[1])
+    cp = unet_tensors.get("time_embedding.cond_proj.weight")
+    return dataclasses.replace(diffuser_cfg, in_channels=cin,
+                               time_cond_proj_dim=0 if cp is None
+                               else int(cp.shape[1]))
+
+
+def load_sd1_diffusers_dir(
+    model_dir: str,
+    diffuser_cfg,
+    clip_cfg,
+    unet_dtype=torch.bfloat16,
+    device="cpu",
+):
+    """Load a diffusers-layout SD 1.x / 2.x directory (one text encoder, no
+    add_embedding). Returns (tower state_dict | None, unet state_dict,
+    autoencoder state_dict, alphas_cumprod | None, vae_scale_factor |
+    None, diffuser_cfg), tensors on ``device``, the cfg corrected as
+    load_sdxl_diffusers_dir's."""
+    unet_tensors = _load_safetensors_dir(os.path.join(model_dir, "unet"))
+    diffuser_cfg = _corrected_cfg(diffuser_cfg, unet_tensors)
+    unet = build_unet_from_diffusers(
+        unet_tensors, diffuser_cfg.unet_config(), unet_dtype, device=device)
+    vae = build_vae_from_diffusers(
+        _load_safetensors_dir(os.path.join(model_dir, "vae")), device=device)
+    clip = None
+    te = os.path.join(model_dir, "text_encoder")
+    if clip_cfg is not None and os.path.isdir(te):
+        clip = build_clip_from_hf(_load_safetensors_dir(te), clip_cfg,
+                                  prefix="text_model", device=device)
+    return (clip, unet, vae, _scheduler_alphas(model_dir),
+            _vae_scale(model_dir), diffuser_cfg)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Import SDXL weights from the official single-file checkpoint (the SDXL
-part of sdxl_tpu/io/hf_sdxl.py).
+"""Import SDXL and SD 1.x / 2.x weights from the official single-file
+checkpoints (counterpart of sdxl_tpu/io/hf_sdxl.py).
 
 The standard `sd_xl_base_1.0.safetensors` (sgm/ldm key layout), or the
 same keys in a legacy torch-pickle `.ckpt`, load directly into the port's
@@ -14,8 +14,13 @@ each tensor is a zero-copy view of the mapped file until it is moved to
 the device and cast there; only OpenCLIP's fused in_proj is split into
 q/k/v (row views) and HF's text_projection transposed. The builders return
 state_dicts under the port's module names (the reference's tree paths with
-``weight``/``bias`` leaves). ``load_sd1_single_file`` waits for the SD1
-slice.
+``weight``/``bias`` leaves).
+
+``load_sd1_single_file`` reads the SD 1.x / 2.x ldm files
+(v1-5-pruned.{safetensors,ckpt}, v2-1_768-ema-pruned, ...): the same UNet
+layout without label_emb, the VAE, and the one text tower at
+cond_stage_model.transformer.text_model (SD 1.x's HF CLIP) or
+cond_stage_model.model (SD 2.x's OpenCLIP ViT-H, fused in_proj).
 """
 
 from __future__ import annotations
@@ -421,3 +426,39 @@ def load_sdxl_safetensors(
             ),
         }
     return embedder, unet, vae
+
+
+def load_sd1_single_file(
+    path: str,
+    diffuser_cfg: DiffuserConfig,
+    clip_cfg: CLIPConfig,
+    unet_dtype=torch.bfloat16,
+    vae_cfg: Optional[AutoencoderConfig] = None,
+    device="cpu",
+):
+    """Load a single-file SD 1.x / 2.x checkpoint in the ldm layout:
+    UNet at model.diffusion_model.*, VAE at first_stage_model.*, the text
+    tower at cond_stage_model.transformer.* (SD 1.x, HF CLIPTextModel) or
+    cond_stage_model.model.* (SD 2.x, open_clip with fused in_proj; found
+    by its keys). Returns (tower state_dict, UNet state_dict, autoencoder
+    state_dict, diffuser_cfg) on ``device``, the cfg's in_channels read
+    from conv_in (9 for the runwayml inpainting checkpoints)."""
+    import dataclasses
+
+    tensors = _load_single_file_tensors(path)
+    cin = int(
+        tensors["model.diffusion_model.input_blocks.0.0.weight"].shape[1])
+    if cin != diffuser_cfg.in_channels:
+        diffuser_cfg = dataclasses.replace(diffuser_cfg, in_channels=cin)
+    unet = build_unet_from_ldm(tensors, diffuser_cfg.unet_config(),
+                               unet_dtype, device=device)
+    vae = build_vae_from_ldm(tensors, vae_cfg, device=device)
+    if any(k.startswith("cond_stage_model.model.") for k in tensors):
+        clip = build_clip_from_open_clip(tensors, clip_cfg,
+                                         prefix="cond_stage_model.model",
+                                         device=device)
+    else:
+        clip = build_clip_from_hf(
+            tensors, clip_cfg,
+            prefix="cond_stage_model.transformer.text_model", device=device)
+    return clip, unet, vae, diffuser_cfg

@@ -1,11 +1,14 @@
-"""CLIP text transformer, both SDXL towers (counterpart of sdxl_tpu/models/clip.py).
+"""CLIP text transformer, both SDXL towers and SD 1.x / 2.x's one
+(counterpart of sdxl_tpu/models/clip.py).
 
 Token + learned position embedding, pre-LN causal residual blocks,
 quick_gelu (OpenAI CLIP) or exact gelu (OpenCLIP). ``clip_hidden`` taps the
 raw hidden state after ``hidden_idx`` blocks (the penultimate-layer
-trick); ``clip_hidden_pooled`` also returns the final-LN embedding at the
-EOT position (the highest token id, ids >= n_vocab masked) through
-``text_projection``. Runs in float32; activations are [B, T, C].
+trick); ``clip_final_hidden`` runs the whole tower and its final
+LayerNorm (SD 1.x's conditioning); ``clip_hidden_pooled`` also returns
+the final-LN embedding at the EOT position (the highest token id, ids >=
+n_vocab masked) through ``text_projection``. Runs in float32;
+activations are [B, T, C].
 """
 
 from __future__ import annotations
@@ -89,6 +92,13 @@ def clip_hidden(model: CLIPTextModel, tokens: torch.Tensor,
     for block in model.blocks[:hidden_idx]:
         x = block(x, mask)
     return x
+
+
+def clip_final_hidden(model: CLIPTextModel,
+                      tokens: torch.Tensor) -> torch.Tensor:
+    """The whole tower and its final LayerNorm: SD 1.x's conditioning
+    (diffusers' text_encoder last_hidden_state)."""
+    return model.layer_norm(clip_hidden(model, tokens, len(model.blocks)))
 
 
 def clip_hidden_pooled(model: CLIPTextModel, tokens: torch.Tensor,

@@ -10,15 +10,18 @@
   memoised across requests in ``uncond_cache``.
 
 Tokenisation is host-side (the reference's BPE tokenizers); the towers
-run in f32 on the embedder's device. The reference's defaults are fixed
-here: crop (0, 0), attention-weight parsing on, at most 4 chunks of 77
-tokens, no clip skip.
+run in f32 on the embedder's device. ``clip_skip`` > 0 taps both towers
+that many blocks earlier. The reference's other defaults are fixed here:
+crop (0, 0), attention-weight parsing on, at most 4 chunks of 77 tokens.
+
+SD 1.x / 2.x's single-tower conditioning (pipeline/sd1.py) fills the same
+dataclass with None in the OpenCLIP and channel fields.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,16 +38,17 @@ AESTHETIC_SCORE = 6  # the refiner's micro-conditioning
 @dataclass
 class Conditioning:
     """The 8 conditioning tensors and the target resolution. Unconditional
-    tensors carry batch 1 and are broadcast at CFG time."""
+    tensors carry batch 1 and are broadcast at CFG time. SD 1.x / 2.x
+    conditioning carries None in the six OpenCLIP and channel fields."""
 
     unconditional_context_full: torch.Tensor          # [1, 77k, 2048]
-    unconditional_context_open_clip: torch.Tensor     # [1, 77k, 1280]
+    unconditional_context_open_clip: Optional[torch.Tensor]  # [1, 77k, 1280]
     context_full: torch.Tensor                        # [B, 77k, 2048]
-    context_open_clip: torch.Tensor                   # [B, 77k, 1280]
-    unconditional_channel_context: torch.Tensor       # [1, 2816]
-    unconditional_channel_context_refiner: torch.Tensor  # [1, 2560]
-    channel_context: torch.Tensor                     # [B, 2816]
-    channel_context_refiner: torch.Tensor             # [B, 2560]
+    context_open_clip: Optional[torch.Tensor]         # [B, 77k, 1280]
+    unconditional_channel_context: Optional[torch.Tensor]  # [1, 2816]
+    unconditional_channel_context_refiner: Optional[torch.Tensor]  # [1, 2560]
+    channel_context: Optional[torch.Tensor]           # [B, 2816]
+    channel_context_refiner: Optional[torch.Tensor]   # [B, 2560]
     resolution: Tuple[int, int]                       # (height, width)
 
     @property
@@ -52,24 +56,27 @@ class Conditioning:
         return self.context_full.shape[0]
 
     def astype(self, dtype: torch.dtype) -> "Conditioning":
-        return Conditioning(**{
-            f.name: getattr(self, f.name) if f.name == "resolution"
-            else getattr(self, f.name).to(dtype) for f in fields(self)})
+        def cast(name):
+            v = getattr(self, name)
+            return v if name == "resolution" or v is None else v.to(dtype)
+        return Conditioning(**{f.name: cast(f.name) for f in fields(self)})
 
 
 def _conditioning_half(embedder: nn.ModuleDict, cfg: EmbedderConfig,
                        clip_tokens: torch.Tensor, oc_tokens: torch.Tensor,
-                       size, crop, clip_w=None, oc_w=None):
+                       size, crop, clip_w=None, oc_w=None,
+                       clip_skip: int = 0):
     """One branch (conditional or unconditional). tokens: [B, k, 77]
     chunked ids; optional [B, k, 77] prompt weights. Hidden states are
-    taken at the penultimate layer of each tower."""
+    taken at the penultimate layer of each tower, clip_skip blocks
+    earlier."""
     b, k, n_ctx = clip_tokens.shape
     clip_ctx = clip_hidden(embedder["clip"], clip_tokens.reshape(b * k, n_ctx),
-                           cfg.clip_config.n_layer - 1)
+                           cfg.clip_config.n_layer - 1 - clip_skip)
     clip_ctx = clip_ctx.reshape(b, k * n_ctx, -1)
     open_ctx, pooled = clip_hidden_pooled(
         embedder["open_clip"], oc_tokens.reshape(b * k, n_ctx),
-        cfg.open_clip_config.n_layer - 1)
+        cfg.open_clip_config.n_layer - 1 - clip_skip)
     open_ctx = open_ctx.reshape(b, k * n_ctx, -1)
     pooled = pooled.reshape(b, k, -1)[:, 0]
     if clip_w is not None:
@@ -95,11 +102,12 @@ def text_to_conditioning(
     resolution: Tuple[int, int] = (1024, 1024),
     negative_prompt: str = "",
     uncond_cache: dict | None = None,
+    clip_skip: int = 0,
 ) -> Conditioning:
     """Prompts -> Conditioning. ``embedder`` holds the two towers under
     "clip" and "open_clip". ``uncond_cache`` (optional, caller-owned)
     memoises the unconditional half, which depends on the negative prompt,
-    resolution, chunk count and weighting only."""
+    resolution, clip_skip, chunk count and weighting only."""
     if isinstance(prompts, str):
         prompts = [prompts]
     n = len(prompts)
@@ -135,15 +143,16 @@ def text_to_conditioning(
     crop = torch.zeros((n, 2), dtype=torch.int32, device=device)
 
     cond = _conditioning_half(embedder, cfg, ids(clip_ids), ids(oc_ids), size,
-                              crop, wts(w_clip), wts(w_oc))
+                              crop, wts(w_clip), wts(w_oc), clip_skip)
 
-    cache_key = (negative_prompt, (h, w), int(clip_ids.shape[1]), weighted)
+    cache_key = (negative_prompt, (h, w), clip_skip, int(clip_ids.shape[1]),
+                 weighted)
     if uncond_cache is not None and cache_key in uncond_cache:
         uncond = uncond_cache[cache_key]
     else:
         uncond = _conditioning_half(
             embedder, cfg, ids(u_clip_ids), ids(u_oc_ids), size[:1],
-            crop[:1], wts(uw_clip), wts(uw_oc))
+            crop[:1], wts(uw_clip), wts(uw_oc), clip_skip)
         if uncond_cache is not None:
             uncond_cache[cache_key] = uncond
 

@@ -103,17 +103,21 @@ def _load_module(module: nn.Module, sd: Dict[str, torch.Tensor], what: str,
     return module.eval().requires_grad_(False)
 
 
+def _tower(cfg, sd: Dict[str, torch.Tensor], what: str,
+           device) -> CLIPTextModel:
+    """A CLIP tower from its state_dict; the projection is optional (a
+    tower read for its hidden states, e.g. HF CLIPTextModel, has none)."""
+    model = CLIPTextModel(cfg, "meta")
+    if "text_projection" not in sd:
+        model.text_projection = None
+    return _load_module(model, sd, what, device)
+
+
 def _embedder(cfg: EmbedderConfig, sds, device) -> nn.ModuleDict:
-    towers = {}
-    for name, tcfg in (("clip", cfg.clip_config),
-                       ("open_clip", cfg.open_clip_config)):
-        model = CLIPTextModel(tcfg, "meta")
-        if "text_projection" not in sds[name]:
-            # the ViT-L tower's projection is optional (hidden states only)
-            model.text_projection = None
-        towers[name] = _load_module(model, sds[name], f"embedder.{name}",
-                                    device)
-    return nn.ModuleDict(towers)
+    return nn.ModuleDict({
+        name: _tower(tcfg, sds[name], f"embedder.{name}", device)
+        for name, tcfg in (("clip", cfg.clip_config),
+                           ("open_clip", cfg.open_clip_config))})
 
 
 def _autoencoder(cfg: AutoencoderConfig, sd: Dict[str, torch.Tensor],
@@ -257,9 +261,6 @@ def load_pipeline(
             r_sd = ckpt.flatten_pytree(r_sd)
             r_sd = fuse_qkv(ckpt.stream_state_dict(r_sd, compute_dtype,
                                                    device))
-    if d_cfg.prediction_type != "eps":
-        raise NotImplementedError("v-prediction UNets are not ported yet "
-                                  "(module 12)")
     embedder = _embedder(e_cfg, e_sds, device)
     unet = _load_module(UNet(d_cfg.unet_config(), "meta", compute_dtype),
                         unet_sd, "diffuser", device)

@@ -153,6 +153,12 @@ class SDXLPipeline:
     # tiled VAE decode and encode: the latent tile size (None: whole
     # images)
     vae_tile: Optional[int] = None
+    # text-tower blocks to skip beyond the family's default hidden (SDXL's
+    # is already the penultimate): the "clip skip" knob of finetunes
+    clip_skip: int = 0
+    # the step previews' latent -> RGB factors [4, 3] (None: SDXL's;
+    # SD1Pipeline sets SD 1.x's)
+    preview_factors: Optional[np.ndarray] = None
     # unconditional half of the conditioning, memoised across requests
     # (see text_to_conditioning); clear it when the embedder changes
     _uncond_cache: dict = field(default_factory=dict)
@@ -200,7 +206,7 @@ class SDXLPipeline:
                 self.embedder, self.embedder_cfg, self.clip_tokenizer,
                 self.open_clip_tokenizer, prompts, resolution,
                 negative_prompt=negative_prompt,
-                uncond_cache=self._uncond_cache)
+                uncond_cache=self._uncond_cache, clip_skip=self.clip_skip)
             if profile_stages:
                 fence(cond.context_full)
         return cond
@@ -629,7 +635,8 @@ class SDXLPipeline:
         ext = dict(head_steps=head_steps, guidance_rescale=guidance_rescale,
                    deepcache=deepcache, pag_scale=pag_scale,
                    preview_every=preview_every,
-                   preview_callback=preview_callback)
+                   preview_callback=preview_callback,
+                   preview_factors=self.preview_factors)
         with self.timer.stage("diffuser"):
             latent = self._sample(cond.astype(self.compute_dtype), generator,
                                   guidance_scale, n_steps, sampler, schedule,

@@ -36,6 +36,12 @@ several), IP-Adapter and InstructPix2Pix's 3-way guidance.
   eps = e_u + s_I (e_i - e_u) + s_T (e_t - e_i);
 - the refiner (``cfg.is_refiner``) runs unguided on the OpenCLIP context
   and its 2560-wide channel context, batch B;
+- a v-prediction UNet (``cfg.prediction_type == "v"``, SD 2.1-768) has its
+  output turned into an epsilon at the step's own ᾱ_t: DDIM's and LCM's
+  grid point, a k-sampler's 1 / (sigma^2 + 1), the inversion's source
+  level;
+- SD 1.x / 2.x conditioning has no channel context: the UNet and the
+  ControlNet trunks then take no label;
 - inpainting pins the known region to the re-noised reference every step
   (``inpaint_pin``); a 9-channel inpainting UNet instead takes [mask,
   masked-image latent] as extra input channels;
@@ -140,15 +146,19 @@ def _cfg_contexts(cfg: DiffuserConfig, cond: Conditioning,
     if cfg.is_refiner:
         return (cond.context_open_clip.to(compute_dtype),
                 cond.channel_context_refiner.to(compute_dtype))
-    ctx = cond.context_full
-    ch = cond.channel_context
-    if not use_cfg:
-        return ctx.to(compute_dtype), ch.to(compute_dtype)
-    uctx = cond.unconditional_context_full.expand_as(ctx)
-    uch = cond.unconditional_channel_context.expand_as(ch)
     lead = 2 if rows3 else 1
-    return (torch.cat([uctx] * lead + [ctx], dim=0).to(compute_dtype),
-            torch.cat([uch] * lead + [ch], dim=0).to(compute_dtype))
+
+    def rows(c, u):
+        """[u] * lead + [c] rows in compute_dtype (None stays None: SD
+        1.x / 2.x conditioning has no channel context)."""
+        if c is None:
+            return None
+        if not use_cfg:
+            return c.to(compute_dtype)
+        return torch.cat([u.expand_as(c)] * lead + [c],
+                         dim=0).to(compute_dtype)
+    return (rows(cond.context_full, cond.unconditional_context_full),
+            rows(cond.channel_context, cond.unconditional_channel_context))
 
 
 def _rows(tree, start: int):
@@ -185,7 +195,8 @@ def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
              use_cfg: bool = True, guidance_rescale: float = 0.0,
              return_uncond: bool = False, t_add=None,
              pag_scale: float = 0.0, forward=None, control=None,
-             control_scale=None, image_scale: Optional[float] = None):
+             control_scale=None, image_scale: Optional[float] = None,
+             alpha_t: Optional[torch.Tensor] = None):
     """One epsilon: the refiner's unguided call at batch B, the base's
     conditional call at batch B (use_cfg=False, contexts from
     _cfg_contexts(use_cfg=False)), or its guided one with [uncond | cond]
@@ -210,7 +221,13 @@ def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
     on the concat channels, and the refiner takes none. image_scale
     (InstructPix2Pix, with the rows3 contexts and the [zeros | image |
     image] concat): e_u + image_scale (e_i - e_u) + guidance_scale (e_t -
-    e_i) from one batch-3 call."""
+    e_i) from one batch-3 call.
+
+    alpha_t (a v-prediction UNet's, required there): the ᾱ of the
+    variance-preserving ``latent``; each raw output v becomes eps =
+    sqrt(ᾱ_t) v + sqrt(1 - ᾱ_t) x, x the UNet's input latent as the
+    reference takes it: the batched pair's and ip2p's rows cast to
+    compute_dtype, the unpaired calls' latent in f32."""
     n = latent.shape[0]
     if pag_scale and cfg.is_refiner:
         raise ValueError("PAG applies to the base/family UNets, not the "
@@ -218,6 +235,15 @@ def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
     if return_uncond and (cfg.is_refiner or not use_cfg):
         raise ValueError("CFG++ needs the pair-batched CFG path (a guided "
                          "base/family UNet, not the refiner or --no-cfg)")
+    v_pred = cfg.prediction_type == "v"
+    if v_pred and alpha_t is None:
+        raise ValueError("a v-prediction UNet needs the step's alpha_t")
+
+    def to_eps(raw, x):
+        if not v_pred:
+            return raw
+        return (torch.sqrt(alpha_t) * raw
+                + torch.sqrt(1.0 - alpha_t) * x.float())
 
     if forward is None:
         def forward(x, ts, ctx, ch, kv, **kw):
@@ -251,29 +277,33 @@ def _cfg_eps(unet: UNet, cfg: DiffuserConfig, latent: torch.Tensor,
         return {} if res is None else {"control_residuals": res}
 
     if cfg.is_refiner:
-        return call(latent.to(compute_dtype), ctx2, ch2, cross_kv)
+        return to_eps(call(latent.to(compute_dtype), ctx2, ch2, cross_kv),
+                      latent)
     if image_scale is not None and use_cfg:
-        x3 = with_concat(torch.cat([latent] * 3, dim=0).to(compute_dtype),
-                         concat)
-        e_u, e_i, e_t = call(x3, ctx2, ch2, cross_kv).chunk(3, dim=0)
+        x3 = torch.cat([latent] * 3, dim=0).to(compute_dtype)
+        eps3 = to_eps(call(with_concat(x3, concat), ctx2, ch2, cross_kv), x3)
+        e_u, e_i, e_t = eps3.chunk(3, dim=0)
         return e_u + image_scale * (e_i - e_u) + guidance_scale * (e_t - e_i)
     if not use_cfg:
         x = latent.to(compute_dtype)
         x_in = with_concat(x, concat)
-        eps = call(x_in, ctx2, ch2, cross_kv, **control_kw(x))
+        eps = to_eps(call(x_in, ctx2, ch2, cross_kv, **control_kw(x)), latent)
         if pag_scale:
-            eps_pert = call(x_in, ctx2, ch2, cross_kv, pag_mid=True)
+            eps_pert = to_eps(call(x_in, ctx2, ch2, cross_kv, pag_mid=True),
+                              latent)
             eps = eps + pag_scale * (eps - eps_pert)
         return eps
     x2 = torch.cat([latent, latent], dim=0).to(compute_dtype)
     x_in = with_concat(x2, concat)
-    eps_u, eps_c = call(x_in, ctx2, ch2, cross_kv,
-                        **control_kw(x2)).chunk(2, dim=0)
+    eps_u, eps_c = to_eps(call(x_in, ctx2, ch2, cross_kv, **control_kw(x2)),
+                          x2).chunk(2, dim=0)
     pag = None
     if pag_scale:
-        eps_pert = call(x_in[n:], ctx2[n:], ch2[n:],
-                        None if cross_kv is None else _rows(cross_kv, n),
-                        pag_mid=True)
+        eps_pert = to_eps(call(x_in[n:], ctx2[n:],
+                               None if ch2 is None else ch2[n:],
+                               None if cross_kv is None
+                               else _rows(cross_kv, n), pag_mid=True),
+                          latent)
         pag = pag_scale * (eps_c - eps_pert)
     eps = _guide(eps_u, eps_c, guidance_scale, guidance_rescale, pag)
     return (eps, eps_u) if return_uncond else eps
@@ -299,8 +329,8 @@ def _deepcache_validate(deepcache, controlnet,
 
 def _deepcache_eps(unet, cfg, ctx2, ch2, guidance_scale, compute_dtype,
                    cross_kv, use_cfg, guidance_rescale, deepcache):
-    """eps(latent, t) of a step loop with DeepCache: _cfg_eps through a
-    UNet call that counts the steps (one call a step: the loops refuse
+    """eps(latent, t, alpha_t) of a step loop with DeepCache: _cfg_eps
+    through a UNet call that counts the steps (one call a step: the loops refuse
     the methods that evaluate twice). Step 0 and every interval-th step
     after run the whole UNet and keep the fresh deep feature, the others
     only the shallow blocks around the kept one; the switch is a host
@@ -317,10 +347,11 @@ def _deepcache_eps(unet, cfg, ctx2, ch2, guidance_scale, compute_dtype,
         return unet_forward_shallow(unet, x, ts, ctx, ch, state["cache"],
                                     kv, branch=branch, freeu=cfg.freeu)
 
-    def eps(latent, t, *_):
+    def eps(latent, t, alpha_t):
         out = _cfg_eps(unet, cfg, latent, t, ctx2, ch2, guidance_scale,
                        compute_dtype, cross_kv, use_cfg=use_cfg,
-                       guidance_rescale=guidance_rescale, forward=forward)
+                       guidance_rescale=guidance_rescale, forward=forward,
+                       alpha_t=alpha_t)
         state["step"] += 1
         return out
     return eps
@@ -334,12 +365,20 @@ SDXL_LATENT_RGB = np.array(
      [-0.2634, -0.0196, 0.0653],
      [0.0568, 0.1687, -0.0755],
      [-0.3112, -0.2359, -0.2076]], np.float32)
+SD1_LATENT_RGB = np.array(
+    [[0.298, 0.207, 0.208],
+     [0.187, 0.286, 0.173],
+     [-0.158, 0.189, 0.264],
+     [-0.184, -0.271, -0.473]], np.float32)
 
 
-def latent_to_preview(latent: torch.Tensor) -> np.ndarray:
+def latent_to_preview(latent: torch.Tensor,
+                      factors: Optional[np.ndarray] = None) -> np.ndarray:
     """[B, h, w, 4] latent -> [B, h, w, 3] uint8 preview on the host, by
-    SDXL_LATENT_RGB (the one device-to-host copy of a step preview)."""
-    f = torch.as_tensor(SDXL_LATENT_RGB, device=latent.device)
+    ``factors`` [4, 3] (None: SDXL_LATENT_RGB; SD 1.x / 2.x pipelines pass
+    SD1_LATENT_RGB), the one device-to-host copy of a step preview."""
+    f = torch.as_tensor(SDXL_LATENT_RGB if factors is None else factors,
+                        dtype=torch.float32, device=latent.device)
     rgb = latent.float() @ f
     return ((rgb + 1.0) * 127.5).clamp(0, 255).to(torch.uint8).cpu().numpy()
 
@@ -534,7 +573,8 @@ def diffuse_latent(unet: UNet, cfg: DiffuserConfig,
                    controlnet=None,
                    control_image: Optional[torch.Tensor] = None,
                    control_scale=1.0, control_window=(0.0, 1.0), ip=None,
-                   edit: bool = False, image_guidance_scale: float = 1.5
+                   edit: bool = False, image_guidance_scale: float = 1.5,
+                   preview_factors: Optional[np.ndarray] = None
                    ) -> torch.Tensor:
     """DDIM loop over the grid from ``latent`` (VP space at the first grid
     timestep).
@@ -557,8 +597,9 @@ def diffuse_latent(unet: UNet, cfg: DiffuserConfig,
     suffix ts[tail_from:] from the still-noisy handoff latent.
     preview_every: after every preview_every steps but the last,
     preview_callback(done, total, [B, h, w, 3] uint8) gets
-    latent_to_preview of the latent (a host copy); the final latent is
-    the one the same request gives without previews, bit for bit.
+    latent_to_preview of the latent by preview_factors (a host copy); the
+    final latent is the one the same request gives without previews, bit
+    for bit.
     controlnet (a ControlNet or a sequence), control_image ([B, 8h, 8w, 3]
     in [0, 1], or a sequence), control_scale and control_window (floats
     and (start, end), or sequences): ControlNet guidance over the steps
@@ -602,12 +643,15 @@ def diffuse_latent(unet: UNet, cfg: DiffuserConfig,
         controlnet, control_image, ctx2, compute_dtype,
         use_cfg and not cfg.is_refiner, total, control_scale, control_window)
     if deepcache is not None:
-        eps_fn = _deepcache_eps(
+        dc_eps = _deepcache_eps(
             unet, cfg, ctx2, ch2, guidance_scale, compute_dtype, cross_kv,
             use_cfg, guidance_rescale,
             _deepcache_validate(deepcache, controlnet, concat_channels))
+
+        def eps_fn(x, t, alpha, i):
+            return dc_eps(x, t, alpha)
     else:
-        def eps_fn(x, t, i):
+        def eps_fn(x, t, alpha, i):
             return _cfg_eps(unet, cfg, x, t, ctx2, ch2, guidance_scale,
                             compute_dtype, cross_kv, cc, use_cfg,
                             guidance_rescale, pag_scale=pag_scale,
@@ -615,21 +659,22 @@ def diffuse_latent(unet: UNet, cfg: DiffuserConfig,
                             control_scale=None if control is None
                             else scales[i],
                             image_scale=image_guidance_scale if edit
-                            else None)
+                            else None, alpha_t=alpha)
     for i in range(head_steps or total):
         alpha = a_t[i]
         if inpaint:
             noised_ref = (reference * torch.sqrt(alpha)
                           + pin_noise[i] * torch.sqrt(1.0 - alpha))
             lat = inpaint_pin(mask, lat, noised_ref)
-        eps = eps_fn(lat, ts[i], i)
+        eps = eps_fn(lat, ts[i], alpha, i)
         x0 = (lat - eps * torch.sqrt(1.0 - alpha)) / torch.sqrt(alpha)
         lat = _ddim_update(x0, eps, alpha, a_prev[i], ddim_eta,
                            None if step_noise is None else step_noise[i])
         done = i + 1
         if preview_every and done % preview_every == 0 and done < total \
                 and preview_callback is not None:
-            preview_callback(done, total, latent_to_preview(lat))
+            preview_callback(done, total,
+                             latent_to_preview(lat, preview_factors))
     return lat
 
 
@@ -656,7 +701,8 @@ def k_diffuse_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
                      controlnet=None,
                      control_image: Optional[torch.Tensor] = None,
                      control_scale=1.0, control_window=(0.0, 1.0), ip=None,
-                     edit: bool = False, image_guidance_scale: float = 1.5
+                     edit: bool = False, image_guidance_scale: float = 1.5,
+                     preview_factors: Optional[np.ndarray] = None
                      ) -> torch.Tensor:
     """A k-sampler over the ᾱ table, from the sigma-space latent (x = x0 +
     sigma * eps at the schedule's first sigma): k_schedule's (timesteps,
@@ -743,7 +789,8 @@ def k_diffuse_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
                                 guidance_rescale, deepcache)
 
         def eps_fn(x, sigma, t, i):
-            return dc_eps(x / torch.sqrt(sigma ** 2 + 1.0), t)
+            return dc_eps(x / torch.sqrt(sigma ** 2 + 1.0), t,
+                          1.0 / (sigma ** 2 + 1.0))
     else:
         def eps_fn(x, sigma, t, i):
             scaled = x / torch.sqrt(sigma ** 2 + 1.0)
@@ -754,14 +801,15 @@ def k_diffuse_latent(unet: UNet, cfg: DiffuserConfig, alphas_cumprod,
                             control_scale=None if control is None
                             else scales[i],
                             image_scale=image_guidance_scale if edit
-                            else None)
+                            else None, alpha_t=1.0 / (sigma ** 2 + 1.0))
 
     on_step = None
     if preview_every and preview_callback is not None:
         def on_step(done, x):
             if done % preview_every == 0 and done < total:
                 vp = x / np.sqrt(float(sigmas[done]) ** 2 + 1.0)
-                preview_callback(done, total, latent_to_preview(vp))
+                preview_callback(done, total,
+                                 latent_to_preview(vp, preview_factors))
 
     return k_sample(eps_fn, lat, method, ts, sigmas,
                     sigmas_full=(sigma_table(alphas_cumprod)
@@ -1053,7 +1101,7 @@ def lcm_diffuse_latent(unet: UNet, cfg: DiffuserConfig,
         eps = _cfg_eps(unet, cfg, lat, ts[i], ctx2, ch2, guidance_scale,
                        compute_dtype, cross_kv, cc, use_cfg, t_add=t_add,
                        control=control, control_scale=None
-                       if control is None else scales[i])
+                       if control is None else scales[i], alpha_t=alpha)
         lat, _ = lcm_step_update(lat, eps, alpha, a_prev[i], ts[i],
                                  step_noise[i], i == n - 1)
     return lat
@@ -1155,7 +1203,8 @@ def ddim_invert_latent(unet: UNet, cfg: DiffuserConfig,
                                            use_cfg, None)
     for i in range(len(ts)):
         eps = _cfg_eps(unet, cfg, lat, ts[i], ctx2, ch2, guidance_scale,
-                       compute_dtype, cross_kv, use_cfg=use_cfg)
+                       compute_dtype, cross_kv, use_cfg=use_cfg,
+                       alpha_t=a_src[i])
         x0 = (lat - eps * torch.sqrt(1.0 - a_src[i])) / torch.sqrt(a_src[i])
         lat = x0 * torch.sqrt(a_dst[i]) + eps * torch.sqrt(1.0 - a_dst[i])
     return lat

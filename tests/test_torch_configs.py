@@ -18,15 +18,20 @@ from sdxl_tpu.tokenizer import OpenClipTokenizer as JOpenClip
 from sdxl_tpu_torch.tokenizer import ClipTokenizer, OpenClipTokenizer
 
 PRESETS = ["OPEN_CLIP_BIGG_CONFIG", "CLIP_VIT_L_CONFIG", "SDXL_BASE_DIFFUSER",
-           "SDXL_REFINER_DIFFUSER", "SDXL_EMBEDDER"]
+           "SDXL_REFINER_DIFFUSER", "SDXL_EMBEDDER", "SD15_DIFFUSER",
+           "SD2_DIFFUSER", "SD21_768_DIFFUSER", "OPEN_CLIP_VITH_CONFIG",
+           "SD15_VAE_SCALE"]
 CLASSES = ["CLIPConfig", "UNetConfig", "DiffuserConfig", "EmbedderConfig",
            "LatentDecoderConfig", "AutoencoderConfig"]
 
 
 @pytest.mark.parametrize("name", PRESETS)
 def test_preset_matches_reference(name):
-    assert dataclasses.asdict(getattr(tcfg, name)) == \
-        dataclasses.asdict(getattr(jcfg, name))
+    got, want = getattr(tcfg, name), getattr(jcfg, name)
+    if not dataclasses.is_dataclass(want):
+        assert got == want
+        return
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 @pytest.mark.parametrize("name", CLASSES)
@@ -36,7 +41,8 @@ def test_defaults_match_reference(name):
 
 
 @pytest.mark.parametrize("name", ["SDXL_BASE_DIFFUSER",
-                                  "SDXL_REFINER_DIFFUSER"])
+                                  "SDXL_REFINER_DIFFUSER", "SD15_DIFFUSER",
+                                  "SD2_DIFFUSER", "SD21_768_DIFFUSER"])
 def test_unet_config_matches_reference(name):
     got = getattr(tcfg, name).unet_config()
     assert dataclasses.asdict(got) == \

@@ -795,7 +795,7 @@ def test_cli_parser_is_the_references():
     (["--quantize", "int8"], 14),
     (["--family", "sd3"], 13),
     (["--dp", "2"], 17),
-    (["--clip-skip", "1"], 12),
+    (["--debug-nans"], 7),
 ])
 def test_cli_unported_flag_exits_1(extra, module, tmp_path, capsys):
     from sdxl_tpu_torch.cli.sample import main

@@ -141,11 +141,14 @@ def test_unported_options_raise(pipes):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Every module of the port imports, and a tiny pipeline runs txt2img,
+    """Every module of the port imports (pipeline/sd1.py too), and a tiny
+    pipeline runs txt2img,
     txt2img with the refiner (DDIM, and a k-sampler on the karras
     schedule), a mask-image inpaint request (the VAE encoder, masks.py,
     the pin), a ControlNet request and an IP-Adapter request (the adapter
     and its vision tower written by the port's writers and read back),
+    and a tiny SD 2.x v-prediction pipeline (pipeline/sd1.py) runs euler
+    txt2img and DDIM img2img,
     with `import jax` and `import sdxl_tpu`
     made to fail: the port keeps its own configs and tokenizer. Nor does
     it import the packages the card lacks (safetensors, msgpack, PIL,
@@ -223,6 +226,22 @@ def test_port_never_imports_jax(tmp_path):
                              os.path.join(tmp, "enc"))
         img = pipe.txt2img("a cat", (64, 64), n_steps=2,
                            ip_adapter_image=img)
+        assert img.shape == (1, 64, 64, 3), img.shape
+        from sdxl_tpu_torch.pipeline.sd1 import random_sd1_pipeline
+        sd2 = random_sd1_pipeline(
+            device="cpu", clip_cfg=clip, diffuser_cfg=DiffuserConfig(
+                adm_in_channels=0, model_channels=32,
+                channel_mults=(1, 2, 4, 4), num_head_channels=8,
+                transformer_depths=(1, 1, 1, 1), context_dim=32,
+                transformer_levels=(0, 1, 2), prediction_type="v"),
+            vae_cfg=AutoencoderConfig(
+                encoder_channels=((8, 8), (8, 8), (8, 8), (8, 8)),
+                decoder_channels=((16, 16), (16, 16), (16, 8), (8, 8)),
+                n_group=4),
+            unet_dtype=torch.float32, penultimate_hidden=True)
+        img = sd2.txt2img("a cat", (64, 64), n_steps=2, sampler="euler")
+        assert img.shape == (1, 64, 64, 3), img.shape
+        img = sd2.img2img("a cat", img, strength=0.5, n_steps=2)
         assert img.shape == (1, 64, 64, 3), img.shape
         assert not any(k.split(".")[0] in BLOCKED
                        for k, v in sys.modules.items() if v is not None)
