@@ -179,10 +179,11 @@ Phases (any failure exits non-zero before the result line):
      inpaint, clip_skip 1; SD 2.1-768 at 768x768: DDIM, euler, DeepCache
      (3, 3), the ControlNet, clip_skip 1 on the penultimate hidden; SD
      2-base DDIM at 512x512 — each request's evaluations by kind and K1's
-     launches held to the code's counts (routed_attentions: 0 an SD 1.5
+     launches held to the code's counts (unet_attentions: 0 an SD 1.5
      call, 10 an SD 2.x call, 5 a shallow one, 4 a trunk call; one d=512
      launch a decode or encode); then SD 2.1-768's v-prediction pair call
-     (its eps) through K1 and the plain attention within 2e-2 relative,
+     (its raw v output, then its eps) through K1 and the plain attention
+     within 2e-2 relative,
      and an f32 SD 1.5 decode through both within 1 u8 level;
   9b. checkpoint loading and the sample CLI: the same full-width
      pipeline, refiner included, written with save_native_pipeline
@@ -603,12 +604,10 @@ M11_STRENGTH = 0.3
 # encoders, a full-width ControlNet of SD 2.x's 4-level trunk, and SD
 # 2-base (SD2_DIFFUSER: eps) on the SD 2.x weights at 512x512; the
 # requests' steps, img2img strength, the off-bucket crop window, the AYS
-# request's steps (the table's native 10) and DeepCache's (interval,
-# branch)
+# request's steps (the table's native 10)
 SD1_RES, SD2_RES, SD2_BASE_RES = (512, 512), (768, 768), (512, 512)
 M12_STEPS, M12_AYS_STEPS, M12_STRENGTH = 30, 10, 0.5
 SD1_CROP = dict(crop_left=128, crop_right=384, crop_top=192, crop_bottom=448)
-M12_DEEPCACHE = (3, 3)
 # the f32 pipeline's request: 4 DDIM steps (4 UNet calls) keep its cost
 # near one bf16 request's
 F32_STEPS = 4
@@ -1592,25 +1591,40 @@ def check_k_calls_against_plain(pipe) -> None:
                  f"attention")
 
 
-def unet_attentions(ucfg) -> dict:
-    """K1 d 64/128 launches of one base UNet call at K_RES by evaluation
-    kind, from unet_block_plan (every transformer level of SDXL is over
-    the kernel's gate at 1024^2): a full call and DeepCache's cached one
-    (70), PAG's perturbed call (the middle block's self-attentions are
-    identity maps: 60), DeepCache's shallow call at DEEPCACHE's branch
-    (the first `branch` input and the last `branch` output blocks), and a
-    ControlNet trunk call (its input blocks and middle block: 34)."""
+def unet_attentions(ucfg, res=K_RES) -> dict:
+    """K1 d 64/128 launches of one UNet call at `res` by evaluation kind,
+    from unet_block_plan and use_flash's gate: a block's self-attentions
+    launch K1 when their level's token count and head width pass the gate
+    (SDXL at 1024^2: every transformer level, 70 a call; SD 2.x: levels 0
+    and 1 with 64-wide heads, 10 a call; SD 1.5's 40-, 80- and 160-wide
+    heads: none). full and cached: every block; pag: less the middle
+    block's (its self-attentions are identity maps); shallow: the first
+    and last DEEPCACHE-branch blocks (DeepCache); trunk: the input blocks
+    and the middle block (a ControlNet)."""
     in_plan, mid, out_plan = unet_block_plan(ucfg)
-
-    def count(specs):
-        return sum(s.depth for s in specs if s.kind in ("res_t", "res_t_up"))
-
-    full = count(in_plan) + mid.depth + count(out_plan)
     branch = DEEPCACHE[1]
-    return {"full": full, "cached": full, "pag": full - mid.depth,
-            "shallow": count(in_plan[:branch])
-            + count(out_plan[len(out_plan) - branch:]),
-            "trunk": count(in_plan) + mid.depth}
+    h, w = res[0] // 8, res[1] // 8
+
+    def launches(spec, level):
+        if spec.kind not in ("res_t", "res_t_up", "res_t_res"):
+            return 0
+        t = (h >> level) * (w >> level)
+        return spec.depth if fa.use_flash(t, t, spec.ch_out // spec.n_head,
+                                          False) else 0
+
+    ins, level = [], 0
+    for spec in in_plan:
+        ins.append(launches(spec, level))
+        level += spec.kind == "down"
+    m = launches(mid, level)
+    outs = []
+    for spec in out_plan:  # the deepest level first; "_up" ends a level
+        outs.append(launches(spec, level))
+        level -= spec.kind.endswith("_up")
+    full = sum(ins) + m + sum(outs)
+    return {"full": full, "cached": full, "pag": full - m,
+            "shallow": sum(ins[:branch]) + sum(outs[len(outs) - branch:]),
+            "trunk": sum(ins) + m}
 
 
 @contextlib.contextmanager
@@ -2063,40 +2077,6 @@ def check_module11_against_plain(pipe, first: np.ndarray, w: dict) -> None:
     hold_calls_to_plain(checks, torch.tensor(500.0, device=dev))
 
 
-def routed_attentions(ucfg, res, branch: int = M12_DEEPCACHE[1]) -> dict:
-    """K1 d 64/128 launches of one UNet call at `res` by evaluation kind,
-    from unet_block_plan and use_flash's gate: a block's self-attentions
-    launch K1 when their level's token count and head width pass the gate
-    (SD 2.x: levels 0 and 1 with 64-wide heads, 10 a call; SD 1.5's 40-,
-    80- and 160-wide heads: none). full and cached: every block; pag: less
-    the middle block's; shallow: the first and last `branch` blocks
-    (DeepCache); trunk: the input blocks and the middle block (a
-    ControlNet)."""
-    in_plan, mid, out_plan = unet_block_plan(ucfg)
-    h, w = res[0] // 8, res[1] // 8
-
-    def launches(spec, level):
-        if spec.kind not in ("res_t", "res_t_up", "res_t_res"):
-            return 0
-        t = (h >> level) * (w >> level)
-        return spec.depth if fa.use_flash(t, t, spec.ch_out // spec.n_head,
-                                          False) else 0
-
-    ins, level = [], 0
-    for spec in in_plan:
-        ins.append(launches(spec, level))
-        level += spec.kind == "down"
-    m = launches(mid, level)
-    outs = []
-    for spec in out_plan:  # the deepest level first; "_up" ends a level
-        outs.append(launches(spec, level))
-        level -= spec.kind.endswith("_up")
-    full = sum(ins) + m + sum(outs)
-    return {"full": full, "cached": full, "pag": full - m,
-            "shallow": sum(ins[:branch]) + sum(outs[len(outs) - branch:]),
-            "trunk": sum(ins) + m}
-
-
 def module12_weights() -> dict:
     """Phase 8f's random pipelines, drawn on the card: SD 1.5 (seed 21)
     and SD 2.1-768 (seed 22, OpenCLIP ViT-H's penultimate hidden,
@@ -2125,17 +2105,13 @@ def module12_requests(w: dict):
     final latent."""
     sd1, sd2, base = w["sd1"], w["sd2"], w["sd2_base"]
     kw = dict(guidance_scale=7.5, n_steps=M12_STEPS)
-    a1 = routed_attentions(sd1.diffuser_cfg.unet_config(), SD1_RES)
-    a2 = routed_attentions(sd2.diffuser_cfg.unet_config(), SD2_RES)
-    ab = routed_attentions(base.diffuser_cfg.unet_config(), SD2_BASE_RES)
-    sdxl = routed_attentions(SDXL_BASE_DIFFUSER.unet_config(), K_RES,
-                             DEEPCACHE[1])
+    a1 = unet_attentions(sd1.diffuser_cfg.unet_config(), SD1_RES)
+    a2 = unet_attentions(sd2.diffuser_cfg.unet_config(), SD2_RES)
+    ab = unet_attentions(base.diffuser_cfg.unet_config(), SD2_BASE_RES)
     print(f"K1 launches a UNet call: SD 1.5 {SD1_RES} {a1}; SD 2.1-768 "
-          f"{SD2_RES} {a2}; SD 2-base {SD2_BASE_RES} {ab}; SDXL {K_RES} "
-          f"{sdxl}", flush=True)
-    if (a1["full"], a2["full"], ab["full"]) != (0, 10, 10) or sdxl != \
-            unet_attentions(SDXL_BASE_DIFFUSER.unet_config()):
-        fail("routed_attentions disagrees with the plans' counts")
+          f"{SD2_RES} {a2}; SD 2-base {SD2_BASE_RES} {ab}", flush=True)
+    if (a1["full"], a2["full"], ab["full"]) != (0, 10, 10):
+        fail("the plans' K1 counts are not SD 1.5's 0 and SD 2.x's 10")
     ays = sd1._resolve_schedule("ays")
     if ays != "ays_sd15":
         fail(f"schedule='ays' resolves to {ays} on an SD1Pipeline")
@@ -2183,10 +2159,10 @@ def module12_requests(w: dict):
     req(sd2, "SD 2.1-768 v euler",
         lambda: sd2.txt2img(PROMPT, SD2_RES, seed=76, sampler="euler", **kw),
         {"full": unet_calls(sd2, "euler", M12_STEPS)}, 1, a2, SD2_RES)
-    cached = len(range(0, n2, M12_DEEPCACHE[0]))
-    req(sd2, f"SD 2.1-768 v DeepCache {M12_DEEPCACHE} DDIM",
+    cached = len(range(0, n2, DEEPCACHE[0]))
+    req(sd2, f"SD 2.1-768 v DeepCache {DEEPCACHE} DDIM",
         lambda: sd2.txt2img(PROMPT, SD2_RES, seed=77,
-                            deepcache=M12_DEEPCACHE, **kw),
+                            deepcache=DEEPCACHE, **kw),
         {"cached": cached, "shallow": n2 - cached}, 1, a2, SD2_RES)
     pc = dataclasses.replace(sd2, controlnet=w["net"])
     req(pc, "SD 2.1-768 v ControlNet DDIM (SD 2.x's 4-level trunk)",
@@ -2205,11 +2181,12 @@ def module12_requests(w: dict):
 
 @torch.inference_mode()
 def check_module12_against_plain(w: dict, sd1_latent) -> None:
-    """SD 2.1-768's v-prediction pair call at 768x768 (10 K1 launches),
-    its [uncond | cond] rows turned into eps at ᾱ_t, through K1 and
-    through the plain attention: eps within UNET_REL_TOL relative; the
-    f32 SD 1.5 decode of sd1_latent (one f32 d=512 launch at
-    [1,1,4096,512]) through both, within VAE_LEVEL_TOL."""
+    """SD 2.1-768's pair call at 768x768 (10 K1 launches) through K1 and
+    through the plain attention: the UNet's raw v output within
+    UNET_REL_TOL relative, as phases 8c-8e hold theirs, then the same
+    rows turned into eps at ᾱ_t by _cfg_eps; the f32 SD 1.5 decode of
+    sd1_latent (one f32 d=512 launch at [1,1,4096,512]) through both,
+    within VAE_LEVEL_TOL."""
     sd1, sd2 = w["sd1"], w["sd2"]
     dtype, dev, cfg = sd2.compute_dtype, sd2.device, sd2.diffuser_cfg
     cond = sd2.conditioning(PROMPT, SD2_RES).astype(dtype)
@@ -2218,18 +2195,20 @@ def check_module12_against_plain(w: dict, sd1_latent) -> None:
     g = torch.Generator(device=dev).manual_seed(15)
     x = torch.randn((1, SD2_RES[0] // 8, SD2_RES[1] // 8, 4), generator=g,
                     device=dev)
-    att = routed_attentions(cfg.unet_config(), SD2_RES)
+    x2 = torch.cat([x, x]).to(dtype)
+    att = unet_attentions(cfg.unet_config(), SD2_RES)
     t = torch.tensor(500, device=dev)
+    label = f"SD 2.1-768 v-prediction pair call B=2 {SD2_RES[0]}x{SD2_RES[1]}"
 
     def pair_eps(t):
         # the pair's rows and contexts as one unguided batch-2 call
-        return _cfg_eps(sd2.unet, cfg, torch.cat([x, x]).to(dtype), t, ctx2,
-                        ch2, 1.0, dtype, kv, use_cfg=False,
-                        alpha_t=sd2.alphas_cumprod[t])
+        return _cfg_eps(sd2.unet, cfg, x2, t, ctx2, ch2, 1.0, dtype, kv,
+                        use_cfg=False, alpha_t=sd2.alphas_cumprod[t])
 
-    hold_calls_to_plain([(
-        f"SD 2.1-768 v-prediction pair call B=2 {SD2_RES[0]}x"
-        f"{SD2_RES[1]} (eps)", att["full"], pair_eps)], t)
+    hold_calls_to_plain([
+        (f"{label} (raw v)", att["full"],
+         lambda t: unet_forward(sd2.unet, x2, t.expand(2), ctx2, ch2)),
+        (f"{label} (eps at alpha_t)", att["full"], pair_eps)], t)
 
     def decode():
         return decode_latent_to_images(sd1.vae, sd1_latent,
@@ -2655,7 +2634,7 @@ def checkpoint_cli_phase(pipe, total, p_lcm, m11, m12) -> None:
                           for r, _, fs in os.walk(d) for f in fs)
             print(f"{family} diffusers directory written: {written} bytes in "
                   f"{time.perf_counter() - t0:.3f}s", flush=True)
-            att = routed_attentions(sd.diffuser_cfg.unet_config(), res)
+            att = unet_attentions(sd.diffuser_cfg.unet_config(), res)
             out_f = os.path.join(CKPT_DIR, "out", family)
             cli_request(
                 f"the sample CLI --family {family} {' '.join(flags)} "

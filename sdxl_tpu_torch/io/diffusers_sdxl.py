@@ -50,7 +50,7 @@ from ..configs import AutoencoderConfig, CLIPConfig, UNetConfig
 from ..models.unet import unet_block_plan
 from .bridge import fuse_qkv
 from .checkpoint import flatten_pytree
-from .hf_sdxl import _KeyStore, build_clip_from_hf
+from .hf_sdxl import _KeyStore, build_clip_from_hf, cfg_with_conv_in
 from .safetensors import load_file
 
 
@@ -443,14 +443,13 @@ def _vae_scale(model_dir: str):
 
 
 def _corrected_cfg(diffuser_cfg, unet_tensors):
-    """The diffuser config with in_channels from conv_in's width (9 for
-    inpainting UNets, 8 for InstructPix2Pix) and time_cond_proj_dim from
-    an LCM-distilled UNet's time_embedding.cond_proj (0 without one)."""
-    cin = int(unet_tensors["conv_in.weight"].shape[1])
+    """The diffuser config with in_channels from conv_in's width
+    (``cfg_with_conv_in``) and time_cond_proj_dim from an LCM-distilled
+    UNet's time_embedding.cond_proj (0 without one)."""
     cp = unet_tensors.get("time_embedding.cond_proj.weight")
-    return dataclasses.replace(diffuser_cfg, in_channels=cin,
-                               time_cond_proj_dim=0 if cp is None
-                               else int(cp.shape[1]))
+    return dataclasses.replace(
+        cfg_with_conv_in(diffuser_cfg, unet_tensors["conv_in.weight"]),
+        time_cond_proj_dim=0 if cp is None else int(cp.shape[1]))
 
 
 def load_sd1_diffusers_dir(

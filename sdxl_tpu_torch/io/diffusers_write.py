@@ -21,7 +21,7 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 from torch import nn
@@ -244,11 +244,6 @@ def _json(path: str, obj) -> None:
         json.dump(obj, f, indent=2)
 
 
-def _cast(flat: Dict[str, torch.Tensor], dtype) -> Dict[str, torch.Tensor]:
-    return flat if dtype is None else {k: v.to(dtype)
-                                       for k, v in flat.items()}
-
-
 def _write_tokenizer_dir(path: str, tokenizer, pad_token: str) -> None:
     """vocab.json + merges.txt (+ the HF sidecar configs) from the
     tokenizer's own BPE tables, the OpenAI merges.txt format diffusers'
@@ -329,14 +324,13 @@ def _clip_config_json(c: CLIPConfig) -> dict:
     }
 
 
-def write_sd1_diffusers_pipeline_dir(out_dir: str, pipe, sd2: bool = False,
-                                     dtype: Optional[torch.dtype] = None
-                                     ) -> str:
+def write_sd1_diffusers_pipeline_dir(out_dir: str, pipe,
+                                     sd2: bool = False) -> str:
     """Write an SD1Pipeline (pipeline/sd1.py) in the diffusers
     StableDiffusionPipeline layout: unet/ (its qkv unfused), vae/ (the
     decoder and the encoder), text_encoder/,
     tokenizer/, scheduler/ and model_index.json, every tensor in its own
-    dtype or ``dtype``. sd2=True marks the SD 2.x family as the reference's
+    dtype. sd2=True marks the SD 2.x family as the reference's
     writer does: the tokenizer directory pads with "!" (id 0), the VAE
     config's sample_size is 768, and the scheduler records the UNet's
     prediction_type."""
@@ -345,7 +339,7 @@ def write_sd1_diffusers_pipeline_dir(out_dir: str, pipe, sd2: bool = False,
     def part(name: str, flat, weights: str, config: dict) -> None:
         d = os.path.join(out_dir, name)
         os.makedirs(d, exist_ok=True)
-        save_file(_cast(flat, dtype), os.path.join(d, weights))
+        save_file(flat, os.path.join(d, weights))
         _json(os.path.join(d, "config.json"), config)
 
     ucfg = pipe.diffuser_cfg.unet_config()

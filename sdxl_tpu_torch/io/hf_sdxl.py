@@ -25,6 +25,7 @@ cond_stage_model.model (SD 2.x's OpenCLIP ViT-H, fused in_proj).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional
 
 import torch
@@ -428,6 +429,14 @@ def load_sdxl_safetensors(
     return embedder, unet, vae
 
 
+def cfg_with_conv_in(diffuser_cfg: DiffuserConfig,
+                     conv_in_weight: torch.Tensor) -> DiffuserConfig:
+    """The diffuser config with in_channels from conv_in's width (9 for
+    inpainting UNets, 8 for InstructPix2Pix)."""
+    return dataclasses.replace(diffuser_cfg,
+                               in_channels=int(conv_in_weight.shape[1]))
+
+
 def load_sd1_single_file(
     path: str,
     diffuser_cfg: DiffuserConfig,
@@ -443,13 +452,9 @@ def load_sd1_single_file(
     by its keys). Returns (tower state_dict, UNet state_dict, autoencoder
     state_dict, diffuser_cfg) on ``device``, the cfg's in_channels read
     from conv_in (9 for the runwayml inpainting checkpoints)."""
-    import dataclasses
-
     tensors = _load_single_file_tensors(path)
-    cin = int(
-        tensors["model.diffusion_model.input_blocks.0.0.weight"].shape[1])
-    if cin != diffuser_cfg.in_channels:
-        diffuser_cfg = dataclasses.replace(diffuser_cfg, in_channels=cin)
+    diffuser_cfg = cfg_with_conv_in(
+        diffuser_cfg, tensors["model.diffusion_model.input_blocks.0.0.weight"])
     unet = build_unet_from_ldm(tensors, diffuser_cfg.unet_config(),
                                unet_dtype, device=device)
     vae = build_vae_from_ldm(tensors, vae_cfg, device=device)

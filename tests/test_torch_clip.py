@@ -20,6 +20,7 @@ from sdxl_tpu_torch.models.clip import (
     clip_hidden,
     clip_hidden_pooled,
 )
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.

@@ -53,6 +53,7 @@ from sdxl_tpu_torch.train.finetune import (
 )
 from tests.test_torch_pipeline import TINY_EMBEDDER
 from tests.test_torch_unet import random_tree
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.

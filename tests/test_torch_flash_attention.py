@@ -23,6 +23,7 @@ from sdxl_tpu.ops.flash_attention import use_flash as j_use_flash
 from sdxl_tpu_torch.ops import flash_attention as fa
 from sdxl_tpu_torch.ops.attention import causal_mask, qkv_attention
 from torch_tf32 import tf32_matmul
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.

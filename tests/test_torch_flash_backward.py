@@ -28,6 +28,7 @@ from sdxl_tpu.ops.flash_attention import flash_attention_bwd_bhtd as j_flash_bwd
 from sdxl_tpu_torch.ops import flash_attention as fa
 from sdxl_tpu_torch.ops.attention import FlashSDPA, qkv_attention
 from torch_tf32 import tf32_matmul
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.

@@ -37,6 +37,7 @@ from sdxl_tpu_torch.scripts import (
     probe_pipelined_kernels,
     timing,
 )
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.

@@ -62,6 +62,7 @@ from tests.test_torch_module9 import (
     run_reference,
 )
 from tests.test_torch_pipeline import TINY_EMBEDDER
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores.
 torch.set_num_threads(1)

@@ -71,6 +71,7 @@ from tests.test_torch_module9 import (
 )
 from tests.test_torch_pipeline import TINY_EMBEDDER
 from tests.test_torch_unet import random_tree
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores.
 torch.set_num_threads(1)

@@ -13,14 +13,14 @@ sdxl_tpu at tiny configs, f32 on the CPU.
   tests/test_torch_module11.py): SD 1.x txt2img (DDIM), dpmpp + karras
   with a ControlNet and an IP-Adapter, img2img and an off-bucket crop
   inpaint on a 9-channel UNet read from a single .ckpt file; SD 2.x
-  v-prediction through DDIM on tests/test_sd1.py's tiny plan (transformers
-  at levels 0-2, fixed heads) and through euler on the karras schedule
+  v-prediction through DDIM and through euler on the karras schedule
   (fractional timesteps) with DeepCache; an SDXL v-prediction diffusers
   directory through load_pipeline. Final latents within 1e-3 of max(1,
   |latent|) and images within one u8 level, PR 14's bounds. The requests
-  other than the v-prediction DDIM one run the same 4-level plan with
-  its one transformer in the middle block: the reference's loops compile
-  in about 3 s each instead of 8.
+  run tests/test_sd1.py's 4-level plan with its one transformer moved to
+  the middle block: the reference's loops compile in about 3 s each
+  instead of 8; the LoRA test keeps the literal plan (transformers at
+  levels 0-2).
 - ays resolves to the SD 1.x table (ays_sd15): the grid equals the
   reference's exactly.
 - The loaders, bitwise against the reference's readers:
@@ -121,6 +121,7 @@ from tests.test_torch_module9 import (
 from tests.test_torch_module10 import assert_matches, normal
 from tests.test_torch_module11 import TINY_VISION, write_ip_adapter
 from tests.test_torch_pipeline import TINY_EMBEDDER
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores.
 torch.set_num_threads(1)
@@ -140,7 +141,6 @@ SD1 = JDiffuserConfig(
     adm_in_channels=0, model_channels=32, channel_mults=(1, 2, 4, 4),
     num_head_channels=8, transformer_depths=(1, 1, 1, 1), context_dim=32,
     transformer_levels=(0, 1, 2), n_heads=4)
-SD2_V = dataclasses.replace(SD1, prediction_type="v")
 # the same plan with its one transformer in the middle block
 MID = dataclasses.replace(SD1, transformer_levels=())
 MID_V = dataclasses.replace(MID, prediction_type="v")
@@ -539,12 +539,10 @@ def test_sd1_ckpt_inpaint_off_bucket_matches_reference(sd1, ckpt9,
 # v-prediction
 # ---------------------------------------------------------------------------
 
-def test_sd2_v_prediction_ddim_matches_reference(monkeypatch):
-    """SD 2.x on tests/test_sd1.py's tiny plan (transformers at levels
-    0-2): the penultimate hidden of an OpenCLIP-style tower, v-prediction
-    turned into eps at each DDIM grid point's ᾱ."""
-    _txt2img(monkeypatch, _pair(SD2_V, CLIP_H, penultimate=True, seed=10),
-             "sample_latent", seed=9)
+def test_sd2_v_prediction_ddim_matches_reference(sd2, monkeypatch):
+    """SD 2.x: the penultimate hidden of an OpenCLIP-style tower,
+    v-prediction turned into eps at each DDIM grid point's ᾱ."""
+    _txt2img(monkeypatch, sd2, "sample_latent", seed=9)
 
 
 def test_sd2_v_prediction_euler_karras_deepcache_matches_reference(

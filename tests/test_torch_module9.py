@@ -78,6 +78,7 @@ import tests.test_torch_loader as loader_tests
 from tests.test_torch_loader import _sgm_dict, assert_state_equal
 from tests.test_torch_pipeline import TINY_EMBEDDER
 from tests.test_hf_sdxl import make_ldm_unet_dict, make_ldm_vae_dict
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores.
 torch.set_num_threads(1)

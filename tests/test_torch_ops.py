@@ -22,6 +22,7 @@ from sdxl_tpu.ops.linear import linear as j_linear
 from sdxl_tpu.ops.linear import linear_nobias as j_linear_nobias
 from sdxl_tpu_torch.io.bridge import unet_state_dict
 from sdxl_tpu_torch.ops import conv, embeddings, linear, norms
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.

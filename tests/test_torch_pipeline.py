@@ -38,6 +38,7 @@ from sdxl_tpu_torch.pipeline.latent import decode_latent_to_images
 from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
 from tests.test_pipeline_e2e import TINY_DIFFUSER, TINY_VAE
 from tests.test_torch_unet import random_tree
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.

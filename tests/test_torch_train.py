@@ -27,6 +27,7 @@ from sdxl_tpu.train.step import adamw_cosine as j_adamw_cosine
 from sdxl_tpu.train.step import make_train_step as j_make_train_step
 from sdxl_tpu_torch.train.losses import diffusion_loss
 from sdxl_tpu_torch.train.step import TrainState, adamw_cosine, make_train_step
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.

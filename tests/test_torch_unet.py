@@ -31,6 +31,7 @@ from sdxl_tpu_torch.models.unet import (
     unet_forward,
 )
 from sdxl_tpu_torch.ops.flash_attention import use_flash
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.

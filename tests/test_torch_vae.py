@@ -24,6 +24,7 @@ from sdxl_tpu_torch.ops.flash_attention import use_flash
 from sdxl_tpu_torch.pipeline import latent as latent_mod
 from sdxl_tpu_torch.pipeline.latent import decode_latent_to_images
 from tests.test_torch_unet import random_tree
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.

@@ -22,6 +22,7 @@ from sdxl_tpu_torch.models.vae import VAEEncoder, encode_image
 from sdxl_tpu_torch.ops.conv import conv2d_pad_br
 from sdxl_tpu_torch.pipeline.latent import encode_images_to_latent
 from tests.test_torch_vae import TINY, random_tree
+from tests.torch_parity import fast_reference_compiles  # noqa: F401
 
 # One intra-op thread: the suite runs six workers on shared cores,
 # where torch's default of a thread per core makes small ops spin.
