@@ -31,7 +31,11 @@ Phases (any failure exits non-zero before the result line):
      a tiled VAE's [1,1,9216,512] f32; module 12's SD 2.x pairs at 512²,
      [2,5,4096,64] and [2,10,1024,64], and at 768², [2,5,9216,64] and
      [2,10,2304,64] bf16 (all four also in a CUDA graph), and the SD
-     VAE's [1,1,4096,512] f32 at 512²; the plain versions in query
+     VAE's [1,1,4096,512] f32 at 512²; module 13's SD3 pairs
+     [2,24,4429,64] and [2,38,4429,64], SD3.5-medium's attn2
+     [2,24,4096,64], FLUX.1's [1,24,4608,128], schnell's [1,24,4352,128],
+     true CFG's [2,24,4608,128] and Kontext's [1,24,8704,128] bf16 (the
+     d=128 ones also in a CUDA graph); the plain versions in query
      chunks where their f32 logits pass 4 GiB) —
      K1 on every route (bf16 d 64/128 and 512, f32 d
      64/128 and 512), K2, K3a, K3b in bf16 and in f32: K1 and K2's output
@@ -228,11 +232,43 @@ Phases (any failure exits non-zero before the result line):
   11. one training step's factor gradients again with the plain attention
      (forward and backward) in place of the kernels: they must agree;
   12. with --profile only: three timed LoRA steps, then one under
-     torch.profiler, reported as in phase 9.
-Each path (phases 4, 5, 5b, 6, 8, 8b, 8c, 8d, 8e, 8f, 9b, 10) runs with the launch counts set to
+     torch.profiler, reported as in phase 9;
+  8g. module 13, after the SDXL and SD 1.x pipelines are freed, one
+     family resident at a time: random SD3-medium (MMDiTConfig(): 24
+     blocks of 24 heads of 64) with T5-XXL (f32), CLIP-L and CLIP-G at
+     1024x1024, 28 flow-match Euler steps, CFG 7: txt2img, no_cfg, without
+     T5, img2img at 0.6, a crop inpaint, then one pair call through K1
+     and the plain attention (raw velocity within 2e-2 relative); SD3.5-
+     large's transformer (38 blocks, 38 heads, RMS q/k norm) in its place:
+     one txt2img and one pair call held; SD3.5-medium's (24 blocks, dual
+     attention in blocks 0-12, a 384 grid): one txt2img with skip-layer
+     guidance 2.8 at layers 7-9 (5 extra calls at 28 steps); random
+     FLUX.1-dev (FluxConfig(), T5 at 512 tokens): txt2img at guidance
+     3.5, true CFG 4 over a negative prompt, img2img, a crop inpaint and a
+     Kontext edit of the txt2img image, then one dev call and one Kontext
+     call held to the plain attention, then phase 9b's in-memory twins;
+     an f32 FLUX.1 transformer at full width, 2 double and 4 single
+     blocks: a 4-step request (K1's f32 d=128 route) and one call held
+     within 2e-3; FLUX.1-schnell's transformer (4 steps, 256 T5 tokens,
+     the static shift). Each request's latency, stage split, transformer
+     calls (counted at flow_match.mmdit_forward and flux.flux_forward,
+     SLG's apart) and K1 launches are held to the code's counts
+     (mmdit_launches, flux_launches: 24, 38, 37 and 31 with layers 7-9
+     skipped, 57; none from T5 or CLIP; one d=512 launch a decode or
+     encode);
+  9b (module 13). --family sd3 --no-t5 from a diffusers directory of the
+     SD3-medium pipeline that this script writes (an inverse key map;
+     loaded bitwise), in this process; --family flux --random-weights
+     plain, with --true-cfg-scale 4 --negative-prompt, and with
+     --edit-image of a 1000x744 crop of the FLUX.1 txt2img image (the
+     LANCZOS resize to 1184x880), 8 steps, each in a child process that
+     prints its launch counts; every PNG within 1 u8 level of the
+     in-memory twin.
+Each path (phases 4, 5, 5b, 6, 8, 8b, 8c, 8d, 8e, 8f, 9b, 10, and each of
+8g's and 9b's module-13 requests) runs with the launch counts set to
 0 just before it and read just after; the JSON record's launches are their
-sum. Each phase's seconds are printed. The last two lines are the kernels'
-JSON record and {"ok": true, ...}.
+sum. Each phase's seconds are printed, then the whole run's. The last two
+lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
 import argparse
@@ -264,13 +300,18 @@ from sdxl_tpu_torch.configs import (
     SD21_768_DIFFUSER,
     SDXL_BASE_DIFFUSER,
     SDXL_REFINER_DIFFUSER,
+    T5_XXL_CONFIG,
+    FluxConfig,
+    MMDiTConfig,
 )
 from sdxl_tpu_torch.io.checkpoint import save_native_pipeline
 from sdxl_tpu_torch.io.diffusers_write import (
     write_diffusers_controlnet_dir,
     write_sd1_diffusers_pipeline_dir,
 )
+from sdxl_tpu_torch.io.diffusers_write import clip_to_hf, vae_to_diffusers
 from sdxl_tpu_torch.io.images import read_png, save_images
+from sdxl_tpu_torch.io.safetensors import save_file
 from sdxl_tpu_torch.io.ip_adapter import (
     save_clip_vision_dir,
     save_ip_adapter_file,
@@ -300,7 +341,12 @@ from sdxl_tpu_torch.pipeline.k_samplers import (
     model_evaluations,
     rescale_zero_terminal_snr,
 )
+from sdxl_tpu_torch.models.flux import Flux, flux_forward
+from sdxl_tpu_torch.models.mmdit import MMDiT, mmdit_forward
+from sdxl_tpu_torch.pipeline import flow_match as flow_match_mod
+from sdxl_tpu_torch.pipeline import flux as flux_mod
 from sdxl_tpu_torch.pipeline import sd1 as sd1_mod
+from sdxl_tpu_torch.pipeline import sd3 as sd3_mod
 from sdxl_tpu_torch.pipeline.pipeline import random_pipeline
 from sdxl_tpu_torch.pipeline.sampler import (
     LCM_ORIGINAL_STEPS,
@@ -422,6 +468,17 @@ KERNEL_CASES = [
     (2, 5, 9216, 64, torch.bfloat16, 2e-2),
     (2, 10, 2304, 64, torch.bfloat16, 2e-2),
     (1, 1, 4096, 512, torch.float32, 1e-3),
+    # module 13 at 1024x1024: SD3-medium's and SD3.5-medium's CFG pair over
+    # 4096 latent + 333 text tokens, SD3.5-large's (38 heads), SD3.5-medium's
+    # attn2 over the latent alone; FLUX.1-dev's 4096 image + 512 T5 tokens,
+    # schnell's + 256, true CFG's pair, Kontext's 4096 + 4096 + 512
+    (2, 24, 4429, 64, torch.bfloat16, 2e-2),
+    (2, 38, 4429, 64, torch.bfloat16, 2e-2),
+    (2, 24, 4096, 64, torch.bfloat16, 2e-2),
+    (1, 24, 4608, 128, torch.bfloat16, 2e-2),
+    (1, 24, 4352, 128, torch.bfloat16, 2e-2),
+    (2, 24, 4608, 128, torch.bfloat16, 2e-2),
+    (1, 24, 8704, 128, torch.bfloat16, 2e-2),
 ]
 # K1 at a ragged edge no path takes (use_flash routes none of them, so they
 # are not held to its gate): a token count that is no multiple of 8 at
@@ -430,6 +487,11 @@ K1_EDGE_CASES = [
     (1, 3, 333, 128, torch.float32, 1e-3),
 ]
 K1_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+# phase 8g's hold of each K1 call on a path against the plain attention on
+# the same q, k, v: max abs error over max|plain output| (the path's
+# outputs reach several units, where one bf16 ulp is up to 2^-7 of the
+# value)
+K1_PATH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 # K1 cases also timed inside one CUDA graph: the refiner's shapes (at
 # [1,24,1024,64] 192-row tiles give 6 x 24 = 144 blocks for 132 SMs) and
 # the base's without CFG (no_cfg or guidance 1: batch 1, 220 and 120
@@ -437,7 +499,8 @@ K1_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 K1_GRAPHED = {(1, 12, 4096, 64), (1, 24, 1024, 64), (1, 10, 4096, 64),
               (1, 20, 1024, 64), (3, 10, 4096, 64), (3, 20, 1024, 64),
               (2, 5, 4096, 64), (2, 10, 1024, 64), (2, 5, 9216, 64),
-              (2, 10, 2304, 64)}
+              (2, 10, 2304, 64), (1, 24, 4608, 128), (1, 24, 4352, 128),
+              (2, 24, 4608, 128), (1, 24, 8704, 128)}
 # the plain version runs in query chunks where its f32 logits would pass
 # this (at [2,10,9216,64] they are 6.8 GB, at [1,1,36864,512] 5.4 GB;
 # every other shape runs it whole, as before those two)
@@ -608,6 +671,33 @@ M11_STRENGTH = 0.3
 SD1_RES, SD2_RES, SD2_BASE_RES = (512, 512), (768, 768), (512, 512)
 M12_STEPS, M12_AYS_STEPS, M12_STRENGTH = 30, 10, 0.5
 SD1_CROP = dict(crop_left=128, crop_right=384, crop_top=192, crop_bottom=448)
+# phase 8g: module 13. SD3-medium (MMDiTConfig(), the published
+# stable-diffusion-3-medium transformer config) with T5-XXL (f32, as the
+# reference's random T5), CLIP-L and CLIP-G; SD3.5-large's and
+# SD3.5-medium's transformers (the published stable-diffusion-3.5-large
+# and -medium configs: 38 heads of 64 over 38 layers with the RMS q/k norm;
+# 24 layers, the norm, dual attention in blocks 0-12, a 384 position
+# grid) on the same towers; FLUX.1-dev (FluxConfig(), T5 at 512 tokens)
+# and FLUX.1-schnell (no guidance embedding, 256 tokens, the static
+# shift). The requests' size, steps, guidance, seeds, img2img strength,
+# skip-layer guidance's scale, true CFG's scale and negative prompt; the
+# f32 Flux check's depth (double, single blocks)
+SD35_LARGE = MMDiTConfig(num_layers=38, n_heads=38, head_dim=64,
+                         qk_norm="rms")
+SD35_MEDIUM = MMDiTConfig(num_layers=24, n_heads=24, head_dim=64,
+                          qk_norm="rms", pos_embed_max_size=384,
+                          dual_attention_layers=tuple(range(13)))
+FLUX_SCHNELL_CFG = FluxConfig(guidance_embeds=False)
+M13_RES, M13_STEPS, SCHNELL_STEPS = (1024, 1024), 28, 4
+SD3_GS, FLUX_GS, M13_STRENGTH = 7.0, 3.5, 0.6
+SLG_SCALE, TRUE_CFG_SCALE = 2.8, 4.0
+M13_NEGATIVE = "blurry, low quality"
+FLUX_F32_DEPTH = (2, 4)
+# phase 9b's module-13 CLI requests: their steps, and the Kontext edit
+# PNG's size (H, W), whose sides are not multiples of 16 (the LANCZOS
+# resize to 880x1184)
+M13_CLI_STEPS = 8
+KONTEXT_EDIT_HW = (744, 1000)
 # the f32 pipeline's request: 4 DDIM steps (4 UNet calls) keep its cost
 # near one bf16 request's
 F32_STEPS = 4
@@ -645,6 +735,8 @@ TRAIN_ATTENTIONS = 70
 CKPT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                         "checkpoint")
 CKPT_SLACK = 2 << 30
+# phase 8g writes the Kontext edit PNG here; phase 9b's CLI request reads it
+KONTEXT_EDIT_DIR = os.path.join(os.path.dirname(CKPT_DIR), "kontext_edit")
 CLI_LEVEL_TOL = 1
 ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
               torch.profiler.ProfilerActivity.CUDA]
@@ -2657,6 +2749,702 @@ def checkpoint_cli_phase(pipe, total, p_lcm, m11, m12) -> None:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 8g: module 13 (SD3 / SD3.5, FLUX.1)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def counting_transformer_calls():
+    """Inside, the flow-matching loops' transformer calls are counted:
+    "full" calls, and skip-layer guidance's "slg" calls (skip_layers
+    set)."""
+    calls = Counter()
+    real = {(flow_match_mod, "mmdit_forward"): mmdit_forward,
+            (flux_mod, "flux_forward"): flux_forward}
+
+    def counted(fn):
+        def call(*args, **kw):
+            calls["slg" if kw.get("skip_layers") else "full"] += 1
+            return fn(*args, **kw)
+        return call
+
+    for (mod, name), fn in real.items():
+        setattr(mod, name, counted(fn))
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
+def mmdit_launches(cfg: MMDiTConfig, res, batch_tokens: int = 333,
+                   skip=()) -> int:
+    """K1 launches of one MMDiT call at `res`: each joint attention over
+    the latent's patches and the 77 + 256 text tokens, and each
+    dual-attention block's attn2 over the patches alone, as use_flash
+    routes them; blocks in `skip` run none."""
+    n_img = (res[0] // 16) * (res[1] // 16)
+    joint = fa.use_flash(n_img + batch_tokens, n_img + batch_tokens,
+                         cfg.head_dim, False)
+    own = fa.use_flash(n_img, n_img, cfg.head_dim, False)
+    return sum(joint + own * (i in cfg.dual_attention_layers)
+               for i in range(cfg.num_layers) if i not in skip)
+
+
+def flux_launches(cfg: FluxConfig, res, n_txt: int, cond_res=None) -> int:
+    """K1 launches of one FLUX.1 call: every double and single block's
+    attention over the text, the image (and Kontext's reference) tokens,
+    as use_flash routes them."""
+    t = n_txt + (res[0] // 16) * (res[1] // 16)
+    if cond_res is not None:
+        t += (cond_res[0] // 16) * (cond_res[1] // 16)
+    return fa.use_flash(t, t, cfg.head_dim, False) * (
+        cfg.num_layers + cfg.num_single_layers)
+
+
+def module13_request(pipe, label: str, fn, want_calls: dict, want_k1: int,
+                     want_vae: int, res=M13_RES,
+                     route: str = "sdxl_flash_attention_bf16"):
+    """One phase-8g request: latency, stage split, transformer calls, K1
+    launches and peak memory printed; fail unless the calls are
+    want_calls, K1's `route` (the transformer's) was launched want_k1
+    times and its f32 d=512 route want_vae times (the VAE's decode and
+    encode; T5's and CLIP's attentions never reach K1), and the final
+    latent is finite and the image uint8 of `res`. Returns the images."""
+    pipe.timer.stages.clear()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(fa.launch_counts)
+    with counting_transformer_calls() as calls:
+        t0 = time.perf_counter()
+        out = fn()
+        latency = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    stages = " ".join(f"{k}={v:.3f}s" for k, v in pipe.timer.stages.items())
+    launches = {k: n - before[k] for k, n in fa.launch_counts.items()
+                if n != before[k]}
+    lat = pipe.last_latent
+    print(f"request {label}: latency={latency:.3f}s {stages} "
+          f"transformer_calls={dict(calls)} (predicted {want_calls}) "
+          f"peak_mem={peak_gib:.2f}GiB launches={launches} max|latent|="
+          f"{lat.abs().max().item():.4g}", flush=True)
+    got = (launches.get(route, 0), launches.get(F32_D512, 0))
+    if dict(calls) != {k: n for k, n in want_calls.items() if n} or \
+            got != (want_k1, want_vae):
+        fail(f"{label}: transformer calls {dict(calls)} and K1 launched "
+             f"{got[0]} ({route}) and {got[1]} (f32 d=512) times, not "
+             f"{want_calls}, {want_k1} and {want_vae}")
+    if not bool(torch.isfinite(lat).all()):
+        fail(f"non-finite latent in {label}")
+    if out.shape != (1, *res, 3) or out.dtype.name != "uint8" or \
+            out.std() == 0:
+        fail(f"{label}: images {out.shape} {out.dtype}")
+    return out
+
+
+def draw(module, seed: int):
+    """A meta-device module materialised on the card and drawn with the
+    reference's init from a seeded CUDA generator."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return init_reference_(module.to_empty(device="cuda"), g).eval(
+    ).requires_grad_(False)
+
+
+def late_norm_attention(q, k, v) -> torch.Tensor:
+    """A second plain attention that rounds where K1 does: p = exp2(s - m)
+    rounded to v's dtype unnormalised, divided by l after the product (the
+    plain version normalises p before it rounds). In query chunks, as
+    plain_attention."""
+    def attn(q):
+        s = fa._prescale_q(q).float() @ k.float().transpose(-1, -2)
+        p = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+        o = p.to(v.dtype).float() @ v.float()
+        return (o / p.sum(dim=-1, keepdim=True)).to(v.dtype)
+
+    b, h, tq, _ = q.shape
+    rows = max(1, PLAIN_CHUNK_BYTES // (b * h * k.shape[2] * 4))
+    return torch.cat([attn(q[:, :, i:i + rows]) for i in range(0, tq, rows)],
+                     dim=2)
+
+
+def held_attention(worst: list):
+    """K1 (ops.attention's flash_attention_bhtd) with each call's output
+    also held to the plain attention on the same q, k, v; appends
+    (max abs error / max|plain|, relative L2) of every call to worst."""
+    def attn(q, k, v):
+        out = fa.flash_attention_bhtd(q, k, v)
+        err, rel, ref_max = readings(out, plain_attention(q, k, v))
+        worst.append((err / ref_max, rel))
+        return out
+    return attn
+
+
+def hold_to_plain(label: str, call, route: str, want_n: int,
+                  tol: float) -> None:
+    """call() through K1 and through the plain attention (in query
+    chunks). Three readings:
+
+    - each of K1's want_n launches of `route` on its own q, k, v against
+      the plain attention on the same inputs: max abs error within
+      K1_PATH_TOL of max|plain output| and relative L2 within K1_REL_TOL
+      (phase 3's) — K1's own error at the path's inputs, which a sound
+      kernel reads well inside (about one bf16 ulp);
+    - the raw output within tol of its largest magnitude, which also
+      carries the rounding that builds up over every block after the
+      first difference;
+    - a control, not held: the raw output through late_norm_attention
+      (plain math that rounds at K1's points) against the plain
+      attention, how far rounding alone moves the output at this depth.
+    """
+    worst = []
+    fa.reset_launch_counts()
+    out_k = with_attention(call, held_attention(worst)).float()
+    torch.cuda.synchronize()
+    n = fa.launch_counts[route]
+    out_p = with_attention(call, plain_attention).float()
+    out_c = with_attention(call, late_norm_attention).float()
+    big = out_p.abs().max()
+    rel = ((out_k - out_p).abs().max() / big).item()
+    rel_c = ((out_c - out_p).abs().max() / big).item()
+    l2, l2_c = ((out_k - out_p).norm() / out_p.norm()).item(), \
+        ((out_c - out_p).norm() / out_p.norm()).item()
+    call_max = max(w[0] for w in worst) if worst else float("nan")
+    call_l2 = max(w[1] for w in worst) if worst else float("nan")
+    dtype = torch.float32 if route in TF32_KERNELS else torch.bfloat16
+    print(f"{label}: {route} launches {n}; per call against the plain "
+          f"attention on its inputs: worst max_err/max {call_max:.3e} (tol "
+          f"{K1_PATH_TOL[dtype]:g}), worst rel_l2 {call_l2:.3e} (tol "
+          f"{K1_REL_TOL[dtype]:g}); raw output rel_err={rel:.3e} (tol "
+          f"{tol:g}), rel_l2 {l2:.3e}; control (plain math at K1's rounding "
+          f"points) rel_err={rel_c:.3e}, rel_l2 {l2_c:.3e}; max|out| "
+          f"{big.item():.4g}", flush=True)
+    if n != want_n or len(worst) != want_n:
+        fail(f"the {label} launched {route} {n} times ({len(worst)} "
+             f"attention calls), not {want_n}")
+    if not (call_max < K1_PATH_TOL[dtype] and call_l2 < K1_REL_TOL[dtype]):
+        fail(f"the {label}: a K1 call disagrees with the plain attention on "
+             "its own inputs")
+    if not (bool(torch.isfinite(out_k).all()) and rel < tol):
+        fail(f"the {label} through K1 disagrees with the plain attention")
+    del out_k, out_p, out_c
+    torch.cuda.empty_cache()
+
+
+@torch.inference_mode()
+def check_mmdit_against_plain(pipe, label: str, sigma_index: int) -> None:
+    """One pair-batched CFG call of the pipeline's MMDiT at 1024x1024 at a
+    fractional timestep of the 28-step schedule, through K1 and through
+    the plain attention."""
+    cfg, dtype = pipe.mmdit.cfg, pipe.mmdit.dtype
+    ctx, pooled = pipe.conditioning(PROMPT, M13_NEGATIVE)
+    g = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn((1, M13_RES[0] // 8, M13_RES[1] // 8, cfg.in_channels),
+                    generator=g, device="cuda")
+    t = float(flow_match_mod.fm_schedule(M13_STEPS)[0][sigma_index])
+    t2 = torch.full((2,), t, device="cuda")
+    hold_to_plain(
+        f"{label} pair call B=2 at t={t!r}",
+        lambda: mmdit_forward(pipe.mmdit, torch.cat([x, x]).to(dtype), t2,
+                              ctx.to(dtype), pooled.to(dtype)),
+        "sdxl_flash_attention_bf16", mmdit_launches(cfg, M13_RES),
+        UNET_REL_TOL)
+
+
+@torch.inference_mode()
+def check_flux_against_plain(pipe, edit_latent) -> None:
+    """One FLUX.1-dev call at 1024x1024 and one Kontext call (with
+    edit_latent as the reference stream) through K1 and through the
+    plain attention, within UNET_REL_TOL."""
+    cfg = pipe.flux.cfg
+    ctx, pooled = pipe.conditioning(PROMPT)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    x = torch.randn((1, M13_RES[0] // 8, M13_RES[1] // 8, 16), generator=g,
+                    device="cuda")
+    ts, _ = pipe._schedule(M13_STEPS, *M13_RES)
+    t = torch.full((1,), float(ts[9]), device="cuda")
+    gd = torch.full((1,), FLUX_GS * 1000.0, device="cuda")
+    bf = torch.bfloat16
+    n_txt = ctx.shape[1]
+    hold_to_plain(
+        f"FLUX.1-dev call at t={float(t)!r}",
+        lambda: flux_forward(pipe.flux, x.to(bf), t, ctx.to(bf),
+                             pooled.to(bf), gd),
+        "sdxl_flash_attention_bf16", flux_launches(cfg, M13_RES, n_txt),
+        UNET_REL_TOL)
+    hold_to_plain(
+        f"FLUX.1-dev Kontext call at t={float(t)!r}",
+        lambda: flux_forward(pipe.flux, x.to(bf), t, ctx.to(bf),
+                             pooled.to(bf), gd,
+                             cond_latent=edit_latent.to(bf)),
+        "sdxl_flash_attention_bf16",
+        flux_launches(cfg, M13_RES, n_txt, M13_RES), UNET_REL_TOL)
+
+
+@torch.inference_mode()
+def check_f32_flux_against_plain(pipe) -> None:
+    """One call of the pipeline's f32 FLUX.1 transformer at 1024x1024
+    through K1's f32 d=128 route and through the plain attention, within
+    F32_UNET_REL_TOL."""
+    cfg = pipe.flux.cfg
+    ctx, pooled = pipe.conditioning(PROMPT)
+    g = torch.Generator(device="cuda").manual_seed(18)
+    x = torch.randn((1, M13_RES[0] // 8, M13_RES[1] // 8, 16), generator=g,
+                    device="cuda")
+    ts, _ = pipe._schedule(M13_STEPS, *M13_RES)
+    t = torch.full((1,), float(ts[9]), device="cuda")
+    gd = torch.full((1,), FLUX_GS * 1000.0, device="cuda")
+    hold_to_plain(
+        f"f32 FLUX.1 call ({cfg.num_layers} double, {cfg.num_single_layers}"
+        f" single blocks, full width) at t={float(t)!r}",
+        lambda: flux_forward(pipe.flux, x, t, ctx.float(), pooled.float(),
+                             gd),
+        F32_D128, flux_launches(cfg, M13_RES, ctx.shape[1]),
+        F32_UNET_REL_TOL)
+
+
+def sd3_medium_requests(sd3) -> dict:
+    """SD3-medium at 1024x1024, 28 steps, CFG 7: txt2img, no_cfg, without
+    T5, img2img at M13_STRENGTH of the first image, a crop-window
+    inpaint. Returns the no-T5 request's image and arguments (phase 9b's
+    --family sd3 --no-t5 request is held to it)."""
+    n = M13_STEPS
+    kw = dict(n_steps=n, guidance_scale=SD3_GS, negative_prompt=M13_NEGATIVE)
+    a = mmdit_launches(sd3.mmdit.cfg, M13_RES)
+    print(f"K1 launches an SD3-medium call at {M13_RES}: {a}", flush=True)
+    first = module13_request(
+        sd3, f"SD3-medium txt2img CFG {SD3_GS} {n} steps (T5-XXL f32)",
+        lambda: sd3.txt2img(PROMPT, M13_RES, seed=80, **kw), {"full": n},
+        n * a, 1)
+    module13_request(
+        sd3, "SD3-medium txt2img no_cfg",
+        lambda: sd3.txt2img(PROMPT, M13_RES, seed=81, no_cfg=True, **kw),
+        {"full": n}, n * a, 1)
+    no_t5 = dataclasses.replace(sd3, t5=None)
+    no_t5_kw = dict(seed=82, n_steps=n, guidance_scale=SD3_GS)
+    no_t5_image = module13_request(
+        no_t5, "SD3-medium txt2img without T5 (zeros)",
+        lambda: no_t5.txt2img(PROMPT, M13_RES, **no_t5_kw), {"full": n},
+        n * a, 1)
+    n_i2i = n - flow_match_mod.fm_window(n, M13_STRENGTH)
+    module13_request(
+        sd3, f"SD3-medium img2img strength {M13_STRENGTH}",
+        lambda: sd3.img2img(PROMPT, first, strength=M13_STRENGTH, seed=83,
+                            **kw), {"full": n_i2i}, n_i2i * a, 2)
+    module13_request(
+        sd3, f"SD3-medium crop-window inpaint {CROP_WINDOW}",
+        lambda: sd3.inpaint(PROMPT, first, seed=84, **CROP_WINDOW, **kw),
+        {"full": n}, n * a, 2)
+    return dict(image=no_t5_image, kw=no_t5_kw)
+
+
+def sd35_request(pipe, label: str, slg: bool):
+    """One SD3.5 txt2img at 1024x1024, 28 steps, CFG 7 (with skip-layer
+    guidance at its default layers 7-9 when slg)."""
+    n, cfg = M13_STEPS, pipe.mmdit.cfg
+    layers = (7, 8, 9)
+    on = sum(n * 0.01 < i < n * 0.2 for i in range(n)) if slg else 0
+    extra = dict(slg_scale=SLG_SCALE) if slg else {}
+    return module13_request(
+        pipe, label, lambda: pipe.txt2img(
+            PROMPT, M13_RES, n_steps=n, guidance_scale=SD3_GS, seed=85,
+            negative_prompt=M13_NEGATIVE, **extra),
+        {"full": n, "slg": on},
+        n * mmdit_launches(cfg, M13_RES)
+        + on * mmdit_launches(cfg, M13_RES, skip=layers), 1)
+
+
+def flux_dev_requests(flux):
+    """FLUX.1-dev at 1024x1024, 28 steps, guidance 3.5: txt2img, true CFG
+    over a negative prompt, img2img, a crop-window inpaint and a Kontext
+    edit of the txt2img image. Returns the txt2img image."""
+    n, cfg = M13_STEPS, flux.flux.cfg
+    a = flux_launches(cfg, M13_RES, flux.t5_tokens)
+    print(f"K1 launches a FLUX.1-dev call at {M13_RES}: {a}", flush=True)
+    kw = dict(n_steps=n, guidance_scale=FLUX_GS)
+    first = module13_request(
+        flux, f"FLUX.1-dev txt2img guidance {FLUX_GS} {n} steps",
+        lambda: flux.txt2img(PROMPT, M13_RES, seed=90, **kw), {"full": n},
+        n * a, 1)
+    module13_request(
+        flux, f"FLUX.1-dev true CFG {TRUE_CFG_SCALE} (negative prompt)",
+        lambda: flux.txt2img(PROMPT, M13_RES, seed=91,
+                             negative_prompt=M13_NEGATIVE,
+                             true_cfg_scale=TRUE_CFG_SCALE, **kw),
+        {"full": n}, n * a, 1)
+    n_i2i = n - flow_match_mod.fm_window(n, M13_STRENGTH)
+    module13_request(
+        flux, f"FLUX.1-dev img2img strength {M13_STRENGTH}",
+        lambda: flux.img2img(PROMPT, first, strength=M13_STRENGTH, seed=92,
+                             **kw), {"full": n_i2i}, n_i2i * a, 2)
+    module13_request(
+        flux, f"FLUX.1-dev crop-window inpaint {CROP_WINDOW}",
+        lambda: flux.inpaint(PROMPT, first, seed=93, **CROP_WINDOW, **kw),
+        {"full": n}, n * a, 2)
+    module13_request(
+        flux, "FLUX.1-dev Kontext edit of the txt2img image (guidance 2.5)",
+        lambda: flux.kontext(PROMPT, first, seed=94, n_steps=n,
+                             guidance_scale=2.5), {"full": n},
+        n * flux_launches(cfg, M13_RES, flux.t5_tokens, M13_RES), 2)
+    return first
+
+
+def flux_cli_twins(flux, first) -> dict:
+    """Phase 9b's --family flux CLI requests in memory (M13_CLI_STEPS
+    steps: plain, true CFG, Kontext of the KONTEXT_EDIT_HW crop of the
+    txt2img image, saved as a PNG under KONTEXT_EDIT_DIR and read back
+    through the CLI's own kontext_edit_image, which LANCZOS-resizes it).
+    Returns their images, the edit PNG's path and the requests'
+    arguments."""
+    cfg, m = flux.flux.cfg, M13_CLI_STEPS
+    a = flux_launches(cfg, M13_RES, flux.t5_tokens)
+    cli = dict(n_steps=m, guidance_scale=FLUX_GS, seed=95)
+    eh, ew = KONTEXT_EDIT_HW
+    shutil.rmtree(KONTEXT_EDIT_DIR, ignore_errors=True)
+    edit_png, = save_images(first[:1, :eh, :ew],
+                            os.path.join(KONTEXT_EDIT_DIR, "edit"))
+    edit = sample_cli.kontext_edit_image(edit_png)
+    ehw = edit.shape[1:3]
+    twins = {
+        "plain": module13_request(
+            flux, f"FLUX.1-dev txt2img {m} steps (the CLI's twin)",
+            lambda: flux.txt2img(PROMPT, M13_RES, **cli), {"full": m},
+            m * a, 1),
+        "true_cfg": module13_request(
+            flux, f"FLUX.1-dev true CFG {m} steps (the CLI's twin)",
+            lambda: flux.txt2img(PROMPT, M13_RES,
+                                 negative_prompt=M13_NEGATIVE,
+                                 true_cfg_scale=TRUE_CFG_SCALE, **cli),
+            {"full": m}, m * a, 1),
+        "kontext": module13_request(
+            flux, f"FLUX.1-dev Kontext of the {ew}x{eh} PNG resized to "
+            f"{ehw[1]}x{ehw[0]}, {m} steps (the CLI's twin)",
+            lambda: flux.kontext(PROMPT, edit, **cli), {"full": m},
+            m * flux_launches(cfg, ehw, flux.t5_tokens, ehw), 2, res=ehw),
+    }
+    return dict(twins=twins, edit_png=edit_png, cli=cli)
+
+
+def module13_phase(total) -> dict:
+    """Phase 8g: the SD3 family (SD3-medium's requests, SD3.5-large's,
+    SD3.5-medium's with skip-layer guidance), then FLUX.1 (dev's
+    requests, an f32 request at reduced depth, phase 9b's twins,
+    schnell's request), one family resident at a time; each request a
+    path of its own, the calls held to the plain attention after their
+    path. Returns what phase 9b's module-13 requests are held to: the
+    SD3-medium pipeline without T5 with its no-T5 image, and the FLUX.1
+    twins."""
+    t0 = time.perf_counter()
+    sd3 = sd3_mod.random_sd3_pipeline(31, device="cuda",
+                                      t5_cfg=T5_XXL_CONFIG)
+    torch.cuda.synchronize()
+    print(f"random_sd3_pipeline(t5_cfg=T5_XXL_CONFIG): "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    bf16 = ["sdxl_flash_attention_bf16", F32_D512]
+    sd3_out = run_path("the SD3-medium requests",
+                       lambda: sd3_medium_requests(sd3), bf16, total)
+    check_mmdit_against_plain(sd3, "SD3-medium", 9)
+    sd3_out["pipe"] = dataclasses.replace(sd3, t5=None)
+    for label, cfg, seed, slg in (
+            ("SD3.5-large", SD35_LARGE, 32, False),
+            ("SD3.5-medium", SD35_MEDIUM, 33, True)):
+        t0 = time.perf_counter()
+        p = dataclasses.replace(sd3, mmdit=draw(MMDiT(cfg, "meta"), seed))
+        torch.cuda.synchronize()
+        print(f"{label} transformer drawn: {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        run_path(f"the {label} request",
+                 lambda: sd35_request(p, f"{label} txt2img CFG {SD3_GS} "
+                                      f"{M13_STEPS} steps"
+                                      + (f" SLG {SLG_SCALE} layers 7-9"
+                                         if slg else ""), slg), bf16, total)
+        if not slg:
+            check_mmdit_against_plain(p, label, 9)
+        del p
+        gc.collect()
+        torch.cuda.empty_cache()
+    del sd3
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    flux = flux_mod.random_flux_pipeline(0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"random_flux_pipeline(0): {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    first = run_path("the FLUX.1-dev requests",
+                     lambda: flux_dev_requests(flux), bf16, total)
+    check_flux_against_plain(flux, flux._encode(first))
+    flux_out = run_path("phase 9b's FLUX.1 twins",
+                        lambda: flux_cli_twins(flux, first), bf16, total)
+    dev = flux.flux
+    f32_cfg = dataclasses.replace(dev.cfg, num_layers=FLUX_F32_DEPTH[0],
+                                  num_single_layers=FLUX_F32_DEPTH[1])
+    flux.flux = None
+    del dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(flux, flux=draw(Flux(f32_cfg, "meta",
+                                                   torch.float32), 18))
+    s = SCHNELL_STEPS
+    run_path("the f32 FLUX.1 request", lambda: module13_request(
+        f32, f"f32 FLUX.1 ({f32_cfg.num_layers} double, "
+        f"{f32_cfg.num_single_layers} single blocks, full width) txt2img "
+        f"{s} steps", lambda: f32.txt2img(PROMPT, M13_RES, n_steps=s,
+                                          guidance_scale=FLUX_GS, seed=97),
+        {"full": s}, s * flux_launches(f32_cfg, M13_RES, flux.t5_tokens), 1,
+        route=F32_D128), [F32_D128, F32_D512], total)
+    check_f32_flux_against_plain(f32)
+    del f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    schnell = dataclasses.replace(
+        flux, flux=draw(Flux(FLUX_SCHNELL_CFG, "meta"), 34), t5_tokens=256,
+        t5_tokenize=flow_match_mod.stub_t5_tokenizer(
+            256, flux.t5.cfg.vocab_size),
+        dynamic_shifting=False, static_shift=1.0)
+    run_path("the FLUX.1-schnell request", lambda: module13_request(
+        schnell, f"FLUX.1-schnell txt2img {s} steps (256 T5 tokens, static "
+        f"shift)", lambda: schnell.txt2img(PROMPT, M13_RES, seed=96,
+                                           n_steps=s),
+        {"full": s}, s * flux_launches(FLUX_SCHNELL_CFG, M13_RES, 256), 1),
+        bf16, total)
+    del schnell, flux
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(sd3=sd3_out, flux=flux_out)
+
+
+# ---------------------------------------------------------------------------
+# phase 9b's module-13 requests
+# ---------------------------------------------------------------------------
+
+# the MMDiT's module names -> diffusers SD3Transformer2DModel's keys (the
+# inverse of io/sd3.py build_mmdit_from_diffusers; neither package has an
+# SD3 writer)
+MMDIT_TO_DIFFUSERS = [
+    (r"^blocks\.", "transformer_blocks."),
+    (r"^time_text_embed\.(timestep|text)_lin(\d)\.",
+     r"time_text_embed.\1_embedder.linear_\2."),
+    (r"\.norm1(_context)?\.mod\.", r".norm1\1.linear."),
+    (r"^norm_out\.mod\.", "norm_out.linear."),
+    (r"\.(attn2?)\.to_out\.", r".\1.to_out.0."),
+    (r"\.mlp\.in\.", ".ff.net.0.proj."),
+    (r"\.mlp\.out\.", ".ff.net.2."),
+    (r"\.mlp_context\.in\.", ".ff_context.net.0.proj."),
+    (r"\.mlp_context\.out\.", ".ff_context.net.2."),
+]
+
+
+def mmdit_to_diffusers(model) -> dict:
+    out = {}
+    p, c = model.cfg.patch_size, model.cfg.in_channels
+    for key, t in model.state_dict().items():
+        if key == "pos_embed.proj.weight":  # (ph, pw, c) linear -> conv
+            t = t.reshape(t.shape[0], p, p, c).permute(0, 3, 1, 2)
+        for rx, rep in MMDIT_TO_DIFFUSERS:
+            key = re.sub(rx, rep, key)
+        out[key] = t.contiguous()
+    return out
+
+
+def write_sd3_dir(out_dir: str, pipe) -> int:
+    """A diffusers stable-diffusion-3-medium-diffusers directory of the
+    pipeline (transformer/, text_encoder/, text_encoder_2/, vae/,
+    scheduler/; no text_encoder_3/): returns its bytes."""
+    def part(name, flat, config):
+        d = os.path.join(out_dir, name)
+        os.makedirs(d, exist_ok=True)
+        save_file(flat, os.path.join(d, "diffusion_pytorch_model"
+                                     ".safetensors"))
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(config, f)
+
+    m = pipe.mmdit.cfg
+    part("transformer", mmdit_to_diffusers(pipe.mmdit), {
+        "_class_name": "SD3Transformer2DModel", "patch_size": m.patch_size,
+        "in_channels": m.in_channels, "out_channels": m.out_channels,
+        "num_layers": m.num_layers, "attention_head_dim": m.head_dim,
+        "num_attention_heads": m.n_heads,
+        "joint_attention_dim": m.joint_attention_dim,
+        "pooled_projection_dim": m.pooled_projection_dim,
+        "pos_embed_max_size": m.pos_embed_max_size,
+        "caption_projection_dim": m.hidden})
+    for name, clip in (("text_encoder", pipe.clip_l),
+                       ("text_encoder_2", pipe.clip_g)):
+        c = clip.cfg
+        flat = clip_to_hf(clip)
+        flat["text_projection.weight"] = clip.text_projection.t().contiguous()
+        part(name, flat, {
+            "architectures": ["CLIPTextModelWithProjection"],
+            "hidden_size": c.n_state, "projection_dim": c.embed_dim,
+            "num_attention_heads": c.n_head, "num_hidden_layers": c.n_layer,
+            "max_position_embeddings": c.n_ctx, "vocab_size": c.n_vocab,
+            "hidden_act": "quick_gelu" if c.quick_gelu else "gelu"})
+    v = pipe.vae.cfg
+    part("vae", vae_to_diffusers(pipe.vae, pipe.vae_encoder), {
+        "_class_name": "AutoencoderKL", "latent_channels": v.latent_channels,
+        "norm_num_groups": v.n_group, "scaling_factor": pipe.scale_factor,
+        "shift_factor": pipe.shift_factor})
+    os.makedirs(os.path.join(out_dir, "scheduler"), exist_ok=True)
+    with open(os.path.join(out_dir, "scheduler", "scheduler_config.json"),
+              "w") as f:
+        json.dump({"_class_name": "FlowMatchEulerDiscreteScheduler",
+                   "shift": pipe.flow_shift, "num_train_timesteps": 1000}, f)
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(out_dir) for f in fs)
+
+
+def check_same_modules(label: str, pairs) -> None:
+    """Each (name, in-memory module, loaded module): every tensor bitwise
+    equal, dtype included."""
+    n = 0
+    for name, a, b in pairs:
+        sa, sb = a.state_dict(), b.state_dict()
+        if sorted(sa) != sorted(sb):
+            fail(f"{label}: loaded {name} keys differ "
+                 f"{sorted(set(sa) ^ set(sb))[:5]}")
+        for k in sa:
+            if sa[k].dtype != sb[k].dtype or not torch.equal(sa[k], sb[k]):
+                fail(f"{label}: loaded {name}.{k} differs")
+            n += sa[k].numel()
+    print(f"{label}: {n} parameters bitwise equal to the in-memory "
+          f"pipeline's ({', '.join(p[0] for p in pairs)})", flush=True)
+
+
+# run in a child process: the CLI's main, then its launch counts
+CLI_CHILD = ("import json, sys\n"
+             "from sdxl_tpu_torch.cli.sample import main\n"
+             "from sdxl_tpu_torch.ops import flash_attention as fa\n"
+             "rc = main(sys.argv[1:])\n"
+             "print('LAUNCHES ' + json.dumps("
+             "{k: n for k, n in fa.launch_counts.items() if n}))\n"
+             "sys.exit(rc)\n")
+
+
+def cli_subprocess(label: str, argv, want_k1: int, want_vae: int,
+                   total) -> None:
+    """python -m sdxl_tpu_torch.cli.sample argv in a child process (the
+    card to itself: the parent holds no transformer); fail unless it
+    exits 0 having launched K1's bf16 d 64/128 route want_k1 and its f32
+    d=512 route want_vae times; its launches are added to `total`."""
+    print(f"-- python -m sdxl_tpu_torch.cli.sample {' '.join(argv)} "
+          f"(child process)", flush=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CLI_CHILD, *argv],
+                          capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    got = [json.loads(ln[len("LAUNCHES "):]) for ln in lines
+           if ln.startswith("LAUNCHES ")]
+    summary = [ln for ln in proc.stderr.splitlines()
+               if "total=" in ln or "saved" in ln]
+    print(f"{label}: exit {proc.returncode} in {wall:.1f}s (the child's "
+          f"start, weights and request); launches {got}; "
+          f"{' | '.join(summary)}", flush=True)
+    if proc.returncode != 0 or not got:
+        print(proc.stderr[-4000:], flush=True)
+        fail(f"{label}: the CLI child exited {proc.returncode}")
+    launches = got[0]
+    n = (launches.get("sdxl_flash_attention_bf16", 0),
+         launches.get(F32_D512, 0))
+    if n != (want_k1, want_vae):
+        fail(f"{label} launched K1 {n[0]} (bf16 d 64/128) and {n[1]} (f32 "
+             f"d=512) times, not {want_k1} and {want_vae}")
+    for name, k in launches.items():
+        total[name] += k
+
+
+def module13_cli_phase(total, m13) -> None:
+    """Phase 9b's module-13 requests: --family sd3 --no-t5 from a
+    diffusers directory of phase 8g's SD3-medium (written here, loaded
+    bitwise), in this process; then --family flux --random-weights plain,
+    with --true-cfg-scale over a negative prompt, and with --edit-image of
+    a KONTEXT_EDIT_HW PNG (the LANCZOS resize), each in a child process
+    with the card to itself; every PNG held to the in-memory image."""
+    sd3 = m13["sd3"]["pipe"]
+    d = os.path.join(CKPT_DIR, "sd3")
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    try:
+        t0 = time.perf_counter()
+        written = write_sd3_dir(d, sd3)
+        print(f"SD3-medium diffusers directory written: {written} bytes in "
+              f"{time.perf_counter() - t0:.3f}s", flush=True)
+        loads = []
+        real_load = sd3_mod.load_sd3_pipeline
+
+        def timed_load(*args, **kw):
+            t0 = time.perf_counter()
+            out = real_load(*args, **kw)
+            torch.cuda.synchronize()
+            loads.append((time.perf_counter() - t0, out))
+            return out
+
+        out = os.path.join(CKPT_DIR, "out", "sd3")
+        kw = m13["sd3"]["kw"]
+        argv = ["--family", "sd3", "--no-t5", "--model-dir", d, "--prompt",
+                PROMPT, "--height", str(M13_RES[0]), "--width",
+                str(M13_RES[1]), "-steps", str(kw["n_steps"]), "-gs",
+                str(kw["guidance_scale"]), "--seed", str(kw["seed"]),
+                "--output-dir", out]
+        print(f"-- python -m sdxl_tpu_torch.cli.sample {' '.join(argv)}",
+              flush=True)
+        sd3_mod.load_sd3_pipeline = timed_load
+        try:
+            rc = run_path("the sample CLI --family sd3 --no-t5 request",
+                          lambda: sample_cli.main(argv),
+                          ["sdxl_flash_attention_bf16", F32_D512], total)
+        finally:
+            sd3_mod.load_sd3_pipeline = real_load
+        if rc != 0:
+            fail(f"the sample CLI returned {rc} (--family sd3)")
+        (load_s, loaded), = loads
+        print(f"load_sd3_pipeline(load_t5=False) (disk -> card, {written} "
+              f"bytes): {load_s:.3f}s", flush=True)
+        check_same_modules("the --family sd3 --no-t5 load", [
+            ("mmdit", sd3.mmdit, loaded.mmdit),
+            ("clip_l", sd3.clip_l, loaded.clip_l),
+            ("clip_g", sd3.clip_g, loaded.clip_g),
+            ("vae", sd3.vae, loaded.vae),
+            ("vae_encoder", sd3.vae_encoder, loaded.vae_encoder)])
+        if loaded.t5 is not None or loaded.flow_shift != sd3.flow_shift:
+            fail("the --no-t5 load kept T5 or changed the flow shift")
+        del loaded, loads[:]
+        check_png("the CLI's --family sd3 --no-t5 image", out + "0.png",
+                  m13["sd3"]["image"][0])
+        m13["sd3"].clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        fl = m13["flux"]
+        cli = fl["cli"]
+        edit_png = fl["edit_png"]
+        base = ["--family", "flux", "--random-weights", "--prompt", PROMPT,
+                "--height", str(M13_RES[0]), "--width", str(M13_RES[1]),
+                "-steps", str(cli["n_steps"]), "-gs",
+                str(cli["guidance_scale"]), "--seed", str(cli["seed"])]
+        a = flux_launches(FluxConfig(), M13_RES, 512)
+        m = cli["n_steps"]
+        edit_hw = fl["twins"]["kontext"].shape[1:3]
+        for name, flags, want_k1, want_vae in (
+                ("plain", [], m * a, 1),
+                ("true_cfg", ["--negative-prompt", M13_NEGATIVE,
+                              "--true-cfg-scale", str(TRUE_CFG_SCALE)],
+                 m * a, 1),
+                ("kontext", ["--edit-image", edit_png],
+                 m * flux_launches(FluxConfig(), edit_hw, 512, edit_hw), 2)):
+            out_f = os.path.join(CKPT_DIR, "out", f"flux_{name}")
+            cli_subprocess(f"the sample CLI --family flux {' '.join(flags)} "
+                           f"request", base + flags + ["--output-dir",
+                                                       out_f],
+                           want_k1, want_vae, total)
+            check_png(f"the CLI's --family flux {name} image",
+                      out_f + "0.png", fl["twins"][name][0])
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+        shutil.rmtree(KONTEXT_EDIT_DIR, ignore_errors=True)
+
+
 def device_time_by_op(events) -> dict:
     """{row: [device us, kernels]} over a profile's events. A kernel counts
     under the innermost op that launched it; one launched outside any op
@@ -2841,6 +3629,7 @@ def main() -> None:
     print(smi, flush=True)
 
     clock = [time.perf_counter()]
+    run_start = clock[0]
 
     def phase_done(label: str) -> None:
         now = time.perf_counter()
@@ -2976,7 +3765,18 @@ def main() -> None:
     check_training_grads(pipe, data, cfg, factors, GRAD_REL_TOL)
     if args.profile:
         profile_training_step(pipe, data, cfg, factors)
+    del pipe, data, factors
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_done("10-12 (LoRA training)")
+    m13 = module13_phase(path)
+    phase_done("8g (module 13: SD3-medium, SD3.5-large, SD3.5-medium, "
+               "FLUX.1-dev, f32 FLUX.1, FLUX.1-schnell)")
+    module13_cli_phase(path, m13)
+    del m13
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("9b (module 13's sample CLI requests)")
     loaded = [m for m in sys.modules if m in ("jax", "sdxl_tpu")
               or m.startswith(("jax.", "sdxl_tpu."))]
     if loaded:
@@ -2993,6 +3793,8 @@ def main() -> None:
         for name, r in results.items()]}
     if set(results) != set(KERNELS):
         fail(f"kernels not checked: {sorted(set(KERNELS) - set(results))}")
+    print(f"whole run: {time.perf_counter() - run_start:.1f}s (from the "
+          f"device check to the record)", flush=True)
     print(smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""`sample` CLI: SDXL and SD 1.x / 2.x images from a checkpoint on disk
-(counterpart of sdxl_tpu/cli/sample.py).
+"""`sample` CLI: SDXL, SD 1.x / 2.x, SD3 and FLUX.1 images from a
+checkpoint on disk (counterpart of sdxl_tpu/cli/sample.py).
 
 ``build_parser`` is the reference's in full, so every flag of the
 reference parses. ``main`` runs ``--family sdxl``, ``sd1`` and ``sd2``:
@@ -27,9 +27,16 @@ reference takes them (txt2img also with ``--preview-every``, which writes
 the reference's generation metadata. The bad combinations of these flags
 fail with the reference's messages: an exit 1 where the reference's CLI
 checks them, the pipeline's ValueError where the reference's pipeline
-does. Any other flag set away from its default, and any other family
-(sd3, flux), is an error naming the module that ports it. Runs on the
-GPU; the tests pass ``device="cpu"`` to ``main``.
+does. ``--family sd3`` (``_run_sd3``: a diffusers directory or random
+SD3-medium weights; txt2img, img2img, inpainting; ``--no-t5``,
+``--no-cfg``, ``--slg-scale`` / ``--slg-layers``) and ``--family flux``
+(``_run_flux``: FLUX.1 dev or schnell; txt2img with ``--true-cfg-scale``
+over ``--negative-prompt``, Kontext with ``--edit-image``, whose sides
+not multiples of 16 take the LANCZOS resize of io/images.py, img2img,
+inpainting) refuse the UNet families' flags with the reference's
+messages. Any other flag set away from its default is an error naming
+the module that ports it. Runs on the GPU; the tests pass
+``device="cpu"`` to ``main``.
 
 Usage:
   python -m sdxl_tpu_torch.cli.sample --model-dir ./weights \
@@ -61,17 +68,14 @@ _PORTED = {
     "control_scale", "control_start", "control_end", "ip_adapter",
     "ip_image_encoder", "ip_image", "ip_scale", "edit_image",
     "image_guidance_scale", "hires_scale", "hires_strength", "vae_tile",
-    "clip_skip",
+    "clip_skip", "no_t5", "slg_scale", "slg_layers", "true_cfg_scale",
 }
 # every other flag -> the module of ROADMAP Queue 1 that ports it
 _WAITS = {
-    **dict.fromkeys(["no_t5", "slg_scale", "slg_layers", "true_cfg_scale"],
-                    13),
     "quantize": 14,
     **dict.fromkeys(["dp", "tp"], 17),
     **dict.fromkeys(["trace", "debug_nans"], 7),
 }
-_FAMILY_MODULE = {"sd3": 13, "flux": 13}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -361,9 +365,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(parser: argparse.ArgumentParser, args) -> str | None:
     """The error for the first flag main() does not run, or None."""
-    if args.family in _FAMILY_MODULE:
-        return (f"--family {args.family} is not ported yet (module "
-                f"{_FAMILY_MODULE[args.family]})")
     for action in parser._actions:
         if action.dest in _PORTED:
             continue
@@ -511,6 +512,227 @@ def _check_module11(args):
     return control_kw
 
 
+def _refused(args, family: str, checks) -> bool:
+    """Print the reference CLI's error for a family's unsupported flags;
+    True when any is set."""
+    bad = [name for name, hit in checks if hit]
+    if bad:
+        print(f"error: {', '.join(bad)} not supported with --family "
+              f"{family}", file=sys.stderr)
+    return bool(bad)
+
+
+def _finish(pipe, images, prompts, args, t0: float) -> int:
+    """Write {output_dir}{i}.png with the generation metadata, and the
+    timing summary (SD3 / FLUX.1)."""
+    import time
+
+    from ..io.images import save_images
+    from ..utils import log
+
+    total = time.perf_counter() - t0
+    images = np.asarray(images)
+    meta = {"parameters": (
+        f"{' | '.join(dict.fromkeys(prompts))}\n"
+        f"Negative prompt: {args.negative_prompt}\n"
+        f"Steps: {args.n_diffusion_steps}, Sampler: flow-match euler, "
+        f"CFG scale: {args.unconditional_guidance_scale}, "
+        f"Seed: {args.seed}, Size: {images.shape[2]}x{images.shape[1]}, "
+        f"Model: {args.model_dir or 'random'} ({args.family}), "
+        f"Backend: sdxl_tpu_torch")}
+    paths = save_images(images, args.output_dir, metadata=meta)
+    log(f"saved: {paths}")
+    log(pipe.timer.summary())
+    log(f"throughput: {60.0 * len(prompts) / total:.2f} images/min "
+        f"(p50-equivalent latency {total / len(prompts):.2f}s/image)")
+    return 0
+
+
+def _reference_request(pipe, prompts, args, **kw) -> np.ndarray:
+    """SD3 / FLUX.1 with --reference-img (one per prompt): img2img with
+    --img2img-strength, else inpainting in a crop window or --mask-img."""
+    from ..io.images import load_images
+
+    ref = load_images([args.reference_img])
+    if len(prompts) > 1:
+        ref = np.repeat(ref, len(prompts), axis=0)
+    if args.img2img_strength is not None:
+        return pipe.img2img(prompts, ref, strength=args.img2img_strength,
+                            **kw)
+    return pipe.inpaint(
+        prompts, ref, crop_left=args.crop_left, crop_right=args.crop_right,
+        crop_top=args.crop_top, crop_bottom=args.crop_bottom,
+        crop_out=args.crop_out, mask_image=_load_mask(args),
+        mask_blur=args.mask_blur, **kw)
+
+
+def _run_sd3(args, dtype, loras, device) -> int:
+    """--family sd3 (MMDiT + flow matching): txt2img, img2img
+    (--reference-img with --img2img-strength) or inpainting
+    (--reference-img with a crop window or --mask-img), with --no-t5,
+    --no-cfg and skip-layer guidance (--slg-scale, --slg-layers). The
+    UNet families' knobs are refused with the reference's message."""
+    import time
+
+    from ..pipeline.sd3 import load_sd3_pipeline, random_sd3_pipeline
+
+    if _refused(args, "sd3", [
+        ("--use-refiner", args.use_refiner),
+        ("--sampler", args.sampler != "ddim"),
+        ("--schedule", args.schedule != "linear"),
+        ("--controlnet", bool(args.controlnet)),
+        ("--ip-adapter", args.ip_adapter is not None),
+        ("--freeu", args.freeu is not None),
+        ("--deepcache", args.deepcache is not None),
+        ("--pag-scale", bool(args.pag_scale)),
+        ("--preview-every", bool(args.preview_every)),
+        ("--hires-scale", args.hires_scale is not None),
+        ("--embedding", bool(args.embedding)),
+        ("--guidance-rescale", bool(args.guidance_rescale)),
+        ("--clip-skip", bool(args.clip_skip)),
+        ("--true-cfg-scale", args.true_cfg_scale != 1.0),
+        ("--edit-image", args.edit_image is not None),
+        ("--invert-img", args.invert_img is not None),
+        ("--outpaint", args.outpaint is not None),
+        ("--mask-img/--mask-blur with --img2img-strength",
+         args.img2img_strength is not None
+         and (args.mask_img is not None or args.mask_blur > 0)),
+        ("--ddim-eta", args.ddim_eta > 0),
+        ("--zsnr", args.zsnr),
+    ]):
+        return 1
+    if args.random_weights or args.model_dir is None:
+        if not args.random_weights:
+            print("error: --model-dir is required (or --random-weights)",
+                  file=sys.stderr)
+            return 1
+        pipe = random_sd3_pipeline(device=device, mmdit_dtype=dtype,
+                                   tokenizer_dir=args.tokenizer_dir)
+    else:
+        try:
+            pipe = load_sd3_pipeline(args.model_dir, dtype,
+                                     args.tokenizer_dir,
+                                     load_t5=not args.no_t5, loras=loras,
+                                     device=device)
+        except (KeyError, FileNotFoundError, ValueError) as e:
+            print(f"error: failed to load checkpoint from "
+                  f"{args.model_dir}: {e}", file=sys.stderr)
+            return 1
+    prompts = (args.prompt if len(args.prompt) > 1
+               else [args.prompt[0]] * args.batch)
+    kw = dict(n_steps=args.n_diffusion_steps,
+              guidance_scale=args.unconditional_guidance_scale,
+              seed=args.seed, negative_prompt=args.negative_prompt,
+              no_cfg=args.no_cfg, slg_scale=args.slg_scale)
+    if args.slg_layers is not None:
+        kw["slg_layers"] = tuple(int(v) for v in args.slg_layers.split(","))
+    t0 = time.perf_counter()
+    if args.reference_img is not None:
+        images = _reference_request(pipe, prompts, args, **kw)
+    else:
+        images = pipe.txt2img(prompts, resolution=(args.height, args.width),
+                              **kw)
+    return _finish(pipe, images, prompts, args, t0)
+
+
+def kontext_edit_image(path: str) -> np.ndarray:
+    """--edit-image for Kontext: [1, H, W, 3] u8; sides that are not
+    multiples of 16 are LANCZOS-resized toward a 1024^2 area, aspect
+    kept, each side a multiple of 16 (the reference's preprocessing)."""
+    from ..io.images import load_images, resize_lanczos
+    from ..utils import log
+
+    ref = load_images([path])
+    eh, ew = ref.shape[1:3]
+    if eh % 16 or ew % 16:
+        scale = (1024.0 * 1024.0 / (eh * ew)) ** 0.5
+        nh = max(16, round(eh * scale / 16) * 16)
+        nw = max(16, round(ew * scale / 16) * 16)
+        log(f"--edit-image {ew}x{eh} resized to {nw}x{nh} "
+            "(multiple-of-16 grid, ~1MP)")
+        ref = resize_lanczos(ref[0], (nw, nh))[None]
+    return ref
+
+
+def _run_flux(args, dtype, loras, device) -> int:
+    """--family flux (FLUX.1 dev / schnell): txt2img (with true CFG:
+    --true-cfg-scale over --negative-prompt), Kontext editing
+    (--edit-image), img2img or inpainting (--reference-img). No CFG pair
+    by default: dev embeds the guidance scale (-gs), schnell ignores it;
+    the UNet families' knobs are refused with the reference's message."""
+    import time
+
+    from ..pipeline.flux import load_flux_pipeline, random_flux_pipeline
+
+    if _refused(args, "flux", [
+        ("--use-refiner", args.use_refiner),
+        ("--sampler", args.sampler != "ddim"),
+        ("--schedule", args.schedule != "linear"),
+        ("--negative-prompt (needs --true-cfg-scale > 1)",
+         bool(args.negative_prompt) and args.true_cfg_scale <= 1.0),
+        ("--no-cfg", args.no_cfg),
+        ("--controlnet", bool(args.controlnet)),
+        ("--ip-adapter", args.ip_adapter is not None),
+        ("--freeu", args.freeu is not None),
+        ("--deepcache", args.deepcache is not None),
+        ("--pag-scale", bool(args.pag_scale)),
+        ("--slg-scale", bool(args.slg_scale) or args.slg_layers is not None),
+        ("--preview-every", bool(args.preview_every)),
+        ("--hires-scale", args.hires_scale is not None),
+        ("--embedding", bool(args.embedding)),
+        ("--guidance-rescale", bool(args.guidance_rescale)),
+        ("--clip-skip", bool(args.clip_skip)),
+        ("--no-t5", args.no_t5),
+        ("--vae-bf16", args.vae_bf16),
+        ("--invert-img", args.invert_img is not None),
+        ("--outpaint", args.outpaint is not None),
+        ("--mask-img/--mask-blur with --img2img-strength",
+         args.img2img_strength is not None
+         and (args.mask_img is not None or args.mask_blur > 0)),
+        ("--ddim-eta", args.ddim_eta > 0),
+        ("--zsnr", args.zsnr),
+    ]):
+        return 1
+    if args.random_weights or args.model_dir is None:
+        if not args.random_weights:
+            print("error: --model-dir is required (or --random-weights)",
+                  file=sys.stderr)
+            return 1
+        pipe = random_flux_pipeline(device=device, flux_dtype=dtype,
+                                    tokenizer_dir=args.tokenizer_dir)
+    else:
+        try:
+            pipe = load_flux_pipeline(args.model_dir, dtype,
+                                      args.tokenizer_dir, loras=loras,
+                                      device=device)
+        except (KeyError, FileNotFoundError, ValueError) as e:
+            print(f"error: failed to load checkpoint from "
+                  f"{args.model_dir}: {e}", file=sys.stderr)
+            return 1
+    prompts = (args.prompt if len(args.prompt) > 1
+               else [args.prompt[0]] * args.batch)
+    common = dict(n_steps=args.n_diffusion_steps,
+                  guidance_scale=args.unconditional_guidance_scale,
+                  seed=args.seed)
+    tc = dict(negative_prompt=args.negative_prompt,
+              true_cfg_scale=args.true_cfg_scale)
+    t0 = time.perf_counter()
+    if args.edit_image is not None:
+        if args.reference_img is not None:
+            print("error: --edit-image (Kontext) and --reference-img "
+                  "(img2img/inpaint) are different conditioning modes — "
+                  "pass one", file=sys.stderr)
+            return 1
+        images = pipe.kontext(prompts, kontext_edit_image(args.edit_image),
+                              **common, **tc)
+    elif args.reference_img is not None:
+        images = _reference_request(pipe, prompts, args, **common)
+    else:
+        images = pipe.txt2img(prompts, resolution=(args.height, args.width),
+                              **common, **tc)
+    return _finish(pipe, images, prompts, args, t0)
+
+
 def main(argv=None, device="cuda") -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -545,6 +767,18 @@ def main(argv=None, device="cuda") -> int:
         print("error: --denoising-end is the SDXL ensemble-of-experts "
               "txt2img split; it requires --family sdxl with "
               "--use-refiner and no --reference-img",
+              file=sys.stderr)
+        return 1
+    if args.family == "sd3":
+        return _run_sd3(args, dtype, loras, device)
+    if args.family == "flux":
+        return _run_flux(args, dtype, loras, device)
+    if args.slg_scale or args.slg_layers is not None:
+        print("error: --slg-scale/--slg-layers apply to --family sd3 only",
+              file=sys.stderr)
+        return 1
+    if args.true_cfg_scale != 1.0:
+        print("error: --true-cfg-scale applies to --family flux only",
               file=sys.stderr)
         return 1
     if len(args.prompt) > 1 and args.batch != 1:

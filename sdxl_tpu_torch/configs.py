@@ -257,6 +257,116 @@ SD15_VAE_SCALE = 0.18215  # SDXL's is 0.13025
 
 
 # ---------------------------------------------------------------------------
+# SD3 family (MMDiT, arXiv:2403.03206): the public sd3-medium release
+# (diffusers SD3Transformer2DModel config)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MMDiTConfig:
+    """Multimodal Diffusion Transformer (SD3's denoiser)."""
+
+    patch_size: int = 2
+    in_channels: int = 16
+    out_channels: int = 16
+    num_layers: int = 24
+    n_heads: int = 24
+    head_dim: int = 64  # hidden = n_heads * head_dim (sd3-medium: 1536)
+    # token-stream width before context_embedder (T5-XXL d_model; the
+    # 2048-wide CLIP half is zero-padded up to it)
+    joint_attention_dim: int = 4096
+    pooled_projection_dim: int = 2048  # CLIP-L (768) + CLIP-G (1280)
+    pos_embed_max_size: int = 192
+    # "rms": per-head RMS q/k norm (SD3.5); sd3-medium has none
+    qk_norm: str = ""
+    # SD3.5-medium: blocks with an extra latent-stream self-attention
+    # (attn2) under a 9-way adaLN modulation
+    dual_attention_layers: Tuple[int, ...] = ()
+    time_sinusoid_dim: int = 256
+
+    def __post_init__(self):
+        object.__setattr__(self, "dual_attention_layers",
+                           tuple(self.dual_attention_layers))
+
+    @property
+    def hidden(self) -> int:
+        return self.n_heads * self.head_dim
+
+
+@dataclass(frozen=True)
+class T5Config:
+    """T5 v1.1 encoder (gated-gelu). Defaults: T5-XXL (SD3's
+    text_encoder_3, FLUX.1's text_encoder_2)."""
+
+    vocab_size: int = 32128
+    d_model: int = 4096
+    d_kv: int = 64
+    d_ff: int = 10240
+    n_heads: int = 64
+    n_layers: int = 24
+    relative_buckets: int = 32
+    relative_max_distance: int = 128
+    layer_norm_eps: float = 1e-6
+
+
+SD3_MEDIUM_MMDIT = MMDiTConfig()
+T5_XXL_CONFIG = T5Config()
+
+# SD3's 16-channel VAE: SDXL's conv topology, a wider latent
+SD3_VAE_CONFIG_KW = dict(n_channels_out=32, latent_channels=16)
+SD3_VAE_SCALE = 1.5305
+SD3_VAE_SHIFT = 0.0609  # latent = (z - shift) * scale at encode
+SD3_FLOW_SHIFT = 3.0  # flow-matching timestep shift (sd3-medium)
+
+
+# ---------------------------------------------------------------------------
+# FLUX.1 (diffusers FluxTransformer2DModel config of the dev and schnell
+# releases): double-stream blocks, then single-stream blocks over
+# [txt ++ img], 3-axis RoPE
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class FluxConfig:
+    """FLUX.1 denoiser (double + single stream DiT, RoPE)."""
+
+    # tokens are packed 2x2 latent patches: 16-ch latent -> 64 wide
+    in_channels: int = 64
+    num_layers: int = 19         # double-stream blocks
+    num_single_layers: int = 38  # single-stream blocks
+    n_heads: int = 24
+    head_dim: int = 128          # hidden = 3072
+    joint_attention_dim: int = 4096  # T5-XXL token stream
+    pooled_projection_dim: int = 768  # CLIP-L pooler_output
+    # dev is guidance-distilled (a guidance sinusoid-MLP in temb);
+    # schnell has none
+    guidance_embeds: bool = True
+    # RoPE widths over the (id, row, col) position ids; sum = head_dim
+    axes_dims: Tuple[int, ...] = (16, 56, 56)
+    rope_theta: int = 10000
+    time_sinusoid_dim: int = 256
+    mlp_ratio: int = 4
+
+    def __post_init__(self):
+        object.__setattr__(self, "axes_dims", tuple(self.axes_dims))
+        if sum(self.axes_dims) != self.head_dim:
+            raise ValueError(f"axes_dims {self.axes_dims} must sum to "
+                             f"head_dim {self.head_dim}")
+
+    @property
+    def hidden(self) -> int:
+        return self.n_heads * self.head_dim
+
+
+FLUX_DEV = FluxConfig()
+FLUX_SCHNELL = FluxConfig(guidance_embeds=False)
+
+# FLUX.1's 16-channel VAE normalisation (diffusers vae/config.json)
+FLUX_VAE_SCALE = 0.3611
+FLUX_VAE_SHIFT = 0.1159
+# the dynamic-shift schedule's endpoints (scheduler config)
+FLUX_BASE_SHIFT = 0.5
+FLUX_MAX_SHIFT = 1.15
+
+# ---------------------------------------------------------------------------
 # burn .cfg JSON interop
 # ---------------------------------------------------------------------------
 

@@ -8,6 +8,7 @@ each array; ml_dtypes bfloat16 is accepted), these functions return the
 the tree:
 
 - ``w`` -> ``weight``: linear [in, out] -> [out, in]; conv HWIO -> OIHW;
+  a 1-D ``w`` (an RMS gain) as it is;
 - ``b`` -> ``bias``; norm ``gamma``/``beta`` -> ``weight``/``bias``;
 - other leaves (embedding tables, ``text_projection``) keep name and layout;
 - the self-attention projections take the layout asked for: fused
@@ -64,6 +65,8 @@ def convert_leaf(name: str, t: torch.Tensor) -> Tuple[str, torch.Tensor]:
     if name == "w4":
         name, t = "w", unfold_upsample_w4(t).to(t.dtype)
     if name == "w":
+        if t.dim() == 1:  # a per-head RMS gain (SD3.5 / FLUX.1 q/k norms)
+            return "weight", t
         if t.dim() == 2:
             return "weight", t.t().contiguous()
         if t.dim() == 4:
@@ -143,15 +146,56 @@ def unet_state_dict(tree, fused: bool = True) -> Dict[str, torch.Tensor]:
 
 
 def vae_decoder_state_dict(tree) -> Dict[str, torch.Tensor]:
-    """Autoencoder tree -> VAEDecoder state_dict (decoder + post_quant_conv)."""
-    return tree_to_state_dict({"post_quant_conv": tree["post_quant_conv"],
+    """Autoencoder tree -> VAEDecoder state_dict (decoder + post_quant_conv
+    where the tree has one)."""
+    return tree_to_state_dict({"post_quant_conv": tree.get("post_quant_conv"),
                                "decoder": tree["decoder"]})
 
 
 def vae_encoder_state_dict(tree) -> Dict[str, torch.Tensor]:
-    """Autoencoder tree -> VAEEncoder state_dict (encoder + quant_conv)."""
+    """Autoencoder tree -> VAEEncoder state_dict (encoder + quant_conv
+    where the tree has one)."""
     return tree_to_state_dict({"encoder": tree["encoder"],
-                               "quant_conv": tree["quant_conv"]})
+                               "quant_conv": tree.get("quant_conv")})
+
+
+def _split_fused(sd: Dict[str, torch.Tensor], fused: str,
+                 names: Tuple[str, str, str]) -> Dict[str, torch.Tensor]:
+    """A fused [3C, C] projection (and its [3C] bias) -> three row blocks
+    under ``names``. In place; returns sd."""
+    for key in [k for k in sd if k.endswith(f".{fused}.weight")]:
+        stem = key[: -len(f"{fused}.weight")]
+        for leaf in ("weight", "bias"):
+            if stem + f"{fused}.{leaf}" not in sd:
+                continue
+            t = sd.pop(stem + f"{fused}.{leaf}")
+            for n, part in zip(names, t.chunk(3, dim=0)):
+                sd[f"{stem}{n}.{leaf}"] = part.contiguous()
+    return sd
+
+
+def mmdit_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """MMDiT tree (sdxl_tpu/models/mmdit.py init_mmdit layout, or its
+    fuse_mmdit_qkv form) -> the state_dict of an ``MMDiT``: linears
+    transposed, ``pos_embed.proj``'s p*p*C linear kept as the reference
+    stores it (its rows in (ph, pw, c) order), a fused ``qkv`` / ``add_qkv``
+    split back into the per-stream projections."""
+    sd = tree_to_state_dict(tree)
+    _split_fused(sd, "qkv", ("to_q", "to_k", "to_v"))
+    return _split_fused(sd, "add_qkv", ("add_q_proj", "add_k_proj",
+                                        "add_v_proj"))
+
+
+def t5_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """T5 tree (sdxl_tpu/models/t5.py init_t5 layout) -> the state_dict of
+    a ``T5Encoder``."""
+    return tree_to_state_dict(tree)
+
+
+def flux_state_dict(tree) -> Dict[str, torch.Tensor]:
+    """Flux tree (sdxl_tpu/models/flux.py init_flux layout) -> the
+    state_dict of a ``Flux``."""
+    return tree_to_state_dict(tree)
 
 
 def factors_to_torch(flat, device=None) -> Dict[str, torch.Tensor]:

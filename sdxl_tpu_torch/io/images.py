@@ -208,3 +208,64 @@ def load_images(paths: Sequence[str]) -> np.ndarray:
     if any(im.shape != shape for im in imgs):
         raise ValueError("images have different dimensions")
     return np.stack(imgs)
+
+
+# ---------------------------------------------------------------------------
+# LANCZOS resize (Pillow's Image.resize(..., Image.LANCZOS) on RGB uint8)
+# ---------------------------------------------------------------------------
+
+_PRECISION_BITS = 32 - 8 - 2  # Pillow's 8-bit fixed point
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """Pillow's lanczos_filter: sinc(x) sinc(x / 3) on [-3, 3)."""
+    def sinc(v):
+        pv = v * np.pi
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return np.where(v == 0.0, 1.0, np.sin(pv) / pv)
+    return np.where((x >= -3.0) & (x < 3.0), sinc(x) * sinc(x / 3.0), 0.0)
+
+
+def _lanczos_weights(in_size: int, out_size: int) -> np.ndarray:
+    """[out_size, in_size] int64 fixed-point weights of one axis, as
+    Pillow's precompute_coeffs and normalize_coeffs_8bpc make them."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 3.0 * filterscale
+    w = np.zeros((out_size, in_size), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        x = np.arange(xmin, xmax)
+        k = _lanczos((x - center + 0.5) / filterscale)
+        ww = k.sum()
+        if ww != 0.0:
+            k = k / ww
+        scaled = k * (1 << _PRECISION_BITS)
+        w[xx, xmin:xmax] = np.where(k < 0, np.trunc(scaled - 0.5),
+                                    np.trunc(scaled + 0.5)).astype(np.int64)
+    return w
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    # the fixed-point sums stay below 2^53, so float64 products are exact
+    w = _lanczos_weights(img.shape[axis], out_size).astype(np.float64)
+    x = np.moveaxis(img.astype(np.float64), axis, 0)
+    acc = (np.tensordot(w, x, axes=(1, 0)).astype(np.int64)
+           + (1 << (_PRECISION_BITS - 1)))
+    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+    return np.moveaxis(out, 0, axis)
+
+
+def resize_lanczos(img: np.ndarray, size) -> np.ndarray:
+    """[H, W, C] uint8 -> [h, w, C] uint8 for size = (w, h), Pillow's
+    LANCZOS resampling in its 8-bit fixed point: a horizontal pass, then a
+    vertical one, each rounded to uint8 (an axis whose size stays is not
+    resampled)."""
+    out_w, out_h = size
+    if img.shape[1] != out_w:
+        img = _resample_axis(img, out_w, 1)
+    if img.shape[0] != out_h:
+        img = _resample_axis(img, out_h, 0)
+    return img

@@ -19,8 +19,10 @@ Supported key formats (auto-detected per key):
 
 Module paths resolve to the reference's parameter-tree paths, which are
 the port's module names; a self-attention q/k/v lands on its rows of the
-fused ``qkv`` weight. The SD3/Flux transformer resolvers wait for module
-13: their keys are counted as skipped.
+fused ``qkv`` weight. SD3's MMDiT and FLUX.1's transformer take
+diffusers / peft ``transformer.*`` keys, and kohya's BFL-named FLUX.1 keys
+(under the unet prefix) with their fused qkv and linear1 deltas split row
+by row onto the separate projections.
 """
 
 from __future__ import annotations
@@ -249,6 +251,84 @@ def _resolve_te(module: str) -> Optional[tuple]:
     return _match_rest(module, _TE_RX)
 
 
+# --- SD3 (MMDiT) / FLUX.1 transformers ------------------------------------
+# diffusers/peft naming: transformer.transformer_blocks.{i}.attn.to_q etc.;
+# the module names mirror diffusers', so resolution is a near-identity walk
+_TR_RX = [
+    (re.compile(r"^transformer_blocks_(\d+)_attn(2?)_"
+                r"(to_q|to_k|to_v|add_q_proj|add_k_proj|add_v_proj"
+                r"|to_add_out)$"),
+     lambda m: ("blocks", int(m.group(1)), f"attn{m.group(2)}", m.group(3))),
+    (re.compile(r"^transformer_blocks_(\d+)_attn(2?)_to_out_0$"),
+     lambda m: ("blocks", int(m.group(1)), f"attn{m.group(2)}", "to_out")),
+    (re.compile(r"^transformer_blocks_(\d+)_ff(_context)?_net_0_proj$"),
+     lambda m: ("blocks", int(m.group(1)),
+                f"mlp{m.group(2) or ''}", "in")),
+    (re.compile(r"^transformer_blocks_(\d+)_ff(_context)?_net_2$"),
+     lambda m: ("blocks", int(m.group(1)),
+                f"mlp{m.group(2) or ''}", "out")),
+    (re.compile(r"^transformer_blocks_(\d+)_norm1(_context)?_linear$"),
+     lambda m: ("blocks", int(m.group(1)),
+                f"norm1{m.group(2) or ''}", "mod")),
+    (re.compile(r"^single_transformer_blocks_(\d+)_attn_(to_q|to_k|to_v)$"),
+     lambda m: ("single_blocks", int(m.group(1)), "attn", m.group(2))),
+    (re.compile(r"^single_transformer_blocks_(\d+)_(proj_mlp|proj_out)$"),
+     lambda m: ("single_blocks", int(m.group(1)), m.group(2))),
+    (re.compile(r"^single_transformer_blocks_(\d+)_norm_linear$"),
+     lambda m: ("single_blocks", int(m.group(1)), "norm", "mod")),
+    (re.compile(r"^proj_out$"), lambda m: ("proj_out",)),
+    (re.compile(r"^x_embedder$"), lambda m: ("x_embedder",)),
+    (re.compile(r"^context_embedder$"), lambda m: ("context_embedder",)),
+    (re.compile(r"^norm_out_linear$"), lambda m: ("norm_out", "mod")),
+]
+
+
+def _resolve_transformer(module: str):
+    return _match_rest(module, _TR_RX)
+
+
+# kohya/sd-scripts FLUX.1 naming keeps the original BFL layout, whose
+# double-block qkv and single-block linear1 (qkv + mlp) are fused linears:
+# their delta rows split exactly onto the separate projections (row slices
+# of up @ down are independent). The block modulations map directly.
+def _resolve_bfl_flux(module: str, hidden: int):
+    def split3(paths):
+        return [(p, (i * hidden, (i + 1) * hidden))
+                for i, p in enumerate(paths)]
+
+    m = re.match(r"^double_blocks_(\d+)_(img|txt)_(.+)$", module)
+    if m:
+        i, stream, rest = int(m.group(1)), m.group(2), m.group(3)
+        if rest == "attn_qkv":
+            names = (("to_q", "to_k", "to_v") if stream == "img"
+                     else ("add_q_proj", "add_k_proj", "add_v_proj"))
+            return split3([("blocks", i, "attn", n) for n in names])
+        table = {
+            "attn_proj": ("attn", "to_out" if stream == "img"
+                          else "to_add_out"),
+            "mlp_0": ("mlp" if stream == "img" else "mlp_context", "in"),
+            "mlp_2": ("mlp" if stream == "img" else "mlp_context", "out"),
+            "mod_lin": ("norm1" if stream == "img" else "norm1_context",
+                        "mod"),
+        }
+        if rest in table:
+            return ("blocks", i) + table[rest]
+        return None
+    m = re.match(r"^single_blocks_(\d+)_(.+)$", module)
+    if m:
+        i, rest = int(m.group(1)), m.group(2)
+        if rest == "linear1":  # fused [q | k | v | mlp] rows
+            return (split3([("single_blocks", i, "attn", n)
+                            for n in ("to_q", "to_k", "to_v")])
+                    + [(("single_blocks", i, "proj_mlp"),
+                        (3 * hidden, None))])
+        if rest == "linear2":
+            return ("single_blocks", i, "proj_out")
+        if rest == "modulation_lin":
+            return ("single_blocks", i, "norm", "mod")
+    return None
+
+
 def _tree_leaf(module: nn.Module, path: tuple):
     """(the Linear/Conv2d at a reference tree path, the weight rows it
     owns or None), or None when the path does not exist. A self-attention
@@ -279,12 +359,17 @@ def _tree_leaf(module: nn.Module, path: tuple):
 
 @torch.no_grad()
 def _merge_into(leaf: nn.Module, entry: LoRAEntry, scale: float, canon: str,
-                rows: Optional[tuple] = None) -> None:
+                rows: Optional[tuple] = None,
+                delta_rows: Optional[tuple] = None) -> None:
     """Add the LoRA delta into a Linear/Conv2d weight in place (f32 math
     on the weight's device, cast back to its dtype); rows = (start, end)
-    selects the weight rows it lands on (a fused qkv's q, k or v)."""
+    selects the weight rows it lands on (a fused qkv's q, k or v),
+    delta_rows the delta's output rows it takes (a fused-projection
+    format's block: BFL FLUX.1 qkv / linear1)."""
     w = leaf.weight if rows is None else leaf.weight[rows[0]:rows[1]]
     delta = entry.delta(scale, w.device)  # [out, in] or OIHW
+    if delta_rows is not None:
+        delta = delta[delta_rows[0]:delta_rows[1]]
     if delta.dim() == 2 and w.dim() == 4:  # 1x1-conv-stored linear
         delta = delta[:, :, None, None]
     if delta.shape != w.shape:
@@ -301,30 +386,44 @@ def apply_lora(
     unet=None,
     te1=None,
     te2=None,
+    transformer=None,
     scale: float = 1.0,
 ) -> Dict[str, list]:
     """Merge parsed LoRA entries into the loaded modules in place.
 
     unet is the port's UNet, te1 / te2 the CLIP ViT-L and OpenCLIP bigG
-    towers. Returns {'applied': [...], 'skipped': [...]}.
+    towers, transformer SD3's MMDiT or FLUX.1's transformer: diffusers
+    'transformer.*' keys resolve into it, and kohya's BFL-named FLUX.1
+    keys (under the unet prefix) fall through to it when no UNet is
+    given. Returns {'applied': [...], 'skipped': [...]}.
     """
+    hidden = (transformer.blocks[0].attn.to_q.weight.shape[0]
+              if transformer is not None else 0)
     applied, skipped = [], []
     for canon, entry in sorted(entries.items()):
         tower, module = canon.split("%", 1)
-        if tower == "unet":
+        if tower == "transformer":
+            tree, path = transformer, _resolve_transformer(module)
+        elif tower == "unet" and unet is None and transformer is not None:
+            tree, path = transformer, _resolve_bfl_flux(module, hidden)
+        elif tower == "unet":
             tree, path = unet, _resolve_unet(module)
         elif tower == "te1":
             tree, path = te1, _resolve_te(module)
-        elif tower == "te2":
+        else:
             tree, path = te2, _resolve_te(module)
-        else:  # SD3/Flux transformer keys (module 13)
-            tree, path = None, None
-        found = None if tree is None or path is None else _tree_leaf(tree,
-                                                                     path)
-        if found is None:
+        if tree is None or path is None:
             skipped.append(canon)
             continue
-        _merge_into(found[0], entry, scale, canon, rows=found[1])
+        # fused-projection formats resolve to [(path, delta rows), ...]
+        targets = path if isinstance(path, list) else [(path, None)]
+        found = [(_tree_leaf(tree, p), rows) for p, rows in targets]
+        if any(leaf is None for leaf, _ in found):
+            skipped.append(canon)
+            continue
+        for (module_, rows), delta_rows in found:
+            _merge_into(module_, entry, scale, canon, rows=rows,
+                        delta_rows=delta_rows)
         applied.append(canon)
     return {"applied": applied, "skipped": skipped}
 
@@ -369,11 +468,13 @@ def apply_lora_files(
     unet=None,
     te1=None,
     te2=None,
+    transformer=None,
 ) -> None:
     """Load and merge a list of (path, scale) LoRA files, logging a summary."""
     for path, scale in loras:
         entries = load_lora_file(path)
-        stats = apply_lora(entries, unet=unet, te1=te1, te2=te2, scale=scale)
+        stats = apply_lora(entries, unet=unet, te1=te1, te2=te2,
+                           transformer=transformer, scale=scale)
         log(
             f"lora {path} (scale {scale}): merged {len(stats['applied'])} "
             f"modules, skipped {len(stats['skipped'])}"

@@ -102,8 +102,11 @@ def clip_final_hidden(model: CLIPTextModel,
 
 
 def clip_hidden_pooled(model: CLIPTextModel, tokens: torch.Tensor,
-                       hidden_idx: int):
-    """(hidden after ``hidden_idx`` blocks, projected pooled EOT embedding)."""
+                       hidden_idx: int, project: bool = True):
+    """(hidden after ``hidden_idx`` blocks, pooled EOT embedding through
+    text_projection). project=False, or a tower without a projection,
+    returns the pooled embedding unprojected (FLUX.1 conditions on
+    CLIPTextModel's raw pooler_output)."""
     mask = causal_mask(tokens.shape[1], tokens.device)
     x = model.embed(tokens)
     h_out = x
@@ -116,4 +119,6 @@ def clip_hidden_pooled(model: CLIPTextModel, tokens: torch.Tensor,
     normed = model.layer_norm(x)
     pooled = normed[torch.arange(tokens.shape[0], device=tokens.device),
                     eot_idx]
-    return h_out, pooled @ model.text_projection
+    if project and model.text_projection is not None:
+        pooled = pooled @ model.text_projection
+    return h_out, pooled

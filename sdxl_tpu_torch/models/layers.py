@@ -5,7 +5,8 @@ Each holds its parameters under PyTorch's usual names (``weight``,
 ``state_dict`` keys, and its forward calls the plain op in ops/.
 ``Linear`` also carries a slot for an unmerged LoRA factor pair.
 ``init_reference_`` redraws every parameter with the reference's random
-init (normal weights at a fixed scale, zero biases, unit norm gains).
+init (normal weights at a fixed scale, zero biases, unit norm gains, the
+RMS gains of ``RMSGain`` too).
 """
 
 from __future__ import annotations
@@ -66,6 +67,15 @@ class LayerNorm(nn.Module):
         return layernorm_affine(x, self.weight, self.bias, self.eps)
 
 
+class RMSGain(nn.Module):
+    """The learned gain of a per-head RMS norm (SD3.5's and FLUX.1's q/k
+    norms): the reference's ``{"w": [head_dim]}``, applied by the model."""
+
+    def __init__(self, c: int, device=None, dtype=None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c, device=device, dtype=dtype))
+
+
 @torch.no_grad()
 def init_reference_(model: nn.Module, generator: torch.Generator,
                     conv_scale: float = 0.02) -> nn.Module:
@@ -76,6 +86,9 @@ def init_reference_(model: nn.Module, generator: torch.Generator,
         if isinstance(module, (GroupNorm, LayerNorm)):
             module.weight.fill_(1.0)
             module.bias.zero_()
+            continue
+        if isinstance(module, RMSGain):
+            module.weight.fill_(1.0)
             continue
         scale = conv_scale if isinstance(module, nn.Conv2d) else 0.02
         for name, p in module.named_parameters(recurse=False):

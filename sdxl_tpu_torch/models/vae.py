@@ -12,6 +12,10 @@ self-attention with 1x1-conv q/k/v, ResnetBlock), four blocks of three
 ResnetBlocks with a nearest-2x + 3x3 conv upsampler on all but the last,
 GN/SiLU/conv_out to RGB. ``post_quant_conv`` (1x1) runs first.
 
+The quant convs are optional, as in the reference: FLUX.1's VAE ships
+without them (``quant_conv=False`` builds a half without its 1x1 conv).
+SD3's and FLUX.1's VAEs have 16 latent channels and 32 quant channels.
+
 Layout: ``encode_image`` and ``decode_latent`` take and return NHWC like
 the reference; inside, activations are contiguous NCHW and the mid
 attention sees [B, HW, C] tokens. The pipelines run both halves in f32.
@@ -164,40 +168,55 @@ class Decoder(nn.Module):
 
 
 class VAEDecoder(nn.Module):
-    """The decoding half of the autoencoder: post_quant_conv + decoder."""
+    """The decoding half of the autoencoder: post_quant_conv (when
+    ``quant_conv``) + decoder."""
 
     def __init__(self, cfg: AutoencoderConfig, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant_conv: bool = True):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
-        self.post_quant_conv = Conv2d(cfg.latent_channels,
-                                      cfg.latent_channels, 1, **kw)
+        self.post_quant_conv = (Conv2d(cfg.latent_channels,
+                                       cfg.latent_channels, 1, **kw)
+                                if quant_conv else None)
         self.decoder = Decoder(cfg, **kw)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.decoder.conv_in.weight.dtype
 
 
 class VAEEncoder(nn.Module):
-    """The encoding half of the autoencoder: encoder + quant_conv."""
+    """The encoding half of the autoencoder: encoder + quant_conv (when
+    ``quant_conv``)."""
 
     def __init__(self, cfg: AutoencoderConfig, device=None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, quant_conv: bool = True):
         super().__init__()
         kw = dict(device=device, dtype=dtype)
         self.cfg = cfg
         self.encoder = Encoder(cfg, **kw)
-        self.quant_conv = Conv2d(cfg.n_channels_out, cfg.n_channels_out, 1,
-                                 **kw)
+        self.quant_conv = (Conv2d(cfg.n_channels_out, cfg.n_channels_out, 1,
+                                  **kw) if quant_conv else None)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.encoder.conv_in.weight.dtype
 
 
 def encode_image(model: VAEEncoder, x: torch.Tensor) -> torch.Tensor:
-    """RGB [B, H, W, 3] in [-1, 1] -> posterior mean [B, H/8, W/8, 4]."""
-    h = model.quant_conv(model.encoder(x.permute(0, 3, 1, 2).contiguous()))
+    """RGB [B, H, W, 3] in [-1, 1] -> posterior mean [B, H/8, W/8, C]."""
+    h = model.encoder(x.permute(0, 3, 1, 2).contiguous())
+    if model.quant_conv is not None:
+        h = model.quant_conv(h)
     return h[:, :model.cfg.latent_channels].permute(0, 2, 3, 1)
 
 
 def decode_latent(model: VAEDecoder, latent: torch.Tensor) -> torch.Tensor:
-    """Latent [B, h, w, 4] (already divided by the scale factor) -> RGB
-    [B, 8h, 8w, 3] in about [-1, 1]."""
+    """Latent [B, h, w, C] (already normalised: divided by the scale
+    factor, plus SD3's and FLUX.1's shift) -> RGB [B, 8h, 8w, 3] in about
+    [-1, 1]."""
     x = latent.permute(0, 3, 1, 2).contiguous()
-    x = model.decoder(model.post_quant_conv(x))
-    return x.permute(0, 2, 3, 1)
+    if model.post_quant_conv is not None:
+        x = model.post_quant_conv(x)
+    return model.decoder(x).permute(0, 2, 3, 1)

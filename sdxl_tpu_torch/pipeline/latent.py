@@ -30,7 +30,7 @@ _CAST_DECODERS: "weakref.WeakKeyDictionary[VAEDecoder, dict]" = (
 
 
 def _decoder_in(vae: VAEDecoder, dtype: torch.dtype) -> VAEDecoder:
-    if vae.post_quant_conv.weight.dtype == dtype:
+    if vae.dtype == dtype:
         return vae
     copies = _CAST_DECODERS.setdefault(vae, {})
     if dtype not in copies:
@@ -39,19 +39,25 @@ def _decoder_in(vae: VAEDecoder, dtype: torch.dtype) -> VAEDecoder:
 
 
 def _decode_f32(vae: VAEDecoder, latent: torch.Tensor, scale_factor: float,
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, shift_factor: float = 0.0
+                ) -> torch.Tensor:
     """The decode's [0, 255] image in f32, before rounding."""
-    img = decode_latent(vae, latent.to(dtype) / scale_factor).float()
+    z = latent.to(dtype) / scale_factor
+    if shift_factor:
+        z = z + shift_factor
+    img = decode_latent(vae, z).float()
     return (img + 1.0) * (255.0 / 2.0)
 
 
 @torch.no_grad()
 def decode_latent_to_images(vae: VAEDecoder, latent: torch.Tensor,
                             scale_factor: float = 0.13025,
-                            compute_dtype: Optional[torch.dtype] = None
-                            ) -> torch.Tensor:
-    """[B, h, w, 4] latent -> [B, 8h, 8w, 3] uint8 RGB, decoded in
+                            compute_dtype: Optional[torch.dtype] = None,
+                            shift_factor: float = 0.0) -> torch.Tensor:
+    """[B, h, w, C] latent -> [B, 8h, 8w, 3] uint8 RGB, decoded in
     compute_dtype (default: the decoder's dtype, f32 in the pipeline).
+    The decoder sees latent / scale_factor + shift_factor (SD3's and
+    FLUX.1's normalisation; the shift is 0 for the UNet families).
 
     compute_dtype=torch.bfloat16 on an f32 decoder is the reference's
     opt-in half-precision decode (``--vae-bf16``). The reference casts the
@@ -59,20 +65,24 @@ def decode_latent_to_images(vae: VAEDecoder, latent: torch.Tensor,
     once, at the first bf16 decode with this decoder, and the copy is kept
     beside it, so weights loaded into the decoder after that do not reach
     the bf16 decode."""
-    vae = _decoder_in(vae, compute_dtype or vae.post_quant_conv.weight.dtype)
-    img = _decode_f32(vae, latent, scale_factor,
-                      vae.post_quant_conv.weight.dtype)
+    vae = _decoder_in(vae, compute_dtype or vae.dtype)
+    img = _decode_f32(vae, latent, scale_factor, vae.dtype, shift_factor)
     return torch.clamp(torch.round(img), 0.0, 255.0).to(torch.uint8)
 
 
 @torch.no_grad()
 def encode_images_to_latent(vae_encoder: VAEEncoder, images_u8: torch.Tensor,
-                            scale_factor: float = 0.13025) -> torch.Tensor:
-    """[B, H, W, 3] uint8 RGB -> [B, H/8, W/8, 4] latent, encoded in the
+                            scale_factor: float = 0.13025,
+                            shift_factor: float = 0.0) -> torch.Tensor:
+    """[B, H, W, 3] uint8 RGB -> [B, H/8, W/8, C] latent (the posterior
+    mean, minus shift_factor, times scale_factor), encoded in the
     encoder's dtype (f32 in the pipeline)."""
-    dtype = vae_encoder.quant_conv.weight.dtype
+    dtype = vae_encoder.dtype
     x = images_u8.to(dtype) / 255.0 * 2.0 - 1.0
-    return encode_image(vae_encoder, x) * scale_factor
+    z = encode_image(vae_encoder, x)
+    if shift_factor:
+        z = z - shift_factor
+    return z * scale_factor
 
 
 def _tile_starts(dim: int, tile: int, stride: int) -> List[int]:
@@ -111,8 +121,8 @@ def decode_latent_tiled(vae: VAEDecoder, latent: torch.Tensor,
         return decode_latent_to_images(vae, latent, scale_factor,
                                        compute_dtype)
     overlap = _overlap(tile)
-    vae = _decoder_in(vae, compute_dtype or vae.post_quant_conv.weight.dtype)
-    dtype = vae.post_quant_conv.weight.dtype
+    vae = _decoder_in(vae, compute_dtype or vae.dtype)
+    dtype = vae.dtype
     f = 2 ** (len(vae.cfg.decoder_channels) - 1)  # the VAE's upsampling
     out = torch.zeros((b, h * f, w * f, 3), dtype=torch.float32,
                       device=latent.device)
@@ -146,7 +156,8 @@ def encode_images_tiled(vae_encoder: VAEEncoder, images_u8: torch.Tensor,
     if h <= tile and w <= tile:
         return encode_images_to_latent(vae_encoder, images_u8, scale_factor)
     overlap = _overlap(tile)
-    out = torch.zeros((b, h, w, 4), dtype=torch.float32,
+    out = torch.zeros((b, h, w, vae_encoder.cfg.latent_channels),
+                      dtype=torch.float32,
                       device=images_u8.device)
     wsum = torch.zeros((1, h, w, 1), dtype=torch.float32,
                        device=images_u8.device)

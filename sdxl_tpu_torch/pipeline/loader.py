@@ -126,12 +126,17 @@ def _autoencoder(cfg: AutoencoderConfig, sd: Dict[str, torch.Tensor],
     extra = [k for k in sd if not k.startswith(_DECODER + _ENCODER)]
     if extra:
         raise ValueError(f"latent decoder: unexpected key(s) {extra[:5]}")
-    dec = _load_module(VAEDecoder(cfg, "meta"),
+    # the quant convs are optional (FLUX.1's VAE has none); the rest
+    # loads strictly
+    dec = _load_module(VAEDecoder(cfg, "meta",
+                                  quant_conv="post_quant_conv.weight" in sd),
                        {k: v for k, v in sd.items() if k.startswith(_DECODER)},
                        "latent decoder", device)
     enc_sd = {k: v for k, v in sd.items() if k.startswith(_ENCODER)}
-    enc = (_load_module(VAEEncoder(cfg, "meta"), enc_sd, "latent encoder",
-                        device) if enc_sd else None)
+    enc = (_load_module(VAEEncoder(cfg, "meta",
+                                   quant_conv="quant_conv.weight" in sd),
+                        enc_sd, "latent encoder", device)
+           if enc_sd else None)
     return dec, enc
 
 

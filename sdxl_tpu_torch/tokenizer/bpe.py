@@ -253,3 +253,13 @@ class OpenClipTokenizer(Tokenizer):
             merges = vendored_merges()
             vocab = derive_vocab(merges)
         super().__init__(merges, vocab, cache_specials=False)
+
+
+def tokenize_text(text: str, tokenizer: Tokenizer, seq_len: int = 77
+                  ) -> List[int]:
+    """Encode with SOT/EOT, then pad with the tokenizer's padding token and
+    truncate to seq_len (the SD3 and FLUX.1 towers' ids)."""
+    ids = tokenizer.encode(text, add_sot=True, add_eot=True)
+    if len(ids) < seq_len:
+        ids = ids + [tokenizer.pad_token] * (seq_len - len(ids))
+    return ids[:seq_len]

@@ -791,10 +791,11 @@ def test_cli_parser_is_the_references():
 
 
 @pytest.mark.parametrize("extra,module", [
-    (["--family", "flux", "--edit-image", "e.png"], 13),
+    (["--quantize", "int4", "--family", "flux", "--edit-image", "e.png"],
+     14),
     (["--trace", "t"], 7),
     (["--quantize", "int8"], 14),
-    (["--family", "sd3"], 13),
+    (["--dp", "2", "--family", "sd3"], 17),
     (["--dp", "2"], 17),
     (["--debug-nans"], 7),
 ])

@@ -598,15 +598,15 @@ def test_cli_bad_sampler_combinations_fail_as_the_reference(
      "--use-refiner)"),
     (["--vae-tile", "96", "--quantize", "int8"],
      "--quantize is not ported yet (module 14)"),
-    (["--edit-image", "x.png", "--family", "flux"],
-     "--family flux is not ported yet (module 13)"),
+    (["--edit-image", "x.png", "--family", "flux", "--no-cfg"],
+     "--no-cfg not supported with --family flux"),
 ], ids=["ip_adapter", "hires_scale", "vae_tile", "edit_image"])
 def test_cli_module10b_flags_still_exit_1(flags, error, capsys, tmp_path):
     """Module 11's flags run now (tests/test_torch_module11.py): an
     incomplete or misplaced one exits 1 with the reference CLI's message
     before any weights load, --vae-tile beside a flag that still waits
     names that flag's module, and --edit-image with --family flux
-    (Kontext) names module 13."""
+    (Kontext) refuses --no-cfg with the reference CLI's message."""
     from sdxl_tpu_torch.cli.sample import main
 
     argv = ["--random-weights", "--prompt", "a cat", "--output-dir",

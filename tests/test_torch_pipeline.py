@@ -149,16 +149,18 @@ def test_port_never_imports_jax(tmp_path):
     the pin), a ControlNet request and an IP-Adapter request (the adapter
     and its vision tower written by the port's writers and read back),
     and a tiny SD 2.x v-prediction pipeline (pipeline/sd1.py) runs euler
-    txt2img and DDIM img2img,
+    txt2img and DDIM img2img, a tiny SD3 pipeline (T5, SD3.5's qk-norm and
+    dual attention) runs txt2img with skip-layer guidance and a tiny FLUX.1
+    pipeline a Kontext edit of that image,
     with `import jax` and `import sdxl_tpu`
     made to fail: the port keeps its own configs and tokenizer. Nor does
     it import the packages the card lacks (safetensors, msgpack, PIL,
-    ml_dtypes): it has its own readers."""
+    ml_dtypes, transformers): it has its own readers."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import numpy as np
         BLOCKED = ("jax", "sdxl_tpu", "safetensors", "msgpack", "PIL",
-                   "ml_dtypes")
+                   "ml_dtypes", "transformers")
         for name in BLOCKED:
             sys.modules[name] = None
         import torch
@@ -243,6 +245,34 @@ def test_port_never_imports_jax(tmp_path):
         img = sd2.txt2img("a cat", (64, 64), n_steps=2, sampler="euler")
         assert img.shape == (1, 64, 64, 3), img.shape
         img = sd2.img2img("a cat", img, strength=0.5, n_steps=2)
+        assert img.shape == (1, 64, 64, 3), img.shape
+        from sdxl_tpu_torch.configs import FluxConfig, MMDiTConfig, T5Config
+        from sdxl_tpu_torch.pipeline.flux import random_flux_pipeline
+        from sdxl_tpu_torch.pipeline.sd3 import random_sd3_pipeline
+        vae16 = AutoencoderConfig(
+            encoder_channels=((8, 8), (8, 8), (8, 8), (8, 8)),
+            decoder_channels=((16, 16), (16, 16), (16, 8), (8, 8)),
+            n_group=4, n_channels_out=32, latent_channels=16)
+        t5 = T5Config(vocab_size=64, d_model=32, d_kv=8, d_ff=48, n_heads=4,
+                      n_layers=1)
+        sd3 = random_sd3_pipeline(
+            device="cpu", mmdit_cfg=MMDiTConfig(
+                num_layers=2, n_heads=2, head_dim=16, joint_attention_dim=32,
+                pooled_projection_dim=64, pos_embed_max_size=8,
+                qk_norm="rms", dual_attention_layers=(0,)),
+            clip_l_cfg=clip, clip_g_cfg=clip, vae_cfg=vae16, t5_cfg=t5,
+            mmdit_dtype=torch.float32)
+        img = sd3.txt2img("a cat", (64, 64), n_steps=2, slg_scale=2.0,
+                          slg_layers=(0,), slg_start=0.0, slg_stop=1.0)
+        assert img.shape == (1, 64, 64, 3), img.shape
+        flux = random_flux_pipeline(
+            device="cpu", flux_cfg=FluxConfig(
+                num_layers=1, num_single_layers=1, n_heads=2, head_dim=16,
+                joint_attention_dim=32, pooled_projection_dim=32,
+                axes_dims=(4, 6, 6)),
+            clip_cfg=clip, vae_cfg=vae16, t5_cfg=t5, t5_tokens=16,
+            flux_dtype=torch.float32)
+        img = flux.kontext("a cat", img, n_steps=2)
         assert img.shape == (1, 64, 64, 3), img.shape
         assert not any(k.split(".")[0] in BLOCKED
                        for k, v in sys.modules.items() if v is not None)
