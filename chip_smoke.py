@@ -19,7 +19,9 @@ Phases (any failure exits non-zero before the result line):
      registers and shared memory printed, and X3's blocks an SM); ptxas'
      "wgmma.mma_async instructions are serialized" message fails the run
      for an X3 instance (whose point is wgmma in flight under the softmax)
-     and is printed for any other;
+     and is printed for any other; K4's (quant_linear.cu): HMMA in its two
+     bf16 instances (int8, int4), its two f32 (FFMA) instances, no spills
+     in any, registers and shared memory printed;
   3. each kernel against its plain PyTorch version on the card at the
      main paths' shapes (the refiner's [1,12,4096,64] and [1,24,1024,64]
      bf16 and the no-CFG base's [1,10,4096,64] and [1,20,1024,64] among
@@ -52,6 +54,15 @@ Phases (any failure exits non-zero before the result line):
      both dtypes) and the f32 d 64 and 128 routes (and SDPA's forward
      beside the forwards) also inside one CUDA graph of 20 calls, SDPA's
      backward as its kernels' device time (torch.profiler);
+     K4 on its four routes (bf16 x int8 / int4, f32 x int8 / int4)
+     against quant_linear_plain at K4_CASES (FLUX.1's linears at 1024x1024
+     and its M = 1 modulation matvecs, T5-XXL's in f32 at 512 tokens,
+     SDXL's 1280 level, SD3-medium's 1536-wide block, a ragged M of 333
+     and M = 1 on each route), weights quantized on the card, the first
+     output NaN-filled: max abs error within 2e-2 (bf16) / 1e-3 (f32) of
+     max(1, max|y|), relative L2 within 1e-2 / 1e-4; each case timed
+     beside its bound, the plain version and one F.linear on the weight
+     dequantized ahead of time (the yardstick), with the weight bytes;
   3b. the experiments X1 (every tile), X2 (every mode) and X3 (every
      tile) against their plain versions at [2,10,4096,64] and
      [2,20,1024,64] bf16, timed by `timeit`, `chained_time` and inside one
@@ -222,6 +233,23 @@ Phases (any failure exits non-zero before the result line):
      pipeline's image (the count of differing pixels printed); bytes
      written, seconds to write, and seconds for the loads printed, the
      first called cold only if the page cache fell by the files' size;
+     after --use-refiner, --quantize int8 (module 14: the base UNet's
+     block linears quantized by quantize_model on load; loaded bitwise as
+     a quantized copy of the in-memory UNet, its PNG held to that copy's
+     image, K4's bf16 int8 route launched);
+  8h (UNets). module 14: phase 8f's SD 1.5 with its UNet quantized in
+     place at int4, DDIM at 512x512; then, phase 8f's pipelines freed,
+     quantized copies of the base and refiner at int8 (the bf16 UNets
+     parked on the host), base + refiner txt2img at 1024x1024, 30 DDIM
+     steps, CFG 7.5. Each model's bytes before and after quantization,
+     each request's latency, stage split, memory resident before it and
+     peak memory beside the unquantized request's, K1 and K4 launches
+     printed, K4's launches by route held
+     to the code's count (each QuantLinear once a UNet call, the cross
+     k/v once a sampling loop); then one pair call of each with every K4
+     call held to quant_linear_plain on its own input (phase 3's bounds)
+     and the whole eps printed against the plain dequant's, SDXL's held
+     within 2e-2 relative;
   10. the LoRA training path on the same pipeline: encode two random
      1024x1024 images with captions (the VAE encoder launches K1's f32
      d=512 route), then five LoRA steps (rank 16, attn targets, lr 1e-4,
@@ -256,6 +284,20 @@ Phases (any failure exits non-zero before the result line):
      (mmdit_launches, flux_launches: 24, 38, 37 and 31 with layers 7-9
      skipped, 57; none from T5 or CLIP; one d=512 launch a decode or
      encode);
+  8h (transformers). module 14 inside phase 8g: after SD3.5, a quantized
+     copy of SD3-medium's MMDiT at int8 with its T5-XXL quantized in
+     place at int8, txt2img CFG 7, 28 steps; after the FLUX.1 twins, the
+     FLUX.1-dev transformer and T5 quantized in place at int8, txt2img at
+     guidance 3.5, 28 steps; t5_offload's conditioning bitwise the
+     resident one's, T5 on the host after; a FLUX.1-dev transformer drawn
+     at int4 by random_quantized_like, 8 steps with T5 parked on the host
+     (t5_offload); after the f32 FLUX.1 request, its transformer
+     quantized in place at int4 (`--f32 --quantize int4`: K4's f32 int4
+     route), 4 steps. Each request as phase 8h's UNet requests (K4 counts:
+     each QuantLinear once a transformer call or T5 encode), one
+     transformer call each (and one T5 encode) held per K4 call, the
+     whole output printed against the plain dequant's. The later f32
+     FLUX.1 and schnell requests run with the int8 T5;
   9b (module 13). --family sd3 --no-t5 from a diffusers directory of the
      SD3-medium pipeline that this script writes (an inverse key map;
      loaded bitwise), in this process; --family flux --random-weights
@@ -263,16 +305,21 @@ Phases (any failure exits non-zero before the result line):
      --edit-image of a 1000x744 crop of the FLUX.1 txt2img image (the
      LANCZOS resize to 1184x880), 8 steps, each in a child process that
      prints its launch counts; every PNG within 1 u8 level of the
-     in-memory twin.
-Each path (phases 4, 5, 5b, 6, 8, 8b, 8c, 8d, 8e, 8f, 9b, 10, and each of
-8g's and 9b's module-13 requests) runs with the launch counts set to
-0 just before it and read just after; the JSON record's launches are their
+     in-memory twin. After the first, --family sd3 --no-t5 --quantize
+     int4 from the same directory: the MMDiT loaded bitwise as a copy of
+     the in-memory one quantized at int4, its PNG held to that copy's
+     image.
+Each path (phases 4, 5, 5b, 6, 8, 8b, 8c, 8d, 8e, 8f, 9b, 10, each of
+8g's and 9b's module-13 requests and each of 8h's) runs with the launch
+counts (K1-K3's, X1-X3's and K4's) set to 0 just before it and read just
+after; the JSON record's launches are their
 sum. Each phase's seconds are printed, then the whole run's. The last two
 lines are the kernels' JSON record and {"ok": true, ...}.
 """
 
 import argparse
 import contextlib
+import copy
 import ctypes
 import dataclasses
 import functools
@@ -323,7 +370,10 @@ from sdxl_tpu_torch.models.controlnet import (
     controlnet_forward,
 )
 from sdxl_tpu_torch.models.ip_adapter import IPAdapter, IPAdapterConfig
-from sdxl_tpu_torch.models.layers import init_reference_
+from sdxl_tpu_torch.io.quantize import quantize_model, random_quantized_like
+from sdxl_tpu_torch.utils.memory import param_bytes
+from sdxl_tpu_torch.models import layers as layers_mod
+from sdxl_tpu_torch.models.layers import QuantLinear, init_reference_
 from sdxl_tpu_torch.models.unet import (
     UNet,
     precompute_cross_kv,
@@ -332,6 +382,7 @@ from sdxl_tpu_torch.models.unet import (
 )
 from sdxl_tpu_torch.ops import attention as attention_mod
 from sdxl_tpu_torch.ops import flash_attention as fa
+from sdxl_tpu_torch.ops import quant as quant_mod
 from sdxl_tpu_torch.pipeline import loader as loader_mod
 from sdxl_tpu_torch.pipeline.latent import decode_latent_to_images
 from sdxl_tpu_torch.pipeline import sampler as sampler_mod
@@ -343,6 +394,7 @@ from sdxl_tpu_torch.pipeline.k_samplers import (
 )
 from sdxl_tpu_torch.models.flux import Flux, flux_forward
 from sdxl_tpu_torch.models.mmdit import MMDiT, mmdit_forward
+from sdxl_tpu_torch.models.t5 import t5_encode
 from sdxl_tpu_torch.pipeline import flow_match as flow_match_mod
 from sdxl_tpu_torch.pipeline import flux as flux_mod
 from sdxl_tpu_torch.pipeline import sd1 as sd1_mod
@@ -406,6 +458,11 @@ KERNELS = {
     **{f"sdxl_flash_pipelined_bf16_q{bq}_k{bk}": (
         f"{CSRC}/flash_pipelined.cu", "scripts/exp_flash_pipelined.py:94")
        for bq, bk in x3.TILES},
+    # K4 replaces no Pallas kernel: the reference's dequants, which XLA
+    # fuses into the matmul at sdxl_tpu/ops/linear.py:30
+    **{name: (f"{CSRC}/{quant_mod.SOURCE}",
+              f"sdxl_tpu/ops/quant.py:{109 if bits == 8 else 113}")
+       for (_, bits), name in quant_mod.ROUTES.items()},
 }
 # (B, H, T, D, dtype, tolerance): K1's shapes on the paths — the bf16 UNet
 # (bench.py:53-66) at levels 2 and 1 at 1024x1024, 832x1216 and the
@@ -545,6 +602,15 @@ HOPPER_SASS = {
     "flash_pipelined.cu": ("flash_pipelined_smem_bytes", [
         ("X3 (four tiles, pipelined)", FWD + r"Lb0ELi2ELi[2-9]E", 4, 0,
          WGMMA_TMA),
+    ]),
+    # K4: the bf16 routes on mma.sync, the f32 routes on FFMA
+    quant_mod.SOURCE: ("quant_linear_smem_bytes", [
+        ("K4 bf16 int8", r"quant_linear_bf16_kernelILb0E", 1, 0,
+         (("HMMA", "HGMMA"),)),
+        ("K4 bf16 int4", r"quant_linear_bf16_kernelILb1E", 1, 1,
+         (("HMMA", "HGMMA"),)),
+        ("K4 f32 int8", r"quant_linear_f32_kernelILb0E", 1, 2, ()),
+        ("K4 f32 int4", r"quant_linear_f32_kernelILb1E", 1, 3, ()),
     ]),
 }
 # the sources whose every instance keeps its wgmma in flight under the
@@ -740,6 +806,67 @@ KONTEXT_EDIT_DIR = os.path.join(os.path.dirname(CKPT_DIR), "kontext_edit")
 CLI_LEVEL_TOL = 1
 ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
               torch.profiler.ProfilerActivity.CUDA]
+# K4 (phase 3): (what, M, K, N, dtype, bits, bias) at the paths' shapes —
+# FLUX.1-dev at 1024x1024 (4096 image, 512 T5 tokens; the single blocks
+# over both, 4608; the modulation matvecs at M = 1), T5-XXL in f32 at its
+# 512 tokens, SDXL's 1280 level at 1024x1024 (a CFG pair of 1024 tokens:
+# the fused qkv, the GEGLU projection and its output, the cross k/v over
+# 2 x 77 context rows, lin_embed at the pair), SD3-medium's 1536-wide
+# block over a CFG pair of 4429 tokens, and a ragged M (333) and M = 1 on
+# each route. Tolerances: max abs error within K4_TOL of max(1, max|y|)
+# and relative L2 within K4_REL_TOL (bf16: both outputs rounded to bf16,
+# their sums in another order; f32: exact dequant, f32 sums)
+BF16, F32 = torch.bfloat16, torch.float32
+K4_CASES = [
+    ("FLUX.1 to_q", 4096, 3072, 3072, BF16, 8, True),
+    ("FLUX.1 to_q int4", 4096, 3072, 3072, BF16, 4, True),
+    ("FLUX.1 mlp in", 4096, 3072, 12288, BF16, 8, True),
+    ("FLUX.1 mlp out", 4096, 12288, 3072, BF16, 8, True),
+    ("FLUX.1 mlp out int4", 4096, 12288, 3072, BF16, 4, True),
+    ("FLUX.1 context to_q", 512, 3072, 3072, BF16, 8, True),
+    ("FLUX.1 single proj_mlp", 4608, 3072, 12288, BF16, 8, True),
+    ("FLUX.1 single proj_out", 4608, 15360, 3072, BF16, 8, True),
+    ("FLUX.1 single proj_out int4", 4608, 15360, 3072, BF16, 4, True),
+    ("FLUX.1 double mod", 1, 3072, 18432, BF16, 8, True),
+    ("FLUX.1 single mod", 1, 3072, 9216, BF16, 8, True),
+    ("T5-XXL q", 512, 4096, 4096, F32, 8, False),
+    ("T5-XXL wi_0", 512, 4096, 10240, F32, 8, False),
+    ("T5-XXL wo", 512, 10240, 4096, F32, 8, False),
+    ("T5-XXL wi_0 int4 (--f32 --quantize int4)", 512, 4096, 10240, F32, 4,
+     False),
+    ("SDXL qkv", 2048, 1280, 3840, BF16, 8, False),
+    ("SDXL GEGLU proj", 2048, 1280, 10240, BF16, 8, True),
+    ("SDXL GEGLU proj int4", 2048, 1280, 10240, BF16, 4, True),
+    ("SDXL ff out", 2048, 5120, 1280, BF16, 8, True),
+    ("SDXL cross k", 154, 2048, 1280, BF16, 8, False),
+    ("SDXL lin_embed", 2, 1280, 1280, BF16, 8, True),
+    ("SD3-medium mlp in", 2 * 4429, 1536, 6144, BF16, 8, True),
+    *((f"ragged M {m}", m, 3072, 3072, dt, bits, True)
+      for m in (333, 1) for dt in (BF16, F32) for bits in (8, 4)),
+]
+K4_TOL = {BF16: (2e-2, 1e-2), F32: (1e-3, 1e-4)}
+# the case each route's recorded time is taken at
+K4_TIMED = {"sdxl_quant_linear_bf16_int8": "FLUX.1 single proj_out",
+            "sdxl_quant_linear_bf16_int4": "FLUX.1 single proj_out int4",
+            "sdxl_quant_linear_f32_int8": "T5-XXL wi_0",
+            "sdxl_quant_linear_f32_int4":
+                "T5-XXL wi_0 int4 (--f32 --quantize int4)"}
+K4_ITERS = 20
+# each request's peak memory (GiB) by label, for phase 8h's prints
+PEAKS = {}
+# phase 8h: the SDXL request's size and steps (phase 8b's base + refiner
+# request's), the int4 FLUX.1-dev request's steps (random quantized weights,
+# T5 parked on the host: t5_offload) and its weights' seed
+M14_SDXL_RES, M14_SDXL_STEPS = (1024, 1024), 30
+M14_INT4_STEPS, M14_INT4_SEED = 8, 36
+# the UNets' cross-attention k and v: once a sampling loop
+# (precompute_cross_kv), not once a UNet call
+K4_KV = (".attn2.k", ".attn2.v")
+K4_ROUTE_DTYPE = {name: dtype for (dtype, _), name in
+                  quant_mod.ROUTES.items()}
+BF16_INT8, BF16_INT4, F32_INT8, F32_INT4 = (
+    quant_mod.ROUTES[BF16, 8], quant_mod.ROUTES[BF16, 4],
+    quant_mod.ROUTES[F32, 8], quant_mod.ROUTES[F32, 4])
 
 
 def fail(msg: str) -> None:
@@ -997,6 +1124,69 @@ def check_train_kernels(results) -> None:
                     graph=(graph_ms(dkv_call), None))
 
 
+def k4_bound(m: int, k: int, n: int, dtype, p: dict, bias: bool) -> tuple:
+    """(least ms, "operations" | "bytes") of one K4 call: 2 M N K over the
+    dtype's peak rate, or the bytes (the quantized weight and its scales,
+    x, y and the bias, each once) over the memory rate."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (quant_mod.weight_bytes(p) + m * k * es + m * n * es
+              + (n * es if bias else 0))
+    ops_ms = 2 * m * n * k / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+@torch.inference_mode()
+def check_k4(results) -> None:
+    """K4 on its four routes against quant_linear_plain at K4_CASES, the
+    weight a random normal one quantized on the card as the loaders do,
+    the first call's output allocated NaN-filled; each case timed (CUDA
+    events) beside its bound, the plain version and the yardstick, one
+    F.linear on the weight dequantized ahead of time (the unquantized
+    model's cost; the port never calls it), with the weight bytes the
+    kernel reads."""
+    print("K4 (quantized linear) against its plain version:", flush=True)
+    for label, m, k, n, dtype, bits, has_bias in K4_CASES:
+        g = torch.Generator(device="cuda").manual_seed(m * 7 + k + n + bits)
+        x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
+        w = torch.randn((n, k), generator=g, device="cuda") * 0.02
+        p = quant_mod.quantize_weight(w, bits)
+        b = (torch.randn((n,), generator=g, device="cuda").to(dtype)
+             if has_bias else None)
+        del w
+        name = quant_mod.ROUTES[dtype, bits]
+        with nan_filled_empty():
+            out = quant_mod.quant_linear(x, p, b)
+        ref = quant_mod.quant_linear_plain(x, p, b)
+        torch.cuda.synchronize()
+        err, rel, ref_max = readings(out, ref)
+        tol, rel_tol = K4_TOL[dtype]
+        limit = tol * max(1.0, ref_max)
+        w_deq = quant_mod.dequant_weight_plain(p, dtype)
+        ms = cuda_ms(lambda: quant_mod.quant_linear(x, p, b), K4_ITERS)
+        plain_ms = cuda_ms(lambda: quant_mod.quant_linear_plain(x, p, b),
+                           K4_ITERS)
+        lib_ms = cuda_ms(lambda: F.linear(x, w_deq, b), K4_ITERS)
+        bound_ms, bound_by = k4_bound(m, k, n, dtype, p, has_bias)
+        print(f"  {name} {label} [M={m}, K={k}, N={n}] "
+              f"weight_bytes={quant_mod.weight_bytes(p)} max_abs_err="
+              f"{err:.3e} (limit {limit:.3e}) rel_l2={rel:.3e} (limit "
+              f"{rel_tol:g}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}) share_of_bound={bound_ms / ms:.3f}", flush=True)
+        if not (bool(torch.isfinite(out).all()) and err <= limit
+                and rel <= rel_tol):
+            fail(f"K4 {name} at {label} disagrees with its plain version")
+        r = results.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        if K4_TIMED[name] == label:
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                     bound_ms=bound_ms, bound_by=bound_by)
+        del x, p, b, out, ref, w_deq
+    torch.cuda.empty_cache()
+
+
 def experiment_kernels():
     """(kernel, wrapper, plain version, mode) of X1-X3; the mode is X2's,
     "attention" for the functions that are attention."""
@@ -1214,9 +1404,12 @@ def run_path(label: str, drive, must, total) -> object:
     fail unless each kernel in `must` was launched; add the counts to
     `total`. Returns what drive returned."""
     fa.reset_launch_counts()
+    quant_mod.reset_launch_counts()
     out = drive()
     torch.cuda.synchronize()
-    launches = {k: n for k, n in fa.launch_counts.items() if n}
+    launches = {k: n for counts in (fa.launch_counts,
+                                    quant_mod.launch_counts)
+                for k, n in counts.items() if n}
     print(f"launches during {label}: {launches}", flush=True)
     for name in must:
         if not launches.get(name):
@@ -1398,7 +1591,7 @@ def module9_request(pipe, label: str, fn, want_unet: int, want_vae: int):
     t0 = time.perf_counter()
     images = fn()
     latency = time.perf_counter() - t0
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_gib = PEAKS[label] = torch.cuda.max_memory_allocated() / 2**30
     stages = " ".join(f"{k}={v:.3f}s" for k, v in pipe.timer.stages.items())
     launches = {k: n - before[k] for k, n in fa.launch_counts.items()
                 if n != before[k]}
@@ -1532,7 +1725,7 @@ def module10_request(pipe, label: str, fn, want_base: int,
         t0 = time.perf_counter()
         images = fn()
         latency = time.perf_counter() - t0
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_gib = PEAKS[label] = torch.cuda.max_memory_allocated() / 2**30
     stages = " ".join(f"{k}={v:.3f}s" for k, v in pipe.timer.stages.items())
     launches = {k: n - before[k] for k, n in fa.launch_counts.items()
                 if n != before[k]}
@@ -1765,7 +1958,7 @@ def module10b_request(pipe, label: str, fn, want: dict, want_vae: int,
         t0 = time.perf_counter()
         out = fn()
         latency = time.perf_counter() - t0
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_gib = PEAKS[label] = torch.cuda.max_memory_allocated() / 2**30
     stages = " ".join(f"{k}={v:.3f}s" for k, v in pipe.timer.stages.items())
     launches = {k: n - before[k] for k, n in fa.launch_counts.items()
                 if n != before[k]}
@@ -2444,20 +2637,21 @@ def checkpoint_cli_phase(pipe, total, p_lcm, m11, m12) -> None:
     timed_load = timed(real_load)
 
     def cli_request(label, argv, want_unet, want_vae, refiner=False,
-                    want_pipe=pipe, extras=()):
+                    want_pipe=pipe, extras=(), k4=()):
         """Run the CLI on argv; fail unless it returned 0, launched K1's
-        routes want_unet and want_vae times and loaded want_pipe's
-        in-memory state, and each (attribute, module) of extras (a
-        ControlNet, an adapter, its tower) bitwise. Returns the load's
-        seconds."""
+        routes want_unet and want_vae times (and each K4 route in k4) and
+        loaded want_pipe's in-memory state, and each (attribute, module)
+        of extras (a ControlNet, an adapter, its tower) bitwise. Returns
+        the load's seconds."""
         print(f"-- python -m sdxl_tpu_torch.cli.sample {' '.join(argv)}",
               flush=True)
         loader_mod.load_pipeline = timed_load
         sd1_mod.load_sd1_pipeline = timed(real_sd1_load)
         try:
             rc = run_path(label, lambda: sample_cli.main(argv),
-                          [F32_D512] if want_unet == 0 else
-                          ["sdxl_flash_attention_bf16", F32_D512], total)
+                          ([F32_D512] if want_unet == 0 else
+                           ["sdxl_flash_attention_bf16", F32_D512])
+                          + list(k4), total)
         finally:
             loader_mod.load_pipeline = real_load
             sd1_mod.load_sd1_pipeline = real_sd1_load
@@ -2544,6 +2738,22 @@ def checkpoint_cli_phase(pipe, total, p_lcm, m11, m12) -> None:
                   pipe.txt2img(PROMPT, resolution=(1024, 1024), n_steps=30,
                                guidance_scale=7.5, seed=0,
                                use_refiner=True)[0])
+
+        # module 14: the base UNet's block linears at int8, loaded bitwise
+        # as quantize_unet leaves a copy of the in-memory one
+        unet_q = copy.deepcopy(pipe.unet)
+        loader_mod.quantize_unet(unet_q, 8)
+        q = dataclasses.replace(pipe, unet=unet_q)
+        out_q = os.path.join(CKPT_DIR, "out", "quantized")
+        cli_request("the sample CLI --quantize int8 request",
+                    argv[:-1] + [out_q, "--quantize", "int8"],
+                    UNET_LAUNCHES_1024, 1, want_pipe=q, k4=[BF16_INT8])
+        check_png("the CLI's --quantize int8 image", out_q + "0.png",
+                  q.txt2img(PROMPT, resolution=(1024, 1024), n_steps=30,
+                            guidance_scale=7.5, seed=0)[0])
+        del q, unet_q
+        gc.collect()
+        torch.cuda.empty_cache()
 
         mask = np.zeros((1, 1024, 1024, 3), np.uint8)
         mask[:, 256:768, 384:896] = 255
@@ -2818,7 +3028,7 @@ def module13_request(pipe, label: str, fn, want_calls: dict, want_k1: int,
         t0 = time.perf_counter()
         out = fn()
         latency = time.perf_counter() - t0
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_gib = PEAKS[label] = torch.cuda.max_memory_allocated() / 2**30
     stages = " ".join(f"{k}={v:.3f}s" for k, v in pipe.timer.stages.items())
     launches = {k: n - before[k] for k, n in fa.launch_counts.items()
                 if n != before[k]}
@@ -3161,6 +3371,7 @@ def module13_phase(total) -> dict:
         del p
         gc.collect()
         torch.cuda.empty_cache()
+    module14_sd3(sd3, total)
     del sd3
     gc.collect()
     torch.cuda.empty_cache()
@@ -3175,13 +3386,9 @@ def module13_phase(total) -> dict:
     check_flux_against_plain(flux, flux._encode(first))
     flux_out = run_path("phase 9b's FLUX.1 twins",
                         lambda: flux_cli_twins(flux, first), bf16, total)
-    dev = flux.flux
-    f32_cfg = dataclasses.replace(dev.cfg, num_layers=FLUX_F32_DEPTH[0],
+    module14_flux(flux, total)
+    f32_cfg = dataclasses.replace(FluxConfig(), num_layers=FLUX_F32_DEPTH[0],
                                   num_single_layers=FLUX_F32_DEPTH[1])
-    flux.flux = None
-    del dev
-    gc.collect()
-    torch.cuda.empty_cache()
     f32 = dataclasses.replace(flux, flux=draw(Flux(f32_cfg, "meta",
                                                    torch.float32), 18))
     s = SCHNELL_STEPS
@@ -3193,6 +3400,7 @@ def module13_phase(total) -> dict:
         {"full": s}, s * flux_launches(f32_cfg, M13_RES, flux.t5_tokens), 1,
         route=F32_D128), [F32_D128, F32_D512], total)
     check_f32_flux_against_plain(f32)
+    module14_f32_flux(f32, total)
     del f32
     gc.collect()
     torch.cuda.empty_cache()
@@ -3412,6 +3620,35 @@ def module13_cli_phase(total, m13) -> None:
         del loaded, loads[:]
         check_png("the CLI's --family sd3 --no-t5 image", out + "0.png",
                   m13["sd3"]["image"][0])
+
+        # module 14: the MMDiT's block linears at int4, as quantize_model
+        # leaves a copy of the in-memory one
+        mmdit_q = quantize_model(copy.deepcopy(sd3.mmdit), 4)
+        out_q = os.path.join(CKPT_DIR, "out", "sd3_int4")
+        argv_q = argv[:-1] + [out_q, "--quantize", "int4"]
+        print(f"-- python -m sdxl_tpu_torch.cli.sample {' '.join(argv_q)}",
+              flush=True)
+        sd3_mod.load_sd3_pipeline = timed_load
+        try:
+            rc = run_path("the sample CLI --family sd3 --no-t5 --quantize "
+                          "int4 request", lambda: sample_cli.main(argv_q),
+                          ["sdxl_flash_attention_bf16", F32_D512, BF16_INT8,
+                           BF16_INT4], total)
+        finally:
+            sd3_mod.load_sd3_pipeline = real_load
+        if rc != 0:
+            fail(f"the sample CLI returned {rc} (--family sd3 --quantize "
+                 f"int4)")
+        (load_s, loaded), = loads
+        print(f"load_sd3_pipeline(load_t5=False, quantize='int4'): "
+              f"{load_s:.3f}s", flush=True)
+        check_same_modules("the --family sd3 --no-t5 --quantize int4 load",
+                           [("mmdit", mmdit_q, loaded.mmdit)])
+        del loaded, loads[:]
+        q = dataclasses.replace(sd3, mmdit=mmdit_q)
+        check_png("the CLI's --family sd3 --no-t5 --quantize int4 image",
+                  out_q + "0.png", q.txt2img(PROMPT, M13_RES, **kw)[0])
+        del q, mmdit_q
         m13["sd3"].clear()
         gc.collect()
         torch.cuda.empty_cache()
@@ -3443,6 +3680,391 @@ def module13_cli_phase(total, m13) -> None:
     finally:
         shutil.rmtree(CKPT_DIR, ignore_errors=True)
         shutil.rmtree(KONTEXT_EDIT_DIR, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 8h: module 14, the quantized requests
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def counting_model_calls():
+    """Inside, the calls the quantized paths make are counted by model:
+    calls[id(model), "call"] for the samplers' UNet evaluations, the
+    flow-matching loops' transformer calls and the T5 encodes, and
+    calls[id(model), "kv"] for the samplers' cross-attention k/v
+    precomputes."""
+    calls = Counter()
+    targets = [(sampler_mod, "unet_forward", "call"),
+               (sampler_mod, "precompute_cross_kv", "kv"),
+               (flow_match_mod, "mmdit_forward", "call"),
+               (flux_mod, "flux_forward", "call"),
+               (flux_mod, "t5_encode", "call"),
+               (sd3_mod, "t5_encode", "call")]
+    real = [getattr(mod, name) for mod, name, _ in targets]
+
+    def counted(fn, kind):
+        def call(model, *args, **kw):
+            calls[id(model), kind] += 1
+            return fn(model, *args, **kw)
+        return call
+
+    for (mod, name, kind), fn in zip(targets, real):
+        setattr(mod, name, counted(fn, kind))
+    try:
+        yield calls
+    finally:
+        for (mod, name, _), fn in zip(targets, real):
+            setattr(mod, name, fn)
+
+
+def k4_expected(models, calls) -> dict:
+    """K4's launches by route that `calls` (counting_model_calls) give:
+    each QuantLinear that quantize_model put in a model once a call of the
+    model, the UNets' cross-attention k and v once a precompute; the route
+    from the model's dtype and the linear's bits."""
+    want = Counter()
+    for model in models:
+        dtype = next(model.parameters()).dtype
+        for name, m in model.named_modules():
+            if isinstance(m, QuantLinear):
+                kind = "kv" if name.endswith(K4_KV) else "call"
+                want[quant_mod.ROUTES[dtype, m.bits]] += calls[id(model),
+                                                               kind]
+    return {k: n for k, n in want.items() if n}
+
+
+def quantize_in_place(label: str, model, bits: int, unet: bool = False):
+    """quantize_model(model, bits) by the transformers' rules, or the
+    UNets' (loader.quantize_unet) where `unet`, as the loaders quantize;
+    the model's bytes before and after and its quantized linears
+    printed."""
+    before = param_bytes(model)
+    if unet:
+        loader_mod.quantize_unet(model, bits)
+    else:
+        quantize_model(model, bits)
+    print(f"{label} quantized at int{bits}: {before} -> {param_bytes(model)} "
+          f"bytes ({quantized_stats(model)})", flush=True)
+
+
+def quantized_stats(model) -> str:
+    q = [m for m in model.modules() if isinstance(m, QuantLinear)]
+    nbytes = sum(b.numel() * b.element_size() for m in q for b in m.buffers())
+    by_bits = Counter(m.bits for m in q)
+    return (f"{len(q)} quantized linears ({dict(by_bits)} by bits), "
+            f"{nbytes} bytes of weights and scales")
+
+
+def module14_request(pipe, label: str, fn, models, earlier: str, res):
+    """One phase-8h request: latency, stage split, peak memory beside the
+    unquantized request `earlier`'s, K1 and K4 launches printed; fail
+    unless K4's launches by route are k4_expected's from the calls counted
+    during the request, and the final latent is finite and the image
+    uint8 of `res`. Returns the images."""
+    pipe.timer.stages.clear()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() / 2**30
+    before, k1_before = dict(quant_mod.launch_counts), dict(fa.launch_counts)
+    with counting_model_calls() as calls:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        latency = time.perf_counter() - t0
+    peak_gib = PEAKS[label] = torch.cuda.max_memory_allocated() / 2**30
+    launches = {k: n - before[k] for k, n in quant_mod.launch_counts.items()
+                if n != before[k]}
+    k1 = {k: n - k1_before[k] for k, n in fa.launch_counts.items()
+          if n != k1_before[k]}
+    want = k4_expected(models, calls)
+    stages = " ".join(f"{k}={v:.3f}s" for k, v in pipe.timer.stages.items())
+    unquantized = (f"{PEAKS[earlier]:.2f}GiB" if earlier in PEAKS
+                   else "not run")
+    print(f"request {label}: latency={latency:.3f}s {stages} resident "
+          f"before={resident:.2f}GiB peak_mem={peak_gib:.2f}GiB "
+          f"(unquantized, {earlier!r}: {unquantized}) K4 "
+          f"launches={launches} (predicted {want}) K1 launches={k1}",
+          flush=True)
+    if launches != want:
+        fail(f"{label}: K4 launched {launches}, not {want}")
+    lat = pipe.last_latent
+    if not bool(torch.isfinite(lat).all()):
+        fail(f"non-finite latent in {label}")
+    if out.shape != (1, *res, 3) or out.dtype.name != "uint8" or \
+            out.std() == 0:
+        fail(f"{label}: images {out.shape} {out.dtype}")
+    return out
+
+
+@contextlib.contextmanager
+def k4_linear(fn):
+    """Inside, every QuantLinear's forward calls fn in K4's place."""
+    real = layers_mod.quant_linear
+    layers_mod.quant_linear = fn
+    try:
+        yield
+    finally:
+        layers_mod.quant_linear = real
+
+
+@torch.inference_mode()
+def hold_k4(label: str, call, whole_tol=None) -> None:
+    """call() with each of its K4 launches held to quant_linear_plain on
+    that launch's own input (phase 3's bounds: max abs error within
+    K4_TOL of max(1, max|plain|), relative L2 within its limit), then the
+    whole output against the same call through the plain dequant:
+    printed, and held within whole_tol of its largest magnitude where
+    given (the whole output also carries the rounding that builds up over
+    every block after the first difference)."""
+    worst = defaultdict(lambda: [0.0, 0.0, 0])
+
+    def held(x, p, bias=None):
+        out = quant_mod.quant_linear(x, p, bias)
+        err, rel, ref_max = readings(
+            out, quant_mod.quant_linear_plain(x, p, bias))
+        w = worst[quant_mod.ROUTES[x.dtype, quant_mod.weight_bits(p)]]
+        w[0], w[1] = max(w[0], err / max(1.0, ref_max)), max(w[1], rel)
+        w[2] += 1
+        return out
+
+    with k4_linear(held):
+        out_k = call().float()
+    with k4_linear(quant_mod.quant_linear_plain):
+        out_p = call().float()
+    big = out_p.abs().max()
+    rel = ((out_k - out_p).abs().max() / big).item()
+    l2 = ((out_k - out_p).norm() / out_p.norm()).item()
+    tol = "" if whole_tol is None else f" (tol {whole_tol:g})"
+    print(f"{label}: K4 per call against the plain version on its input: "
+          + ", ".join(f"{r} {n} calls worst max_err/max(1,max) {e:.3e} (tol "
+                      f"{K4_TOL[K4_ROUTE_DTYPE[r]][0]:g}) worst rel_l2 "
+                      f"{l:.3e} (tol {K4_TOL[K4_ROUTE_DTYPE[r]][1]:g})"
+                      for r, (e, l, n) in sorted(worst.items()))
+          + f"; the whole output against the plain dequant: rel_err="
+          f"{rel:.3e}{tol}, rel_l2 {l2:.3e}; max|out| {big.item():.4g}",
+          flush=True)
+    if not worst:
+        fail(f"{label} made no K4 call")
+    for r, (e, l, _) in worst.items():
+        t, rt = K4_TOL[K4_ROUTE_DTYPE[r]]
+        if not (e <= t and l <= rt):
+            fail(f"{label}: a {r} call disagrees with its plain version")
+    if not bool(torch.isfinite(out_k).all()) or (
+            whole_tol is not None and not rel < whole_tol):
+        fail(f"{label} through K4 disagrees with the plain dequant")
+    del out_k, out_p
+    torch.cuda.empty_cache()
+
+
+def unet_pair_call(pipe, unet, res):
+    """A pair-batched CFG call of `unet` (the pipeline's base) at `res` at
+    t = 999 on the pipeline's last latent."""
+    dtype = pipe.compute_dtype
+    cond = pipe.conditioning(PROMPT, res).astype(dtype)
+    ctx2, ch2 = _cfg_contexts(pipe.diffuser_cfg, cond, dtype)
+    x2 = torch.cat([pipe.last_latent] * 2).to(dtype)
+    t2 = torch.full((2,), 999, device=pipe.device)
+    return lambda: unet_forward(unet, x2, t2, ctx2, ch2)
+
+
+def module14_unet_phase(pipe, m12, total) -> None:
+    """Phase 8h's UNet requests: phase 8f's SD 1.5 with its UNet quantized
+    in place at int4, DDIM at 512x512; then, with phase 8f's pipelines
+    freed (m12 cleared), SDXL base + refiner at int8, 30 DDIM steps at
+    1024x1024, on quantized copies of the pipeline's UNets with the bf16
+    ones parked on the host, so that the card holds what phase 8b's base +
+    refiner request held but the UNets quantized. Each request's K4
+    launches held to the code's count (each QuantLinear once a UNet call,
+    the cross k/v once a sampling loop); one pair call of each held per
+    K4 call, the SDXL one whole within UNET_REL_TOL."""
+    sd1 = m12["sd1"]
+    quantize_in_place("SD 1.5 UNet", sd1.unet, 4, unet=True)
+    run_path("the SD 1.5 int4 request", lambda: module14_request(
+        sd1, f"SD 1.5 int4 DDIM {M12_STEPS} steps {SD1_RES}",
+        lambda: sd1.txt2img(PROMPT, SD1_RES, seed=70, n_steps=M12_STEPS,
+                            guidance_scale=7.5), [sd1.unet],
+        f"SD 1.5 DDIM {M12_STEPS} steps {SD1_RES}", SD1_RES),
+        [F32_D512, BF16_INT8, BF16_INT4], total)
+    hold_k4(f"SD 1.5 int4 pair call B=2 at t=999 {SD1_RES}",
+            unet_pair_call(sd1, sd1.unet, SD1_RES))
+    del sd1
+    m12.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    base, refiner = copy.deepcopy(pipe.unet), copy.deepcopy(pipe.refiner)
+    quantize_in_place("SDXL base UNet", base, 8, unet=True)
+    quantize_in_place("SDXL refiner", refiner, 8, unet=True)
+    pipe.unet.cpu()
+    pipe.refiner.cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"quantized copies made, the bf16 UNets parked on the host: "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    q = dataclasses.replace(pipe, unet=base, refiner=refiner)
+    res, n = M14_SDXL_RES, M14_SDXL_STEPS
+    run_path("the SDXL int8 request", lambda: module14_request(
+        q, f"SDXL base + refiner int8 DDIM {n} steps {res}",
+        lambda: q.txt2img(PROMPT, res, seed=5, use_refiner=True, n_steps=n,
+                          guidance_scale=7.5), [base, refiner],
+        "base + refiner", res),
+        ["sdxl_flash_attention_bf16", F32_D512, BF16_INT8], total)
+    hold_k4(f"SDXL int8 base pair call B=2 at t=999 {res}",
+            unet_pair_call(q, base, res), UNET_REL_TOL)
+    del q, base, refiner
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe.unet.to(pipe.device)
+    pipe.refiner.to(pipe.device)
+
+
+def module14_sd3(sd3, total) -> None:
+    """Phase 8h's SD3-medium request: a quantized copy of the pipeline's
+    MMDiT at int8 (phase 9b writes the bf16 one) and its T5-XXL quantized
+    in place at int8 (load_sd3_pipeline's recipe), txt2img CFG 7 at
+    1024x1024, 28 steps; one pair call held per K4 call."""
+    mmdit = copy.deepcopy(sd3.mmdit)
+    quantize_in_place("a copy of SD3-medium's MMDiT", mmdit, 8)
+    quantize_in_place("T5-XXL", sd3.t5, 8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    q = dataclasses.replace(sd3, mmdit=mmdit)
+    n = M13_STEPS
+    run_path("the SD3-medium int8 request", lambda: module14_request(
+        q, f"SD3-medium int8 (T5-XXL int8) txt2img CFG {SD3_GS} {n} steps",
+        lambda: q.txt2img(PROMPT, M13_RES, seed=80, n_steps=n,
+                          guidance_scale=SD3_GS,
+                          negative_prompt=M13_NEGATIVE), [mmdit, q.t5],
+        f"SD3-medium txt2img CFG {SD3_GS} {n} steps (T5-XXL f32)", M13_RES),
+        ["sdxl_flash_attention_bf16", F32_D512, BF16_INT8, F32_INT8], total)
+    dev = q.device
+    with torch.inference_mode():
+        ctx, pooled = q.conditioning(PROMPT, M13_NEGATIVE)
+        g = torch.Generator(device=dev).manual_seed(16)
+        x = torch.randn((1, M13_RES[0] // 8, M13_RES[1] // 8,
+                         mmdit.cfg.in_channels), generator=g, device=dev)
+        t = float(flow_match_mod.fm_schedule(n)[0][n // 3])
+        t2 = torch.full((2,), t, device=dev)
+    hold_k4(f"SD3-medium int8 pair call B=2 at t={t!r}",
+            lambda: mmdit_forward(mmdit, torch.cat([x, x]).to(BF16), t2,
+                                  ctx.to(BF16), pooled.to(BF16)))
+    del q, mmdit
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def module14_f32_flux(f32, total) -> None:
+    """f32 x int4 (`--f32 --quantize int4`): phase 8g's f32 FLUX.1
+    transformer (full width, FLUX_F32_DEPTH blocks) quantized in place at
+    int4, T5 at int8 from module14_flux: a SCHNELL_STEPS-step request and
+    one call held per K4 call."""
+    cfg, s = f32.flux.cfg, SCHNELL_STEPS
+    quantize_in_place("the f32 FLUX.1 transformer", f32.flux, 4)
+    label = (f"f32 FLUX.1 ({cfg.num_layers} double, {cfg.num_single_layers} "
+             f"single blocks, full width) txt2img {s} steps")
+    run_path("the f32 FLUX.1 int4 request", lambda: module14_request(
+        f32, f"{label}, int4", lambda: f32.txt2img(
+            PROMPT, M13_RES, n_steps=s, guidance_scale=FLUX_GS, seed=97),
+        [f32.flux, f32.t5], label, M13_RES),
+        [F32_D128, F32_D512, F32_INT8, F32_INT4], total)
+    dev = f32.device
+    with torch.inference_mode():
+        ctx, pooled = f32.conditioning(PROMPT)
+        g = torch.Generator(device=dev).manual_seed(18)
+        x = torch.randn((1, M13_RES[0] // 8, M13_RES[1] // 8, 16),
+                        generator=g, device=dev)
+        ts, _ = f32._schedule(M13_STEPS, *M13_RES)
+        t = torch.full((1,), float(ts[M13_STEPS // 3]), device=dev)
+        gd = torch.full((1,), FLUX_GS * 1000.0, device=dev)
+    hold_k4(f"f32 FLUX.1 int4 call at t={float(t)!r}",
+            lambda: flux_forward(f32.flux, x, t, ctx.float(),
+                                 pooled.float(), gd))
+
+
+def module14_flux(flux, total) -> None:
+    """Phase 8h's FLUX.1 requests on phase 8g's FLUX.1-dev pipeline, once
+    its bf16 transformer has served every phase-8g request that needs it:
+    the transformer quantized in place at int8 and T5 at int8 (the
+    loader's recipe), txt2img at 1024x1024, 28 steps; one transformer call
+    and one T5 encode held per K4 call; t5_offload's conditioning bitwise
+    the resident one's, T5 on the host after it; then a transformer drawn
+    at int4 by random_quantized_like (no bf16 weights) answering an
+    M14_INT4_STEPS-step request with T5 parked on the host (t5_offload).
+    T5 stays int8 for phase 8g's later FLUX.1 requests. Leaves
+    flux.flux None."""
+    n = M13_STEPS
+    bf16 = ["sdxl_flash_attention_bf16", F32_D512]
+    quantize_in_place("FLUX.1-dev's transformer", flux.flux, 8)
+    quantize_in_place("T5-XXL", flux.t5, 8)
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_path("the FLUX.1-dev int8 request", lambda: module14_request(
+        flux, f"FLUX.1-dev int8 (T5-XXL int8) txt2img guidance {FLUX_GS} "
+        f"{n} steps", lambda: flux.txt2img(PROMPT, M13_RES, seed=90,
+                                           n_steps=n, guidance_scale=FLUX_GS),
+        [flux.flux, flux.t5], f"FLUX.1-dev txt2img guidance {FLUX_GS} {n} "
+        f"steps", M13_RES), bf16 + [BF16_INT8, F32_INT8], total)
+    dev = flux.device
+    with torch.inference_mode():
+        ctx, pooled = flux.conditioning(PROMPT)
+        g = torch.Generator(device=dev).manual_seed(17)
+        x = torch.randn((1, M13_RES[0] // 8, M13_RES[1] // 8, 16),
+                        generator=g, device=dev).to(BF16)
+        ts, _ = flux._schedule(n, *M13_RES)
+        t = torch.full((1,), float(ts[n // 3]), device=dev)
+        gd = torch.full((1,), FLUX_GS * 1000.0, device=dev)
+        ids = flux._t5_ids([PROMPT])
+
+    def call():
+        return flux_forward(flux.flux, x, t, ctx.to(BF16), pooled.to(BF16),
+                            gd)
+
+    hold_k4(f"FLUX.1-dev int8 call at t={float(t)!r}", call)
+    hold_k4("T5-XXL int8 encode (f32)", lambda: t5_encode(flux.t5, ids))
+
+    with torch.inference_mode():
+        resident = flux.conditioning(PROMPT)
+        flux.t5.cpu()
+        flux.t5_offload = True
+        torch.cuda.empty_cache()
+        offloaded = flux.conditioning(PROMPT)
+    home = {t.device.type for t in (*flux.t5.parameters(),
+                                    *flux.t5.buffers())}
+    same = all(torch.equal(a, b) for a, b in zip(resident, offloaded))
+    print(f"t5_offload: the conditioning bitwise the resident one's: {same};"
+          f" T5 after the call on {sorted(home)}", flush=True)
+    if not same or home != {"cpu"}:
+        fail("t5_offload's conditioning differs or T5 left the host")
+
+    flux.flux = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(M14_INT4_SEED)
+    f4 = random_quantized_like(Flux(FluxConfig(), "meta"), 4, g, dev)
+    flux.flux = init_reference_(f4, g).eval().requires_grad_(False)
+    torch.cuda.synchronize()
+    print(f"FLUX.1-dev drawn at int4 by random_quantized_like: "
+          f"{param_bytes(f4)} bytes ({quantized_stats(f4)}): "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    m = M14_INT4_STEPS
+    run_path("the FLUX.1-dev int4 request (t5_offload)",
+             lambda: module14_request(
+                 flux, f"FLUX.1-dev int4 (T5-XXL int8 on the host, "
+                 f"t5_offload) txt2img {m} steps",
+                 lambda: flux.txt2img(PROMPT, M13_RES, seed=98, n_steps=m,
+                                      guidance_scale=FLUX_GS),
+                 [f4, flux.t5], f"FLUX.1-dev txt2img guidance {FLUX_GS} {n} "
+                 f"steps", M13_RES), bf16 + [BF16_INT8, BF16_INT4, F32_INT8],
+             total)
+    hold_k4(f"FLUX.1-dev int4 call at t={float(t)!r}", call)
+    flux.t5.to(dev)
+    flux.t5_offload = False
+    flux.flux = None
+    del f4
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def device_time_by_op(events) -> dict:
@@ -3647,6 +4269,8 @@ def main() -> None:
     check_k1(results)
     check_train_kernels(results)
     phase_done("3 (K1, K2, K3)")
+    check_k4(results)
+    phase_done("3 (K4)")
     check_experiments(results)
     phase_done("3b (X1-X3)")
     x_names = [name for name, *_ in experiment_kernels()]
@@ -3753,10 +4377,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("8f (SD 1.5, SD 2.1-768 v-prediction, SD 2-base)")
     checkpoint_cli_phase(pipe, path, p_lcm, m11, m12)
-    del p_lcm, m11, m12
+    del p_lcm, m11
     gc.collect()
     torch.cuda.empty_cache()
     phase_done("9b (checkpoint, sample CLI)")
+    module14_unet_phase(pipe, m12, path)
+    del m12
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_done("8h (module 14: SD 1.5 int4, SDXL base + refiner int8)")
 
     data, cfg, factors, train_launches = run_training(
         pipe, TRAIN_STEPS, [F32_D512, *fa._TRAIN_ROUTES[torch.bfloat16, 64]])
@@ -3770,8 +4399,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_done("10-12 (LoRA training)")
     m13 = module13_phase(path)
-    phase_done("8g (module 13: SD3-medium, SD3.5-large, SD3.5-medium, "
-               "FLUX.1-dev, f32 FLUX.1, FLUX.1-schnell)")
+    phase_done("8g and 8h (module 13: SD3-medium, SD3.5-large, "
+               "SD3.5-medium, FLUX.1-dev, f32 FLUX.1, FLUX.1-schnell; module "
+               "14: SD3-medium int8, FLUX.1-dev int8 and int4)")
     module13_cli_phase(path, m13)
     del m13
     gc.collect()

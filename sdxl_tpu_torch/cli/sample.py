@@ -69,10 +69,10 @@ _PORTED = {
     "ip_image_encoder", "ip_image", "ip_scale", "edit_image",
     "image_guidance_scale", "hires_scale", "hires_strength", "vae_tile",
     "clip_skip", "no_t5", "slg_scale", "slg_layers", "true_cfg_scale",
+    "quantize",
 }
 # every other flag -> the module of ROADMAP Queue 1 that ports it
 _WAITS = {
-    "quantize": 14,
     **dict.fromkeys(["dp", "tp"], 17),
     **dict.fromkeys(["trace", "debug_nans"], 7),
 }
@@ -281,12 +281,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--quantize", choices=["int8", "int4"], default=None,
                    help="Weight-only quantized storage: block linears at "
                         "int8 (per-channel) or int4 (group-wise; modulation "
-                        "linears stay int8), dequantized on the fly inside "
-                        "the sampling scan. sd3/flux: transformer blocks + "
+                        "linears stay int8), read by the quantized-linear "
+                        "kernel, which dequantizes each weight tile on its "
+                        "way into the product. sd3/flux: transformer blocks + "
                         "T5 at int8 — the single-chip fit mode for FLUX.1's "
                         "12B transformer (23.8 GB bf16 -> 11.9 / ~6.4 GB). "
                         "sdxl/sd1/sd2: the UNet transformer linears (~2.0B "
-                        "of SDXL's 2.6B UNet params) — frees HBM for "
+                        "of SDXL's 2.6B UNet params) — frees card memory for "
                         "resident base+refiner and larger serving batches")
     p.add_argument("--controlnet", action="append", default=None,
                    metavar="DIR",
@@ -374,6 +375,18 @@ def _unported(parser: argparse.ArgumentParser, args) -> str | None:
     return None
 
 
+def _quantize_unet_inplace(pipe, spec) -> None:
+    """--quantize on a random-weights UNet-family pipeline (the loaders
+    quantize checkpoints themselves): the base UNet's and the refiner's
+    block linears, by the UNet rules."""
+    from ..io.quantize import parse_quantize_spec
+    from ..pipeline.loader import quantize_unet
+
+    bits = parse_quantize_spec(spec)
+    quantize_unet(pipe.unet, bits)
+    quantize_unet(getattr(pipe, "refiner", None), bits)
+
+
 def pipe_min_layers(pipe) -> int:
     """The shallowest text tower's depth (bounds --clip-skip)."""
     cfg = pipe.embedder_cfg
@@ -400,14 +413,17 @@ def _load_sd1(args, dtype, loras, device):
     if args.random_weights or args.model_dir is None:
         if not args.random_weights:
             return None, "--model-dir is required (or --random-weights)"
-        return random_sd1_pipeline(
+        pipe = random_sd1_pipeline(
             device=device, clip_cfg=clip_cfg, diffuser_cfg=d_cfg,
             unet_dtype=dtype, tokenizer_dir=args.tokenizer_dir,
-            penultimate_hidden=sd2), None
+            penultimate_hidden=sd2)
+        _quantize_unet_inplace(pipe, args.quantize)
+        return pipe, None
     try:
         return load_sd1_pipeline(
             args.model_dir, clip_cfg, d_cfg, dtype, args.tokenizer_dir,
-            penultimate_hidden=sd2, loras=loras, device=device), None
+            penultimate_hidden=sd2, loras=loras, quantize=args.quantize,
+            device=device), None
     except (KeyError, FileNotFoundError, ValueError) as e:
         return None, f"failed to load checkpoint from {args.model_dir}: {e}"
 
@@ -613,7 +629,7 @@ def _run_sd3(args, dtype, loras, device) -> int:
             pipe = load_sd3_pipeline(args.model_dir, dtype,
                                      args.tokenizer_dir,
                                      load_t5=not args.no_t5, loras=loras,
-                                     device=device)
+                                     quantize=args.quantize, device=device)
         except (KeyError, FileNotFoundError, ValueError) as e:
             print(f"error: failed to load checkpoint from "
                   f"{args.model_dir}: {e}", file=sys.stderr)
@@ -704,7 +720,7 @@ def _run_flux(args, dtype, loras, device) -> int:
         try:
             pipe = load_flux_pipeline(args.model_dir, dtype,
                                       args.tokenizer_dir, loras=loras,
-                                      device=device)
+                                      quantize=args.quantize, device=device)
         except (KeyError, FileNotFoundError, ValueError) as e:
             print(f"error: failed to load checkpoint from "
                   f"{args.model_dir}: {e}", file=sys.stderr)
@@ -804,12 +820,14 @@ def main(argv=None, device="cuda") -> int:
             device=device, unet_dtype=dtype, with_encoder=True,
             refiner_cfg=SDXL_REFINER_DIFFUSER if args.use_refiner else None,
             tokenizer_dir=args.tokenizer_dir)
+        _quantize_unet_inplace(pipe, args.quantize)
     else:
         try:
             pipe = load_pipeline(args.model_dir, args.use_refiner,
                                  compute_dtype=dtype,
                                  tokenizer_dir=args.tokenizer_dir,
-                                 loras=loras, device=device)
+                                 loras=loras, quantize=args.quantize,
+                                 device=device)
         except (MpkParseError, KeyError, FileNotFoundError, ValueError,
                 NotImplementedError) as e:
             # checkpoint problems are user input problems: print the

@@ -10,6 +10,10 @@ the tree:
 - ``w`` -> ``weight``: linear [in, out] -> [out, in]; conv HWIO -> OIHW;
   a 1-D ``w`` (an RMS gain) as it is;
 - ``b`` -> ``bias``; norm ``gamma``/``beta`` -> ``weight``/``bias``;
+- a quantized linear's leaves (ops/quant.py) keep their names, each 2-D
+  one transposed: ``qw`` [in, out] -> [out, in], ``qw4`` [in/2, out] ->
+  [out, in/2] (byte i still packs input rows i and i + in/2), a group-wise
+  ``qs`` [in/group, out] -> [out, in/group]; a per-channel ``qs`` as it is;
 - other leaves (embedding tables, ``text_projection``) keep name and layout;
 - the self-attention projections take the layout asked for: fused
   ``qkv`` [3C, C] (inference) or separate q/k/v (training), from either
@@ -64,6 +68,8 @@ def convert_leaf(name: str, t: torch.Tensor) -> Tuple[str, torch.Tensor]:
     the port's layout, on the same device and in the same dtype)."""
     if name == "w4":
         name, t = "w", unfold_upsample_w4(t).to(t.dtype)
+    if name in ("qw", "qw4", "qs"):
+        return name, t.t().contiguous() if t.dim() == 2 else t
     if name == "w":
         if t.dim() == 1:  # a per-head RMS gain (SD3.5 / FLUX.1 q/k norms)
             return "weight", t

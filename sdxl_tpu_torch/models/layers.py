@@ -3,10 +3,12 @@
 Each holds its parameters under PyTorch's usual names (``weight``,
 ``bias``) so io/bridge.py can map the reference's parameter trees onto
 ``state_dict`` keys, and its forward calls the plain op in ops/.
-``Linear`` also carries a slot for an unmerged LoRA factor pair.
-``init_reference_`` redraws every parameter with the reference's random
-init (normal weights at a fixed scale, zero biases, unit norm gains, the
-RMS gains of ``RMSGain`` too).
+``Linear`` also carries a slot for an unmerged LoRA factor pair;
+``QuantLinear`` is its weight-quantized form (io/quantize.py puts it in a
+Linear's place), applied through K4 (ops/quant.py). ``init_reference_``
+redraws every parameter with the reference's random init (normal weights
+at a fixed scale, zero biases, unit norm gains, the RMS gains of
+``RMSGain`` too).
 """
 
 from __future__ import annotations
@@ -15,8 +17,9 @@ import torch
 from torch import nn
 
 from ..ops.conv import conv2d
-from ..ops.linear import LoRA, linear
+from ..ops.linear import LoRA, _lora, linear
 from ..ops.norms import groupnorm, layernorm_affine
+from ..ops.quant import INT4_GROUP, quant_linear
 
 
 class Linear(nn.Linear):
@@ -29,6 +32,53 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return linear(x, self.weight, self.bias, self.lora)
+
+
+class QuantLinear(nn.Module):
+    """A linear whose weight is stored quantized (ops/quant.py): buffers
+    ``qw`` int8 [d_out, d_in] and ``qs`` f32 [d_out] (bits 8), or ``qw4``
+    uint8 [d_out, d_in/2] and ``qs`` f32 [d_out, d_in/group] (bits 4), and
+    ``bias`` [d_out] in the model's dtype or None. Its forward is K4. The
+    ``lora`` slot is kept, but no gradient flows through K4: QLoRA
+    training is module 15."""
+
+    lora: LoRA = None
+
+    def __init__(self, d_in: int, d_out: int, bits: int, bias: bool = True,
+                 group: int = INT4_GROUP, device=None, dtype=None):
+        super().__init__()
+        self.in_features, self.out_features, self.bits = d_in, d_out, bits
+        if bits == 8:
+            self.register_buffer("qw", torch.empty(
+                d_out, d_in, dtype=torch.int8, device=device))
+            self.register_buffer("qs", torch.empty(
+                d_out, dtype=torch.float32, device=device))
+        elif bits == 4:
+            self.register_buffer("qw4", torch.empty(
+                d_out, d_in // 2, dtype=torch.uint8, device=device))
+            self.register_buffer("qs", torch.empty(
+                d_out, d_in // group, dtype=torch.float32, device=device))
+        else:
+            raise ValueError(f"bits must be 4 or 8, got {bits}")
+        self.bias = (nn.Parameter(torch.zeros(d_out, device=device,
+                                              dtype=dtype))
+                     if bias else None)
+
+    @property
+    def quantized(self) -> dict:
+        """The weight dict ops/quant.py takes: {"qw" | "qw4", "qs"}."""
+        key = "qw" if self.bits == 8 else "qw4"
+        return {key: getattr(self, key), "qs": self.qs}
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lora = self.lora
+        if torch.is_grad_enabled() and (
+                x.requires_grad or (lora is not None and any(
+                    t.requires_grad for t in lora))):
+            raise NotImplementedError(
+                "no gradient flows through the quantized linear: QLoRA "
+                "(LoRA training over a quantized model) is module 15")
+        return _lora(x, quant_linear(x, self.quantized, self.bias), lora)
 
 
 class Conv2d(nn.Conv2d):

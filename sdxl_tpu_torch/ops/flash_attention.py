@@ -22,7 +22,8 @@ which both share; the experiments' wrappers live in
 with nvcc for sm_90a into a shared library with a plain C interface, at
 first use, into ``build/kernels/`` at the repo root (keyed by a hash of
 the sources and the flags), and loaded with ctypes; ``build_kernels``
-compiles every source at once, one nvcc each.
+compiles every source at once, one nvcc each, K4's quant_linear.cu too
+(its wrapper is ops/quant.py).
 
 Each wrapper takes the plain PyTorch version for tensors on the CPU and
 launches its kernel for CUDA tensors; a CUDA call the kernel does not take
@@ -84,7 +85,7 @@ FLASH_MIN_T = 924
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("flash_hopper.cu", "flash_hopper_bwd.cu", "flash_experiments.cu",
-           "flash_pipelined.cu")
+           "flash_pipelined.cu", "quant_linear.cu")
 HEADERS = ("flash_common.cuh", "hopper_common.cuh", "flash_fwd_wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -1,8 +1,9 @@
 """Linear layers (counterpart of sdxl_tpu/ops/linear.py).
 
 Weights are PyTorch's [d_out, d_in]; io/bridge.py transposes the
-reference's [d_in, d_out] once at load. Quantised weights are not ported
-yet.
+reference's [d_in, d_out] once at load. A weight stored quantized goes
+through K4 instead (ops/quant.py ``quant_linear``, models/layers.py
+``QuantLinear``).
 
 ``lora`` is an optional UNMERGED LoRA factor pair (down [d_in, r],
 up [r, d_out], the reference's orientation), applied at the use site as

@@ -18,6 +18,11 @@ semantics).
 - the 16-channel VAE in f32 without quant convs: decode sees latent /
   0.3611 + 0.1159.
 
+``t5_offload`` keeps T5 parked on the host and moves it to the card for
+each conditioning call and back after it (load_flux_pipeline sets it when
+the quantized transformer and T5 together exceed the card's budget, the
+reference's rule).
+
 Noise, and what is not ported, as in pipeline/sd3.py.
 """
 
@@ -40,6 +45,7 @@ from ..configs import (
     FluxConfig,
     T5Config,
 )
+from ..io.quantize import parse_quantize_spec, quantize_model
 from ..models.clip import CLIPTextModel, clip_hidden_pooled
 from ..models.flux import Flux, flux_forward
 from ..models.layers import init_reference_
@@ -47,6 +53,7 @@ from ..models.t5 import T5Encoder, init_t5_, t5_encode
 from ..models.vae import VAEDecoder, VAEEncoder
 from ..tokenizer import ClipTokenizer
 from ..utils import StageTimer, fence, log
+from ..utils.memory import memory_budget_bytes, module_device, param_bytes
 from .flow_match import (
     FlowPipelineBase,
     _prompts,
@@ -137,6 +144,8 @@ class FluxPipeline(FlowPipelineBase):
     static_shift: float = 1.0
     timer: StageTimer = field(default_factory=StageTimer)
     last_latent: Optional[torch.Tensor] = None
+    # T5 parked on the host, on the card only during a conditioning call
+    t5_offload: bool = False
 
     def _encode_prompts(self, texts):
         ids = self._ids(self.clip_tokenizer, texts, self.clip.cfg.n_ctx)
@@ -144,7 +153,16 @@ class FluxPipeline(FlowPipelineBase):
         _, pooled = clip_hidden_pooled(self.clip, ids,
                                        self.clip.cfg.n_layer - 1,
                                        project=False)
-        return t5_encode(self.t5, self._t5_ids(texts)), pooled
+        if not self.t5_offload:
+            return t5_encode(self.t5, self._t5_ids(texts)), pooled
+        home = module_device(self.t5)
+        self.t5.to(self.device)
+        try:
+            ctx = t5_encode(self.t5, self._t5_ids(texts))
+            fence(ctx)
+        finally:
+            self.t5.to(home)
+        return ctx, pooled
 
     @torch.no_grad()
     def conditioning(self, prompts, negative_prompt: Optional[str] = None):
@@ -291,6 +309,7 @@ def random_flux_pipeline(
     t5_dtype: torch.dtype = torch.float32,
     with_encoder: bool = True,
     tokenizer_dir: Optional[str] = None,
+    quantize: Optional[str] = None,
 ) -> FluxPipeline:
     """FLUX.1 pipeline with random weights drawn on ``device`` from one
     seeded torch.Generator with the reference's init distributions, in
@@ -301,7 +320,9 @@ def random_flux_pipeline(
     materialised on ``device`` before its draw. Schnell (guidance_embeds
     False) keeps the dynamic shift here, as the reference's random
     pipeline does. The configs default to FLUX.1-dev's (the transformer,
-    CLIP-L, T5-XXL, the 16-channel VAE)."""
+    CLIP-L, T5-XXL, the 16-channel VAE). quantize="int8"|"int4" then
+    quantizes the drawn transformer's block linears (io/quantize.py), as
+    the reference's random pipeline does; T5 stays as drawn."""
     device = torch.device(device)
     g = torch.Generator(device=device).manual_seed(seed)
     flux_cfg = flux_cfg or FluxConfig()
@@ -314,6 +335,8 @@ def random_flux_pipeline(
         return init_reference_(module.to_empty(device=device), g, **kw)
 
     flux = make(Flux(flux_cfg, "meta", flux_dtype))
+    if quantize is not None:
+        quantize_model(flux, parse_quantize_spec(quantize))
     clip = make(CLIPTextModel(clip_cfg, "meta"))
     t5 = init_t5_(T5Encoder(t5_cfg, "meta", t5_dtype).to_empty(
         device=device), g)
@@ -343,12 +366,16 @@ def load_flux_pipeline(
     (io/flux.py): the transformer and T5 in compute_dtype, CLIP-L and the
     VAE in f32; the scheduler config's shifts. loras: (path, scale)
     files merged into the transformer (diffusers / peft keys, and kohya's
-    BFL-named keys split onto the separate projections) and CLIP-L."""
+    BFL-named keys split onto the separate projections) and CLIP-L.
+
+    quantize="int8"|"int4" stores the transformer's block linears
+    quantized and T5's at int8 (io/quantize.py), after the LoRAs merge.
+    Where the quantized transformer, T5, CLIP-L and the VAE together need
+    more than the card's budget (utils/memory.py), T5 is parked on the
+    host and ``t5_offload`` set."""
     from ..io.flux import load_flux_diffusers_dir
 
-    if quantize is not None:
-        raise NotImplementedError("quantized storage is not ported yet "
-                                  "(module 14)")
+    bits = parse_quantize_spec(quantize)
     log(f"loading Flux diffusers checkpoint from {model_dir}")
     flux, clip, t5, t5_tok, vae, encoder, sched = load_flux_diffusers_dir(
         model_dir, compute_dtype, t5_tokenize, device=torch.device(device))
@@ -356,6 +383,19 @@ def load_flux_pipeline(
         from ..io.lora import apply_lora_files
 
         apply_lora_files(loras, transformer=flux, te1=clip)
+    t5_offload = False
+    if bits is not None:
+        quantize_model(flux, bits)
+        quantize_model(t5, 8)
+        need = sum(param_bytes(m) for m in (flux, t5, clip, vae, encoder))
+        if torch.device(device).type == "cuda" and \
+                need > memory_budget_bytes(device):
+            t5_offload = True
+            t5.to("cpu")
+            log(f"quantized towers need {need / 2**30:.1f} GiB > budget "
+                f"{memory_budget_bytes(device) / 2**30:.1f} GiB: T5 stays "
+                "host-parked and is moved per conditioning call "
+                "(t5_offload)")
     return FluxPipeline(
         vae=vae, vae_encoder=encoder, scale_factor=FLUX_VAE_SCALE,
         shift_factor=FLUX_VAE_SHIFT, flux=flux, clip=clip, t5=t5,
@@ -365,4 +405,4 @@ def load_flux_pipeline(
         base_shift=sched.get("base_shift", FLUX_BASE_SHIFT),
         max_shift=sched.get("max_shift", FLUX_MAX_SHIFT),
         dynamic_shifting=sched.get("use_dynamic_shifting", True),
-        static_shift=sched.get("shift", 1.0))
+        static_shift=sched.get("shift", 1.0), t5_offload=t5_offload)

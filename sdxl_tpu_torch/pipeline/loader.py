@@ -23,9 +23,11 @@ base modules afterwards (io/lora.py). ``use_refiner`` also loads the
 refiner UNet: refiner.{safetensors,cfg} (native), refiner.{mpk,cfg},
 diffuser/diffuser_refiner (npy), or the sd_xl_refiner_* file beside the
 base (sgm); a diffusers dir holds no refiner and raises, as in the
-reference. Quantized storage (module 14) raises NotImplementedError; the
-reference's transformer stacking and HBM placement are XLA devices the
-port does not need: base and refiner stay resident.
+reference. ``quantize`` ("int8" | "int4") then stores the block linears
+of the base UNet and the refiner quantized (io/quantize.py, the UNet
+rules), after the qkv fuse and the LoRA merge, as the reference orders
+them. The reference's transformer stacking and HBM placement are XLA
+devices the port does not need: base and refiner stay resident.
 """
 
 from __future__ import annotations
@@ -49,6 +51,12 @@ from ..configs import (
 )
 from ..io import checkpoint as ckpt
 from ..io.bridge import fuse_qkv
+from ..io.quantize import (
+    UNET_KEEP8,
+    UNET_WITHIN,
+    parse_quantize_spec,
+    quantize_model,
+)
 from ..models.clip import CLIPTextModel
 from ..models.unet import UNet
 from ..models.vae import VAEDecoder, VAEEncoder
@@ -86,6 +94,13 @@ def detect_format(model_dir: str) -> str:
     if single:
         return "sgm_single_file"
     raise FileNotFoundError(f"no known checkpoint layout in {model_dir}")
+
+
+def quantize_unet(unet: Optional[UNet], bits: Optional[int]) -> None:
+    """A UNet's block linears quantized in place by the UNet rules
+    (io/quantize.py UNET_WITHIN, UNET_KEEP8); None (either) passes."""
+    if unet is not None and bits is not None:
+        quantize_model(unet, bits, within=UNET_WITHIN, keep8=UNET_KEEP8)
 
 
 def _load_module(module: nn.Module, sd: Dict[str, torch.Tensor], what: str,
@@ -153,10 +168,9 @@ def load_pipeline(
     (base, and the refiner with use_refiner) in ``compute_dtype``, the
     towers and the VAE in f32. loras is a list of (path, scale) LoRA
     safetensors files merged into the base UNet and the text towers at
-    load time (io/lora.py)."""
-    if quantize is not None:
-        raise NotImplementedError("quantized UNet storage is not ported yet "
-                                  "(module 14)")
+    load time (io/lora.py); quantize="int8"|"int4" then quantizes both
+    UNets' block linears."""
+    bits = parse_quantize_spec(quantize)
     device = torch.device(device)
     fmt = detect_format(model_dir)
     log(f"loading checkpoint ({fmt}) from {model_dir}")
@@ -280,6 +294,8 @@ def load_pipeline(
 
         apply_lora_files(loras, unet=unet, te1=embedder["clip"],
                          te2=embedder["open_clip"])
+    quantize_unet(unet, bits)
+    quantize_unet(refiner, bits)
     if alphas is None:
         alphas = scaled_linear_alphas_cumprod()
     alphas = torch.as_tensor(alphas, dtype=torch.float32, device=device)

@@ -171,12 +171,13 @@ def load_sd1_pipeline(
     is the caller's (its in_channels and LCM width corrected from the
     weights): as in the reference, a scheduler's prediction_type is not
     read, so SD 2.1-768 needs SD21_768_DIFFUSER. loras: (path, scale) LoRA
-    files merged into the UNet and the tower at load time."""
-    from .loader import _autoencoder, _load_module, _tower
+    files merged into the UNet and the tower at load time;
+    quantize="int8"|"int4" then quantizes the UNet's block linears
+    (io/quantize.py, the UNet rules)."""
+    from ..io.quantize import parse_quantize_spec
+    from .loader import _autoencoder, _load_module, _tower, quantize_unet
 
-    if quantize is not None:
-        raise NotImplementedError("quantized UNet storage is not ported yet "
-                                  "(module 14)")
+    bits = parse_quantize_spec(quantize)
     device = torch.device(device)
     if os.path.isfile(model_dir):
         from ..io.hf_sdxl import load_sd1_single_file
@@ -204,6 +205,7 @@ def load_sd1_pipeline(
         from ..io.lora import apply_lora_files
 
         apply_lora_files(loras, unet=unet, te1=clip)
+    quantize_unet(unet, bits)
     if alphas is None:
         alphas = scaled_linear_alphas_cumprod(diffuser_cfg.n_steps)
     return SD1Pipeline(

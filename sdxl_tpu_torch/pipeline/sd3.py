@@ -17,8 +17,7 @@ StableDiffusion3Pipeline's semantics).
 Noise: ``draw_noise(shape, seed, device)`` gives the initial latent noise
 (txt2img) or the img2img / inpainting noise; JAX and torch draws differ,
 so one seed gives another image than the reference. Per-image seed lists
-(module 16), device_output, quantised storage (module 14) and shard()
-(module 17) are not ported.
+(module 16), device_output and shard() (module 17) are not ported.
 """
 
 from __future__ import annotations
@@ -41,6 +40,7 @@ from ..configs import (
     MMDiTConfig,
     T5Config,
 )
+from ..io.quantize import parse_quantize_spec, quantize_model
 from ..models.clip import CLIPTextModel, clip_hidden_pooled
 from ..models.layers import init_reference_
 from ..models.mmdit import MMDiT
@@ -291,12 +291,11 @@ def load_sd3_pipeline(
     load_t5=False drops the T5 tower (its token block becomes zeros). T5
     weights without tokenizer_3/ fail here unless ``t5_tokenize`` is
     given. loras: (path, scale) files merged into the MMDiT and both
-    towers."""
+    towers. quantize="int8"|"int4" then stores the MMDiT's block linears
+    at those bits and T5's at int8 (io/quantize.py)."""
     from ..io.sd3 import load_sd3_diffusers_dir
 
-    if quantize is not None:
-        raise NotImplementedError("quantized storage is not ported yet "
-                                  "(module 14)")
+    bits = parse_quantize_spec(quantize)
     log(f"loading SD3 diffusers checkpoint from {model_dir}")
     (mmdit, clip_l, clip_g, vae, encoder, t5, t5_tok,
      flow_shift) = load_sd3_diffusers_dir(model_dir, compute_dtype, load_t5,
@@ -311,6 +310,10 @@ def load_sd3_pipeline(
         from ..io.lora import apply_lora_files
 
         apply_lora_files(loras, transformer=mmdit, te1=clip_l, te2=clip_g)
+    if bits is not None:
+        quantize_model(mmdit, bits)
+        if t5 is not None:
+            quantize_model(t5, 8)
     return SD3Pipeline(
         vae=vae, vae_encoder=encoder, scale_factor=SD3_VAE_SCALE,
         shift_factor=SD3_VAE_SHIFT, mmdit=mmdit, clip_l=clip_l,

@@ -596,8 +596,8 @@ def test_cli_bad_sampler_combinations_fail_as_the_reference(
     (["--hires-scale", "2", "--reference-img", "x.png"],
      "--hires-scale is a txt2img feature (no --reference-img / "
      "--use-refiner)"),
-    (["--vae-tile", "96", "--quantize", "int8"],
-     "--quantize is not ported yet (module 14)"),
+    (["--vae-tile", "96", "--tp", "2"],
+     "--tp is not ported yet (module 17)"),
     (["--edit-image", "x.png", "--family", "flux", "--no-cfg"],
      "--no-cfg not supported with --family flux"),
 ], ids=["ip_adapter", "hires_scale", "vae_tile", "edit_image"])

@@ -151,7 +151,8 @@ def test_port_never_imports_jax(tmp_path):
     and a tiny SD 2.x v-prediction pipeline (pipeline/sd1.py) runs euler
     txt2img and DDIM img2img, a tiny SD3 pipeline (T5, SD3.5's qk-norm and
     dual attention) runs txt2img with skip-layer guidance and a tiny FLUX.1
-    pipeline a Kontext edit of that image,
+    pipeline a Kontext edit of that image, then txt2img with its
+    transformer quantized at int4 and T5 at int8 (io/quantize.py),
     with `import jax` and `import sdxl_tpu`
     made to fail: the port keeps its own configs and tokenizer. Nor does
     it import the packages the card lacks (safetensors, msgpack, PIL,
@@ -273,6 +274,11 @@ def test_port_never_imports_jax(tmp_path):
             clip_cfg=clip, vae_cfg=vae16, t5_cfg=t5, t5_tokens=16,
             flux_dtype=torch.float32)
         img = flux.kontext("a cat", img, n_steps=2)
+        assert img.shape == (1, 64, 64, 3), img.shape
+        from sdxl_tpu_torch.io.quantize import quantize_model
+        quantize_model(flux.flux, 4, min_dim=16, group=16)
+        quantize_model(flux.t5, 8, min_dim=16)
+        img = flux.txt2img("a cat", (64, 64), n_steps=2)
         assert img.shape == (1, 64, 64, 3), img.shape
         assert not any(k.split(".")[0] in BLOCKED
                        for k, v in sys.modules.items() if v is not None)
