@@ -19,9 +19,11 @@ Phases (any failure exits non-zero before the result line):
      registers and shared memory printed, and X3's blocks an SM); ptxas'
      "wgmma.mma_async instructions are serialized" message fails the run
      for an X3 instance (whose point is wgmma in flight under the softmax)
-     and is printed for any other; K4's (quant_linear.cu): HMMA in its two
-     bf16 instances (int8, int4), its two f32 (FFMA) instances, no spills
-     in any, registers and shared memory printed;
+     and is printed for any other; K4's (quant_linear.cu): HGMMA and
+     UTMALDG in its four bf16 GEMM instances (int8, int4 at 128 and 256
+     rows of x a block), its split-K sum, its six bf16 GEMV instances
+     (1, 2, 4 rows) and two f32 (FFMA) instances built, no spills in any,
+     registers and shared memory printed;
   3. each kernel against its plain PyTorch version on the card at the
      main paths' shapes (the refiner's [1,12,4096,64] and [1,24,1024,64]
      bf16 and the no-CFG base's [1,10,4096,64] and [1,20,1024,64] among
@@ -54,15 +56,20 @@ Phases (any failure exits non-zero before the result line):
      both dtypes) and the f32 d 64 and 128 routes (and SDPA's forward
      beside the forwards) also inside one CUDA graph of 20 calls, SDPA's
      backward as its kernels' device time (torch.profiler);
-     K4 on its four routes (bf16 x int8 / int4, f32 x int8 / int4)
-     against quant_linear_plain at K4_CASES (FLUX.1's linears at 1024x1024
-     and its M = 1 modulation matvecs, T5-XXL's in f32 at 512 tokens,
-     SDXL's 1280 level, SD3-medium's 1536-wide block, a ragged M of 333
-     and M = 1 on each route), weights quantized on the card, the first
-     output NaN-filled: max abs error within 2e-2 (bf16) / 1e-3 (f32) of
-     max(1, max|y|), relative L2 within 1e-2 / 1e-4; each case timed
-     beside its bound, the plain version and one F.linear on the weight
-     dequantized ahead of time (the yardstick), with the weight bytes;
+     K4 on its six routes (bf16 x int8 / int4 as the GEMM and, at most
+     GEMV_MAX_M rows, the GEMV; f32 x int8 / int4) against
+     quant_linear_plain at K4_CASES (FLUX.1's linears at 1024x1024 and its
+     M = 1 modulation matvecs, T5-XXL's in f32 at 512 tokens, SDXL's 1280
+     level, SD3-medium's 1536-wide block, a ragged M of 333 and M = 1 on
+     each route, the forms' edges at M 2, 4, 5, 16, 17, 64, 154 and 512),
+     weights quantized on the card, the first output (and the split-K
+     workspace) NaN-filled, each call held to one launch of k4_route's
+     kernel: max abs error within 2e-2 (bf16) / 1e-3 (f32) of max(1,
+     max|y|), relative L2 within 1e-2 / 1e-4; each case timed beside its
+     bound, the plain version and one F.linear on the weight dequantized
+     ahead of time (the yardstick), the kernel and F.linear also inside
+     one CUDA graph of 20 calls, with the weight bytes and the GEMM's tile
+     and K split;
   3b. the experiments X1 (every tile), X2 (every mode) and X3 (every
      tile) against their plain versions at [2,10,4096,64] and
      [2,20,1024,64] bf16, timed by `timeit`, `chained_time` and inside one
@@ -244,9 +251,11 @@ Phases (any failure exits non-zero before the result line):
      steps, CFG 7.5. Each model's bytes before and after quantization,
      each request's latency, stage split, memory resident before it and
      peak memory beside the unquantized request's, K1 and K4 launches
-     printed, K4's launches by route held
+     printed, K4's launches by route and form held
      to the code's count (each QuantLinear once a UNet call, the cross
-     k/v once a sampling loop); then one pair call of each with every K4
+     k/v once a sampling loop; the GEMV form where its rows, the batch for
+     the modulation and time-embedding linears, are at most GEMV_MAX_M);
+     then one pair call of each with every K4
      call held to quant_linear_plain on its own input (phase 3's bounds)
      and the whole eps printed against the plain dequant's, SDXL's held
      within 2e-2 relative;
@@ -308,7 +317,13 @@ Phases (any failure exits non-zero before the result line):
      in-memory twin. After the first, --family sd3 --no-t5 --quantize
      int4 from the same directory: the MMDiT loaded bitwise as a copy of
      the in-memory one quantized at int4, its PNG held to that copy's
-     image.
+     image. Then a random T5-XXL at full width and 4 blocks written into
+     that directory as text_encoder_3/ and load_sd3_pipeline(quantize=
+     "int8") onto the card: the transformer and T5 built on the host, each
+     eligible linear quantized on the card alone; the card's peak during
+     the load printed beside the bytes it leaves resident and held within
+     1 GiB of them, the MMDiT and T5 bitwise in-memory copies quantized at
+     int8.
 Each path (phases 4, 5, 5b, 6, 8, 8b, 8c, 8d, 8e, 8f, 9b, 10, each of
 8g's and 9b's module-13 requests and each of 8h's) runs with the launch
 counts (K1-K3's, X1-X3's and K4's) set to 0 just before it and read just
@@ -394,7 +409,7 @@ from sdxl_tpu_torch.pipeline.k_samplers import (
 )
 from sdxl_tpu_torch.models.flux import Flux, flux_forward
 from sdxl_tpu_torch.models.mmdit import MMDiT, mmdit_forward
-from sdxl_tpu_torch.models.t5 import t5_encode
+from sdxl_tpu_torch.models.t5 import T5Encoder, init_t5_, t5_encode
 from sdxl_tpu_torch.pipeline import flow_match as flow_match_mod
 from sdxl_tpu_torch.pipeline import flux as flux_mod
 from sdxl_tpu_torch.pipeline import sd1 as sd1_mod
@@ -462,7 +477,7 @@ KERNELS = {
     # fuses into the matmul at sdxl_tpu/ops/linear.py:30
     **{name: (f"{CSRC}/{quant_mod.SOURCE}",
               f"sdxl_tpu/ops/quant.py:{109 if bits == 8 else 113}")
-       for (_, bits), name in quant_mod.ROUTES.items()},
+       for (_, bits, _), name in quant_mod.ROUTES.items()},
 }
 # (B, H, T, D, dtype, tolerance): K1's shapes on the paths — the bf16 UNet
 # (bench.py:53-66) at levels 2 and 1 at 1024x1024, 832x1216 and the
@@ -603,12 +618,15 @@ HOPPER_SASS = {
         ("X3 (four tiles, pipelined)", FWD + r"Lb0ELi2ELi[2-9]E", 4, 0,
          WGMMA_TMA),
     ]),
-    # K4: the bf16 routes on mma.sync, the f32 routes on FFMA
+    # K4: the bf16 GEMM on wgmma + TMA (NT 128 and 256 rows of x a block)
+    # with its split-K sum, the bf16 GEMV (1, 2 and 4 rows), the f32 routes
+    # on FFMA
     quant_mod.SOURCE: ("quant_linear_smem_bytes", [
-        ("K4 bf16 int8", r"quant_linear_bf16_kernelILb0E", 1, 0,
-         (("HMMA", "HGMMA"),)),
-        ("K4 bf16 int4", r"quant_linear_bf16_kernelILb1E", 1, 1,
-         (("HMMA", "HGMMA"),)),
+        ("K4 bf16 int8 GEMM", r"quant_gemm_bf16ILb0E", 2, 0, WGMMA_TMA),
+        ("K4 bf16 int4 GEMM", r"quant_gemm_bf16ILb1E", 2, 1, WGMMA_TMA),
+        ("K4 bf16 split-K sum", r"quant_splitk_sum", 1, 6, ()),
+        ("K4 bf16 int8 GEMV", r"quant_gemv_bf16ILb0E", 3, 4, ()),
+        ("K4 bf16 int4 GEMV", r"quant_gemv_bf16ILb1E", 3, 5, ()),
         ("K4 f32 int8", r"quant_linear_f32_kernelILb0E", 1, 2, ()),
         ("K4 f32 int4", r"quant_linear_f32_kernelILb1E", 1, 3, ()),
     ]),
@@ -813,9 +831,12 @@ ACTIVITIES = [torch.profiler.ProfilerActivity.CPU,
 # the fused qkv, the GEGLU projection and its output, the cross k/v over
 # 2 x 77 context rows, lin_embed at the pair), SD3-medium's 1536-wide
 # block over a CFG pair of 4429 tokens, and a ragged M (333) and M = 1 on
-# each route. Tolerances: max abs error within K4_TOL of max(1, max|y|)
-# and relative L2 within K4_REL_TOL (bf16: both outputs rounded to bf16,
-# their sums in another order; f32: exact dequant, f32 sums)
+# each route; then the bf16 forms' edges: the GEMV at 2 and GEMV_MAX_M
+# rows (true CFG's modulation pair; the SDXL / SD3 pairs' lin_embed and mod
+# at 2), the GEMM just above it and at 16 / 17 rows (split K), and split K
+# at 64 and 154 rows. Tolerances: max abs error within K4_TOL of max(1,
+# max|y|) and relative L2 within K4_REL_TOL (bf16: both outputs rounded
+# to bf16, their sums in another order; f32: exact dequant, f32 sums)
 BF16, F32 = torch.bfloat16, torch.float32
 K4_CASES = [
     ("FLUX.1 to_q", 4096, 3072, 3072, BF16, 8, True),
@@ -843,11 +864,28 @@ K4_CASES = [
     ("SD3-medium mlp in", 2 * 4429, 1536, 6144, BF16, 8, True),
     *((f"ragged M {m}", m, 3072, 3072, dt, bits, True)
       for m in (333, 1) for dt in (BF16, F32) for bits in (8, 4)),
+    ("FLUX.1 double mod, true CFG", 2, 3072, 18432, BF16, 8, True),
+    (f"FLUX.1 double mod M={quant_mod.GEMV_MAX_M}", quant_mod.GEMV_MAX_M,
+     3072, 18432, BF16, 8, True),
+    (f"FLUX.1 double mod M={quant_mod.GEMV_MAX_M + 1}",
+     quant_mod.GEMV_MAX_M + 1, 3072, 18432, BF16, 8, True),
+    ("FLUX.1 single mod M=16", 16, 3072, 9216, BF16, 8, True),
+    ("FLUX.1 single mod M=17", 17, 3072, 9216, BF16, 8, True),
+    ("GEMV int4 M=2", 2, 15360, 3072, BF16, 4, True),
+    ("split K int4 M=64", 64, 3072, 3072, BF16, 4, True),
+    ("SDXL cross k int4", 154, 2048, 1280, BF16, 4, False),
+    ("FLUX.1 context to_q int4", 512, 3072, 3072, BF16, 4, True),
+    # a half row of 96 bytes (groups of 32): the GEMM's last stage half
+    # full, an output tile of 96 channels
+    ("ragged K/2 int4", 40, 192, 96, BF16, 4, True),
+    ("ragged K/2 int4 GEMV", 3, 192, 96, BF16, 4, True),
 ]
 K4_TOL = {BF16: (2e-2, 1e-2), F32: (1e-3, 1e-4)}
 # the case each route's recorded time is taken at
 K4_TIMED = {"sdxl_quant_linear_bf16_int8": "FLUX.1 single proj_out",
             "sdxl_quant_linear_bf16_int4": "FLUX.1 single proj_out int4",
+            "sdxl_quant_linear_bf16_int8_gemv": "FLUX.1 double mod",
+            "sdxl_quant_linear_bf16_int4_gemv": "ragged M 1",
             "sdxl_quant_linear_f32_int8": "T5-XXL wi_0",
             "sdxl_quant_linear_f32_int4":
                 "T5-XXL wi_0 int4 (--f32 --quantize int4)"}
@@ -859,14 +897,31 @@ PEAKS = {}
 # T5 parked on the host: t5_offload) and its weights' seed
 M14_SDXL_RES, M14_SDXL_STEPS = (1024, 1024), 30
 M14_INT4_STEPS, M14_INT4_SEED = 8, 36
+# phase 9b's quantized load with T5: T5-XXL at full width and this depth
+# (its weights' seed) in the SD3-medium directory, and how far the card's
+# peak during the load may pass the bytes the load leaves resident (one
+# linear's staging: FLUX.1's largest, proj_out, is 94 MB in bf16 and its
+# quantizer's f32 temporaries 189 MB each)
+M14_LOAD_T5_LAYERS, M14_LOAD_T5_SEED = 4, 37
+M14_LOAD_SLACK = 1 << 30
 # the UNets' cross-attention k and v: once a sampling loop
 # (precompute_cross_kv), not once a UNet call
 K4_KV = (".attn2.k", ".attn2.v")
-K4_ROUTE_DTYPE = {name: dtype for (dtype, _), name in
+K4_ROUTE_DTYPE = {name: dtype for (dtype, _, _), name in
                   quant_mod.ROUTES.items()}
 BF16_INT8, BF16_INT4, F32_INT8, F32_INT4 = (
-    quant_mod.ROUTES[BF16, 8], quant_mod.ROUTES[BF16, 4],
-    quant_mod.ROUTES[F32, 8], quant_mod.ROUTES[F32, 4])
+    quant_mod.ROUTES[BF16, 8, "gemm"], quant_mod.ROUTES[BF16, 4, "gemm"],
+    quant_mod.ROUTES[F32, 8, "gemm"], quant_mod.ROUTES[F32, 4, "gemm"])
+BF16_INT8_GEMV = quant_mod.ROUTES[BF16, 8, "gemv"]
+# the linears whose input rows are a model call's batch (the modulation
+# and time-embedding projections, kept at int8: io/quantize.py
+# DEFAULT_KEEP8, UNET_KEEP8); every other quantized linear takes the
+# call's tokens
+K4_BATCH_ROWS = ("mod", "lin_embed")
+# a floor of the tokens a batch item gives the other quantized linears on
+# the paths (77 context tokens at the least, 256 latent tokens at the
+# UNets' quantized levels): only whether the rows pass GEMV_MAX_M counts
+K4_MIN_TOKENS = 64
 
 
 def fail(msg: str) -> None:
@@ -1139,25 +1194,39 @@ def k4_bound(m: int, k: int, n: int, dtype, p: dict, bias: bool) -> tuple:
 
 @torch.inference_mode()
 def check_k4(results) -> None:
-    """K4 on its four routes against quant_linear_plain at K4_CASES, the
-    weight a random normal one quantized on the card as the loaders do,
-    the first call's output allocated NaN-filled; each case timed (CUDA
+    """K4 on its six routes (bf16 in both forms) against quant_linear_plain
+    at K4_CASES, the weight a random normal one quantized on the card as
+    the loaders do, the first call's output allocated NaN-filled, and the
+    call held to launch k4_route's kernel once; each case timed (CUDA
     events) beside its bound, the plain version and the yardstick, one
     F.linear on the weight dequantized ahead of time (the unquantized
     model's cost; the port never calls it), with the weight bytes the
-    kernel reads."""
+    kernel reads and, for the bf16 GEMM, k4_gemm_plan's tile and split;
+    the kernel and F.linear also inside one CUDA graph of 20 calls."""
     print("K4 (quantized linear) against its plain version:", flush=True)
+    allocated = torch.cuda.memory_allocated()
     for label, m, k, n, dtype, bits, has_bias in K4_CASES:
         g = torch.Generator(device="cuda").manual_seed(m * 7 + k + n + bits)
         x = torch.randn((m, k), generator=g, device="cuda").to(dtype)
         w = torch.randn((n, k), generator=g, device="cuda") * 0.02
-        p = quant_mod.quantize_weight(w, bits)
+        # int4 groups of 64 where they divide K/2, else of 32
+        group = (quant_mod.INT4_GROUP if (k // 2) % quant_mod.INT4_GROUP == 0
+                 else quant_mod.GROUP_MULTIPLE)
+        p = quant_mod.quantize_weight(w, bits, group)
         b = (torch.randn((n,), generator=g, device="cuda").to(dtype)
              if has_bias else None)
         del w
-        name = quant_mod.ROUTES[dtype, bits]
+        name = quant_mod.k4_route(m, dtype, bits)
+        before = dict(quant_mod.launch_counts)
         with nan_filled_empty():
             out = quant_mod.quant_linear(x, p, b)
+        launched = {r: v - before[r]
+                    for r, v in quant_mod.launch_counts.items()
+                    if v != before[r]}
+        if launched != {name: 1}:
+            fail(f"K4 at {label} launched {launched}, not {name} once")
+        plan = ((quant_mod.k4_gemm_plan(m, n, k, bits),)
+                if name in (BF16_INT8, BF16_INT4) else ())
         ref = quant_mod.quant_linear_plain(x, p, b)
         torch.cuda.synchronize()
         err, rel, ref_max = readings(out, ref)
@@ -1168,13 +1237,20 @@ def check_k4(results) -> None:
         plain_ms = cuda_ms(lambda: quant_mod.quant_linear_plain(x, p, b),
                            K4_ITERS)
         lib_ms = cuda_ms(lambda: F.linear(x, w_deq, b), K4_ITERS)
+        # the device's time, without the wrappers' host time, which an
+        # eager loop of calls of tens of microseconds measures instead
+        graph = (graph_ms(lambda: quant_mod.quant_linear(x, p, b)),
+                 graph_ms(lambda: F.linear(x, w_deq, b)))
         bound_ms, bound_by = k4_bound(m, k, n, dtype, p, has_bias)
         print(f"  {name} {label} [M={m}, K={k}, N={n}] "
+              + "".join(f"(nt, splits)={q} " for q in plan) +
               f"weight_bytes={quant_mod.weight_bytes(p)} max_abs_err="
               f"{err:.3e} (limit {limit:.3e}) rel_l2={rel:.3e} (limit "
               f"{rel_tol:g}) kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} bound_ms={bound_ms:.4f} "
-              f"({bound_by}) share_of_bound={bound_ms / ms:.3f}", flush=True)
+              f"library_ms={lib_ms:.4f} graph: kernel_ms={graph[0]:.4f} "
+              f"library_ms={graph[1]:.4f}; bound_ms={bound_ms:.4f} "
+              f"({bound_by}) share_of_bound={bound_ms / ms:.3f} (graph "
+              f"{bound_ms / graph[0]:.3f})", flush=True)
         if not (bool(torch.isfinite(out).all()) and err <= limit
                 and rel <= rel_tol):
             fail(f"K4 {name} at {label} disagrees with its plain version")
@@ -1182,9 +1258,17 @@ def check_k4(results) -> None:
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if K4_TIMED[name] == label:
             r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                     bound_ms=bound_ms, bound_by=bound_by)
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     graph_ms=graph[0], library_graph_ms=graph[1])
         del x, p, b, out, ref, w_deq
+    # each graph timing's side stream left a cuBLAS workspace allocated;
+    # later phases read the card's resident and peak memory
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
     torch.cuda.empty_cache()
+    print(f"K4 cases: {torch.cuda.memory_allocated() - allocated} bytes "
+          f"left allocated", flush=True)
 
 
 def experiment_kernels():
@@ -2747,7 +2831,8 @@ def checkpoint_cli_phase(pipe, total, p_lcm, m11, m12) -> None:
         out_q = os.path.join(CKPT_DIR, "out", "quantized")
         cli_request("the sample CLI --quantize int8 request",
                     argv[:-1] + [out_q, "--quantize", "int8"],
-                    UNET_LAUNCHES_1024, 1, want_pipe=q, k4=[BF16_INT8])
+                    UNET_LAUNCHES_1024, 1, want_pipe=q,
+                    k4=[BF16_INT8, BF16_INT8_GEMV])
         check_png("the CLI's --quantize int8 image", out_q + "0.png",
                   q.txt2img(PROMPT, resolution=(1024, 1024), n_steps=30,
                             guidance_scale=7.5, seed=0)[0])
@@ -3501,6 +3586,88 @@ def write_sd3_dir(out_dir: str, pipe) -> int:
                for r, _, fs in os.walk(out_dir) for f in fs)
 
 
+def write_t5_dir(out_dir: str, t5) -> int:
+    """A transformers T5EncoderModel directory of `t5` (an SD3
+    directory's text_encoder_3/): returns its bytes."""
+    c = t5.cfg
+    flat = {"shared.weight": t5.embed,
+            "encoder.final_layer_norm.weight": t5.final_ln,
+            "encoder.block.0.layer.0.SelfAttention.relative_attention_bias"
+            ".weight": t5.relative_attention_bias}
+    for i, b in enumerate(t5.blocks):
+        pre = f"encoder.block.{i}.layer"
+        flat[f"{pre}.0.layer_norm.weight"] = b.ln1
+        flat[f"{pre}.1.layer_norm.weight"] = b.ln2
+        for nm in ("q", "k", "v", "o"):
+            flat[f"{pre}.0.SelfAttention.{nm}.weight"] = getattr(
+                b.attn, nm).weight
+        for nm in ("wi_0", "wi_1", "wo"):
+            flat[f"{pre}.1.DenseReluDense.{nm}.weight"] = getattr(
+                b.ffn, nm).weight
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "model.safetensors")
+    save_file(flat, path)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump({"architectures": ["T5EncoderModel"],
+                   "vocab_size": c.vocab_size, "d_model": c.d_model,
+                   "d_kv": c.d_kv, "d_ff": c.d_ff, "num_heads": c.n_heads,
+                   "num_layers": c.n_layers,
+                   "relative_attention_num_buckets": c.relative_buckets,
+                   "relative_attention_max_distance":
+                       c.relative_max_distance}, f)
+    return os.path.getsize(path)
+
+
+@torch.inference_mode()
+def quantized_load_with_t5(d: str, sd3) -> None:
+    """Phase 9b's quantized load with T5: T5-XXL at full width and
+    M14_LOAD_T5_LAYERS blocks (bf16) written into the SD3-medium directory
+    `d` as text_encoder_3/, then load_sd3_pipeline(quantize="int8") onto
+    the card: the card's peak during the load (over what was allocated
+    before it) printed beside the bytes the load leaves resident, and held
+    within M14_LOAD_SLACK of them; the MMDiT and T5 bitwise equal to
+    in-memory copies quantized by quantize_model at int8."""
+    cfg = dataclasses.replace(T5_XXL_CONFIG, n_layers=M14_LOAD_T5_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(M14_LOAD_T5_SEED)
+    t5 = init_t5_(T5Encoder(cfg, "meta", BF16).to_empty(device="cuda"), g)
+    t0 = time.perf_counter()
+    written = write_t5_dir(os.path.join(d, "text_encoder_3"), t5)
+    print(f"T5-XXL at {cfg.n_layers} blocks (bf16) written as "
+          f"text_encoder_3/: {written} bytes in "
+          f"{time.perf_counter() - t0:.3f}s", flush=True)
+    want = [("mmdit", quantize_model(copy.deepcopy(sd3.mmdit), 8)),
+            ("t5", quantize_model(t5, 8))]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loaded = sd3_mod.load_sd3_pipeline(
+        d, t5_tokenize=flow_match_mod.stub_t5_tokenizer(
+            sd3_mod.SD3_T5_TOKENS, cfg.vocab_size),
+        quantize="int8", device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    resident = torch.cuda.memory_allocated() - before
+    print(f"load_sd3_pipeline(quantize='int8') with T5 (disk -> card): "
+          f"{load_s:.3f}s; the card's peak during the load {peak} bytes "
+          f"({peak / 2**30:.3f} GiB) against {resident} bytes "
+          f"({resident / 2**30:.3f} GiB) resident after it (MMDiT "
+          f"{quantized_stats(loaded.mmdit)}; T5 "
+          f"{quantized_stats(loaded.t5)}); limit resident + "
+          f"{M14_LOAD_SLACK} bytes", flush=True)
+    if peak > resident + M14_LOAD_SLACK:
+        fail(f"the quantized load's peak {peak} bytes passes the resident "
+             f"{resident} + {M14_LOAD_SLACK}")
+    check_same_modules("the quantized load with T5 (int8)", [
+        (name, m, getattr(loaded, name)) for name, m in want])
+    del loaded, want, t5
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def check_same_modules(label: str, pairs) -> None:
     """Each (name, in-memory module, loaded module): every tensor bitwise
     equal, dtype included."""
@@ -3632,8 +3799,8 @@ def module13_cli_phase(total, m13) -> None:
         try:
             rc = run_path("the sample CLI --family sd3 --no-t5 --quantize "
                           "int4 request", lambda: sample_cli.main(argv_q),
-                          ["sdxl_flash_attention_bf16", F32_D512, BF16_INT8,
-                           BF16_INT4], total)
+                          ["sdxl_flash_attention_bf16", F32_D512, BF16_INT4,
+                           BF16_INT8_GEMV], total)
         finally:
             sd3_mod.load_sd3_pipeline = real_load
         if rc != 0:
@@ -3649,6 +3816,9 @@ def module13_cli_phase(total, m13) -> None:
         check_png("the CLI's --family sd3 --no-t5 --quantize int4 image",
                   out_q + "0.png", q.txt2img(PROMPT, M13_RES, **kw)[0])
         del q, mmdit_q
+        gc.collect()
+        torch.cuda.empty_cache()
+        quantized_load_with_t5(d, sd3)
         m13["sd3"].clear()
         gc.collect()
         torch.cuda.empty_cache()
@@ -3688,11 +3858,11 @@ def module13_cli_phase(total, m13) -> None:
 
 @contextlib.contextmanager
 def counting_model_calls():
-    """Inside, the calls the quantized paths make are counted by model:
-    calls[id(model), "call"] for the samplers' UNet evaluations, the
-    flow-matching loops' transformer calls and the T5 encodes, and
-    calls[id(model), "kv"] for the samplers' cross-attention k/v
-    precomputes."""
+    """Inside, the calls the quantized paths make are counted by model
+    and batch: calls[id(model), "call", batch] for the samplers' UNet
+    evaluations, the flow-matching loops' transformer calls and the T5
+    encodes, and calls[id(model), "kv", batch] for the samplers'
+    cross-attention k/v precomputes (the batch: the first input's rows)."""
     calls = Counter()
     targets = [(sampler_mod, "unet_forward", "call"),
                (sampler_mod, "precompute_cross_kv", "kv"),
@@ -3703,9 +3873,9 @@ def counting_model_calls():
     real = [getattr(mod, name) for mod, name, _ in targets]
 
     def counted(fn, kind):
-        def call(model, *args, **kw):
-            calls[id(model), kind] += 1
-            return fn(model, *args, **kw)
+        def call(model, x, *args, **kw):
+            calls[id(model), kind, x.shape[0]] += 1
+            return fn(model, x, *args, **kw)
         return call
 
     for (mod, name, kind), fn in zip(targets, real):
@@ -3718,18 +3888,25 @@ def counting_model_calls():
 
 
 def k4_expected(models, calls) -> dict:
-    """K4's launches by route that `calls` (counting_model_calls) give:
-    each QuantLinear that quantize_model put in a model once a call of the
-    model, the UNets' cross-attention k and v once a precompute; the route
-    from the model's dtype and the linear's bits."""
+    """K4's launches by route and form that `calls` (counting_model_calls)
+    give: each QuantLinear that quantize_model put in a model once a call
+    of the model, the UNets' cross-attention k and v once a precompute;
+    the route from the model's dtype, the linear's bits and k4_form's
+    choice from its input rows: the call's batch for K4_BATCH_ROWS's
+    linears, the batch times its tokens (at least K4_MIN_TOKENS) for
+    every other."""
     want = Counter()
     for model in models:
         dtype = next(model.parameters()).dtype
         for name, m in model.named_modules():
-            if isinstance(m, QuantLinear):
-                kind = "kv" if name.endswith(K4_KV) else "call"
-                want[quant_mod.ROUTES[dtype, m.bits]] += calls[id(model),
-                                                               kind]
+            if not isinstance(m, QuantLinear):
+                continue
+            kind = "kv" if name.endswith(K4_KV) else "call"
+            per_batch = name.rsplit(".", 1)[-1] in K4_BATCH_ROWS
+            for (mid, k, batch), n in calls.items():
+                if mid == id(model) and k == kind:
+                    rows = batch if per_batch else batch * K4_MIN_TOKENS
+                    want[quant_mod.k4_route(rows, dtype, m.bits)] += n
     return {k: n for k, n in want.items() if n}
 
 
@@ -3821,7 +3998,8 @@ def hold_k4(label: str, call, whole_tol=None) -> None:
         out = quant_mod.quant_linear(x, p, bias)
         err, rel, ref_max = readings(
             out, quant_mod.quant_linear_plain(x, p, bias))
-        w = worst[quant_mod.ROUTES[x.dtype, quant_mod.weight_bits(p)]]
+        w = worst[quant_mod.k4_route(x.numel() // x.shape[-1], x.dtype,
+                                     quant_mod.weight_bits(p))]
         w[0], w[1] = max(w[0], err / max(1.0, ref_max)), max(w[1], rel)
         w[2] += 1
         return out
@@ -3883,7 +4061,7 @@ def module14_unet_phase(pipe, m12, total) -> None:
         lambda: sd1.txt2img(PROMPT, SD1_RES, seed=70, n_steps=M12_STEPS,
                             guidance_scale=7.5), [sd1.unet],
         f"SD 1.5 DDIM {M12_STEPS} steps {SD1_RES}", SD1_RES),
-        [F32_D512, BF16_INT8, BF16_INT4], total)
+        [F32_D512, BF16_INT4, BF16_INT8_GEMV], total)
     hold_k4(f"SD 1.5 int4 pair call B=2 at t=999 {SD1_RES}",
             unet_pair_call(sd1, sd1.unet, SD1_RES))
     del sd1
@@ -3909,7 +4087,8 @@ def module14_unet_phase(pipe, m12, total) -> None:
         lambda: q.txt2img(PROMPT, res, seed=5, use_refiner=True, n_steps=n,
                           guidance_scale=7.5), [base, refiner],
         "base + refiner", res),
-        ["sdxl_flash_attention_bf16", F32_D512, BF16_INT8], total)
+        ["sdxl_flash_attention_bf16", F32_D512, BF16_INT8, BF16_INT8_GEMV],
+        total)
     hold_k4(f"SDXL int8 base pair call B=2 at t=999 {res}",
             unet_pair_call(q, base, res), UNET_REL_TOL)
     del q, base, refiner
@@ -3937,7 +4116,8 @@ def module14_sd3(sd3, total) -> None:
                           guidance_scale=SD3_GS,
                           negative_prompt=M13_NEGATIVE), [mmdit, q.t5],
         f"SD3-medium txt2img CFG {SD3_GS} {n} steps (T5-XXL f32)", M13_RES),
-        ["sdxl_flash_attention_bf16", F32_D512, BF16_INT8, F32_INT8], total)
+        ["sdxl_flash_attention_bf16", F32_D512, BF16_INT8, BF16_INT8_GEMV,
+         F32_INT8], total)
     dev = q.device
     with torch.inference_mode():
         ctx, pooled = q.conditioning(PROMPT, M13_NEGATIVE)
@@ -4004,7 +4184,8 @@ def module14_flux(flux, total) -> None:
         f"{n} steps", lambda: flux.txt2img(PROMPT, M13_RES, seed=90,
                                            n_steps=n, guidance_scale=FLUX_GS),
         [flux.flux, flux.t5], f"FLUX.1-dev txt2img guidance {FLUX_GS} {n} "
-        f"steps", M13_RES), bf16 + [BF16_INT8, F32_INT8], total)
+        f"steps", M13_RES), bf16 + [BF16_INT8, BF16_INT8_GEMV, F32_INT8],
+        total)
     dev = flux.device
     with torch.inference_mode():
         ctx, pooled = flux.conditioning(PROMPT)
@@ -4056,7 +4237,8 @@ def module14_flux(flux, total) -> None:
                  lambda: flux.txt2img(PROMPT, M13_RES, seed=98, n_steps=m,
                                       guidance_scale=FLUX_GS),
                  [f4, flux.t5], f"FLUX.1-dev txt2img guidance {FLUX_GS} {n} "
-                 f"steps", M13_RES), bf16 + [BF16_INT8, BF16_INT4, F32_INT8],
+                 f"steps", M13_RES), bf16 + [BF16_INT4, BF16_INT8_GEMV,
+                                             F32_INT8],
              total)
     hold_k4(f"FLUX.1-dev int4 call at t={float(t)!r}", call)
     flux.t5.to(dev)

@@ -118,11 +118,15 @@ def build_flux_from_diffusers(tensors: Dict[str, torch.Tensor],
 
 
 def load_flux_diffusers_dir(model_dir: str, dtype=torch.bfloat16,
-                            t5_tokenize=None, device="cpu"):
+                            t5_tokenize=None, device="cpu",
+                            towers_device=None):
     """Returns (flux, clip, t5, t5_tokenize, vae, vae_encoder,
-    scheduler_config): the transformer and T5 in ``dtype``, CLIP-L and the
-    VAE in f32, on ``device``. ``t5_tokenize`` (list[str] -> [B, n] int32
-    ids) stands in for tokenizer_2/."""
+    scheduler_config): the transformer and T5 in ``dtype`` on
+    ``towers_device`` (default ``device``; the quantizing loader builds
+    them on the host), CLIP-L and the VAE in f32 on ``device``.
+    ``t5_tokenize`` (list[str] -> [B, n] int32 ids) stands in for
+    tokenizer_2/."""
+    towers_device = device if towers_device is None else towers_device
     from ..models.flux import Flux
     from ..pipeline.loader import _load_module
 
@@ -131,7 +135,7 @@ def load_flux_diffusers_dir(model_dir: str, dtype=torch.bfloat16,
     cfg = flux_config_from_dir(tdir, tensors)
     flux = _load_module(Flux(cfg, "meta", dtype),
                         build_flux_from_diffusers(tensors, cfg, dtype),
-                        tdir, device)
+                        tdir, towers_device)
     del tensors
     _, clip = load_clip_dir(os.path.join(model_dir, "text_encoder"), 12,
                             device)
@@ -143,7 +147,7 @@ def load_flux_diffusers_dir(model_dir: str, dtype=torch.bfloat16,
             f"{model_dir}: text_encoder_2/ (T5) is required for the Flux "
             "family (it is the ONLY token stream — there is no drop-T5 "
             "mode like SD3's)")
-    _, t5 = load_t5_dir(t5_dir, dtype, device)
+    _, t5 = load_t5_dir(t5_dir, dtype, towers_device)
     if t5_tokenize is None:
         tok_dir = os.path.join(model_dir, "tokenizer_2")
         if not os.path.isdir(tok_dir):

@@ -18,7 +18,13 @@ which mirror the reference's tree paths:
   falls back to int8.
 
 Each full-precision weight is freed as its replacement is made, so the
-peak is the model plus one linear. On a meta-device model the walk gives
+peak is the model plus one linear. Given a target ``device``, each
+eligible weight is staged there alone and quantized there, so that a
+model built on the host reaches the card quantized: the card holds one
+full-precision linear at a time (the loaders of the transformer
+families load this way, as the reference's ``host=True`` loads do).
+``quantized_bytes`` gives a model's bytes after quantization without
+quantizing it. On a meta-device model the walk gives
 the quantized layout alone; ``random_quantized_like`` materialises that
 with random quantized weights, never allocating the eligible linears'
 full-precision ones.
@@ -34,6 +40,7 @@ from torch import nn
 from ..models.layers import QuantLinear
 from ..ops.quant import INT4_GROUP, quantize_weight
 from ..utils import log
+from ..utils.memory import param_bytes
 
 # path segments under which linears are quantized, by model family
 DEFAULT_WITHIN = ("blocks", "single_blocks")
@@ -84,17 +91,24 @@ def eligible_linears(module: nn.Module, bits: int,
     return out
 
 
+def _stage(w: torch.Tensor, device) -> torch.Tensor:
+    """One full-precision weight moved to the device it is quantized on."""
+    return w.to(device)
+
+
 @torch.no_grad()
 def quantize_model(module: nn.Module, bits: int = 8,
                    min_dim: Optional[int] = None,
                    group: Optional[int] = None,
                    within: Sequence[str] = DEFAULT_WITHIN,
-                   keep8: Sequence[str] = DEFAULT_KEEP8) -> nn.Module:
+                   keep8: Sequence[str] = DEFAULT_KEEP8,
+                   device=None) -> nn.Module:
     """Replace ``module``'s eligible linears with ``QuantLinear``s in
-    place, each quantized from its weight on the weight's device, the
-    weight freed as it goes (the bias and any LoRA pair carried over).
-    Logs the reference's stats line (the quantized weights' bytes before
-    and after). Returns ``module``."""
+    place, each quantized from its weight on ``device`` (default: the
+    weight's own), staged there alone and freed as it goes; the quantized
+    buffers stay on that device, the bias and any LoRA pair are carried
+    over where they are. Logs the reference's stats line (the quantized
+    weights' bytes before and after). Returns ``module``."""
     group = GROUP if group is None else group
     plan = eligible_linears(module, bits, min_dim, group, within, keep8)
     orig = qbytes = 0
@@ -102,18 +116,31 @@ def quantize_model(module: nn.Module, bits: int = 8,
         lin = module.get_submodule(name)
         q = QuantLinear(lin.in_features, lin.out_features, b, bias=False,
                         group=group, device="meta")
-        for key, t in quantize_weight(lin.weight, b, group).items():
+        w = lin.weight if device is None else _stage(lin.weight, device)
+        for key, t in quantize_weight(w, b, group).items():
             setattr(q, key, t)
             qbytes += t.numel() * t.element_size()
-        orig += lin.weight.numel() * lin.weight.element_size()
+        orig += w.numel() * w.element_size()
         q.bias, q.lora = lin.bias, getattr(lin, "lora", None)
         parent, _, leaf = name.rpartition(".")
         setattr(module.get_submodule(parent), leaf, q.train(lin.training))
-        del lin
+        del lin, w
     if plan:
         log(f"quantized {len(plan)} linears (int{bits}, mods>=int8): "
             f"{orig / 2**30:.2f} GiB -> {qbytes / 2**30:.2f} GiB")
     return module
+
+
+def quantized_bytes(module: nn.Module, bits: int) -> int:
+    """``param_bytes`` of ``module`` once ``quantize_model(module, bits)``
+    has run, computed from the shapes alone."""
+    total = param_bytes(module)
+    for name, b in eligible_linears(module, bits).items():
+        w = module.get_submodule(name).weight
+        total -= w.numel() * w.element_size()
+        total += sum(t.numel() * t.element_size() for t in quantize_weight(
+            w.to("meta"), b, GROUP).values())
+    return total
 
 
 @torch.no_grad()

@@ -288,11 +288,14 @@ def load_t5_dir(t5_dir: str, dtype, device):
 
 
 def load_sd3_diffusers_dir(model_dir: str, dtype=torch.bfloat16,
-                           load_t5: bool = True, device="cpu"):
+                           load_t5: bool = True, device="cpu",
+                           towers_device=None):
     """Returns (mmdit, clip_l, clip_g, vae, vae_encoder, t5 | None,
-    t5_tokenize | None, flow_shift): the MMDiT and T5 in ``dtype``, the
-    towers and the VAE in f32, all on ``device``, each with its config as
-    ``.cfg``."""
+    t5_tokenize | None, flow_shift): the MMDiT and T5 in ``dtype`` on
+    ``towers_device`` (default ``device``; the quantizing loader builds
+    them on the host), the CLIP towers and the VAE in f32 on ``device``,
+    each with its config as ``.cfg``."""
+    towers_device = device if towers_device is None else towers_device
     from ..models.mmdit import MMDiT
     from ..pipeline.loader import _load_module
     from ..pipeline.sd3 import SD3_T5_TOKENS
@@ -302,7 +305,7 @@ def load_sd3_diffusers_dir(model_dir: str, dtype=torch.bfloat16,
     cfg = mmdit_config_from_dir(tdir, tensors)
     mmdit = _load_module(MMDiT(cfg, "meta", dtype),
                          build_mmdit_from_diffusers(tensors, cfg, dtype),
-                         tdir, device)
+                         tdir, towers_device)
     del tensors
     _, clip_l = load_clip_dir(os.path.join(model_dir, "text_encoder"), 12,
                               device)
@@ -314,7 +317,7 @@ def load_sd3_diffusers_dir(model_dir: str, dtype=torch.bfloat16,
     t5_dir = os.path.join(model_dir, "text_encoder_3")
     if load_t5 and os.path.isdir(t5_dir) and glob.glob(
             os.path.join(t5_dir, "*.safetensors")):
-        _, t5 = load_t5_dir(t5_dir, dtype, device)
+        _, t5 = load_t5_dir(t5_dir, dtype, towers_device)
         tok_dir = os.path.join(model_dir, "tokenizer_3")
         if os.path.isdir(tok_dir):
             t5_tok = hf_t5_tokenizer(tok_dir, SD3_T5_TOKENS)

@@ -24,15 +24,18 @@ same tensors as buffers). The quantizers work on any device.
 kernel and what bounds it): y = x · dequant(W)ᵀ + b without the
 dequantized weight in device memory. On a CPU tensor it runs the plain
 version, ``quant_linear_plain`` (F.linear on ``dequant_weight_plain``);
-on a CUDA tensor it launches the kernel or raises. Routes: (x dtype,
-bits) in {bf16, f32} x {8, 4}.
+on a CUDA tensor it launches a kernel or raises. Routes: (x dtype, bits,
+form) — bf16 x {8, 4} in two forms, ``k4_form``'s choice from the rows:
+a wgmma + TMA GEMM ("gemm", its tile and K split from ``k4_gemm_plan``)
+and, for at most ``GEMV_MAX_M`` rows, a byte-bound GEMV ("gemv"); f32 x
+{8, 4} on one tiled kernel ("gemm").
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -42,15 +45,33 @@ from . import flash_attention as fa
 INT4_GROUP = 64  # default input rows per int4 scale group
 
 SOURCE = "quant_linear.cu"
-# (x dtype, bits) -> exported C function
+# (x dtype, bits, form) -> exported C function
 ROUTES = {
-    (torch.bfloat16, 8): "sdxl_quant_linear_bf16_int8",
-    (torch.bfloat16, 4): "sdxl_quant_linear_bf16_int4",
-    (torch.float32, 8): "sdxl_quant_linear_f32_int8",
-    (torch.float32, 4): "sdxl_quant_linear_f32_int4",
+    (torch.bfloat16, 8, "gemm"): "sdxl_quant_linear_bf16_int8",
+    (torch.bfloat16, 4, "gemm"): "sdxl_quant_linear_bf16_int4",
+    (torch.bfloat16, 8, "gemv"): "sdxl_quant_linear_bf16_int8_gemv",
+    (torch.bfloat16, 4, "gemv"): "sdxl_quant_linear_bf16_int4_gemv",
+    (torch.float32, 8, "gemm"): "sdxl_quant_linear_f32_int8",
+    (torch.float32, 4, "gemm"): "sdxl_quant_linear_f32_int4",
 }
+# the bf16 GEMMs take a workspace and their tile and split besides
+_GEMM_ROUTES = frozenset(ROUTES[torch.bfloat16, b, "gemm"] for b in (8, 4))
 # the kernel's K step and the int4 scale groups it takes (csrc note)
 K_MULTIPLE, N_MULTIPLE, GROUP_MULTIPLE = 64, 8, 32
+# bf16 rows up to which the GEMV form runs: on an H100 the GEMV beats the
+# GEMM at FLUX.1's double-block modulation up to 4 rows, by less at each
+# row (scripts/time_k4.py; PERF.md)
+GEMV_MAX_M = 4
+# the GEMM: output channels and weight bytes of a block's tile and stage,
+# its tiles' rows of x, the most K splits, and the time model that picks
+# them, fitted to H100 readings (scripts/time_k4.py; PERF.md): us a stage
+# by (bits, rows), us a block's fill and epilogue by rows, the split sum's
+# launch and its bytes' rate
+GEMM_CHANNELS, GEMM_BK, GEMM_TILES, GEMM_MAX_SPLITS = 128, 64, (128, 256), 16
+_STAGE_US = {(8, 128): 0.51, (8, 256): 0.72, (4, 128): 1.7, (4, 256): 2.1}
+_BLOCK_US = {128: 3.8, 256: 6.0}
+_SUM_US, _BYTES_PER_US = 2.0, 3.0e6
+H100_SMS = 132
 
 # Launches of each route since the last reset_launch_counts(); the wrapper
 # adds one exactly where it launches the kernel.
@@ -189,25 +210,84 @@ def kernel_takes(d_in: int, d_out: int, bits: int,
     return ok
 
 
+def k4_form(m: int, dtype: torch.dtype, bits: int) -> str:
+    """The kernel form K4 runs for ``m`` rows of x: "gemv" for bf16 at up
+    to GEMV_MAX_M rows, else "gemm" (f32 has the one form). ``bits`` is
+    part of the route, not of the choice."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    return "gemv" if dtype == torch.bfloat16 and m <= GEMV_MAX_M else "gemm"
+
+
+def k4_route(m: int, dtype: torch.dtype, bits: int) -> str:
+    """The exported kernel K4 launches for ``m`` rows of x at (dtype,
+    bits)."""
+    return ROUTES[dtype, bits, k4_form(m, dtype, bits)]
+
+
+@functools.lru_cache(maxsize=4096)
+def k4_gemm_plan(m: int, n: int, k: int, bits: int,
+                 sms: int = H100_SMS) -> Tuple[int, int]:
+    """(rows of x a block, K splits) of the bf16 GEMM at [m, k -> n]: the
+    pair of least modelled time, waves of blocks over ``sms`` SMs times a
+    block's stages and its fill, plus the split sum where K is split
+    (only where the output has fewer tiles than SMs)."""
+    stages = -(-(k if bits == 8 else k // 2) // GEMM_BK)
+    channel_tiles = -(-n // GEMM_CHANNELS)
+    best = None
+    for nt in GEMM_TILES:
+        tiles = channel_tiles * -(-m // nt)
+        stage_us, block_us = _STAGE_US[bits, nt], _BLOCK_US[nt]
+        # K is split only where the output has fewer tiles than SMs
+        most = min(stages, GEMM_MAX_SPLITS) if tiles < sms else 1
+        for splits in range(1, most + 1):
+            per = -(-stages // splits)
+            if -(-stages // per) != splits:
+                continue  # an empty split
+            us = -(-tiles * splits // sms) * (per * stage_us + block_us)
+            if splits > 1:
+                us += _SUM_US + 8 * splits * m * n / _BYTES_PER_US
+            if best is None or us < best[0]:
+                best = (us, nt, splits)
+    return best[1], best[2]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: Optional[int]) -> int:
+    return torch.cuda.get_device_properties(
+        torch.device("cuda", index)).multi_processor_count
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = fa.load_library(SOURCE)
     for name in ROUTES.values():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-            ctypes.c_void_p]
+        if name in _GEMM_ROUTES:
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p]
     return lib
 
 
 def _launch(x2: torch.Tensor, p: Mapping, bias: Optional[torch.Tensor],
-            bits: int, d_out: int) -> torch.Tensor:
-    """K4 on a contiguous [M, K] CUDA x: checks, then one launch."""
+            bits: int, d_out: int, form: Optional[str] = None,
+            plan: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """K4 on a contiguous [M, K] CUDA x: checks, then one launch (and the
+    split sum where the GEMM splits K). ``form`` and ``plan`` (nt,
+    splits) default to k4_form's and k4_gemm_plan's choices."""
     m, k = x2.shape
-    name = ROUTES.get((x2.dtype, bits))
-    if name is None:
+    if x2.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"quantized linear kernel takes x in bf16 or f32, "
                          f"not {x2.dtype}")
+    form = form or k4_form(m, x2.dtype, bits)
+    name = ROUTES.get((x2.dtype, bits, form))
+    if name is None or (form == "gemv" and m > GEMV_MAX_M):
+        raise ValueError(f"quantized linear has no {form} form for "
+                         f"{x2.dtype} int{bits} at {m} rows")
     q = p["qw"] if bits == 8 else p["qw4"]
     qs = p["qs"]
     group = int4_group(p) if bits == 4 else INT4_GROUP
@@ -235,11 +315,19 @@ def _launch(x2: torch.Tensor, p: Mapping, bias: Optional[torch.Tensor],
                          f"{bias.dtype}, not [{d_out}] {x2.dtype}")
     y = torch.empty((m, d_out), dtype=x2.dtype, device=x2.device)
     fn = getattr(_library(), name)
+    ptrs = [x2.data_ptr(), q.data_ptr(), qs.data_ptr(),
+            None if bias is None else bias.data_ptr(), y.data_ptr()]
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
-        err = fn(x2.data_ptr(), q.data_ptr(), qs.data_ptr(),
-                 None if bias is None else bias.data_ptr(), y.data_ptr(),
-                 m, d_out, k, group, stream)
+        if name in _GEMM_ROUTES:
+            nt, splits = plan or k4_gemm_plan(m, d_out, k, bits,
+                                              _sm_count(x2.device.index))
+            ws = (torch.empty((splits, m, d_out), dtype=torch.float32,
+                              device=x2.device) if splits > 1 else None)
+            err = fn(*ptrs, None if ws is None else ws.data_ptr(), m, d_out,
+                     k, group, nt, splits, stream)
+        else:
+            err = fn(*ptrs, m, d_out, k, group, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     launch_counts[name] += 1
@@ -250,7 +338,8 @@ def quant_linear(x: torch.Tensor, p: Mapping,
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K4: x [..., d_in] · dequant(p)ᵀ + bias -> [..., d_out] in x's
     dtype. A CPU x takes the plain version; a CUDA x launches the kernel
-    (x made contiguous first) or raises."""
+    of ``k4_form``'s form for its rows (x made contiguous first) or
+    raises."""
     if x.device.type == "cpu":
         return quant_linear_plain(x, p, bias)
     if x.device.type != "cuda":

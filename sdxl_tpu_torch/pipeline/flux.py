@@ -45,7 +45,7 @@ from ..configs import (
     FluxConfig,
     T5Config,
 )
-from ..io.quantize import parse_quantize_spec, quantize_model
+from ..io.quantize import parse_quantize_spec, quantize_model, quantized_bytes
 from ..models.clip import CLIPTextModel, clip_hidden_pooled
 from ..models.flux import Flux, flux_forward
 from ..models.layers import init_reference_
@@ -353,6 +353,15 @@ def random_flux_pipeline(
         t5_tokens=t5_tokens, clip_tokenizer=ClipTokenizer(tokenizer_dir))
 
 
+def _over_budget(need: int, device: torch.device) -> Optional[int]:
+    """The card's budget (utils/memory.py) where towers of ``need`` bytes
+    pass it, else None (always None on the host)."""
+    if device.type != "cuda":
+        return None
+    budget = memory_budget_bytes(device)
+    return budget if need > budget else None
+
+
 def load_flux_pipeline(
     model_dir: str,
     compute_dtype: torch.dtype = torch.bfloat16,
@@ -369,33 +378,39 @@ def load_flux_pipeline(
     BFL-named keys split onto the separate projections) and CLIP-L.
 
     quantize="int8"|"int4" stores the transformer's block linears
-    quantized and T5's at int8 (io/quantize.py), after the LoRAs merge.
-    Where the quantized transformer, T5, CLIP-L and the VAE together need
-    more than the card's budget (utils/memory.py), T5 is parked on the
-    host and ``t5_offload`` set."""
+    quantized and T5's at int8 (io/quantize.py), after the LoRAs merge:
+    as the reference's host=True load, the transformer and T5 are built
+    on the host, each eligible linear is quantized on ``device`` alone,
+    and only the quantized towers reach it. Where the quantized
+    transformer, T5, CLIP-L and the VAE together need more than the card's
+    budget (utils/memory.py), T5 is quantized on the host and stays
+    there, ``t5_offload`` set: it never reaches the card whole."""
     from ..io.flux import load_flux_diffusers_dir
 
     bits = parse_quantize_spec(quantize)
+    device = torch.device(device)
     log(f"loading Flux diffusers checkpoint from {model_dir}")
     flux, clip, t5, t5_tok, vae, encoder, sched = load_flux_diffusers_dir(
-        model_dir, compute_dtype, t5_tokenize, device=torch.device(device))
+        model_dir, compute_dtype, t5_tokenize, device=device,
+        towers_device="cpu" if bits is not None else device)
     if loras:
         from ..io.lora import apply_lora_files
 
         apply_lora_files(loras, transformer=flux, te1=clip)
     t5_offload = False
     if bits is not None:
-        quantize_model(flux, bits)
-        quantize_model(t5, 8)
-        need = sum(param_bytes(m) for m in (flux, t5, clip, vae, encoder))
-        if torch.device(device).type == "cuda" and \
-                need > memory_budget_bytes(device):
-            t5_offload = True
-            t5.to("cpu")
+        flux = quantize_model(flux, bits, device=device).to(device)
+        need = (param_bytes(flux) + quantized_bytes(t5, 8)
+                + sum(param_bytes(m) for m in (clip, vae, encoder)))
+        budget = _over_budget(need, device)
+        t5_offload = budget is not None
+        if t5_offload:
             log(f"quantized towers need {need / 2**30:.1f} GiB > budget "
-                f"{memory_budget_bytes(device) / 2**30:.1f} GiB: T5 stays "
-                "host-parked and is moved per conditioning call "
-                "(t5_offload)")
+                f"{budget / 2**30:.1f} GiB: T5 stays host-parked and is "
+                "moved per conditioning call (t5_offload)")
+            quantize_model(t5, 8)
+        else:
+            t5 = quantize_model(t5, 8, device=device).to(device)
     return FluxPipeline(
         vae=vae, vae_encoder=encoder, scale_factor=FLUX_VAE_SCALE,
         shift_factor=FLUX_VAE_SHIFT, flux=flux, clip=clip, t5=t5,

@@ -292,14 +292,19 @@ def load_sd3_pipeline(
     weights without tokenizer_3/ fail here unless ``t5_tokenize`` is
     given. loras: (path, scale) files merged into the MMDiT and both
     towers. quantize="int8"|"int4" then stores the MMDiT's block linears
-    at those bits and T5's at int8 (io/quantize.py)."""
+    at those bits and T5's at int8 (io/quantize.py): as the reference's
+    host=True load, the MMDiT and T5 are built on the host, each eligible
+    linear is quantized on ``device`` alone, and only the quantized
+    towers reach it."""
     from ..io.sd3 import load_sd3_diffusers_dir
 
     bits = parse_quantize_spec(quantize)
+    device = torch.device(device)
     log(f"loading SD3 diffusers checkpoint from {model_dir}")
     (mmdit, clip_l, clip_g, vae, encoder, t5, t5_tok,
-     flow_shift) = load_sd3_diffusers_dir(model_dir, compute_dtype, load_t5,
-                                          device=torch.device(device))
+     flow_shift) = load_sd3_diffusers_dir(
+        model_dir, compute_dtype, load_t5, device=device,
+        towers_device="cpu" if bits is not None else device)
     t5_tok = t5_tok or t5_tokenize
     if t5 is not None and t5_tok is None:
         raise ValueError(
@@ -311,9 +316,9 @@ def load_sd3_pipeline(
 
         apply_lora_files(loras, transformer=mmdit, te1=clip_l, te2=clip_g)
     if bits is not None:
-        quantize_model(mmdit, bits)
+        mmdit = quantize_model(mmdit, bits, device=device).to(device)
         if t5 is not None:
-            quantize_model(t5, 8)
+            t5 = quantize_model(t5, 8, device=device).to(device)
     return SD3Pipeline(
         vae=vae, vae_encoder=encoder, scale_factor=SD3_VAE_SCALE,
         shift_factor=SD3_VAE_SHIFT, mmdit=mmdit, clip_l=clip_l,

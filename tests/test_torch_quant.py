@@ -463,10 +463,25 @@ def sdxl():
     return jpipe, tpipe
 
 
+def reference_quantizes_on_host(monkeypatch):
+    """The reference's quantize_tree through the host (numpy) branch of its
+    quantize_weight, which its own tests hold bitwise to the device branch
+    (tests/test_quant.py::test_device_quantize_matches_host): the same
+    bits, without an eager XLA compile of each op at each linear's
+    shape."""
+    def on_host(w, bits, group=jq.INT4_GROUP):
+        return {k: jnp.asarray(v) for k, v in jq.quantize_weight(
+            np.asarray(w), bits, group).items()}
+
+    monkeypatch.setattr(jqz, "quantize_weight", on_host)
+
+
 def _quantized_unets(pair, bits, monkeypatch, group=UNET_GROUP):
-    """The pair with the UNets' block linears quantized on both sides."""
+    """The pair with the UNets' block linears quantized on both sides (the
+    reference's on its host branch)."""
     jpipe, tpipe = pair
     quant_env(monkeypatch, MIN_DIM, group)
+    reference_quantizes_on_host(monkeypatch)
     rules = dict(within=jqz.UNET_WITHIN, keep8=jqz.UNET_KEEP8)
     jkw = dict(unet_params=np_tree(jqz.quantize_tree(jpipe.unet_params, bits,
                                                      **rules)))
@@ -634,11 +649,12 @@ def sdxl_ckpt(sdxl, tmp_path_factory):
 def test_load_pipeline_quantizes_after_lora(sdxl, sdxl_ckpt, tmp_path,
                                             monkeypatch):
     """load_pipeline(use_refiner, loras, quantize="int4") against the
-    reference's on the port-written native checkpoint: the quantized
-    linears of the base UNet (a LoRA on a self-attention q and a GEGLU
-    projection merged in full precision, then quantized) and of the
-    refiner bitwise."""
+    reference's on the port-written native checkpoint (its quantizer on
+    its host branch): the quantized linears of the base UNet (a LoRA on a
+    self-attention q and a GEGLU projection merged in full precision, then
+    quantized) and of the refiner bitwise."""
     quant_env(monkeypatch, MIN_DIM, UNET_GROUP)
+    reference_quantizes_on_host(monkeypatch)
     loras = _lora_file(
         str(tmp_path / "lora.safetensors"),
         {"input_blocks_1_1_transformer_blocks_0_attn1_to_q": (32, 32),
@@ -659,16 +675,16 @@ def test_load_pipeline_quantizes_after_lora(sdxl, sdxl_ckpt, tmp_path,
     assert len(moved) == 4  # the two linears' quantized bytes and scales
 
 
-def test_load_sd3_and_flux_pipelines_quantize_after_lora(
-        flux_trees, sd3_trees, tmp_path, monkeypatch):
-    """load_sd3_pipeline and load_flux_pipeline with a transformer LoRA
-    and quantize="int8" / "int4": the transformer and T5 (int8) bitwise
-    as the reference's loaders leave them."""
+@pytest.fixture(scope="module")
+def diffusers_dirs(flux_trees, sd3_trees, tmp_path_factory):
+    """Tiny diffusers directories of the SD3 trees (with T5) and the
+    FLUX.1-dev trees, and a transformer LoRA file for each:
+    {"sd3": (dir, loras), "flux": (dir, loras)}."""
     from tests.test_diffusers_sdxl import make_diffusers_vae_dict
     from tests.test_flux_loader import make_diffusers_flux_dict
     from tests.test_sd3_loader import _make_hf_clip_dict
 
-    quant_env(monkeypatch)
+    root = tmp_path_factory.mktemp("dirs")
 
     def write(root, sub, d, config):
         os.makedirs(root / sub)
@@ -682,7 +698,7 @@ def test_load_sd3_and_flux_pipelines_quantize_after_lora(
                  "relative_attention_num_buckets": 8,
                  "relative_attention_max_distance": 16}
     s, f = sd3_trees, flux_trees
-    sd3 = tmp_path / "sd3"
+    sd3 = root / "sd3"
     write(sd3, "transformer", make_diffusers_mmdit_dict(MMDIT, s["mmdit"]),
           {"attention_head_dim": 8, "num_attention_heads": 4,
            "pos_embed_max_size": 16, "num_layers": 3,
@@ -700,22 +716,13 @@ def test_load_sd3_and_flux_pipelines_quantize_after_lora(
                                                              s["enc"])),
           {"norm_num_groups": 4})
     h = MMDIT.hidden
-    loras = _lora_file(str(tmp_path / "sd3_lora.safetensors"),
-                       {"transformer_blocks.0.attn.to_q": (h, h),
-                        "transformer_blocks.1.ff.net.0.proj": (h, 4 * h)},
-                       "transformer.", (".lora_A.weight", ".lora_B.weight"),
-                       14)
-    want = j_sd3.load_sd3_pipeline(str(sd3), jnp.float32,
-                                   t5_tokenize=STUB_T5, loras=loras,
-                                   quantize="int4")
-    got = t_sd3.load_sd3_pipeline(str(sd3), F32, t5_tokenize=STUB_T5,
-                                  loras=loras, quantize="int4", device="cpu")
-    assert_same_quantized(got.mmdit, mmdit_state_dict(np_tree(
-        want.mmdit_params)))
-    assert_same_quantized(got.t5, t5_state_dict(np_tree(want.t5_params)))
-    assert set(quantized_bits(got.t5).values()) == {8}
+    sd3_loras = _lora_file(str(root / "sd3_lora.safetensors"),
+                           {"transformer_blocks.0.attn.to_q": (h, h),
+                            "transformer_blocks.1.ff.net.0.proj": (h, 4 * h)},
+                           "transformer.", (".lora_A.weight",
+                                            ".lora_B.weight"), 14)
 
-    flux = tmp_path / "flux"
+    flux = root / "flux"
     write(flux, "transformer", make_diffusers_flux_dict(FLUX, f["dev"]),
           {"attention_head_dim": 16, "num_attention_heads": 2,
            "axes_dims_rope": [4, 6, 6]})
@@ -729,21 +736,149 @@ def test_load_sd3_and_flux_pipelines_quantize_after_lora(
     write(flux, "vae", {k: v for k, v in vd.items() if "quant_conv" not in k},
           {"norm_num_groups": 4})
     h = FLUX.hidden
-    loras = _lora_file(str(tmp_path / "flux_lora.safetensors"),
-                       {"transformer_blocks.0.attn.to_q": (h, h),
-                        "single_transformer_blocks.1.proj_mlp": (h, 4 * h)},
-                       "transformer.", (".lora_A.weight", ".lora_B.weight"),
-                       15)
-    want = j_flux.load_flux_pipeline(str(flux), jnp.float32,
+    flux_loras = _lora_file(str(root / "flux_lora.safetensors"),
+                            {"transformer_blocks.0.attn.to_q": (h, h),
+                             "single_transformer_blocks.1.proj_mlp":
+                                 (h, 4 * h)},
+                            "transformer.", (".lora_A.weight",
+                                             ".lora_B.weight"), 15)
+    return {"sd3": (str(sd3), sd3_loras), "flux": (str(flux), flux_loras)}
+
+
+def test_load_sd3_and_flux_pipelines_quantize_after_lora(diffusers_dirs,
+                                                         monkeypatch):
+    """load_sd3_pipeline and load_flux_pipeline with a transformer LoRA
+    and quantize="int8" / "int4": the transformer and T5 (int8) bitwise
+    as the reference's loaders leave them."""
+    quant_env(monkeypatch)
+    sd3, loras = diffusers_dirs["sd3"]
+    want = j_sd3.load_sd3_pipeline(sd3, jnp.float32, t5_tokenize=STUB_T5,
+                                   loras=loras, quantize="int4")
+    got = t_sd3.load_sd3_pipeline(sd3, F32, t5_tokenize=STUB_T5,
+                                  loras=loras, quantize="int4", device="cpu")
+    assert_same_quantized(got.mmdit, mmdit_state_dict(np_tree(
+        want.mmdit_params)))
+    assert_same_quantized(got.t5, t5_state_dict(np_tree(want.t5_params)))
+    assert set(quantized_bits(got.t5).values()) == {8}
+
+    flux, loras = diffusers_dirs["flux"]
+    want = j_flux.load_flux_pipeline(flux, jnp.float32,
                                      t5_tokenize=FLUX_STUB_T5, loras=loras,
                                      quantize="int8")
-    got = t_flux.load_flux_pipeline(str(flux), F32, t5_tokenize=FLUX_STUB_T5,
+    got = t_flux.load_flux_pipeline(flux, F32, t5_tokenize=FLUX_STUB_T5,
                                     loras=loras, quantize="int8",
                                     device="cpu")
     assert_same_quantized(got.flux, flux_state_dict(np_tree(
         want.flux_params)))
     assert_same_quantized(got.t5, t5_state_dict(np_tree(want.t5_params)))
     assert got.t5_offload is want.t5_offload is False
+
+
+def _load(family, dirs, device="cpu", **kw):
+    path, loras = dirs[family]
+    if family == "sd3":
+        return t_sd3.load_sd3_pipeline(path, F32, t5_tokenize=STUB_T5,
+                                       loras=loras, device=device, **kw)
+    return t_flux.load_flux_pipeline(path, F32, t5_tokenize=FLUX_STUB_T5,
+                                     loras=loras, device=device, **kw)
+
+
+@pytest.mark.parametrize("family,bits", [("sd3", 4), ("flux", 8)])
+def test_quantized_loads_stage_each_linear_alone(family, bits,
+                                                 diffusers_dirs,
+                                                 monkeypatch):
+    """A quantizing load builds the transformer and T5 on the host
+    (towers_device "cpu", where the unquantized load builds them on its
+    device; the target here is "cpu:0", the host under another name),
+    stages each eligible linear's weight on the target device alone
+    (every earlier staged weight freed before the next is staged), and
+    leaves the quantized buffers bitwise those of the unquantized load
+    quantized afterwards by quantize_model, as the loaders did before
+    they staged."""
+    import weakref
+
+    import sdxl_tpu_torch.io.flux as io_flux
+    import sdxl_tpu_torch.io.sd3 as io_sd3
+
+    quant_env(monkeypatch)
+    io_mod = io_sd3 if family == "sd3" else io_flux
+    reader = ("load_sd3_diffusers_dir" if family == "sd3"
+              else "load_flux_diffusers_dir")
+    real_read, real_stage = getattr(io_mod, reader), tqz._stage
+    read_devices, staged = [], []
+
+    def read(*args, **kw):
+        read_devices.append(str(kw["towers_device"]))
+        return real_read(*args, **kw)
+
+    def stage(w, device):
+        assert all(ref() is None for ref in staged), "two weights staged"
+        assert str(device) == "cpu:0"
+        out = real_stage(w, device).clone()  # a copy, as on the card
+        staged.append(weakref.ref(out))
+        return out
+
+    monkeypatch.setattr(io_mod, reader, read)
+    monkeypatch.setattr(tqz, "_stage", stage)
+    got = _load(family, diffusers_dirs, "cpu:0", quantize=f"int{bits}")
+    plain = _load(family, diffusers_dirs, "cpu:0")
+    assert read_devices == ["cpu", "cpu:0"]
+    model = plain.mmdit if family == "sd3" else plain.flux
+    n_linears = (len(tqz.eligible_linears(model, bits))
+                 + len(tqz.eligible_linears(plain.t5, 8)))
+    assert len(staged) == n_linears > 0
+    assert all(ref() is None for ref in staged)
+    want = {"model": tqz.quantize_model(model, bits).state_dict(),
+            "t5": tqz.quantize_model(plain.t5, 8).state_dict()}
+    assert_same_quantized(got.mmdit if family == "sd3" else got.flux,
+                          want["model"])
+    assert_same_quantized(got.t5, want["t5"])
+
+
+def test_t5_offload_is_decided_before_t5_moves(diffusers_dirs,
+                                               monkeypatch):
+    """load_flux_pipeline over its budget: the decision sees T5 still on
+    the host and unquantized, and a need counted from the quantized
+    transformer and T5's quantized bytes (quantized_bytes: what
+    param_bytes gives after quantize_model); T5 is then quantized where it
+    is (only the transformer's linears staged) and stays on the host,
+    bitwise the in-budget load's T5."""
+    import sdxl_tpu_torch.io.flux as io_flux
+    from sdxl_tpu_torch.utils.memory import param_bytes
+
+    quant_env(monkeypatch)
+    t5, seen, staged = [], [], []
+    real_read, real_stage = io_flux.load_flux_diffusers_dir, tqz._stage
+
+    def read(*args, **kw):
+        out = real_read(*args, **kw)
+        t5.append(out[2])
+        return out
+
+    def over_budget(need, device):
+        seen.append((need, {p.device.type for p in t5[-1].parameters()},
+                     any(isinstance(m, QuantLinear)
+                         for m in t5[-1].modules())))
+        return need - 1  # a budget the towers pass
+
+    def stage(w, device):
+        staged.append(tuple(w.shape))
+        return real_stage(w, device)
+
+    monkeypatch.setattr(io_flux, "load_flux_diffusers_dir", read)
+    monkeypatch.setattr(t_flux, "_over_budget", over_budget)
+    monkeypatch.setattr(tqz, "_stage", stage)
+    got = _load("flux", diffusers_dirs, quantize="int8")
+    (need, t5_devices, t5_quantized), = seen
+    assert t5_devices == {"cpu"} and not t5_quantized and got.t5_offload
+    assert need == sum(param_bytes(m) for m in (got.flux, got.t5, got.clip,
+                                                got.vae, got.vae_encoder))
+    assert len(staged) == sum(isinstance(m, QuantLinear)
+                              for m in got.flux.modules())
+    monkeypatch.setattr(t_flux, "_over_budget", lambda need, device: None)
+    resident = _load("flux", diffusers_dirs, quantize="int8")
+    assert not resident.t5_offload
+    assert_same_quantized(got.t5, resident.t5.state_dict())
 
 
 # ---------------------------------------------------------------------------
@@ -808,6 +943,35 @@ def test_cli_bad_quantize_value_fails_as_the_reference(tmp_path, capsys):
 # ---------------------------------------------------------------------------
 # full width: K4's shapes, the quantized bytes
 # ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,bits", [(torch.bfloat16, 8),
+                                        (torch.bfloat16, 4), (F32, 8),
+                                        (F32, 4)])
+def test_k4_form_routes_by_rows(dtype, bits):
+    """k4_form on both sides of GEMV_MAX_M: bf16 takes the GEMV up to it
+    and the GEMM above, f32 its one form; every route is an exported
+    kernel with a launch count. For the bf16 GEMM, k4_gemm_plan at the
+    paths' shapes: a tile of 128 or 256 rows, a K split only where the
+    output has fewer tiles than SMs, and no empty split."""
+    gemv_max = tq.GEMV_MAX_M
+    for m in (1, 2, gemv_max, gemv_max + 1, 16, 17, 154, 4608):
+        want = "gemv" if dtype == torch.bfloat16 and m <= gemv_max else "gemm"
+        assert tq.k4_form(m, dtype, bits) == want, m
+        assert tq.k4_route(m, dtype, bits) == tq.ROUTES[dtype, bits, want]
+    assert set(tq.launch_counts) == set(tq.ROUTES.values())
+    if dtype != torch.bfloat16:
+        return
+    for m, k, n in ((4608, 15360, 3072), (4096, 3072, 12288), (512, 3072,
+                    3072), (154, 2048, 1280), (17, 3072, 18432),
+                    (gemv_max + 1, 1280, 1280), (333, 3072, 3072)):
+        nt, splits = tq.k4_gemm_plan(m, n, k, bits)
+        stages = -(-(k if bits == 8 else k // 2) // tq.GEMM_BK)
+        tiles = -(-n // tq.GEMM_CHANNELS) * -(-m // nt)
+        per = -(-stages // splits)
+        assert nt in tq.GEMM_TILES and 1 <= splits <= tq.GEMM_MAX_SPLITS
+        assert -(-stages // per) == splits
+        assert splits == 1 or tiles < tq.H100_SMS, (m, k, n)
+
 
 def _sd35(mod):
     """SD3.5-large's and -medium's published transformer configs."""
